@@ -58,6 +58,12 @@ from repro_torch.serve.engine import PagedKVEngine  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int32": 67e12}
 EMPTY, TS_MAX = -1, 2**31 - 1
+# paged decode against its plain version: both sum in float32 in another
+# order, so f32 agrees to rounding; a bf16 output may round to the
+# neighbouring bf16 value (rtol = one bf16 step, 2**-7) and the atol is a
+# few times the largest difference this phase measured on an H100 (9.8e-4)
+DECODE_TOL = {"f32": dict(atol=1e-5, rtol=1e-5),
+              "bf16": dict(atol=4e-3, rtol=2**-7)}
 
 # phase 5 geometry: one attention layer of minitron-4b (Hkv=8, D=128,
 # Hq=24), bf16 pages of 16 tokens, 4096-token context
@@ -297,8 +303,8 @@ def phase_kernels(dev) -> dict:
         cursor += n
     table, lengths = table.to(dev), lengths.to(dev)
     visible = int(lengths.sum())
-    for dtype, tol, kind in ((torch.float32, 1e-5, "f32"),
-                             (torch.bfloat16, 2e-2, "bf16")):
+    for dtype, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        tol = DECODE_TOL[kind]
         kp = torch.randn((N, PS, Hkv, D), generator=gd, device=dev,
                          dtype=dtype)
         vp = torch.randn((N, PS, Hkv, D), generator=gd, device=dev,
@@ -309,14 +315,14 @@ def phase_kernels(dev) -> dict:
         torch.cuda.synchronize()
         err = max_err([got], [want])
         check(bool(torch.isfinite(got.float()).all()), "decode not finite")
-        check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+        check(torch.allclose(got.float(), want.float(), **tol),
               f"paged_decode {kind} differs from plain version (max {err})")
         check(bool((got[lengths == 0] == 0).all()), "length-0 rows not 0")
         again = decode_ops.paged_decode(q, kp, vp, table, lengths)
         check(torch.equal(got, again), "paged_decode not deterministic")
         if kind != "bf16":
             emit({"phase": "kernels", "check": "paged_decode_f32",
-                  "max_abs_err": err, "tolerance": tol})
+                  "max_abs_err": err, **tol})
             del kp, vp
             torch.cuda.empty_cache()
             continue
@@ -334,7 +340,7 @@ def phase_kernels(dev) -> dict:
         sdpa = torch.nn.functional.scaled_dot_product_attention
         out["paged_decode"] = dict(
             shape=f"B={B} Hq={Hq} Hkv={Hkv} D={D} PS={PS} MP={MP} bf16",
-            max_abs_err=err, tolerance=tol, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=err, **tol, bound_ms=b_ms, bound_by=b_by,
             **timed(lambda: decode_ops.paged_decode(q, kp, vp, table,
                                                     lengths),
                     lambda: paged_decode_ref(q, kp, vp, table, lengths),

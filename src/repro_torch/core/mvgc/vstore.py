@@ -32,7 +32,7 @@ from repro_torch.core.mvgc import announce as ann
 from repro_torch.core.mvgc import pool, rangetracker as rt
 from repro_torch.core.mvgc.needed import sort_announcements
 from repro_torch.core.mvgc.pool import EMPTY, TS_MAX, VersionStore
-from repro_torch.core.telemetry import GCConfig, PressureSignal
+from repro_torch.core.telemetry import PressureSignal
 from repro_torch.kernels.compact import ops as compact_ops
 from repro_torch.kernels.version_search import ops as search_ops
 
@@ -50,23 +50,15 @@ class MVState(NamedTuple):
 
 def make_state(
     num_slots: int,
-    versions_per_slot: Optional[int] = None,
-    num_reader_lanes: Optional[int] = None,
-    ring_capacity: Optional[int] = None,
+    versions_per_slot: int,
+    num_reader_lanes: int,
+    ring_capacity: int = 0,
     *,
-    gc: Optional[GCConfig] = None,
     device: DeviceLike = None,
 ) -> MVState:
-    """An empty MVState; sizes come from the positional args when given,
-    else from ``gc``."""
+    """An empty MVState on ``device``; a ``ring_capacity`` of 0 sizes the
+    retire ring from the slot count."""
     dev = resolve_device(device)
-    cfg = gc if gc is not None else GCConfig()
-    if versions_per_slot is None:
-        versions_per_slot = cfg.versions_per_slot
-    if num_reader_lanes is None:
-        num_reader_lanes = cfg.reader_lanes
-    if ring_capacity is None:
-        ring_capacity = cfg.ring_capacity
     ring_capacity = ring_capacity or max(64, num_slots // 2)
     return MVState(
         store=pool.make_store(num_slots, versions_per_slot, dev),

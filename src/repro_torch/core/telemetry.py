@@ -3,18 +3,16 @@
 
 Only what the serving slice uses: :class:`PressureSignal` (the gate output,
 fields are tensors), :class:`ReclaimStats` (host-side counters behind the
-engine's BENCH_serve counter names),
-:class:`GCConfig` (every GC knob in one frozen dataclass) and
-:func:`resolve_gc_config` (folds the deprecated per-call kwargs of
-``make_paged_kv`` into a config).  The kernel-dispatch knobs of the JAX
-config (``use_kernel``, ``kernel_interpret``) have no counterpart: the port
-dispatches on the tensor's device.
+engine's BENCH_serve counter names) and :class:`GCConfig` (the GC knobs of
+the paged cache and its engine in one frozen dataclass).  The
+kernel-dispatch knobs of the JAX config (``use_kernel``,
+``kernel_interpret``) have no counterpart: the port dispatches on the
+tensor's device.
 """
 from __future__ import annotations
 
 import dataclasses
-import warnings
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple
 
 
 class PressureSignal(NamedTuple):
@@ -76,29 +74,13 @@ class ReclaimStats:
 
 @dataclasses.dataclass(frozen=True)
 class GCConfig:
-    """Every GC/pressure knob of the serving slice in one place."""
+    """The GC/pressure knobs of the paged cache and its engine."""
 
     policy: str = "slrt"            # ebr | steam | dlrt | slrt | sweep
     versions_per_slot: int = 8      # descriptor slab depth
     reader_lanes: int = 8           # announcement-board lanes
     ring_capacity: int = 0          # retire ring; 0 = sized from the store
-    slab_watermark: float = 0.75    # vstore capacity_gate slab threshold
-    ring_watermark: float = 0.5     # vstore capacity_gate ring threshold
     page_watermark: float = 0.25    # paged-pool free-fraction threshold
     hot_k: int = 8                  # hot-slot count for targeted reclaim
     max_reclaim_rounds: int = 3     # reclaim-and-retry attempts per step
 
-
-def resolve_gc_config(gc: Optional[GCConfig], where: str,
-                      **legacy: Any) -> GCConfig:
-    """Fold deprecated per-call GC kwargs into a :class:`GCConfig`: every
-    non-``None`` value overrides its field and emits one
-    ``DeprecationWarning`` naming ``where``."""
-    base = gc if gc is not None else GCConfig()
-    passed = {k: v for k, v in legacy.items() if v is not None}
-    if passed:
-        warnings.warn(
-            f"{where}: keyword(s) {sorted(passed)} are deprecated; pass "
-            f"gc=GCConfig(...) instead", DeprecationWarning, stacklevel=3)
-        base = dataclasses.replace(base, **passed)
-    return base

@@ -6,6 +6,9 @@
 // walks only the pages p with p * PS < lengths[b]: a page table row from
 // snapshot_view is NO_PAGE (-1) past the visible length, and a not-found
 // row is -1 throughout with length 0, so no padding entry is ever read.
+// An entry inside the visible length that names no page of the pool
+// (page < 0 or page >= N) is a corrupt view: the block stops and writes
+// NaN to all G heads, so the fault shows instead of a plausible output.
 // For each page the block stages the K and V tiles [PS, D] of head j in
 // shared memory as float32, computes the G x PS logits (masked past the
 // length), and updates the running max m, sum l and accumulator acc of an
@@ -76,9 +79,13 @@ __global__ void paged_decode_kernel(const T* __restrict__ q,
   __syncthreads();
 
   const int n_pages = min(MP, (len + PS - 1) / PS);
+  bool corrupt = false;
   for (int p = 0; p < n_pages; ++p) {
     const int page = table[(long long)b * MP + p];
-    if (page < 0 || page >= N) continue;  // not reachable for a valid view
+    if (page < 0 || page >= N) {  // the same entry for every thread
+      corrupt = true;
+      break;
+    }
     for (int i = tid; i < PS * D; i += blockDim.x) {
       const int tok = i / D, d = i % D;
       const long long src = (((long long)page * PS + tok) * Hkv + j) * D + d;
@@ -117,9 +124,10 @@ __global__ void paged_decode_kernel(const T* __restrict__ q,
     }
     __syncthreads();
   }
+  const float nan = __int_as_float(0x7fc00000);
   for (int i = tid; i < G * D; i += blockDim.x) {
     const float l = l_s[i / D];
-    out[qoff + i] = from_f<T>(l == 0.f ? 0.f : acc_s[i] / l);
+    out[qoff + i] = from_f<T>(corrupt ? nan : l == 0.f ? 0.f : acc_s[i] / l);
   }
 }
 

@@ -17,14 +17,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.compact.ref import compact_ref
 
-#: the kernel keeps the announcements in shared memory (48 KB)
-MAX_ANNOUNCEMENTS = 12 * 1024
-
 
 def compact(ts: torch.Tensor, succ: torch.Tensor, payload: torch.Tensor,
             mask: torch.Tensor, ann_sorted: torch.Tensor, now: torch.Tensor):
     """Fused needed + splice.  Returns ``(ts', succ', payload', freed,
-    n_freed)`` (see :func:`compact_ref`); all outputs are new tensors."""
+    n_freed)`` (see :func:`compact_ref`); all outputs are new tensors.
+    On the card, a board larger than the kernel's shared-memory copy of it
+    (``kMaxAnn`` in ``csrc/compact.cu``) raises."""
     if ts.device.type == "cpu":
         return compact_ref(ts, succ, payload, mask, ann_sorted, now)
     now = torch.as_tensor(now, dtype=torch.int32, device=ts.device).reshape(1)
@@ -36,9 +35,6 @@ def compact(ts: torch.Tensor, succ: torch.Tensor, payload: torch.Tensor,
             or not mask.is_contiguous() or mask.device != ts.device:
         raise ValueError("compact: shapes/dtypes do not match [R, V] rows "
                          "with a bool[R] mask")
-    if P > MAX_ANNOUNCEMENTS:
-        raise ValueError(f"compact: {P} announcements exceed the kernel's "
-                         f"shared-memory board of {MAX_ANNOUNCEMENTS}")
     out_ts = torch.empty_like(ts)
     out_succ = torch.empty_like(ts)
     out_pay = torch.empty_like(ts)

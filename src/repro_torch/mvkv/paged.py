@@ -23,8 +23,7 @@ import torch
 from repro_torch._tensor import I32, DeviceLike, drop_set, resolve_device
 from repro_torch.core.mvgc import vstore
 from repro_torch.core.mvgc.pool import EMPTY
-from repro_torch.core.telemetry import (GCConfig, PressureSignal,
-                                        resolve_gc_config)
+from repro_torch.core.telemetry import GCConfig, PressureSignal
 
 NO_PAGE = -1
 
@@ -49,21 +48,14 @@ class PagedKV(NamedTuple):
 
 def make_paged_kv(num_seqs: int, num_pages: int, page_size: int,
                   max_pages_per_seq: int, kv_heads: int, head_dim: int,
-                  versions_per_seq: Optional[int] = None,
-                  reader_lanes: Optional[int] = None,
-                  ring_capacity: Optional[int] = None,
                   dtype: torch.dtype = torch.bfloat16, *,
                   gc: Optional[GCConfig] = None,
                   device: DeviceLike = None) -> PagedKV:
-    """An empty paged-KV state on ``device``.  GC sizing comes from ``gc``;
-    ``versions_per_seq`` / ``reader_lanes`` / ``ring_capacity`` are the
-    deprecated spellings.  The retire ring defaults to twice the table
-    versions, so pressure flushes never drop a retire record."""
+    """An empty paged-KV state on ``device``; GC sizing comes from ``gc``.
+    The retire ring defaults to twice the table versions, so pressure
+    flushes never drop a retire record."""
     dev = resolve_device(device)
-    cfg = resolve_gc_config(gc, "make_paged_kv",
-                            versions_per_slot=versions_per_seq,
-                            reader_lanes=reader_lanes,
-                            ring_capacity=ring_capacity)
+    cfg = gc if gc is not None else GCConfig()
     max_ver = num_seqs * cfg.versions_per_slot
     ring = cfg.ring_capacity if cfg.ring_capacity > 0 else max(16, 2 * max_ver)
     pool_shape = (num_pages, page_size, kv_heads, head_dim)
