@@ -7,10 +7,11 @@ Phases, each printing one JSON line:
 
 1. device — requires CUDA; the card's name and power limit (nvidia-smi);
 2. build  — builds the CUDA kernels from ``src/repro_torch/csrc``;
-3. kernels — each kernel (compact, search, search+gather, paged decode)
-   against its plain PyTorch version on the card at the serving phase's
-   shapes, timed per call (device time from the profiler's kernel records,
-   and CUDA events around the call; medians of 25), beside its bound;
+3. kernels — each kernel (compact, search, search+gather, paged decode,
+   flash prefill) against its plain PyTorch version on the card at the
+   serving phases' shapes, timed per call (device time from the profiler's
+   kernel records, and CUDA events around the call; medians of 25), beside
+   its bound; flash prefill also at a gemma2-2b shape and in float32;
 4. storm  — the ``benchmarks/serve_bench.py`` storm trace for ebr, steam,
    dlrt and slrt; its counters must equal the committed BENCH_serve.json;
 5. serve  — PagedKVEngine (policy slrt) at the KV geometry of one
@@ -19,8 +20,18 @@ Phases, each printing one JSON line:
    view_at + paged decode must stay bit-identical while they hold the pin,
    run until the page pool has crossed its watermark; the kernel launch
    counts are zeroed just before this phase and read just after;
-6. the kernel table as one JSON line;
-7. the result line ``{"ok": true, "device": {...}}``.
+6. model  — minitron-4b at its full published widths and depth in bf16,
+   random weights from a seed, through the port's launcher
+   (``repro_torch.launch.serve``): MVServeEngine prefills 16 prompts of
+   2048 tokens (flash prefill, K6, in every layer) into a 4096-token cache
+   and decodes 64 steps under policy slrt, with a snapshot reader pinned
+   every 8 steps whose score must stay bit-identical while it holds the
+   pin; two prefills of the same prompt must give the same bits; the
+   launch counts are zeroed just before the launcher's run and read just
+   after; then a short profiled window of decode steps, whose idle share
+   the phase's line carries;
+7. the kernel table as one JSON line;
+8. the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits nonzero; nothing is caught.  Without CUDA, or
 without the package beside the script, it exits nonzero before any result.
@@ -50,9 +61,13 @@ from repro_torch.kernels.compact import ops as compact_ops  # noqa: E402
 from repro_torch.kernels.compact.ref import compact_ref  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import paged_decode_ref  # noqa: E402
+from repro_torch.kernels.flash_prefill import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_prefill.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.version_search import ops as search_ops  # noqa: E402
 from repro_torch.kernels.version_search.ref import (  # noqa: E402
     search_gather_ref, search_ref)
+from repro_torch.launch import serve as launcher  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serve.engine import PagedKVEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -72,6 +87,22 @@ SERVE = dict(num_seqs=256, num_pages=32768, page_size=16,
              versions_per_slot=8, reader_lanes=16, min_len=1024,
              max_len=4096, pin_every=16, pin_hold=4, max_steps=6000,
              max_seconds=420.0, steps_after_pressure=64, seed=0)
+# phase 3's flash prefill cases: the model phase's prefill (minitron-4b
+# heads, bf16, causal), a gemma2-2b local layer (head dim 256, window 512,
+# softcap 50) and a float32 case
+FLASH = {
+    "serve": dict(B=16, Hq=24, Hkv=8, T=2048, D=128, window=0, softcap=0.0,
+                  dtype="bf16"),
+    "gemma2_local": dict(B=16, Hq=8, Hkv=4, T=2048, D=256, window=512,
+                         softcap=50.0, dtype="bf16"),
+    "f32": dict(B=4, Hq=24, Hkv=8, T=2048, D=128, window=0, softcap=0.0,
+                dtype="f32"),
+}
+# phase 6: the launcher's flags (minitron-4b at full width, no --reduced)
+MODEL_ARGS = ["--arch", "minitron-4b", "--batch", "16", "--prompt-len",
+              "2048", "--max-len", "4096", "--steps", "64", "--pin-every",
+              "8", "--gc-policy", "slrt", "--dtype",
+              "bfloat16", "--device", "cuda"]
 STORM = dict(num_seqs=8, num_pages=24, page_size=4, max_pages_per_seq=3,
              versions_per_seq=6, steps=160, min_len=4, max_len=12,
              pin_every=5, pin_hold=3, seed=0)
@@ -84,11 +115,15 @@ KERNELS = {
                "src/repro/kernels/version_search/kernel.py:66"),
     "paged_decode": ("src/repro_torch/csrc/paged_decode.cu",
                      "src/repro/kernels/decode_attention/kernel.py:114"),
+    "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
+                      "src/repro/kernels/flash_prefill/kernel.py:125"),
 }
 WRAPPERS = {"compact": compact_ops.compact,
             "search_gather": search_ops.search_gather,
             "search": search_ops.search,
-            "paged_decode": decode_ops.paged_decode}
+            "paged_decode": decode_ops.paged_decode,
+            "flash_prefill": flash_ops.flash_attention}
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 def emit(obj) -> None:
@@ -348,9 +383,70 @@ def phase_kernels(dev) -> dict:
                                  enable_gqa=True)))
         del kp, vp, kd, vd
         torch.cuda.empty_cache()
+    out.update(flash_cases(dev))
     for name, row in out.items():
         emit({"phase": "kernels", "kernel": name, **row})
     return out
+
+
+def visible_pairs(T: int, window: int) -> int:
+    """(row, column) pairs a causal prefill of T tokens attends to."""
+    if window <= 0:
+        return T * (T + 1) // 2
+    w = min(window, T)
+    return w * (w + 1) // 2 + (T - w) * w
+
+
+def flash_cases(dev) -> dict:
+    """K6 against its plain version at phase 3's FLASH shapes; the
+    "serve" case is the kernel table's row."""
+    gd = torch.Generator(device=dev).manual_seed(6)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for case, c in FLASH.items():
+        dtype, kind = DTYPES[c["dtype"]], c["dtype"]
+        B, Hq, Hkv, T, D = c["B"], c["Hq"], c["Hkv"], c["T"], c["D"]
+        kw = dict(causal=True, window=c["window"], softcap=c["softcap"])
+        q = torch.randn((B, Hq, T, D), generator=gd, device=dev, dtype=dtype)
+        k = torch.randn((B, Hkv, T, D), generator=gd, device=dev, dtype=dtype)
+        v = torch.randn((B, Hkv, T, D), generator=gd, device=dev, dtype=dtype)
+        got = flash_ops.flash_attention(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = max_err([got], [want])
+        check(bool(torch.isfinite(got.float()).all()), f"flash {case} not "
+              "finite")
+        # DECODE_TOL's limits: both versions sum in float32 in another
+        # order.  K6's own largest differences on an H100 were 3.9e-3
+        # ("serve") and 7.8e-3 ("gemma2_local"), above the bf16 atol: each
+        # is one bf16 rounding step of its output, which rtol = 2**-7
+        # allows.  The float32 case, held to 1e-5, is the check that
+        # catches a masking or indexing error.
+        check(torch.allclose(got.float(), want.float(), **DECODE_TOL[kind]),
+              f"flash_prefill {case} differs from plain version (max {err})")
+        check(torch.equal(got, flash_ops.flash_attention(q, k, v, **kw)),
+              f"flash_prefill {case} not deterministic")
+        del want
+        elt = 2 if dtype == torch.bfloat16 else 4
+        nbytes = 2 * (B * Hq * T * D + B * Hkv * T * D) * elt
+        ops = 4.0 * B * Hq * D * visible_pairs(T, c["window"])
+        b_ms, b_by = bound(nbytes, ops, kind)
+        # yardstick: SDPA (causal, GQA) where it computes the same function;
+        # it has no logit softcap or window flag
+        library = None
+        if c["window"] == 0 and c["softcap"] == 0:
+            def library():
+                return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        rows["flash_prefill" if case == "serve" else f"flash_prefill_{case}"] \
+            = dict(shape=f"B={B} Hq={Hq} Hkv={Hkv} T={T} D={D} "
+                         f"window={c['window']} softcap={c['softcap']} {kind}",
+                   max_abs_err=err, **DECODE_TOL[kind], bound_ms=b_ms,
+                   bound_by=b_by,
+                   **timed(lambda: flash_ops.flash_attention(q, k, v, **kw),
+                           lambda: attention_ref(q, k, v, **kw), library))
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -552,14 +648,15 @@ def phase_serve(dev) -> dict:
     check(eng.pages_reclaimed > 0, "no page was reclaimed")
     for name in ("compact", "search_gather", "search", "paged_decode"):
         check(launches[name] > 0, f"{name} kernel never launched in serve")
+    check(launches["flash_prefill"] == 0, "flash prefill ran in paged serve")
     profile_window(decode_step)
     return launches
 
 
-def profile_window(decode_step, steps: int = 16) -> None:
+def profile_window(decode_step, steps: int = 16, name: str = "serve") -> dict:
     """Where a serving step's time goes: device kernel time against wall
     time over a few more decode steps (torch.profiler; the full table goes
-    to build/serve_profile.txt)."""
+    to build/{name}_profile.txt).  Emits the summary and returns it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -583,19 +680,98 @@ def profile_window(decode_step, steps: int = 16) -> None:
             n, t = per_kernel.get(e.name, (0, 0.0))
             per_kernel[e.name] = (n + 1, t + e.time_range.elapsed_us())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:10]
+    # host waits on the card: each read of a device value back to the
+    # host (and the window's closing synchronize) is one such call
+    syncs = sum(1 for e in prof.events() if not _is_device(e)
+                and e.name in ("cudaStreamSynchronize",
+                               "cudaDeviceSynchronize"))
     ours = {k: [n, t / 1e3] for k, (n, t) in per_kernel.items()
             if any(f in k for f in ("compact_kernel", "search_kernel",
-                                    "paged_decode_kernel"))}
+                                    "paged_decode_kernel",
+                                    "flash_prefill_kernel"))}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with open(os.path.join(ROOT, "build", "serve_profile.txt"), "w") as f:
+    with open(os.path.join(ROOT, "build", f"{name}_profile.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cpu_time_total",
                                           row_limit=40))
-    emit({"phase": "serve_profile", "steps": steps, "wall_ms": wall * 1e3,
-          "device_busy_ms": busy_us / 1e3,
-          "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3),
-          "kernel_launches": sum(n for n, _ in per_kernel.values()),
-          "port_kernels_ms": ours,
-          "top_device_ms": [[k, n, t / 1e3] for k, (n, t) in top]})
+    res = {"phase": f"{name}_profile", "steps": steps, "wall_ms": wall * 1e3,
+           "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3),
+           "kernel_launches": sum(n for n, _ in per_kernel.values()),
+           "host_syncs": syncs,
+           "port_kernels_ms": ours,
+           "top_device_ms": [[k, n, t / 1e3] for k, (n, t) in top]}
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6: minitron-4b served at full width through the port's launcher
+# ---------------------------------------------------------------------------
+def phase_model(dev) -> dict:
+    args = launcher.parse_args(MODEL_ARGS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, engine, prompt = launcher.build(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    B, T = prompt.shape
+    check(cfg.num_layers == 32 and cfg.d_model == 3072 and cfg.hd == 128,
+          "minitron-4b is not at its published widths")
+
+    # two prefills of the same prompt give the same bits (and warm up)
+    st = engine.state
+    outs = []
+    for _ in range(2):
+        logits, cache, _ = tf.prefill(st.params, cfg, prompt, st.cache,
+                                      inplace=True)
+        outs.append((logits.clone(), cache[-1].k[:, :T].clone(),
+                     cache[-1].v[:, :T].clone()))
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    check(same, "two prefills of the same prompt gave different bits")
+    del outs, logits, cache
+
+    for w in WRAPPERS.values():
+        w.launches = 0
+    rep = launcher.serve(engine, prompt, steps=args.steps,
+                         pin_every=args.pin_every, log=lambda line: None)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    prof = profile_window(engine.step, steps=8, name="model")
+    toks = rep["tokens"]
+    res = dict(
+        phase="model", arch=cfg.name, layers=cfg.num_layers,
+        d_model=cfg.d_model, parameters=cfg.param_count(), dtype=args.dtype,
+        batch=B, prompt_len=T, max_len=args.max_len, steps=args.steps,
+        policy=args.gc_policy, build_s=build_s,
+        prefill_ms=rep["prefill_s"] * 1e3,
+        prefill_tokens_per_s=B * T / rep["prefill_s"],
+        decode_ms_per_step=rep["decode_s"] / args.steps * 1e3,
+        decode_tokens_per_s=B * args.steps / rep["decode_s"],
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+        profile_device_idle_share=prof["device_idle_share"],
+        profile_device_busy_ms_per_step=prof["device_busy_ms"] / prof["steps"],
+        profile_host_syncs_per_step=prof["host_syncs"] / prof["steps"],
+        launches=launches, flash_launches_per_prefill=launches[
+            "flash_prefill"], readers=rep["readers"],
+        score_mismatches=rep["score_mismatches"],
+        prefill_bits_equal=same, stats_sum=rep["stats_sum"],
+        space=rep["space"], tokens_head=toks[:2, :8].tolist())
+    emit(res)
+    check(tuple(toks.shape) == (B, args.steps), "wrong token shape")
+    check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+          "a token outside [0, vocab)")
+    check(launches["flash_prefill"] == cfg.num_layers,
+          f"flash prefill launched {launches['flash_prefill']} times in one "
+          f"prefill of {cfg.num_layers} layers")
+    for name in ("compact", "search"):
+        check(launches[name] > 0, f"{name} kernel never launched in model")
+    check(rep["readers"] == min(-(-args.steps // args.pin_every),
+                                launcher.READER_LANES),
+          "fewer readers than pinned")
+    check(rep["score_mismatches"] == 0,
+          f"{rep['score_mismatches']} pinned scores changed under decode")
+    return launches
 
 
 def main() -> int:
@@ -605,12 +781,19 @@ def main() -> int:
     kernels = phase_kernels(dev)
     phase_storm(dev)
     launches = phase_serve(dev)
+    torch.cuda.empty_cache()
+    model_launches = phase_model(dev)
     table = []
     for name, (source, replaces) in KERNELS.items():
         row = kernels[name]
+        # the count from the main path that runs the kernel: phase 5 for
+        # K1-K4 (paged serving), phase 6 for flash prefill (the model)
         table.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=row["max_abs_err"],
+            launches=(model_launches if name == "flash_prefill"
+                      else launches)[name],
+            launches_model=model_launches[name],
+            max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
     print(smi, flush=True)

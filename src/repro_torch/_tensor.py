@@ -39,12 +39,15 @@ def drop_set(base: torch.Tensor, idx: torch.Tensor, values,
     n = base.shape[0]
     out = torch.cat([base, base.new_empty((1,) + tuple(base.shape[1:]))])
     dest = torch.where(mask, idx.to(torch.long), n)
-    if not torch.is_tensor(values):
-        values = torch.as_tensor(values, dtype=base.dtype, device=base.device)
+    if not torch.is_tensor(values):   # a scalar, filled on the device
+        values = torch.full((), values, dtype=base.dtype, device=base.device)
     out[dest] = values.to(base.dtype)
     return out[:n]
 
 
 def i32(x, device: Optional[torch.device] = None) -> torch.Tensor:
-    """An int32 tensor from a Python int, array or tensor."""
+    """An int32 tensor from a Python int, array or tensor.  A Python int is
+    filled on the device: copying it from the host would be a host sync."""
+    if isinstance(x, int):
+        return torch.full((), x, dtype=I32, device=device)
     return torch.as_tensor(x, dtype=I32, device=device)

@@ -136,8 +136,7 @@ def end_snapshot(state: MVState, lanes: torch.Tensor, mask: torch.Tensor
 
 
 def _t_batch(t, slot_ids: torch.Tensor) -> torch.Tensor:
-    t = torch.as_tensor(t, dtype=I32, device=slot_ids.device)
-    return t.expand(slot_ids.shape).contiguous()
+    return i32(t, slot_ids.device).expand(slot_ids.shape).contiguous()
 
 
 def snapshot_read(state: MVState, slot_ids: torch.Tensor, t

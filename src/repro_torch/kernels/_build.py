@@ -42,6 +42,9 @@ SIGNATURES = {
     # q, k_pages, v_pages, page_table, lengths, out, B, N, Hq, Hkv, D, PS,
     # MP, is_bf16, stream
     "mvgc_paged_decode": [_P] * 6 + [_I] * 8 + [_P],
+    # q, k, v, out, B, Hq, Hkv, T, S, D, causal, window, softcap, is_bf16,
+    # stream
+    "mvgc_flash_prefill": [_P] * 4 + [_I] * 8 + [ctypes.c_float, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

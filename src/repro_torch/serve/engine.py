@@ -1,37 +1,253 @@
-"""Paged-KV serving loop with synchronous pressure reclamation (port of
-``PagedKVEngine`` in ``repro.serve.engine``).
+"""The serving engines (port of ``repro.serve.engine``).
 
-``step`` appends one token per masked sequence.  A failed append (page
-pool, table pool or descriptor slab exhausted) is a **pressure event**: the
-engine reclaims synchronously — hot-sequence-first descriptor compaction,
-then the reachability sweep that recycles pages — and retries the failed
-lanes, up to ``max_reclaim_rounds`` times before giving up.  A post-step
-watermark crossing triggers the same pass without a failure.  Counters live
-in one :class:`repro_torch.core.telemetry.ReclaimStats`.
+**MVServeEngine** serves a model.  Every decode step advances each
+sequence's *cache descriptor* (its visible length), a versioned object of
+the MVGC store written once per step and timestamped by the decode clock
+(``vstore.write_step``); snapshot readers pin a timestamp
+(``begin_snapshot``) and read a consistent cross-sequence snapshot of those
+lengths (``snapshot_read``, the paper's ``search(t)``) while decode keeps
+writing, and obsolete descriptor versions are reclaimed by the configured
+policy.  The model's cache is updated in place by ``prefill_step`` and
+``decode_one`` (the engine owns it; a ServeState handed to them is consumed),
+and never by the readers: ``snapshot_score`` scores in a copy.
 
+**PagedKVEngine** is the paged-KV serving loop with synchronous pressure
+reclamation.  ``step`` appends one token per masked sequence.  A failed
+append (page pool, table pool or descriptor slab exhausted) is a **pressure
+event**: the engine reclaims synchronously — hot-sequence-first descriptor
+compaction, then the reachability sweep that recycles pages — and retries
+the failed lanes, up to ``max_reclaim_rounds`` times before giving up.  A
+post-step watermark crossing triggers the same pass without a failure.
+Counters live in one :class:`repro_torch.core.telemetry.ReclaimStats`.
 Setting ``ckpt_max`` (the highest durably checkpointed timestamp, ``-1`` =
 none) arms the sole-survivor eviction in the reclaim pass.  Taking and
 restoring checkpoints is not part of this port yet.
 
-The engine runs on ``device`` (``cuda`` unless the caller passes another);
+The engines run on ``device`` (``cuda`` unless the caller passes another);
 inputs may be tensors on any device or array-likes and are moved there.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch._tensor import I32, DeviceLike, resolve_device
+from repro_torch._tensor import I32, DeviceLike, i32, resolve_device
+from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.mvgc import vstore
+from repro_torch.core.mvgc.pool import EMPTY
 from repro_torch.core.telemetry import GCConfig, ReclaimStats
+from repro_torch.models import transformer as tf
+from repro_torch.models.attention import KVCache
 from repro_torch.mvkv import paged
 from repro_torch.serve.forking import ForkDAG
 
 
+class ServeState(NamedTuple):
+    params: Any
+    cache: Any                     # list of KVCache, one per layer
+    cache_len: torch.Tensor        # i32[B]
+    mv: vstore.MVState             # versioned cache descriptors
+    last_tokens: torch.Tensor      # i32[B, 1]
+    longest: int                   # cache_len.max(), kept on the host
+
+
+def make_serve_state(cfg: ModelConfig, run: RunConfig, params, batch: int,
+                     max_len: int, dtype: torch.dtype = torch.bfloat16,
+                     device: DeviceLike = None) -> ServeState:
+    dev = resolve_device(device)
+    gc = run.gc
+    mv = vstore.make_state(
+        num_slots=batch, versions_per_slot=gc.versions_per_slot,
+        num_reader_lanes=gc.reader_lanes,
+        ring_capacity=gc.ring_capacity or max(16, batch * 2), device=dev)
+    return ServeState(
+        params=params,
+        cache=tf.init_cache(cfg, batch, max_len, dtype, dev),
+        cache_len=torch.zeros((batch,), dtype=I32, device=dev),
+        mv=mv,
+        last_tokens=torch.zeros((batch, 1), dtype=I32, device=dev),
+        longest=0)
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """Trap T4: ``torch.argmax`` takes the first index on ties, as
+    ``jnp.argmax`` does; tokens stay int32."""
+    return logits[:, -1].argmax(dim=-1).to(I32)[:, None]
+
+
+def prefill_step(state: ServeState, cfg: ModelConfig, run: RunConfig,
+                 tokens: torch.Tensor) -> ServeState:
+    """Prefill through K6 into the state's cache (in place), then write one
+    descriptor version per sequence."""
+    logits, cache, lens = tf.prefill(state.params, cfg, tokens, state.cache,
+                                     inplace=True)
+    B = tokens.shape[0]
+    ids = torch.arange(B, dtype=I32, device=lens.device)
+    mv, _, _ = vstore.write_step(
+        state.mv, ids, lens, torch.ones((B,), dtype=torch.bool,
+                                        device=lens.device),
+        policy=run.gc.policy)
+    return ServeState(state.params, cache, lens, mv, _greedy(logits),
+                      tokens.shape[1])
+
+
+def decode_one(state: ServeState, cfg: ModelConfig, run: RunConfig
+               ) -> Tuple[ServeState, torch.Tensor, torch.Tensor,
+                          Dict[str, torch.Tensor]]:
+    """One greedy decode step for the whole batch, appending to the cache in
+    place.  Returns (state', new_tokens[B, 1], freed_descriptor_payloads,
+    stats).
+
+    After the descriptor write the capacity gate decides: under pressure (a
+    watermark crossed, or a lane's append overflowed its slab) the step
+    reclaims synchronously and retries the overflowed lanes; otherwise the
+    policy's cadence pass runs.  Trap T5: JAX takes both decisions with
+    ``lax.cond`` on the device; here they are read back in one host sync.
+    The pass is sized from ``state.longest``, with no sync.  ``stats`` are
+    int32 scalars, equal to the JAX engine's."""
+    policy = run.gc.policy
+    logits, cache = tf.decode_step(state.params, cfg, state.last_tokens,
+                                   state.cache, state.cache_len, inplace=True,
+                                   span=state.longest + 1)
+    new_len = state.cache_len + 1
+    B = new_len.shape[0]
+    ids = torch.arange(B, dtype=I32, device=new_len.device)
+    ones = torch.ones((B,), dtype=torch.bool, device=new_len.device)
+    mv, freed_w, ovf = vstore.write_step(state.mv, ids, new_len, ones,
+                                         policy=policy)
+    gate = vstore.capacity_gate(mv)
+    trigger, any_ovf = torch.stack(
+        [gate.under_pressure.reshape(()), ovf.any()]).tolist()
+    if trigger or any_ovf:
+        mv, _, n_freed = vstore.reclaim_on_pressure(
+            mv, vstore.hot_slots(mv, min(8, B)), gate.deficit, policy=policy)
+        reclaimed = 1
+    else:
+        mv, freed_g = vstore.gc_step(mv, policy=policy)
+        n_freed = (freed_g != EMPTY).sum(dtype=I32)
+        reclaimed = 0
+    ovf_left = ovf
+    if any_ovf:   # retry the overflowed lanes now that the reclaim made room
+        mv, _, ovf_left = vstore.write_step(mv, ids, new_len, ovf,
+                                            policy=policy)
+    stats = {
+        "overflow_lanes": ovf.sum(dtype=I32),
+        "retry_failed": ovf_left.sum(dtype=I32),
+        "reclaims_triggered": i32(reclaimed, new_len.device),
+        "versions_reclaimed": n_freed.to(I32),
+        "deficit": gate.deficit,
+        "live_versions": vstore.live_versions(mv),
+        "overflow_count": mv.overflow_count,
+        "dropped_retires": mv.dropped_retires,
+    }
+    nxt = _greedy(logits)
+    return (ServeState(state.params, cache, new_len, mv, nxt,
+                       state.longest + 1), nxt, freed_w.reshape(-1), stats)
+
+
+# ---------------------------------------------------------------------------
+# snapshot (rtx) interface
+# ---------------------------------------------------------------------------
+def begin_snapshot(state: ServeState, lane: int
+                   ) -> Tuple[ServeState, torch.Tensor]:
+    dev = state.cache_len.device
+    mv, ts = vstore.begin_snapshot(
+        state.mv, torch.tensor([lane], dtype=I32, device=dev),
+        torch.tensor([True], device=dev))
+    return state._replace(mv=mv), ts[0]
+
+
+def end_snapshot(state: ServeState, lane: int) -> ServeState:
+    dev = state.cache_len.device
+    mv = vstore.end_snapshot(state.mv,
+                             torch.tensor([lane], dtype=I32, device=dev),
+                             torch.tensor([True], device=dev))
+    return state._replace(mv=mv)
+
+
+def snapshot_lengths(state: ServeState, t,
+                     seq_ids: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Consistent cross-sequence snapshot: each sequence's visible length
+    as of pinned time ``t``, through the version-search kernel (K3)."""
+    if seq_ids is None:
+        seq_ids = torch.arange(state.cache_len.shape[0], dtype=I32,
+                               device=state.cache_len.device)
+    return vstore.snapshot_read(state.mv, seq_ids, t)
+
+
+def snapshot_score(state: ServeState, cfg: ModelConfig, tokens: torch.Tensor,
+                   t) -> torch.Tensor:
+    """Score candidate tokens [B, 1] against the snapshot at ``t``: the
+    attention masks use the snapshot lengths, so the result is atomic with
+    respect to ongoing decodes.
+
+    Trap T1: the scored tokens' K/V land at position ``lens[b]``, which
+    decode may already have filled; JAX writes them into a copy of the
+    cache and throws it away.  So does this (``inplace=False``), copying
+    only the first ``span`` columns, all that a pass at these lengths
+    reads: ``state`` is left bit-identical.  One host sync reads ``span``
+    (a reader pinned before a new prefill may see more than
+    ``state.longest``)."""
+    lens, found = snapshot_lengths(state, t)
+    lens = torch.where(found, lens, 0)
+    span = int(lens.max()) + tokens.shape[1]
+    prefix = [KVCache(c.k[:, :span], c.v[:, :span]) for c in state.cache]
+    logits, _ = tf.decode_step(state.params, cfg, tokens, prefix, lens,
+                               inplace=False, span=span)
+    return logits
+
+
+class MVServeEngine:
+    """Prefill, decode and GC with the MVGC policy, snapshot readers, and
+    the space report the benchmarks track."""
+
+    def __init__(self, cfg: ModelConfig, run: RunConfig, params, batch: int,
+                 max_len: int, dtype: torch.dtype = torch.float32,
+                 device: DeviceLike = None):
+        self.cfg, self.run = cfg, run
+        self.device = resolve_device(device)
+        self.state = make_serve_state(cfg, run, params, batch, max_len,
+                                      dtype, self.device)
+        self.last_stats: Dict[str, int] = {}
+
+    def prefill(self, tokens) -> None:
+        tokens = torch.as_tensor(tokens, device=self.device).to(I32)
+        self.state = prefill_step(self.state, self.cfg, self.run, tokens)
+
+    def step(self) -> torch.Tensor:
+        self.state, toks, _, stats = decode_one(self.state, self.cfg,
+                                                self.run)
+        values = torch.stack([v.reshape(()) for v in stats.values()]).tolist()
+        self.last_stats = dict(zip(stats, values))
+        return toks
+
+    def pin(self, lane: int) -> int:
+        self.state, ts = begin_snapshot(self.state, lane)
+        return int(ts)
+
+    def unpin(self, lane: int) -> None:
+        self.state = end_snapshot(self.state, lane)
+
+    def lengths_at(self, t: int) -> torch.Tensor:
+        lens, found = snapshot_lengths(self.state, t)
+        return torch.where(found, lens, 0)
+
+    def score(self, tokens, t: int) -> torch.Tensor:
+        """:func:`snapshot_score` of ``tokens`` [B, 1] at pinned time
+        ``t``; the engine's state is not changed."""
+        tokens = torch.as_tensor(tokens, device=self.device).to(I32)
+        return snapshot_score(self.state, self.cfg, tokens, t)
+
+    def space(self) -> Dict[str, int]:
+        return vstore.space_report(self.state.mv)
+
+
 class PagedKVEngine:
-    """Paged-KV serving with the ``freed_pages()`` recycling contract."""
+    """Paged-KV serving with the ``freed_pages()`` recycling contract (see
+    the module docstring)."""
 
     def __init__(self, num_seqs: int, num_pages: int, page_size: int,
                  max_pages_per_seq: int, kv_heads: int, head_dim: int, *,

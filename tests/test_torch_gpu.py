@@ -1,8 +1,9 @@
 """The port's CUDA kernels and engine on the card (marker ``gpu``).
 
 Each kernel against its plain PyTorch version on the same CUDA tensors, at
-ragged and edge shapes the serving run does not reach, and the serve_bench
-storm trace on the card against the same trace on the CPU.  These tests
+ragged and edge shapes the serving run does not reach, the serve_bench
+storm trace on the card against the same trace on the CPU, and the model
+engine (``MVServeEngine``) at reduced size on the card against the CPU.  These tests
 need a GPU and ``nvcc``; without a card they skip.  Run them on the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -11,15 +12,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import SHAPES, reduced_config
+from repro_torch.configs.base import RunConfig
 from repro_torch.convert import to_numpy
 from repro_torch.core.telemetry import GCConfig
 from repro_torch.kernels.compact import ops as compact_ops
 from repro_torch.kernels.compact.ref import compact_ref
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import paged_decode_ref
+from repro_torch.kernels.flash_prefill import ops as flash_ops
+from repro_torch.kernels.flash_prefill.ref import attention_ref
 from repro_torch.kernels.version_search import ops as search_ops
 from repro_torch.kernels.version_search.ref import search_gather_ref, search_ref
-from repro_torch.serve.engine import PagedKVEngine
+from repro_torch.models import transformer as tf
+from repro_torch.serve.engine import MVServeEngine, PagedKVEngine
 
 pytestmark = pytest.mark.gpu
 EMPTY, TS_MAX = -1, 2**31 - 1
@@ -29,6 +35,7 @@ EMPTY, TS_MAX = -1, 2**31 - 1
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     return torch.device("cuda")
 
 
@@ -182,3 +189,91 @@ def test_engine_on_the_card_matches_the_cpu(cuda, policy):
     for a, b in zip(leaves(to_numpy(g.st)), leaves(to_numpy(c.st)),
                     strict=True):
         np.testing.assert_array_equal(a, b)
+
+
+# K6 against its plain version within DECODE_TOL: both compute in float32
+# and sum in other orders.  A bf16 output may round to the neighbouring
+# bf16 value, which rtol = 2**-7 allows (K6's largest bf16 differences on
+# an H100 are one such step, above the atol); the float32 cases, at 1e-5,
+# are the ones that catch a masking or indexing error
+FLASH_CASES = [
+    # B, Hq, Hkv, T, S, D, causal, window, softcap
+    (2, 24, 8, 256, 256, 128, True, 0, 0.0),     # minitron-4b heads
+    (1, 8, 4, 300, 300, 256, True, 64, 50.0),    # gemma2-2b local layer
+    (2, 3, 1, 200, 200, 64, True, 0, 0.0),       # ragged T, G = 3
+    (2, 2, 2, 77, 77, 16, True, 5, 0.0),         # reduced widths
+    (1, 4, 1, 65, 65, 96, False, 0, 30.0),       # non-causal, odd D
+    (1, 2, 1, 100, 70, 32, True, 0, 0.0),        # S < T
+    (1, 2, 1, 90, 40, 32, True, 8, 0.0),         # rows that see nothing
+    (1, 2, 2, 1, 1, 8, True, 0, 0.0),
+]
+
+
+def flash_inputs(cuda, dtype, B, Hq, Hkv, T, S, D, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=cuda, dtype=dtype)
+            for shape in ((B, Hq, T, D), (B, Hkv, S, D), (B, Hkv, S, D))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,T,S,D,causal,window,cap", FLASH_CASES)
+def test_flash_prefill_kernel(cuda, dtype, B, Hq, Hkv, T, S, D, causal,
+                              window, cap):
+    q, k, v = flash_inputs(cuda, dtype, B, Hq, Hkv, T, S, D)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    before = flash_ops.flash_attention.launches
+    got = flash_ops.flash_attention(q, k, v, **kw)
+    assert flash_ops.flash_attention.launches == before + 1
+    want = attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.allclose(got.float(), want.float(), **DECODE_TOL[dtype])
+    assert torch.equal(got, flash_ops.flash_attention(q, k, v, **kw)), \
+        "two calls gave different bits"
+
+
+def test_flash_prefill_rejects_what_it_cannot_run(cuda):
+    q, k, v = flash_inputs(cuda, torch.float32, 1, 2, 1, 8, 8, 16)
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(q.transpose(2, 3), k, v)
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(*flash_inputs(cuda, torch.float32, 1, 2, 1,
+                                                8, 8, 320))
+
+
+def test_mv_serve_engine_on_the_card(cuda):
+    """Reduced minitron-4b in float32: one K6 launch per layer per prefill,
+    logits within 1e-4 of the CPU engine on the same weights, and the
+    same GC trace (stats and space) step by step."""
+    cfg = reduced_config("minitron-4b")
+    run = RunConfig(model=cfg, shape=SHAPES["decode_32k"],
+                    versions_per_slot=4, reader_lanes=4)
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    def to_cpu(x):
+        if isinstance(x, dict):
+            return {k: to_cpu(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [to_cpu(v) for v in x]
+        return x.cpu()
+
+    g = MVServeEngine(cfg, run, params, batch=4, max_len=32, device=cuda)
+    c = MVServeEngine(cfg, run, to_cpu(params), batch=4, max_len=32,
+                      device="cpu")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 16))
+    before = flash_ops.flash_attention.launches
+    g.prefill(prompt)
+    assert flash_ops.flash_attention.launches - before == cfg.num_layers
+    c.prefill(prompt)
+    cand = c.state.last_tokens
+    for i in range(10):
+        g.step()
+        c.step()
+        assert g.last_stats == c.last_stats
+        if i == 2:
+            ts = g.pin(0)
+            assert c.pin(0) == ts
+    torch.testing.assert_close(g.score(cand, ts).cpu(), c.score(cand, ts),
+                               atol=1e-4, rtol=1e-4)
+    assert g.space() == c.space()
+    assert flash_ops.flash_attention.launches - before == cfg.num_layers

@@ -49,6 +49,8 @@ def test_package_imports_without_jax():
         "import repro_torch.kernels.compact.ops\n"
         "import repro_torch.kernels.version_search.ops\n"
         "import repro_torch.kernels.decode_attention.ops\n"
+        "import repro_torch.kernels.flash_prefill.ops\n"
+        "import repro_torch.launch.serve, repro_torch.configs\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
@@ -60,17 +62,36 @@ def test_package_imports_without_jax():
 def _entry_points():
     from repro_torch.core.mvgc import vstore
     from repro_torch.mvkv import paged
-    from repro_torch.serve.engine import PagedKVEngine
+    from repro_torch.configs import SHAPES, reduced_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import MVServeEngine, PagedKVEngine
+    cfg = reduced_config("minitron-4b")
+    run = RunConfig(model=cfg, shape=SHAPES["decode_32k"])
+
+    def mv_serve(**kw):
+        params = tf.init_params(cfg, torch.Generator().manual_seed(0))
+        return MVServeEngine(cfg, run, params, batch=2, max_len=8, **kw)
+
+    def launch(device=None):
+        flags = ["--arch", "minitron-4b", "--reduced", "--steps", "1"]
+        return launcher.build(launcher.parse_args(
+            flags + (["--device", device] if device else [])))
+
     return {
         "make_state": lambda **kw: vstore.make_state(4, 4, 2, **kw),
         "make_paged_kv": lambda **kw: paged.make_paged_kv(
             2, 8, 4, 2, 1, 4, gc=None, **kw),
         "PagedKVEngine": lambda **kw: PagedKVEngine(2, 8, 4, 2, 1, 4, **kw),
+        "MVServeEngine": mv_serve,
+        "launch.serve": launch,
     }
 
 
 @pytest.mark.parametrize("name", ["make_state", "make_paged_kv",
-                                  "PagedKVEngine"])
+                                  "PagedKVEngine", "MVServeEngine",
+                                  "launch.serve"])
 def test_entry_points_default_to_the_gpu(name, monkeypatch):
     make = _entry_points()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
