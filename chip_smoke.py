@@ -7,11 +7,13 @@ Phases, each printing one JSON line:
 
 1. device — requires CUDA; the card's name and power limit (nvidia-smi);
 2. build  — builds the CUDA kernels from ``src/repro_torch/csrc``;
-3. kernels — each kernel (compact, search, search+gather, paged decode,
-   flash prefill) against its plain PyTorch version on the card at the
-   serving phases' shapes, timed per call (device time from the profiler's
-   kernel records, and CUDA events around the call; medians of 25), beside
-   its bound; flash prefill also at a gemma2-2b shape and in float32;
+3. kernels — each kernel (compact, needed, search, search+gather, paged
+   decode, flash prefill) against its plain PyTorch version on the card at
+   the serving phases' shapes, timed per call (device time from the
+   profiler's kernel records, and CUDA events around the call; medians of
+   25), beside its bound; flash prefill also at a gemma2-2b shape and in
+   float32; needed (K5, which no serving path calls) at compact's shape
+   and at ``benchmarks/kernel_bench.py``'s two largest compact shapes;
 4. storm  — the ``benchmarks/serve_bench.py`` storm trace for ebr, steam,
    dlrt and slrt; its counters must equal the committed BENCH_serve.json;
 5. serve  — PagedKVEngine (policy slrt) at the KV geometry of one
@@ -30,8 +32,21 @@ Phases, each printing one JSON line:
    launch counts are zeroed just before the launcher's run and read just
    after; then a short profiled window of decode steps, whose idle share
    the phase's line carries;
-7. the kernel table as one JSON line;
-8. the result line ``{"ok": true, "device": {...}}``.
+7. fork_tiers — the four ``benchmarks/fork_bench.py`` tiers (smoke, beam,
+   spec, ckpt_churn) for ebr, steam, dlrt and slrt, with their eager-copy
+   and no-checkpoint controls, fork replay validation and a leak check
+   after every op; the deterministic fields of all 16 rows must equal the
+   committed BENCH_fork.json;
+8. durability — PagedKVEngine at phase 5's pool geometry (32768 bf16
+   pages, K+V 2 GiB, 256 sequences, slrt): a beam search (COW forks
+   against an eager-copy engine, every child prefix-checked on every
+   step), a checkpoint churn whose checkpoint frees idle sequences' pages
+   by sole-survivor eviction (its no-checkpoint control frees none), and a
+   checkpoint of the whole engine restored into a fresh one, bit-equal,
+   that then decodes on identically; the launch counts are zeroed just
+   before this phase and read just after;
+9. the kernel table as one JSON line;
+10. the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits nonzero; nothing is caught.  Without CUDA, or
 without the package beside the script, it exits nonzero before any result.
@@ -45,6 +60,7 @@ import random
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,11 +70,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 
+from repro_torch.ckpt.manager import tree_flatten  # noqa: E402
 from repro_torch.core.mvgc import vstore  # noqa: E402
 from repro_torch.core.telemetry import GCConfig  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.compact import ops as compact_ops  # noqa: E402
-from repro_torch.kernels.compact.ref import compact_ref  # noqa: E402
+from repro_torch.kernels.compact.ref import compact_ref, needed_ref  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import paged_decode_ref  # noqa: E402
 from repro_torch.kernels.flash_prefill import ops as flash_ops  # noqa: E402
@@ -68,6 +85,7 @@ from repro_torch.kernels.version_search.ref import (  # noqa: E402
     search_gather_ref, search_ref)
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.serve import forking  # noqa: E402
 from repro_torch.serve.engine import PagedKVEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -106,9 +124,59 @@ MODEL_ARGS = ["--arch", "minitron-4b", "--batch", "16", "--prompt-len",
 STORM = dict(num_seqs=8, num_pages=24, page_size=4, max_pages_per_seq=3,
              versions_per_seq=6, steps=160, min_len=4, max_len=12,
              pin_every=5, pin_hold=3, seed=0)
+# phase 3's needed (K5) shapes (R, V, P): compact's, then
+# benchmarks/kernel_bench.py's two largest compact shapes
+NEEDED_SHAPES = [(2 * 256 * 8, 8, 16), (65536, 8, 256), (32768, 16, 1024)]
+# phase 7: benchmarks/fork_bench.py TIERS, copied (that module imports JAX)
+FORK_TIERS = {
+    "smoke": dict(kind="beam", num_seqs=6, num_pages=24, page_size=4,
+                  max_pages_per_seq=6, versions_per_seq=8, roots=(0,),
+                  prefill=6, rounds=2, beam_width=2, child_tokens=2,
+                  join_every=2, seed=0),
+    "beam": dict(kind="beam", num_seqs=8, num_pages=40, page_size=4,
+                 max_pages_per_seq=6, versions_per_seq=8, roots=(0, 1),
+                 prefill=6, rounds=6, beam_width=2, child_tokens=2,
+                 join_every=2, seed=0),
+    "spec": dict(kind="spec", num_seqs=6, num_pages=48, page_size=4,
+                 max_pages_per_seq=8, versions_per_seq=10, roots=(0, 1, 2),
+                 prefill=5, rounds=8, draft_tokens=3, seed=0),
+    "ckpt_churn": dict(kind="ckpt", num_seqs=8, num_pages=20, page_size=4,
+                       max_pages_per_seq=6, versions_per_seq=8, idle=5,
+                       phase1_steps=8, phase2_steps=16, seed=0),
+}
+FORK_POLICIES = ("ebr", "steam", "dlrt", "slrt")
+# the deterministic fields of a BENCH_fork.json row
+FORK_FIELDS = ("forks", "joins", "releases", "pages_shared_peak",
+               "peak_pages", "eager_peak_pages", "shared_savings_pages",
+               "prefix_checks", "prefix_violations", "ckpt_saves",
+               "ckpt_evictions", "ckpt_pages_freed",
+               "control_ckpt_pages_freed", "control_end_pages",
+               "pressure_events", "reclaims_triggered", "pages_reclaimed",
+               "give_ups")
+NOW_TS = 2**31 - 2      # "current" snapshot timestamp of the fork views
+# phase 8: phase 5's pool (one attention layer of minitron-4b, bf16).
+# The fork tiers check leaks and sharing after every op; at this size that
+# host check (about 10 ms) runs after every fork, join and release only.
+POOL = dict(num_seqs=256, num_pages=32768, page_size=16,
+            max_pages_per_seq=256, kv_heads=8, head_dim=128,
+            versions_per_seq=8, reader_lanes=16, seed=0, check_appends=False)
+# beam: 32 roots grown to 1024 tokens, 8 rounds of 4 children per root,
+# 16 tokens per child, one seeded child joins back each round
+DURABLE_BEAM = dict(POOL, kind="beam", roots=tuple(range(32)), prefill=1024,
+                    rounds=8, beam_width=4, child_tokens=16, join_every=1,
+                    best_seed=0)
+# churn, fork_bench's sizing rule at this pool: idle + active demand
+# (128 x 96 + 128 x 176 pages = 34816) exceeds the 32768 pages, the
+# active sequences alone (22528) stay under the watermark; the control
+# stops at its first give-up
+DURABLE_CHURN = dict(POOL, kind="ckpt", idle=128, phase1_steps=1536,
+                     phase2_steps=1280, control_stops_at_give_up=True)
+RESTORE_STEPS = 16
 KERNELS = {
     "compact": ("src/repro_torch/csrc/compact.cu",
                 "src/repro/kernels/compact/kernel.py:144"),
+    "needed": ("src/repro_torch/csrc/compact.cu",
+               "src/repro/kernels/compact/kernel.py:52"),
     "search_gather": ("src/repro_torch/csrc/version_search.cu",
                       "src/repro/kernels/version_search/kernel.py:140"),
     "search": ("src/repro_torch/csrc/version_search.cu",
@@ -119,6 +187,7 @@ KERNELS = {
                       "src/repro/kernels/flash_prefill/kernel.py:125"),
 }
 WRAPPERS = {"compact": compact_ops.compact,
+            "needed": compact_ops.needed,
             "search_gather": search_ops.search_gather,
             "search": search_ops.search,
             "paged_decode": decode_ops.paged_decode,
@@ -277,6 +346,8 @@ def phase_kernels(dev) -> dict:
                 **timed(lambda: compact_ops.compact(*args),
                         lambda: compact_ref(*args)))
 
+    out.update(needed_cases(dev))
+
     # K2 / K3: snapshot_view's search+gather over all 256 sequences
     ts, _, pay = _store(g, S, V, dev)
     tables = torch.full((max_ver, p["max_pages_per_seq"]), -1,
@@ -387,6 +458,50 @@ def phase_kernels(dev) -> dict:
     for name, row in out.items():
         emit({"phase": "kernels", "kernel": name, **row})
     return out
+
+
+def needed_cases(dev) -> dict:
+    """K5 against its plain version at NEEDED_SHAPES, slabs drawn as
+    ``benchmarks/kernel_bench.py`` draws compact's: a quarter never
+    written, 30 % current, the rest closed; a quarter of the board idle
+    (TS_MAX), duplicates allowed.  The mask must be exactly equal.  The
+    first shape is the kernel table's row; its ``launches`` are this
+    phase's (no serving path calls ``needed``)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    now = 4000
+    rows = {}
+    compact_ops.needed.launches = 0
+    for i, (R, V, P) in enumerate(NEEDED_SHAPES):
+        def ints(lo, hi, shape):
+            return torch.randint(lo, hi, shape, generator=g, device=dev,
+                                 dtype=torch.int32)
+        ts = ints(0, now, (R, V))
+        succ = ts + ints(1, now // 2, (R, V))
+        succ[torch.rand((R, V), generator=g, device=dev) < 0.3] = TS_MAX
+        hole = torch.rand((R, V), generator=g, device=dev) < 0.25
+        ts[hole], succ[hole] = EMPTY, TS_MAX
+        n_ann = P - P // 4
+        ann = torch.cat([torch.sort(ints(0, now, (n_ann,))).values,
+                         torch.full((P - n_ann,), TS_MAX, dtype=torch.int32,
+                                    device=dev)])
+        args = (ts, succ, ann, torch.tensor(now, dtype=torch.int32,
+                                            device=dev))
+        got = compact_ops.needed(*args)
+        want = needed_ref(*args)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.bool and torch.equal(got, want),
+              f"needed kernel != plain version at R={R} V={V} P={P}")
+        check(bool(got.any()) and not bool(got.all()),
+              f"needed check at R={R} is all one value: weak check")
+        nbytes = R * V * (4 * 2 + 1) + P * 4 + 4
+        b_ms, b_by = bound(nbytes, R * V * math.log2(max(P, 2)), "int32")
+        rows["needed" if i == 0 else f"needed_{R}x{V}x{P}"] = dict(
+            shape=f"S={R} V={V} P={P}", max_abs_err=max_err([got], [want]),
+            bound_ms=b_ms, bound_by=b_by,
+            **timed(lambda: compact_ops.needed(*args),
+                    lambda: needed_ref(*args)))
+    rows["needed"]["launches_phase3"] = compact_ops.needed.launches
+    return rows
 
 
 def visible_pairs(T: int, window: int) -> int:
@@ -532,6 +647,359 @@ def phase_storm(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases 7-8: fork_bench's workloads (benchmarks/fork_bench.py:109-353)
+# ---------------------------------------------------------------------------
+class ForkRun:
+    """One engine run's host-side accounting: the COW main run, the eager
+    control or the no-checkpoint control.  K/V rows are seeded normal
+    draws, distinct per (step, sequence) in float32 and bfloat16 alike, so
+    a wrongly recycled page shows in a prefix check."""
+
+    def __init__(self, p: dict, policy: str, eager: bool, dev,
+                 dtype=torch.float32):
+        self.p, self.dev, self.dtype = p, dev, dtype
+        self.B = p["num_seqs"]
+        self.heads = (p.get("kv_heads", 1), p.get("head_dim", 4))
+        self.eng = PagedKVEngine(
+            self.B, p["num_pages"], p["page_size"], p["max_pages_per_seq"],
+            *self.heads,
+            gc=GCConfig(policy=policy,
+                        versions_per_slot=p["versions_per_seq"],
+                        reader_lanes=p.get("reader_lanes", 4),
+                        hot_k=p["num_seqs"]),
+            eager_fork=eager, dtype=dtype, device=dev)
+        self.validator = forking.ForkValidator()
+        self.gen = torch.Generator(device=dev).manual_seed(p["seed"])
+        self.ids = torch.arange(self.B, dtype=torch.int32, device=dev)
+        self.check_appends = p.get("check_appends", True)
+        self.tokens = self.step_no = self.shared_peak = self.leaks = 0
+        self.ckpt_saves = 0
+        self.ckpt_seconds = 0.0
+
+    def _sample(self) -> None:
+        self.shared_peak = max(self.shared_peak,
+                               forking.shared_page_count(self.eng.st))
+        self.leaks += not forking.check_no_leak(self.eng.st)[0]
+
+    def views(self):
+        tbl, ln = self.eng.view_at(NOW_TS)
+        return tbl.cpu().numpy(), ln.cpu().numpy()
+
+    def _mask(self, n: int) -> torch.Tensor:
+        return torch.ones((n,), dtype=torch.bool, device=self.dev)
+
+    def _pairs(self, pairs):
+        return (torch.tensor([s for s, _ in pairs], dtype=torch.int32,
+                             device=self.dev),
+                torch.tensor([d for _, d in pairs], dtype=torch.int32,
+                             device=self.dev))
+
+    def append(self, mask: np.ndarray) -> np.ndarray:
+        """One decode step over ``mask``."""
+        self.step_no += 1
+        kv = torch.randn((self.B, *self.heads), generator=self.gen,
+                         device=self.dev, dtype=self.dtype)
+        failed = self.eng.step(self.ids, kv, kv,
+                               torch.as_tensor(mask, device=self.dev))
+        failed = failed.cpu().numpy()
+        self.tokens += int((mask & ~failed).sum())
+        if self.check_appends:
+            self._sample()
+        return failed
+
+    def fork(self, pairs) -> None:
+        """Fork (src, dst) pairs and register each child's prefix."""
+        failed = self.eng.fork(*self._pairs(pairs), self._mask(len(pairs)))
+        self._sample()
+        tbl, ln = self.views()
+        for (_, d), bad in zip(pairs, failed.cpu().numpy()):
+            if not bad:
+                self.validator.note_fork(self.eng.st, d, tbl[d], int(ln[d]))
+
+    def check_children(self, children) -> None:
+        tbl, ln = self.views()
+        for c in children:
+            self.validator.check(self.eng.st, c, tbl[c], int(ln[c]))
+
+    def join(self, pairs) -> None:
+        self.eng.join(*self._pairs(pairs), self._mask(len(pairs)))
+        for s, _ in pairs:
+            self.validator.drop(s)
+        self._sample()
+
+    def release(self, slots) -> None:
+        self.eng.release(torch.tensor(slots, dtype=torch.int32,
+                                      device=self.dev),
+                         self._mask(len(slots)))
+        for s in slots:
+            self.validator.drop(s)
+        self._sample()
+
+
+def _beam_workload(run: ForkRun) -> None:
+    """Each root forks ``beam_width`` children, children decode
+    ``child_tokens`` steps (prefix-checked each step), the root advances
+    one token, then one child per root joins back (every ``join_every``-th
+    round; the first child, or a seeded one with ``best_seed``) and the
+    rest release."""
+    p = run.p
+    roots = list(p["roots"])
+    child_slots = [s for s in range(run.B) if s not in roots]
+    best = random.Random(p["best_seed"]) if "best_seed" in p else None
+    mask0 = np.zeros((run.B,), bool)
+    mask0[roots] = True
+    for _ in range(p["prefill"]):
+        run.append(mask0)
+    for rnd in range(p["rounds"]):
+        pairs, by_root = [], {}
+        free = list(child_slots)
+        for r in roots:
+            kids = [free.pop(0) for _ in range(p["beam_width"])]
+            by_root[r] = kids
+            pairs.extend((r, k) for k in kids)
+        run.fork(pairs)
+        kids_mask = np.zeros((run.B,), bool)
+        kids_mask[[k for _, k in pairs]] = True
+        for _ in range(p["child_tokens"]):
+            run.append(kids_mask)
+            run.check_children([k for _, k in pairs])
+        run.append(mask0)     # the root advances: parent and child tails differ
+        run.check_children([k for _, k in pairs])
+        if (rnd + 1) % p["join_every"] == 0:
+            win = {r: by_root[r][best.randrange(p["beam_width"])
+                                 if best else 0] for r in roots}
+            run.join([(win[r], r) for r in roots])
+            run.release([k for r in roots for k in by_root[r]
+                         if k != win[r]])
+        else:
+            run.release([k for r in roots for k in by_root[r]])
+
+
+def _spec_workload(run: ForkRun) -> None:
+    """Each root forks a draft that runs ``draft_tokens`` ahead; even
+    rounds accept (join), odd rounds reject (release)."""
+    p = run.p
+    roots = list(p["roots"])
+    drafts = [s for s in range(run.B) if s not in roots][:len(roots)]
+    mask0 = np.zeros((run.B,), bool)
+    mask0[roots] = True
+    for _ in range(p["prefill"]):
+        run.append(mask0)
+    draft_mask = np.zeros((run.B,), bool)
+    draft_mask[drafts] = True
+    for rnd in range(p["rounds"]):
+        pairs = list(zip(roots, drafts))
+        run.fork(pairs)
+        for _ in range(p["draft_tokens"]):
+            run.append(draft_mask)
+            run.check_children(drafts)
+        if rnd % 2 == 0:
+            run.join([(d, r) for r, d in pairs])
+        else:
+            run.release(drafts)
+
+
+def _ckpt_workload(run: ForkRun, with_ckpt: bool) -> None:
+    """All sequences decode ``phase1_steps``, then the first ``idle`` go
+    quiet while the rest decode on.  With ``with_ckpt`` the engine
+    checkpoints at the boundary; one active step moves the active current
+    versions past ``ckpt_max``, and a forced reclaim evicts the idle sole
+    survivors.  The control runs the same schedule without the
+    checkpoint (and, with ``control_stops_at_give_up``, stops at its first
+    give-up)."""
+    p = run.p
+    all_mask = np.ones((run.B,), bool)
+    active_mask = np.zeros((run.B,), bool)
+    active_mask[p["idle"]:] = True
+    for _ in range(p["phase1_steps"]):
+        run.append(all_mask)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        if with_ckpt:
+            t0 = time.perf_counter()
+            run.eng.checkpoint(d)
+            run.ckpt_seconds += time.perf_counter() - t0
+            run.ckpt_saves += 1
+        run.append(active_mask)
+        run.eng.reclaim(p["num_seqs"] * p["versions_per_seq"])
+        for _ in range(p["phase2_steps"] - 1):
+            failed = run.append(active_mask)
+            if failed.any() and not with_ckpt \
+                    and p.get("control_stops_at_give_up"):
+                break
+
+
+def fork_cell(p: dict, policy: str, dev, dtype=torch.float32):
+    """``fork_bench.run_cell`` on ``dev``: the main run, then its eager-copy
+    or no-checkpoint control.  Returns (row of FORK_FIELDS plus leak
+    checks and seconds, the main run)."""
+    t0 = time.perf_counter()
+    main = ForkRun(p, policy, False, dev, dtype)
+    eager = control = None
+    if p["kind"] == "ckpt":
+        _ckpt_workload(main, with_ckpt=True)
+        control = ForkRun(p, policy, False, dev, dtype)
+        _ckpt_workload(control, with_ckpt=False)
+    else:
+        work = _beam_workload if p["kind"] == "beam" else _spec_workload
+        work(main)
+        eager = ForkRun(p, policy, True, dev, dtype)
+        work(eager)
+    eng, v = main.eng, main.validator
+    eager_peak = eager.eng.peak_pages if eager is not None else 0
+    row = dict(
+        forks=eng.forks, joins=eng.joins, releases=eng.releases,
+        pages_shared_peak=main.shared_peak, peak_pages=eng.peak_pages,
+        eager_peak_pages=eager_peak,
+        shared_savings_pages=(max(0, eager_peak - eng.peak_pages)
+                              if eager is not None else 0),
+        prefix_checks=v.checked, prefix_violations=v.violations,
+        ckpt_saves=main.ckpt_saves,
+        ckpt_evictions=eng.stats.ckpt_evictions,
+        ckpt_pages_freed=eng.stats.ckpt_freed,
+        control_ckpt_pages_freed=(control.eng.stats.ckpt_freed
+                                  if control is not None else 0),
+        control_end_pages=(int(control.eng.space()["live_pages"])
+                           if control is not None else 0),
+        pressure_events=eng.pressure_events,
+        reclaims_triggered=eng.reclaims_triggered,
+        pages_reclaimed=eng.pages_reclaimed, give_ups=eng.give_ups)
+    row.update(leak_checks_failed=main.leaks,
+               control_leak_checks_failed=(eager or control).leaks,
+               decode_steps=main.step_no, tokens_appended=main.tokens,
+               seconds=time.perf_counter() - t0)
+    if control is not None:
+        row.update(control_give_ups=control.eng.give_ups,
+                   control_steps=control.step_no)
+    return row, main
+
+
+def bench_fork_rows() -> dict:
+    """BENCH_fork.json's rows keyed by (tier, policy)."""
+    with open(os.path.join(ROOT, "BENCH_fork.json")) as f:
+        return {(r["figure"].split("/")[1], r["scheme"]): r
+                for r in json.load(f)["rows"]}
+
+
+def phase_fork_tiers(dev) -> None:
+    bench = bench_fork_rows()
+    rows = {(tier, policy): fork_cell(FORK_TIERS[tier], policy, dev)[0]
+            for tier in FORK_TIERS for policy in FORK_POLICIES}
+    check(set(rows) == set(bench), "fork tiers differ from BENCH_fork.json")
+    for key, got in rows.items():
+        want = {f: bench[key][f] for f in FORK_FIELDS}
+        same = {f: got[f] for f in FORK_FIELDS} == want
+        emit({"phase": "fork_tiers", "tier": key[0], "policy": key[1], **got,
+              "matches_bench_fork": same})
+        check(same, f"fork tier {key} differs from BENCH_fork.json: "
+              f"{ {f: (got[f], want[f]) for f in FORK_FIELDS if got[f] != want[f]} }")
+        check(got["prefix_violations"] == 0 and got["leak_checks_failed"] == 0
+              and got["control_leak_checks_failed"] == 0,
+              f"fork tier {key}: prefix or leak violations")
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def restore_check(eng: PagedKVEngine, dev) -> dict:
+    """Checkpoint ``eng`` whole, restore it into a fresh engine on ``dev``:
+    every leaf bit-equal, the host-side state equal; then both decode
+    RESTORE_STEPS identical steps and must stay equal, down to a paged
+    decode over their current views.  Returns the phase's numbers."""
+    st = eng.st
+    B, ps, Hkv, D = (st.mv.store.ts.shape[0], st.page_size,
+                     st.k_pages.shape[2], st.k_pages.shape[3])
+    fresh = PagedKVEngine(B, st.free.shape[0], ps, st.max_pages, Hkv, D,
+                          gc=eng.gc, eager_fork=eng.eager_fork,
+                          dtype=st.k_pages.dtype, device=dev)
+
+    def same_state(a: PagedKVEngine, b: PagedKVEngine) -> bool:
+        return all(torch.equal(x, y) for x, y in
+                   zip(tree_flatten(a.st), tree_flatten(b.st), strict=True)) \
+            and a.stats == b.stats and a.dag == b.dag \
+            and a._freed_pages == b._freed_pages and a.ckpt_max == b.ckpt_max
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = eng.checkpoint(d)
+        save_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(d)
+        t0 = time.perf_counter()
+        fresh.restore(d)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    restored_equal = same_state(eng, fresh)
+    check(restored_equal, "restored engine differs from the saved one")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    ids = torch.arange(B, dtype=torch.int32, device=dev)
+    ones = torch.ones((B,), dtype=torch.bool, device=dev)
+    for _ in range(RESTORE_STEPS):
+        kv = torch.randn((B, Hkv, D), generator=gen, device=dev,
+                         dtype=st.k_pages.dtype)
+        fa, fb = eng.step(ids, kv, kv, ones), fresh.step(ids, kv, kv, ones)
+        check(torch.equal(fa, fb), "restored engine failed other lanes")
+        check(eng.freed_pages() == fresh.freed_pages(),
+              "restored engine freed other pages")
+    check(same_state(eng, fresh), "restored engine diverged in decode")
+    q = torch.randn((B, 3 * Hkv, D), generator=gen, device=dev,
+                    dtype=st.k_pages.dtype)
+    outs = [decode_ops.paged_decode(q, e.st.k_pages, e.st.v_pages,
+                                    *e.view_at(NOW_TS)) for e in (eng, fresh)]
+    check(torch.equal(*outs), "paged decode differs after restore")
+    check(bool(torch.isfinite(outs[0].float()).all()), "decode not finite")
+    return dict(step=step, bytes_written=nbytes, save_s=save_s,
+                restore_s=restore_s, save_gb_s=nbytes / save_s / 1e9,
+                restore_gb_s=nbytes / restore_s / 1e9,
+                restored_bit_equal=restored_equal,
+                steps_after_restore=RESTORE_STEPS)
+
+
+def phase_durability(dev) -> dict:
+    """The slice's main path at phase 5's pool size: fork validation
+    (beam), checkpoint-armed eviction (churn) and save/restore."""
+    for w in WRAPPERS.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    beam, run = fork_cell(DURABLE_BEAM, "slrt", dev, torch.bfloat16)
+    del run
+    torch.cuda.empty_cache()
+    emit({"phase": "durability", "part": "beam", **beam})
+    check(beam["shared_savings_pages"] > 0, "COW forks saved no pages")
+    check(beam["prefix_violations"] == 0 and beam["prefix_checks"] > 0,
+          "fork prefix violations (or no checks)")
+    check(beam["leak_checks_failed"] == 0
+          and beam["control_leak_checks_failed"] == 0, "page leak in beam")
+    churn, run = fork_cell(DURABLE_CHURN, "slrt", dev, torch.bfloat16)
+    emit({"phase": "durability", "part": "churn",
+          "ckpt_save_s": run.ckpt_seconds, **churn})
+    check(churn["ckpt_pages_freed"] > 0, "checkpoint eviction freed nothing")
+    check(churn["give_ups"] == 0, "checkpointed churn gave up")
+    check(churn["control_ckpt_pages_freed"] == 0, "control evicted pages")
+    check(churn["control_give_ups"] > 0, "control never ran out of pages: "
+          "the churn is not sized past the pool")
+    restore = restore_check(run.eng, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    emit({"phase": "durability", "part": "restore", **restore,
+          "seconds": wall,
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "launches": launches})
+    for name in ("compact", "search_gather", "paged_decode"):
+        check(launches[name] > 0, f"{name} kernel never launched in "
+              "durability")
+    del run
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: full-size serving
 # ---------------------------------------------------------------------------
 def phase_serve(dev) -> dict:
@@ -649,6 +1117,7 @@ def phase_serve(dev) -> dict:
     for name in ("compact", "search_gather", "search", "paged_decode"):
         check(launches[name] > 0, f"{name} kernel never launched in serve")
     check(launches["flash_prefill"] == 0, "flash prefill ran in paged serve")
+    check(launches["needed"] == 0, "needed ran in paged serve")
     profile_window(decode_step)
     return launches
 
@@ -686,7 +1155,8 @@ def profile_window(decode_step, steps: int = 16, name: str = "serve") -> dict:
                 and e.name in ("cudaStreamSynchronize",
                                "cudaDeviceSynchronize"))
     ours = {k: [n, t / 1e3] for k, (n, t) in per_kernel.items()
-            if any(f in k for f in ("compact_kernel", "search_kernel",
+            if any(f in k for f in ("compact_kernel", "needed_kernel",
+                                    "search_kernel",
                                     "paged_decode_kernel",
                                     "flash_prefill_kernel"))}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -783,16 +1253,26 @@ def main() -> int:
     launches = phase_serve(dev)
     torch.cuda.empty_cache()
     model_launches = phase_model(dev)
+    torch.cuda.empty_cache()
+    phase_fork_tiers(dev)
+    durable_launches = phase_durability(dev)
     table = []
     for name, (source, replaces) in KERNELS.items():
         row = kernels[name]
         # the count from the main path that runs the kernel: phase 5 for
-        # K1-K4 (paged serving), phase 6 for flash prefill (the model)
+        # K1-K4 (paged serving), phase 6 for flash prefill (the model);
+        # no serving path calls needed (K5), as in the JAX package, so its
+        # count is phase 3's
+        launches_from, count = {
+            "flash_prefill": ("model", model_launches[name]),
+            "needed": ("kernels (phase 3): no serving path calls needed",
+                       row.get("launches_phase3", 0)),
+        }.get(name, ("serve", launches[name]))
         table.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=(model_launches if name == "flash_prefill"
-                      else launches)[name],
+            launches=count, launches_from=launches_from,
             launches_model=model_launches[name],
+            launches_durability=durable_launches[name],
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))

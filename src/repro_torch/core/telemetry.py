@@ -48,6 +48,7 @@ class ReclaimStats:
     give_ups: int = 0               # lanes abandoned after max reclaim rounds
     peak_live: int = 0              # max live units ever observed
     peak_live_post_reclaim: int = 0  # max live units right after a reclaim
+    stale_lanes_aged: int = 0       # multi-host: stale lanes aged out
     ckpt_evictions: int = 0         # sole-survivor evictions
     ckpt_freed: int = 0             # units freed by checkpoint eviction alone
 

@@ -36,6 +36,8 @@ SIGNATURES = {
     # ts, succ, payload, mask, ann, now, out_ts, out_succ, out_pay,
     # out_freed, count, R, V, P, stream
     "mvgc_compact": [_P] * 11 + [_I] * 3 + [_P],
+    # ts, succ, ann, now, out, S, V, P, stream
+    "mvgc_needed": [_P] * 5 + [_I] * 3 + [_P],
     # ts, payload, values, slot_ids, t, out_rows, out_pay, out_found,
     # S, V, T, M, B, stream
     "mvgc_search_gather": [_P] * 8 + [_I] * 5 + [_P],

@@ -19,21 +19,26 @@ compaction, then the reachability sweep that recycles pages — and retries
 the failed lanes, up to ``max_reclaim_rounds`` times before giving up.  A
 post-step watermark crossing triggers the same pass without a failure.
 Counters live in one :class:`repro_torch.core.telemetry.ReclaimStats`.
-Setting ``ckpt_max`` (the highest durably checkpointed timestamp, ``-1`` =
-none) arms the sole-survivor eviction in the reclaim pass.  Taking and
-restoring checkpoints is not part of this port yet.
+``checkpoint()`` saves the whole engine (the ``PagedKV`` tensors and the
+host-side GC state) through :class:`repro_torch.ckpt.manager.CheckpointManager`
+and sets ``ckpt_max`` (the highest durably checkpointed timestamp, ``-1`` =
+none), which arms the sole-survivor eviction in the reclaim pass;
+``restore()`` is its inverse.  The checkpoint format is the JAX engine's.
 
 The engines run on ``device`` (``cuda`` unless the caller passes another);
 inputs may be tensors on any device or array-likes and are moved there.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+import dataclasses
+import os
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch._tensor import I32, DeviceLike, i32, resolve_device
+from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.mvgc import vstore
 from repro_torch.core.mvgc.pool import EMPTY
@@ -461,6 +466,55 @@ class PagedKVEngine:
         """Drain the handles of pages recycled since the last call."""
         out, self._freed_pages = self._freed_pages, []
         return out
+
+    # -- durability ------------------------------------------------------
+    @staticmethod
+    def _manager(directory) -> CheckpointManager:
+        return (directory if isinstance(directory, CheckpointManager)
+                else CheckpointManager(os.fspath(directory)))
+
+    def checkpoint(self, directory: Union[str, os.PathLike,
+                                          CheckpointManager],
+                   step: Optional[int] = None) -> int:
+        """Durably checkpoint the whole engine: the ``PagedKV`` tensors
+        (pages, free bitmap, page tables, the full ``MVState`` with retire
+        ring and announce board) plus the host-side GC state (stats, fork
+        DAG, pending freed-page handles).  Returns the manifest step
+        (default: the store clock).  Success arms the sole-survivor rule:
+        ``ckpt_max`` advances to the store clock."""
+        mgr = self._manager(directory)
+        ts = int(self.st.mv.now)
+        step = ts if step is None else int(step)
+        extra = {
+            "stats": dataclasses.asdict(self.stats),
+            "dag": self.dag.as_dict(),
+            "freed_pages_pending": [int(p) for p in self._freed_pages],
+            "ckpt_max": ts,
+        }
+        mgr.save(step, self.st, extra=extra)
+        self.ckpt_max = ts
+        return step
+
+    def restore(self, directory: Union[str, os.PathLike, CheckpointManager],
+                step: Optional[int] = None) -> int:
+        """Inverse of :meth:`checkpoint` (``step=None``: the latest): every
+        tensor onto the engine's device, and the stats, DAG, pending frees
+        and ``ckpt_max`` from the manifest, so reclamation resumes where
+        the saved engine left off.  Returns the step restored."""
+        mgr = self._manager(directory)
+        if step is None:
+            step = mgr.latest_step()
+            if step is None:
+                raise FileNotFoundError(
+                    f"no checkpoint manifest under {mgr.dir!r}")
+        self.st, extra = mgr.restore(int(step), like=self.st,
+                                     device=self.device)
+        self.stats = ReclaimStats(**extra.get("stats", {}))
+        self.dag = ForkDAG.from_dict(extra.get("dag", {}))
+        self._freed_pages = [int(p) for p in
+                             extra.get("freed_pages_pending", [])]
+        self.ckpt_max = int(extra.get("ckpt_max", -1))
+        return int(step)
 
     # -- snapshot readers ------------------------------------------------
     def pin(self, lane: int) -> int:

@@ -17,7 +17,7 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.convert import to_numpy
 from repro_torch.core.telemetry import GCConfig
 from repro_torch.kernels.compact import ops as compact_ops
-from repro_torch.kernels.compact.ref import compact_ref
+from repro_torch.kernels.compact.ref import compact_ref, needed_ref
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import paged_decode_ref
 from repro_torch.kernels.flash_prefill import ops as flash_ops
@@ -63,6 +63,51 @@ def test_compact_kernel(cuda, R, V, P):
     want = compact_ref(*args)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("P", [1, 16, 1024])
+@pytest.mark.parametrize("V", [1, 8, 16])
+@pytest.mark.parametrize("S", [1, 333, 4097])
+def test_needed_kernel(cuda, S, V, P):
+    """K5 against needed_ref at ragged S: EMPTY entries, TS_MAX padding,
+    duplicate announcements."""
+    rng = np.random.default_rng(S * V + P)
+    ts, succ, _ = slabs(rng, S, V)
+    ann = np.where(rng.random(P) < 0.3, TS_MAX, rng.integers(0, 70, P))
+    ann[: P // 3] = ann[P - 1]
+    ann = np.sort(ann).astype(np.int32)
+    args = [torch.from_numpy(x).to(cuda) for x in (ts, succ, ann)]
+    args.append(torch.tensor(40, dtype=torch.int32, device=cuda))
+    before = compact_ops.needed.launches
+    got = compact_ops.needed(*args)
+    assert compact_ops.needed.launches == before + 1
+    assert got.dtype == torch.bool and got.shape == (S, V)
+    assert torch.equal(got, needed_ref(*args))
+
+
+def test_needed_kernel_on_an_empty_slab(cuda):
+    ts = torch.full((300, 8), EMPTY, dtype=torch.int32, device=cuda)
+    succ = torch.full((300, 8), TS_MAX, dtype=torch.int32, device=cuda)
+    ann = torch.tensor([3, 9, TS_MAX], dtype=torch.int32, device=cuda)
+    got = compact_ops.needed(ts, succ, ann, 5)
+    assert not bool(got.any())
+    assert torch.equal(got, needed_ref(ts, succ, ann, 5))
+
+
+def test_board_above_the_shared_memory_copy_raises(cuda):
+    """kMaxAnn (csrc/compact.cu) is 12288 announcements: K1 and K5 refuse
+    a larger board instead of launching."""
+    ts = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    ann = torch.full((12 * 1024 + 1,), TS_MAX, dtype=torch.int32,
+                     device=cuda)
+    now = torch.tensor(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="mvgc_needed"):
+        compact_ops.needed(ts, ts, ann, now)
+    with pytest.raises(RuntimeError, match="mvgc_compact"):
+        compact_ops.compact(ts, ts, ts, torch.ones(4, dtype=torch.bool,
+                                                   device=cuda), ann, now)
+    assert torch.equal(compact_ops.needed(ts, ts, ann[:12 * 1024], now),
+                       needed_ref(ts, ts, ann[:12 * 1024], now))
 
 
 @pytest.mark.parametrize("S,V,B,M", [(3, 1, 1, 1), (40, 8, 77, 33),
@@ -189,6 +234,48 @@ def test_engine_on_the_card_matches_the_cpu(cuda, policy):
     for a, b in zip(leaves(to_numpy(g.st)), leaves(to_numpy(c.st)),
                     strict=True):
         np.testing.assert_array_equal(a, b)
+
+
+def test_bf16_engine_checkpoint_restores_bit_equal(cuda, tmp_path):
+    """A bf16 PagedKVEngine on the card, with forks and pressure, saved and
+    restored into a fresh engine on the card (and one on the CPU): every
+    leaf bit-equal, the host-side state equal, and the same next steps."""
+    def engine(device):
+        return PagedKVEngine(6, 24, 4, 4, 2, 8,
+                             gc=GCConfig(policy="slrt", versions_per_slot=4,
+                                         reader_lanes=2),
+                             dtype=torch.bfloat16, device=device)
+
+    eng = engine(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ids = torch.arange(6, dtype=torch.int32, device=cuda)
+    one = torch.ones(1, dtype=torch.bool, device=cuda)
+    for step in range(30):
+        kv = torch.randn((6, 2, 8), generator=gen, device=cuda,
+                         dtype=torch.bfloat16)
+        eng.step(ids, kv, kv, (ids < 2) | (ids == step % 6))
+        if step % 7 == 3:
+            eng.fork(ids[:1], ids[2 + step % 4:3 + step % 4], one)
+    eng.pin(1)
+    assert eng.forks > 0 and eng.pages_reclaimed > 0
+    eng.checkpoint(str(tmp_path))
+    fresh, host = engine(cuda), engine("cpu")
+    fresh.restore(str(tmp_path))
+    host.restore(str(tmp_path))
+    for e in (fresh, host):
+        for a, b in zip(leaves(eng.st), leaves(e.st), strict=True):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+        assert (e.stats, e.dag, e._freed_pages, e.ckpt_max) == \
+            (eng.stats, eng.dag, eng._freed_pages, eng.ckpt_max)
+    for _ in range(5):
+        kv = torch.randn((6, 2, 8), generator=gen, device=cuda,
+                         dtype=torch.bfloat16)
+        ones = torch.ones(6, dtype=torch.bool, device=cuda)
+        assert torch.equal(eng.step(ids, kv, kv, ones),
+                           fresh.step(ids, kv, kv, ones))
+        assert eng.freed_pages() == fresh.freed_pages()
+    for a, b in zip(leaves(eng.st), leaves(fresh.st), strict=True):
+        assert torch.equal(a, b)
 
 
 # K6 against its plain version within DECODE_TOL: both compute in float32

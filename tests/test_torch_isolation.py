@@ -51,6 +51,7 @@ def test_package_imports_without_jax():
         "import repro_torch.kernels.decode_attention.ops\n"
         "import repro_torch.kernels.flash_prefill.ops\n"
         "import repro_torch.launch.serve, repro_torch.configs\n"
+        "import repro_torch.ckpt.manager, repro_torch.serve.forking\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")

@@ -224,6 +224,48 @@ def test_compact_plain_version_matches_jax(seed):
     assert t_cops.compact.launches == 0     # CPU tensors never launch
 
 
+NEEDED_BOARDS = {
+    # name: (S, V, P) and how the board is drawn
+    "padded": (13, 6, 5),        # idle lanes as TS_MAX padding
+    "duplicates": (17, 4, 8),    # several lanes pinning one timestamp
+    "single_lane": (9, 3, 1),    # P = 1
+    "all_idle": (8, 5, 4),       # every lane TS_MAX
+    "all_empty": (6, 4, 3),      # no version written at all
+}
+
+
+@pytest.mark.parametrize("board", sorted(NEEDED_BOARDS))
+@pytest.mark.parametrize("seed", SEEDS)
+def test_needed_plain_version_matches_pallas(board, seed):
+    """K5's CPU dispatch (``needed_ref``) against the Pallas kernel in
+    interpret mode and the JAX ``needed_ref``, on slabs with EMPTY
+    entries and sorted boards."""
+    rng = np.random.default_rng(seed)
+    S, V, P = NEEDED_BOARDS[board]
+    ts, succ, _ = rand_slab(rng, S, V)
+    ann = rand_ann(rng, P)
+    if board == "duplicates":
+        ann[: P // 2] = ann[P - 1] if ann[P - 1] != EMPTY else 7
+    if board == "all_idle":
+        ann[:] = EMPTY
+    if board == "all_empty":
+        ts[:], succ[:] = EMPTY, TS_MAX
+    ann = np.sort(np.where(ann == EMPTY, TS_MAX, ann)).astype(np.int32)
+    now = 30
+    args_j = (J(ts), J(succ), J(ann), jnp.int32(now))
+    args_t = (T(ts), T(succ), T(ann), torch.tensor(now, dtype=torch.int32))
+    pallas = j_ck.needed_pallas(*args_j, block_s=4,
+                                interpret=True).astype(bool)
+    got = t_cops.needed(*args_t)
+    assert got.dtype == torch.bool and got.shape == (S, V)
+    same(pallas, got)
+    same(j_cref.needed_ref(*args_j), got)
+    same(j_needed.needed_intervals(*args_j), got)
+    if board == "all_empty":
+        assert not bool(got.any())
+    assert t_cops.needed.launches == 0      # CPU tensors never launch
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_search_plain_versions_match_jax(seed):
     rng = np.random.default_rng(seed)
