@@ -11,9 +11,14 @@ Phases, each printing one JSON line:
    decode, flash prefill) against its plain PyTorch version on the card at
    the serving phases' shapes, timed per call (device time from the
    profiler's kernel records, and CUDA events around the call; medians of
-   25), beside its bound; flash prefill also at a gemma2-2b shape and in
-   float32; needed (K5, which no serving path calls) at compact's shape
-   and at ``benchmarks/kernel_bench.py``'s two largest compact shapes;
+   25), beside its bound; paged decode also at 16 sequences of 4096
+   tokens (the split KV filling the card); flash prefill also at a
+   gemma2-2b shape and in float32 (its CUDA-core route; bf16 takes the
+   wgmma+TMA kernel); the redesigned rows carry their route, their share
+   of the bound and their time before the redesign as an earlier run
+   recorded it (ms_before_recorded, not measured here); needed (K5, which no
+   serving path calls) at compact's shape and at
+   ``benchmarks/kernel_bench.py``'s two largest compact shapes;
 4. storm  — the ``benchmarks/serve_bench.py`` storm trace for ebr, steam,
    dlrt and slrt; its counters must equal the committed BENCH_serve.json;
 5. serve  — PagedKVEngine (policy slrt) at the KV geometry of one
@@ -45,7 +50,9 @@ Phases, each printing one JSON line:
    checkpoint of the whole engine restored into a fresh one, bit-equal,
    that then decodes on identically; the launch counts are zeroed just
    before this phase and read just after;
-9. the kernel table as one JSON line;
+9. the kernel table as one JSON line, each kernel with the wrapper route
+   the main path ran (kernel_route) and only numbers measured in this run
+   (bound_ms computed from its inputs);
 10. the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits nonzero; nothing is caught.  Without CUDA, or
@@ -186,6 +193,11 @@ KERNELS = {
     "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                       "src/repro/kernels/flash_prefill/kernel.py:125"),
 }
+# device ms of K4 and K6 before their redesign, recorded in earlier runs
+# (PERF.md section 6, "NVIDIA H100 80GB HBM3, 700.00 W"), not measured
+# here; phase 3's rows carry them as ms_before_recorded
+MS_BEFORE_RECORDED = {"paged_decode": 4.358086, "flash_prefill": 19.320105,
+             "flash_prefill_gemma2_local": 5.816902}
 WRAPPERS = {"compact": compact_ops.compact,
             "needed": compact_ops.needed,
             "search_gather": search_ops.search_gather,
@@ -391,13 +403,25 @@ def phase_kernels(dev) -> dict:
         **timed(lambda: search_ops.search(ts, pay, ids, t),
                 lambda: search_ref(ts, pay, ids, t)))
 
-    # K4 paged decode over a snapshot-view-shaped table: -1 padding past
-    # each length, length-0 rows, distinct pages per sequence
-    B, MP, PS = S, p["max_pages_per_seq"], p["page_size"]
-    N, Hkv, D, Hq = p["num_pages"], p["kv_heads"], p["head_dim"], p["q_heads"]
-    lengths = torch.randint(0, MP * PS + 1, (B,), generator=g,
-                            dtype=torch.int32)
-    lengths[:8] = 0
+    out.update(decode_cases(dev, g, gd))
+    out.update(flash_cases(dev))
+    for name, row in out.items():
+        emit({"phase": "kernels", "kernel": name, **row})
+    return out
+
+
+def decode_table(g, B: int, full: bool):
+    """A snapshot-view-shaped table at phase 5's geometry: -1 past each
+    length, distinct pages; lengths uniform in [0, MP * PS] with 8 rows of
+    length 0, or every length MP * PS (``full``)."""
+    MP, PS, N = (SERVE["max_pages_per_seq"], SERVE["page_size"],
+                 SERVE["num_pages"])
+    if full:
+        lengths = torch.full((B,), MP * PS, dtype=torch.int32)
+    else:
+        lengths = torch.randint(0, MP * PS + 1, (B,), generator=g,
+                                dtype=torch.int32)
+        lengths[:8] = 0
     perm = torch.randperm(N, generator=g).to(torch.int32)
     table = torch.full((B, MP), -1, dtype=torch.int32)
     cursor = 0
@@ -407,57 +431,79 @@ def phase_kernels(dev) -> dict:
             lengths[b], n = 0, 0
         table[b, :n] = perm[cursor:cursor + n]
         cursor += n
-    table, lengths = table.to(dev), lengths.to(dev)
-    visible = int(lengths.sum())
-    for dtype, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        tol = DECODE_TOL[kind]
-        kp = torch.randn((N, PS, Hkv, D), generator=gd, device=dev,
-                         dtype=dtype)
-        vp = torch.randn((N, PS, Hkv, D), generator=gd, device=dev,
-                         dtype=dtype)
-        q = torch.randn((B, Hq, D), generator=gd, device=dev, dtype=dtype)
-        got = decode_ops.paged_decode(q, kp, vp, table, lengths)
-        want = paged_decode_ref(q, kp, vp, table, lengths)
-        torch.cuda.synchronize()
-        err = max_err([got], [want])
-        check(bool(torch.isfinite(got.float()).all()), "decode not finite")
-        check(torch.allclose(got.float(), want.float(), **tol),
-              f"paged_decode {kind} differs from plain version (max {err})")
-        check(bool((got[lengths == 0] == 0).all()), "length-0 rows not 0")
-        again = decode_ops.paged_decode(q, kp, vp, table, lengths)
-        check(torch.equal(got, again), "paged_decode not deterministic")
-        if kind != "bf16":
-            emit({"phase": "kernels", "check": "paged_decode_f32",
-                  "max_abs_err": err, **tol})
-            del kp, vp
+    return table, lengths
+
+
+def decode_cases(dev, g, gd) -> dict:
+    """K4 against its plain version at phase 5's geometry: 256 sequences of
+    random length (float32, and bf16: the kernel table's row), and 16
+    sequences of 4096 tokens in bf16, where the split KV fills the card.
+    Checks: DECODE_TOL, length-0 rows 0, finite, same bits twice."""
+    p = SERVE
+    MP, PS, N = p["max_pages_per_seq"], p["page_size"], p["num_pages"]
+    Hkv, D, Hq = p["kv_heads"], p["head_dim"], p["q_heads"]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for name, B, full, kinds in (("paged_decode", p["num_seqs"], False,
+                                  ("f32", "bf16")),
+                                 ("paged_decode_b16_full", 16, True,
+                                  ("bf16",))):
+        table, lengths = decode_table(g, B, full)
+        table, lengths = table.to(dev), lengths.to(dev)
+        visible = int(lengths.sum())
+        for kind in kinds:
+            dtype, tol = DTYPES[kind], DECODE_TOL[kind]
+            kp = torch.randn((N, PS, Hkv, D), generator=gd, device=dev,
+                             dtype=dtype)
+            vp = torch.randn((N, PS, Hkv, D), generator=gd, device=dev,
+                             dtype=dtype)
+            q = torch.randn((B, Hq, D), generator=gd, device=dev,
+                            dtype=dtype)
+            got = decode_ops.paged_decode(q, kp, vp, table, lengths)
+            want = paged_decode_ref(q, kp, vp, table, lengths)
+            torch.cuda.synchronize()
+            err = max_err([got], [want])
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"{name} {kind} not finite")
+            check(torch.allclose(got.float(), want.float(), **tol),
+                  f"{name} {kind} differs from plain version (max {err})")
+            check(bool((got[lengths == 0] == 0).all()),
+                  "length-0 rows not 0")
+            again = decode_ops.paged_decode(q, kp, vp, table, lengths)
+            check(torch.equal(got, again), f"{name} not deterministic")
+            if kind != "bf16":
+                emit({"phase": "kernels", "check": f"{name}_f32",
+                      "max_abs_err": err, **tol})
+                del kp, vp
+                torch.cuda.empty_cache()
+                continue
+            elt = 2
+            nbytes = (2 * B * Hq * D * elt + B * 4
+                      + int((table >= 0).sum()) * 4
+                      + visible * Hkv * D * elt * 2)
+            b_ms, b_by = bound(nbytes, 4.0 * visible * Hq * D, "bf16")
+            # yardstick: SDPA over K/V gathered densely beforehand (the
+            # gather is not timed), one query token, GQA, length mask
+            kd = kp[table.long()].reshape(B, MP * PS, Hkv, D).transpose(1, 2)
+            vd = vp[table.long()].reshape(B, MP * PS, Hkv, D).transpose(1, 2)
+            amask = (torch.arange(MP * PS, device=dev)[None, :]
+                     < lengths[:, None])[:, None, None, :]
+            qd = q[:, :, None, :]
+            row = dict(
+                shape=f"B={B} Hq={Hq} Hkv={Hkv} D={D} PS={PS} MP={MP} bf16"
+                      + (" all lengths MP*PS" if full else ""),
+                route="cuda-core split-KV", max_abs_err=err, **tol,
+                bound_ms=b_ms, bound_by=b_by,
+                **timed(lambda: decode_ops.paged_decode(q, kp, vp, table,
+                                                        lengths),
+                        lambda: paged_decode_ref(q, kp, vp, table, lengths),
+                        lambda: sdpa(qd, kd, vd, attn_mask=amask,
+                                     enable_gqa=True)))
+            rows[name] = dict(row, share_of_bound=b_ms / row["ms"],
+                              ms_before_recorded=MS_BEFORE_RECORDED.get(name))
+            del kp, vp, kd, vd
             torch.cuda.empty_cache()
-            continue
-        elt = 2
-        nbytes = (2 * B * Hq * D * elt + B * 4 + int((table >= 0).sum()) * 4
-                  + visible * Hkv * D * elt * 2)
-        b_ms, b_by = bound(nbytes, 4.0 * visible * Hq * D, "bf16")
-        # yardstick: SDPA over K/V gathered densely beforehand (the gather
-        # is not timed), one query token, GQA, length mask
-        kd = kp[table.long()].reshape(B, MP * PS, Hkv, D).transpose(1, 2)
-        vd = vp[table.long()].reshape(B, MP * PS, Hkv, D).transpose(1, 2)
-        amask = (torch.arange(MP * PS, device=dev)[None, :]
-                 < lengths[:, None])[:, None, None, :]
-        qd = q[:, :, None, :]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        out["paged_decode"] = dict(
-            shape=f"B={B} Hq={Hq} Hkv={Hkv} D={D} PS={PS} MP={MP} bf16",
-            max_abs_err=err, **tol, bound_ms=b_ms, bound_by=b_by,
-            **timed(lambda: decode_ops.paged_decode(q, kp, vp, table,
-                                                    lengths),
-                    lambda: paged_decode_ref(q, kp, vp, table, lengths),
-                    lambda: sdpa(qd, kd, vd, attn_mask=amask,
-                                 enable_gqa=True)))
-        del kp, vp, kd, vd
-        torch.cuda.empty_cache()
-    out.update(flash_cases(dev))
-    for name, row in out.items():
-        emit({"phase": "kernels", "kernel": name, **row})
-    return out
+    return rows
 
 
 def needed_cases(dev) -> dict:
@@ -532,11 +578,13 @@ def flash_cases(dev) -> dict:
         check(bool(torch.isfinite(got.float()).all()), f"flash {case} not "
               "finite")
         # DECODE_TOL's limits: both versions sum in float32 in another
-        # order.  K6's own largest differences on an H100 were 3.9e-3
-        # ("serve") and 7.8e-3 ("gemma2_local"), above the bf16 atol: each
-        # is one bf16 rounding step of its output, which rtol = 2**-7
-        # allows.  The float32 case, held to 1e-5, is the check that
-        # catches a masking or indexing error.
+        # order, and the bf16 route rounds P to bf16 for the tensor cores.
+        # Its largest differences on an H100 were 0.015625 at both bf16
+        # shapes, above the bf16 atol: one bf16 rounding step of an output
+        # in [2, 4), which rtol = 2**-7 allows.  The float32 case runs the
+        # other kernel (the CUDA-core route), so the wgmma kernel is held
+        # here only at the bf16 limits; tests/test_torch_gpu.py's marker
+        # tests pin its causal, window and S masks exactly.
         check(torch.allclose(got.float(), want.float(), **DECODE_TOL[kind]),
               f"flash_prefill {case} differs from plain version (max {err})")
         check(torch.equal(got, flash_ops.flash_attention(q, k, v, **kw)),
@@ -552,13 +600,15 @@ def flash_cases(dev) -> dict:
         if c["window"] == 0 and c["softcap"] == 0:
             def library():
                 return sdpa(q, k, v, is_causal=True, enable_gqa=True)
-        rows["flash_prefill" if case == "serve" else f"flash_prefill_{case}"] \
-            = dict(shape=f"B={B} Hq={Hq} Hkv={Hkv} T={T} D={D} "
+        name = "flash_prefill" if case == "serve" else f"flash_prefill_{case}"
+        row = dict(shape=f"B={B} Hq={Hq} Hkv={Hkv} T={T} D={D} "
                          f"window={c['window']} softcap={c['softcap']} {kind}",
-                   max_abs_err=err, **DECODE_TOL[kind], bound_ms=b_ms,
-                   bound_by=b_by,
+                   route=flash_ops.ROUTES[dtype], max_abs_err=err,
+                   **DECODE_TOL[kind], bound_ms=b_ms, bound_by=b_by,
                    **timed(lambda: flash_ops.flash_attention(q, k, v, **kw),
                            lambda: attention_ref(q, k, v, **kw), library))
+        rows[name] = dict(row, share_of_bound=b_ms / row["ms"],
+                          ms_before_recorded=MS_BEFORE_RECORDED.get(name))
         del q, k, v, got
         torch.cuda.empty_cache()
     return rows
@@ -1177,7 +1227,7 @@ def profile_window(decode_step, steps: int = 16, name: str = "serve") -> dict:
 # ---------------------------------------------------------------------------
 # phase 6: minitron-4b served at full width through the port's launcher
 # ---------------------------------------------------------------------------
-def phase_model(dev) -> dict:
+def phase_model(dev) -> tuple[dict, dict]:
     args = launcher.parse_args(MODEL_ARGS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1203,10 +1253,14 @@ def phase_model(dev) -> dict:
 
     for w in WRAPPERS.values():
         w.launches = 0
+    routes = flash_ops.flash_attention.route_launches
+    for r in routes:
+        routes[r] = 0
     rep = launcher.serve(engine, prompt, steps=args.steps,
                          pin_every=args.pin_every, log=lambda line: None)
     torch.cuda.synchronize()
     launches = {name: w.launches for name, w in WRAPPERS.items()}
+    flash_routes = dict(routes)
     prof = profile_window(engine.step, steps=8, name="model")
     toks = rep["tokens"]
     res = dict(
@@ -1223,7 +1277,8 @@ def phase_model(dev) -> dict:
         profile_device_busy_ms_per_step=prof["device_busy_ms"] / prof["steps"],
         profile_host_syncs_per_step=prof["host_syncs"] / prof["steps"],
         launches=launches, flash_launches_per_prefill=launches[
-            "flash_prefill"], readers=rep["readers"],
+            "flash_prefill"], flash_route_launches=flash_routes,
+        readers=rep["readers"],
         score_mismatches=rep["score_mismatches"],
         prefill_bits_equal=same, stats_sum=rep["stats_sum"],
         space=rep["space"], tokens_head=toks[:2, :8].tolist())
@@ -1234,6 +1289,8 @@ def phase_model(dev) -> dict:
     check(launches["flash_prefill"] == cfg.num_layers,
           f"flash prefill launched {launches['flash_prefill']} times in one "
           f"prefill of {cfg.num_layers} layers")
+    check(flash_routes[flash_ops.ROUTES[torch.bfloat16]] == cfg.num_layers,
+          f"the bf16 prefill did not run the wgmma kernel: {flash_routes}")
     for name in ("compact", "search"):
         check(launches[name] > 0, f"{name} kernel never launched in model")
     check(rep["readers"] == min(-(-args.steps // args.pin_every),
@@ -1241,7 +1298,7 @@ def phase_model(dev) -> dict:
           "fewer readers than pinned")
     check(rep["score_mismatches"] == 0,
           f"{rep['score_mismatches']} pinned scores changed under decode")
-    return launches
+    return launches, flash_routes
 
 
 def main() -> int:
@@ -1252,7 +1309,7 @@ def main() -> int:
     phase_storm(dev)
     launches = phase_serve(dev)
     torch.cuda.empty_cache()
-    model_launches = phase_model(dev)
+    model_launches, flash_routes = phase_model(dev)
     torch.cuda.empty_cache()
     phase_fork_tiers(dev)
     durable_launches = phase_durability(dev)
@@ -1268,14 +1325,20 @@ def main() -> int:
             "needed": ("kernels (phase 3): no serving path calls needed",
                        row.get("launches_phase3", 0)),
         }.get(name, ("serve", launches[name]))
+        # kernel_route: which of the wrapper's routes the main path ran
+        # (flash prefill counts each route's launches; the rest have one)
+        kernel_route = (", ".join(r for r, n in flash_routes.items() if n)
+                        if name == "flash_prefill" else "cuda-core")
         table.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
+            name=name, route="cuda", kernel_route=kernel_route, source=source,
+            replaces=replaces,
             launches=count, launches_from=launches_from,
             launches_model=model_launches[name],
             launches_durability=durable_launches[name],
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=row["library_ms"]))
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            share_of_bound=row["bound_ms"] / row["ms"]))
     print(smi, flush=True)
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -41,12 +41,13 @@ SIGNATURES = {
     # ts, payload, values, slot_ids, t, out_rows, out_pay, out_found,
     # S, V, T, M, B, stream
     "mvgc_search_gather": [_P] * 8 + [_I] * 5 + [_P],
-    # q, k_pages, v_pages, page_table, lengths, out, B, N, Hq, Hkv, D, PS,
-    # MP, is_bf16, stream
-    "mvgc_paged_decode": [_P] * 6 + [_I] * 8 + [_P],
-    # q, k, v, out, B, Hq, Hkv, T, S, D, causal, window, softcap, is_bf16,
-    # stream
-    "mvgc_flash_prefill": [_P] * 4 + [_I] * 8 + [ctypes.c_float, _I, _P],
+    # q, k_pages, v_pages, page_table, lengths, out, part_o, part_ml, B, N,
+    # Hq, Hkv, D, PS, MP, n_split, is_bf16, stream
+    "mvgc_paged_decode": [_P] * 8 + [_I] * 9 + [_P],
+    # q, k, v, out, B, Hq, Hkv, T, S, D, causal, window, softcap, scale,
+    # is_bf16, stream
+    "mvgc_flash_prefill": [_P] * 4 + [_I] * 8 + [ctypes.c_float] * 2
+    + [_I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -8,6 +8,8 @@ need a GPU and ``nvcc``; without a card they skip.  Run them on the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -139,12 +141,15 @@ DECODE_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
               torch.bfloat16: dict(atol=4e-3, rtol=2**-7)}
 
 
-def decode_inputs(cuda, dtype, Hq, Hkv, D, PS, MP, B=7, N=64):
+def decode_inputs(cuda, dtype, Hq, Hkv, D, PS, MP, B=7, N=64, lengths=None):
     """A snapshot-view-shaped table: distinct pages, -1 past each length,
-    row 0 of length 0."""
+    row 0 of length 0 (random lengths unless ``lengths`` is given)."""
     rng = np.random.default_rng(Hq + D + PS)
-    lengths = rng.integers(0, MP * PS + 1, B).astype(np.int32)
-    lengths[0] = 0
+    if lengths is None:
+        lengths = rng.integers(0, MP * PS + 1, B).astype(np.int32)
+        lengths[0] = 0
+    lengths = np.asarray(lengths, np.int32)
+    B = len(lengths)
     table = np.full((B, MP), -1, np.int32)
     pages = rng.permutation(N)
     cursor = 0
@@ -190,6 +195,74 @@ def test_paged_decode_marks_a_corrupt_view_nan(cuda, dtype):
     keep = torch.ones(len(lengths), dtype=torch.bool, device=cuda)
     keep[rows] = False
     assert torch.equal(got[keep], good[keep])
+
+
+def split_edges(cuda, B, Hq, Hkv, PS, MP):
+    """K4's split of a page table of MP pages for a batch of B, and the
+    lengths at its edges: 0, 1, PS - 1, exactly one chunk, one past it,
+    the start of the last split and the full MP * PS."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n_split = decode_ops.split_plan(B, Hq, Hkv, PS, MP, sms)
+    chunk = -(-MP // n_split)
+    edges = [0, 1, PS - 1, chunk * PS, chunk * PS + 1,
+             (n_split - 1) * chunk * PS + 1, MP * PS]
+    return n_split, chunk, edges
+
+
+def check_decode(q, kp, vp, table, lengths, dtype):
+    got = decode_ops.paged_decode(q, kp, vp, table, lengths)
+    want = paged_decode_ref(q, kp, vp, table, lengths)
+    assert torch.allclose(got.float(), want.float(), **DECODE_TOL[dtype])
+    assert bool((got[lengths == 0] == 0).all())
+    assert torch.equal(got, decode_ops.paged_decode(q, kp, vp, table,
+                                                    lengths)), \
+        "two calls gave different bits"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("MP", [16, 64])
+def test_paged_decode_split_edges_batch_of_one(cuda, dtype, MP):
+    """A batch of one sequence takes many splits: of one page each at
+    MP = 16, of several at MP = 64 (two on a 132-SM H100); each length at
+    a split edge, one call at a time."""
+    Hq, Hkv, D, PS = 24, 8, 128, 16
+    n_split, chunk, edges = split_edges(cuda, 1, Hq, Hkv, PS, MP)
+    assert n_split > 8
+    assert (chunk == 1) == (MP == 16)
+    for n in edges:
+        check_decode(*decode_inputs(cuda, dtype, Hq, Hkv, D, PS, MP, N=80,
+                                    lengths=[n]), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D,PS", [(24, 8, 128, 16), (6, 2, 64, 8),
+                                         (4, 4, 20, 4)])
+def test_paged_decode_split_edges_in_one_batch(cuda, dtype, Hq, Hkv, D, PS):
+    MP = 64
+    n_split, chunk, edges = split_edges(cuda, 7, Hq, Hkv, PS, MP)
+    assert n_split > 1 and chunk > 1
+    check_decode(*decode_inputs(cuda, dtype, Hq, Hkv, D, PS, MP, N=512,
+                                lengths=edges), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bad_page", [-1, 512])
+def test_paged_decode_corrupt_entry_in_the_last_split(cuda, dtype, bad_page):
+    """A corrupt entry that only the last split reads still turns all
+    heads of its sequence to NaN, and leaves the other rows as they were."""
+    Hq, Hkv, D, PS, MP = 6, 2, 64, 8, 64
+    n_split, chunk, _ = split_edges(cuda, 3, Hq, Hkv, PS, MP)
+    assert n_split > 1
+    q, kp, vp, table, lengths = decode_inputs(
+        cuda, dtype, Hq, Hkv, D, PS, MP, N=512, lengths=[MP * PS, 100, 0])
+    good = decode_ops.paged_decode(q, kp, vp, table, lengths)
+    bad = table.clone()
+    bad[0, MP - 1] = bad_page
+    got = decode_ops.paged_decode(q, kp, vp, bad, lengths)
+    assert bool(got[0].isnan().all())
+    assert torch.equal(got[1:], good[1:])
+    assert torch.equal(got.isnan(), decode_ops.paged_decode(
+        q, kp, vp, bad, lengths).isnan())
 
 
 def storm(device, policy):
@@ -281,8 +354,9 @@ def test_bf16_engine_checkpoint_restores_bit_equal(cuda, tmp_path):
 # K6 against its plain version within DECODE_TOL: both compute in float32
 # and sum in other orders.  A bf16 output may round to the neighbouring
 # bf16 value, which rtol = 2**-7 allows (K6's largest bf16 differences on
-# an H100 are one such step, above the atol); the float32 cases, at 1e-5,
-# are the ones that catch a masking or indexing error
+# an H100 are one such step, above the atol).  The float32 cases, at 1e-5,
+# run the CUDA-core route; the bf16 (wgmma) route's masks are pinned
+# exactly by the marker tests below them
 FLASH_CASES = [
     # B, Hq, Hkv, T, S, D, causal, window, softcap
     (2, 24, 8, 256, 256, 128, True, 0, 0.0),     # minitron-4b heads
@@ -293,6 +367,15 @@ FLASH_CASES = [
     (1, 2, 1, 100, 70, 32, True, 0, 0.0),        # S < T
     (1, 2, 1, 90, 40, 32, True, 8, 0.0),         # rows that see nothing
     (1, 2, 2, 1, 1, 8, True, 0, 0.0),
+    # edges of the bf16 kernel's 128-row query and 128/64-column KV tiles
+    (1, 2, 1, 129, 129, 128, True, 0, 0.0),
+    (1, 2, 1, 255, 255, 128, True, 0, 0.0),
+    (1, 2, 1, 1000, 1000, 128, True, 0, 0.0),
+    (1, 4, 2, 300, 300, 256, True, 200, 50.0),   # window across 64 columns
+    (1, 2, 1, 100, 300, 64, False, 0, 0.0),      # S > T, every column
+    (1, 2, 1, 100, 300, 64, True, 0, 0.0),       # S > T, causal
+    (1, 4, 2, 150, 150, 20, True, 0, 0.0),       # bf16 D padded to 24
+    (4, 8, 2, 640, 640, 128, True, 0, 0.0),      # 160 blocks > 132 SMs
 ]
 
 
@@ -316,6 +399,108 @@ def test_flash_prefill_kernel(cuda, dtype, B, Hq, Hkv, T, S, D, causal,
     assert torch.allclose(got.float(), want.float(), **DECODE_TOL[dtype])
     assert torch.equal(got, flash_ops.flash_attention(q, k, v, **kw)), \
         "two calls gave different bits"
+
+
+def masked_attention(q, k, v, mask, softcap=0.0):
+    """Attention in float32 under an explicit [T, S] mask (True: seen)."""
+    G = q.shape[1] // k.shape[1]
+    logits = torch.einsum("bhtd,bhsd->bhts", q.float(),
+                          k.float().repeat_interleave(G, 1)) \
+        / math.sqrt(q.shape[-1])
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    p = torch.softmax(logits.masked_fill(~mask, -math.inf), -1)
+    return torch.einsum("bhts,bhsd->bhtd", p.nan_to_num(nan=0.0),
+                        v.float().repeat_interleave(G, 1))
+
+
+def marked_values(cuda, Hkv, S, D):
+    """V with one marker per key: 64 at dim ``j % D`` of key ``j``, else 0,
+    so each seen key carries its weight into a dim of its own."""
+    v = torch.zeros((1, Hkv, S, D), device=cuda)
+    j = torch.arange(S, device=cuda)
+    v[:, :, j, j % D] = 64.0
+    return v.bfloat16()
+
+
+def wgmma_call(q, k, v, **kw):
+    before = flash_ops.flash_attention.route_launches["wgmma+tma"]
+    got = flash_ops.flash_attention(q, k, v, **kw)
+    assert flash_ops.flash_attention.route_launches["wgmma+tma"] == before + 1
+    return got.float()
+
+
+@pytest.mark.parametrize("Hq,Hkv,T,D,window,cap", [
+    (4, 2, 300, 128, 0, 0.0),      # causal edge across 96-column tiles
+    (4, 2, 300, 64, 100, 0.0),     # window edge across 128-column tiles
+    (4, 2, 300, 256, 70, 50.0),    # window edge across 32-column tiles
+])
+def test_flash_prefill_wgmma_mask_edges_exactly(cuda, Hq, Hkv, T, D, window,
+                                                cap):
+    """The bf16 (wgmma) route's causal and window edges, column for column.
+    The logits are small (|q| = 0.25), so each seen key carries about 1/n
+    of its marker: a column too many or too few at an edge moves its dim by
+    about 30/n, far past the bf16 tolerance.  Each mask moved by one column
+    must be rejected, which shows the check has that power."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = (0.25 * torch.randn((1, Hq, T, D), generator=gen,
+                            device=cuda)).bfloat16()
+    k = torch.randn((1, Hkv, T, D), generator=gen, device=cuda).bfloat16()
+    v = marked_values(cuda, Hkv, T, D)
+    got = wgmma_call(q, k, v, causal=True, window=window, softcap=cap)
+    i = torch.arange(T, device=cuda)[:, None]
+    j = torch.arange(T, device=cuda)[None, :]
+
+    def mask(hi, w):
+        return (j <= i + hi) & ((j > i - w) if w > 0 else True)
+
+    tol = DECODE_TOL[torch.bfloat16]
+    want = masked_attention(q, k, v, mask(0, window), cap)
+    assert torch.allclose(want, attention_ref(
+        q, k, v, causal=True, window=window, softcap=cap).float(), **tol)
+    assert torch.allclose(got, want, **tol)
+    moved = [mask(1, window), mask(-1, window)]
+    if window:
+        moved += [mask(0, window + 1), mask(0, window - 1)]
+    for m in moved:
+        assert not torch.allclose(got, masked_attention(q, k, v, m, cap),
+                                  **tol)
+
+
+@pytest.mark.parametrize("T,S,D", [(64, 130, 64), (50, 97, 128),
+                                   (40, 33, 256)])
+def test_flash_prefill_wgmma_ignores_columns_past_s(cuda, T, S, D):
+    """S ends one or two columns into the last KV tile (of 128, 96 and 32
+    columns).  Every real logit is about -4 sqrt(D), so a zero-filled
+    column past S, with logit 0, would take nearly all the weight and pull
+    its row towards 0; the reference with one such column must be
+    rejected."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.full((1, 2, T, D), 2.0, device=cuda).bfloat16()
+    k = (-2.0 + 0.25 * torch.randn((1, 1, S, D), generator=gen,
+                                   device=cuda)).bfloat16()
+    v = marked_values(cuda, 1, S, D)
+    got = wgmma_call(q, k, v, causal=False)
+    tol = DECODE_TOL[torch.bfloat16]
+    assert torch.allclose(got, attention_ref(q, k, v, causal=False).float(),
+                          **tol)
+    pad = (0, 0, 0, 1)
+    seen = torch.ones((T, S + 1), dtype=torch.bool, device=cuda)
+    assert not torch.allclose(got, masked_attention(
+        q, torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad),
+        seen), **tol)
+
+
+def test_flash_prefill_routes_by_dtype(cuda):
+    """bf16 launches the wgmma+TMA kernel, float32 the CUDA-core one."""
+    for dtype, route in ((torch.bfloat16, "wgmma+tma"),
+                         (torch.float32, "cuda-core-f32")):
+        q, k, v = flash_inputs(cuda, dtype, 1, 2, 1, 130, 130, 64)
+        before = dict(flash_ops.flash_attention.route_launches)
+        flash_ops.flash_attention(q, k, v)
+        after = flash_ops.flash_attention.route_launches
+        assert {r: after[r] - before[r] for r in after} == \
+            {r: int(r == route) for r in after}
 
 
 def test_flash_prefill_rejects_what_it_cannot_run(cuda):
