@@ -11,7 +11,11 @@ Phases, each printing one JSON line:
    decode, flash prefill) against its plain PyTorch version on the card at
    the serving phases' shapes, timed per call (device time from the
    profiler's kernel records, and CUDA events around the call; medians of
-   25), beside its bound; paged decode also at 16 sequences of 4096
+   25), beside its bound; K1's and K2's main-path ops, the one-launch
+   ``sweep`` (the slrt flush's needed-sweep) and ``view``
+   (``paged.snapshot_view``), also against the chains of ops they replaced
+   (rebuilt here from the code that stays), with the device kernels per
+   call of both; paged decode also at 16 sequences of 4096
    tokens (the split KV filling the card); flash prefill also at a
    gemma2-2b shape and in float32 (its CUDA-core route; bf16 takes the
    wgmma+TMA kernel); the redesigned rows carry their route, their share
@@ -52,7 +56,9 @@ Phases, each printing one JSON line:
    before this phase and read just after;
 9. the kernel table as one JSON line, each kernel with the wrapper route
    the main path ran (kernel_route) and only numbers measured in this run
-   (bound_ms computed from its inputs);
+   (bound_ms computed from its inputs); K1's and K2's rows carry their
+   main-path op (sweep, view) beside the chain it replaced and the parity
+   op (compact, search_gather);
 10. the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits nonzero; nothing is caught.  Without CUDA, or
@@ -77,19 +83,21 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 
+from repro_torch._tensor import drop_set  # noqa: E402
 from repro_torch.ckpt.manager import tree_flatten  # noqa: E402
 from repro_torch.core.mvgc import vstore  # noqa: E402
 from repro_torch.core.telemetry import GCConfig  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.compact import ops as compact_ops  # noqa: E402
-from repro_torch.kernels.compact.ref import compact_ref, needed_ref  # noqa: E402
+from repro_torch.kernels.compact.ref import (  # noqa: E402
+    compact_ref, needed_ref, sweep_ref)
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import paged_decode_ref  # noqa: E402
 from repro_torch.kernels.flash_prefill import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_prefill.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.version_search import ops as search_ops  # noqa: E402
 from repro_torch.kernels.version_search.ref import (  # noqa: E402
-    search_gather_ref, search_ref)
+    search_gather_ref, search_ref, view_ref)
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serve import forking  # noqa: E402
@@ -198,9 +206,16 @@ KERNELS = {
 # here; phase 3's rows carry them as ms_before_recorded
 MS_BEFORE_RECORDED = {"paged_decode": 4.358086, "flash_prefill": 19.320105,
              "flash_prefill_gemma2_local": 5.816902}
+# K1's and K2's main-path ops: the kernel table's rows of K1 and K2 carry
+# these ops' phase-3 numbers; compact and search_gather stay as parity ops
+MAIN_OPS = {"compact": "sweep", "search_gather": "view"}
+# launch counters; compact's counts K1 (sweep + compact), search_gather's
+# K2 (view + search_gather); sweep and view count their own launches too
 WRAPPERS = {"compact": compact_ops.compact,
+            "sweep": compact_ops.sweep,
             "needed": compact_ops.needed,
             "search_gather": search_ops.search_gather,
+            "view": search_ops.view,
             "search": search_ops.search,
             "paged_decode": decode_ops.paged_decode,
             "flash_prefill": flash_ops.flash_attention}
@@ -225,7 +240,8 @@ def time_call(fn, reps: int = 25, warmup: int = 3) -> dict:
     ``call_ms`` between CUDA events around the call (it includes the
     host's time to issue the launches, which dominates a microsecond
     kernel), and ``device_ms``, the summed duration of the kernels the call
-    ran on the card, from the profiler's kernel records."""
+    ran on the card, from the profiler's kernel records; and ``kernels``,
+    the number of those records per call (the most in any call)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -239,15 +255,16 @@ def time_call(fn, reps: int = 25, warmup: int = 3) -> dict:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    per_call = []
+    per_call, kernels = [], 0
     for _ in range(reps):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        per_call.append(sum(e.time_range.elapsed_us() for e in prof.events()
-                            if _is_device(e)) / 1e3)
+        device = [e for e in prof.events() if _is_device(e)]
+        per_call.append(sum(e.time_range.elapsed_us() for e in device) / 1e3)
+        kernels = max(kernels, len(device))
     return {"call_ms": statistics.median(times),
-            "device_ms": statistics.median(per_call)}
+            "device_ms": statistics.median(per_call), "kernels": kernels}
 
 
 def timed(kernel, plain, library=None) -> dict:
@@ -358,6 +375,7 @@ def phase_kernels(dev) -> dict:
                 **timed(lambda: compact_ops.compact(*args),
                         lambda: compact_ref(*args)))
 
+    out["sweep"] = sweep_case(dev)
     out.update(needed_cases(dev))
 
     # K2 / K3: snapshot_view's search+gather over all 256 sequences
@@ -390,6 +408,7 @@ def phase_kernels(dev) -> dict:
         bound_ms=b_ms, bound_by=b_by,
         **timed(lambda: search_ops.search_gather(ts, pay, values, ids, t),
                 lambda: search_gather_ref(ts, pay, values, ids, t)))
+    out["view"] = view_case(ts, pay, tables.to(dev), lens.to(dev), ids, 2000)
     got = search_ops.search(ts, pay, ids, t)
     want = search_ref(ts, pay, ids, t)
     torch.cuda.synchronize()
@@ -548,6 +567,115 @@ def needed_cases(dev) -> dict:
                     lambda: needed_ref(*args)))
     rows["needed"]["launches_phase3"] = compact_ops.needed.launches
     return rows
+
+
+def chain_row(new: dict, chain: dict, plain: dict, bound_ms: float) -> dict:
+    """Phase 3's timing keys of a main-path op beside the chain of ops it
+    replaced; the op must run one device kernel per call and take less
+    device time than the chain, in this run."""
+    check(new["kernels"] == 1, f"one call ran {new['kernels']} device kernels")
+    check(new["device_ms"] < chain["device_ms"],
+          f"{new['device_ms']} ms on the card, the chain {chain['device_ms']}")
+    return dict(ms=new["device_ms"], call_ms=new["call_ms"],
+                kernels_per_call=new["kernels"], plain_ms=plain["device_ms"],
+                plain_call_ms=plain["call_ms"], library_ms=None,
+                library_call_ms=None, chain_ms=chain["device_ms"],
+                chain_call_ms=chain["call_ms"],
+                chain_launches=chain["kernels"],
+                share_of_bound=bound_ms / new["device_ms"])
+
+
+def sweep_chain(ts, succ, pay, ids, mask, ann, now):
+    """The needed-sweep of the given slots as ``vstore._sweep_slots`` ran
+    it before the sweep kernel: three row gathers, the compact op (with
+    its count memset) and three masked scatters."""
+    sid = ids.long()
+    new_ts, new_succ, new_pay, freed, _ = compact_ops.compact(
+        ts[sid], succ[sid], pay[sid], mask, ann, now)
+    return (drop_set(ts, ids, new_ts, mask),
+            drop_set(succ, ids, new_succ, mask),
+            drop_set(pay, ids, new_pay, mask), freed.reshape(-1))
+
+
+def sweep_case(dev) -> dict:
+    """K1's main-path op at phase 5's slrt flush: R = 4096 ring lanes over
+    the S = 256 x V = 8 slab, lane ids with duplicates and about 20 %
+    unmasked lanes clamped onto slot 0 (ring holes), a board of 16.  The
+    op, the old chain and the plain version must agree exactly."""
+    g = torch.Generator().manual_seed(15)
+    p = SERVE
+    S, V, P = p["num_seqs"], p["versions_per_slot"], p["reader_lanes"]
+    R = 2 * S * V                             # make_paged_kv's ring size
+    ts, succ, pay = _store(g, S, V, dev)
+    mask = torch.rand((R,), generator=g) < 0.8
+    ids = torch.where(mask, torch.randint(0, S, (R,), generator=g,
+                                          dtype=torch.int32), 0)
+    ann = torch.randint(0, 4000, (P,), generator=g, dtype=torch.int32)
+    ann[torch.rand((P,), generator=g) < 0.5] = TS_MAX
+    args = (ts, succ, pay, ids.to(dev), mask.to(dev),
+            torch.sort(ann).values.to(dev),
+            torch.tensor(4000, dtype=torch.int32, device=dev))
+    got = compact_ops.sweep(*args)
+    want = sweep_ref(*args)
+    old = sweep_chain(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want, strict=True)),
+          "sweep kernel != plain version")
+    check(all(torch.equal(a, b) for a, b in zip(got, old, strict=True)),
+          "sweep kernel != the chain it replaced")
+    check(bool((got[3] != EMPTY).any()), "sweep freed nothing: weak check")
+    # slab read and written, lane ids and mask, freed, board and now
+    nbytes = S * V * 12 * 2 + R * 5 + R * V * 4 + P * 4 + 4
+    b_ms, b_by = bound(nbytes, (S + R) * V * math.log2(P), "int32")
+    return dict(shape=f"S={S} V={V} R={R} P={P}", op="compact_ops.sweep",
+                max_abs_err=max_err(got, want), bound_ms=b_ms, bound_by=b_by,
+                **chain_row(time_call(lambda: compact_ops.sweep(*args)),
+                            time_call(lambda: sweep_chain(*args)),
+                            time_call(lambda: sweep_ref(*args)), b_ms))
+
+
+def view_chain(ts, pay, tables, lengths, ids, t: int):
+    """``paged.snapshot_view`` as it ran before the view kernel: the whole
+    tables copied beside the lengths, ``t`` filled and expanded per query,
+    the search+gather op, the table part sliced out, the lengths masked."""
+    MP = tables.shape[1]
+    values = torch.cat([tables, lengths[:, None]], dim=1)
+    t_b = torch.full((), t, dtype=torch.int32,
+                     device=ids.device).expand(ids.shape).contiguous()
+    rows, _, found = search_ops.search_gather(ts, pay, values, ids, t_b)
+    return rows[:, :MP].contiguous(), torch.where(found, rows[:, MP], 0)
+
+
+def view_case(ts, pay, tables, lengths, ids, t: int) -> dict:
+    """K2's main-path op at phase 5's view: B = 256 sequences over T = 2048
+    table versions of MP = 256 pages, -1 padding and not-found rows, ``t``
+    a Python int.  The op, the old chain and the plain version must agree
+    exactly."""
+    got = search_ops.view(ts, pay, tables, lengths, ids, t)
+    want = view_ref(ts, pay, tables, lengths, ids, t)
+    old = view_chain(ts, pay, tables, lengths, ids, t)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want, strict=True)),
+          "view kernel != plain version")
+    check(all(torch.equal(a, b) for a, b in zip(got, old, strict=True)),
+          "view kernel != the chain it replaced")
+    check(bool((got[0] == -1).any()) and bool((got[1] == 0).any()),
+          "view check lacks -1 padding or not-found rows")
+    (B, MP), T, V = got[0].shape, tables.shape[0], ts.shape[1]
+    found = int(search_ops.search(ts, pay, ids, t)[1].sum())
+    # ids, t, slab rows, found table rows and lengths, outputs
+    nbytes = B * 4 + 4 + B * V * 4 * 2 + found * (MP + 1) * 4 \
+        + B * (MP + 1) * 4
+    b_ms, b_by = bound(nbytes, B * V * 2, "int32")
+    return dict(shape=f"B={B} V={V} T={T} MP={MP}", op="search_ops.view",
+                max_abs_err=max_err(got, want), bound_ms=b_ms, bound_by=b_by,
+                **chain_row(
+                    time_call(lambda: search_ops.view(ts, pay, tables,
+                                                      lengths, ids, t)),
+                    time_call(lambda: view_chain(ts, pay, tables, lengths,
+                                                 ids, t)),
+                    time_call(lambda: view_ref(ts, pay, tables, lengths, ids,
+                                               t)), b_ms))
 
 
 def visible_pairs(T: int, window: int) -> int:
@@ -1109,10 +1237,13 @@ def phase_serve(dev) -> dict:
             ts = eng.pin(lane)
             view = eng.view_at(ts)
             # the descriptor read (search, K3) must name the table versions
-            # whose rows the fused view gathered
+            # whose rows and lengths the fused view read
             pay, found = vstore.snapshot_read(eng.st.mv, ids, ts)
-            rows = eng.st.tables[pay.clamp(min=0).long()]
-            check(torch.equal(torch.where(found[:, None], rows, -1), view[0]),
+            tbl = pay.clamp(min=0).long()
+            check(torch.equal(torch.where(found[:, None], eng.st.tables[tbl],
+                                          -1), view[0])
+                  and torch.equal(torch.where(found, eng.st.lengths[tbl], 0),
+                                  view[1]),
                   "snapshot_read disagrees with the fused view")
             q = torch.randn((B, Hq, D), generator=gen, device=dev,
                             dtype=torch.bfloat16)
@@ -1164,7 +1295,8 @@ def phase_serve(dev) -> dict:
           f"page pool never crossed its watermark in {step} steps")
     check(violations == 0, f"{violations} pinned-view violations")
     check(eng.pages_reclaimed > 0, "no page was reclaimed")
-    for name in ("compact", "search_gather", "search", "paged_decode"):
+    for name in ("compact", "sweep", "search_gather", "view", "search",
+                 "paged_decode"):
         check(launches[name] > 0, f"{name} kernel never launched in serve")
     check(launches["flash_prefill"] == 0, "flash prefill ran in paged serve")
     check(launches["needed"] == 0, "needed ran in paged serve")
@@ -1205,9 +1337,9 @@ def profile_window(decode_step, steps: int = 16, name: str = "serve") -> dict:
                 and e.name in ("cudaStreamSynchronize",
                                "cudaDeviceSynchronize"))
     ours = {k: [n, t / 1e3] for k, (n, t) in per_kernel.items()
-            if any(f in k for f in ("compact_kernel", "needed_kernel",
-                                    "search_kernel",
-                                    "paged_decode_kernel",
+            if any(f in k for f in ("sweep_kernel", "compact_kernel",
+                                    "needed_kernel", "search_kernel",
+                                    "view_kernel", "paged_decode_kernel",
                                     "flash_prefill_kernel"))}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", f"{name}_profile.txt"), "w") as f:
@@ -1217,6 +1349,8 @@ def profile_window(decode_step, steps: int = 16, name: str = "serve") -> dict:
            "device_busy_ms": busy_us / 1e3,
            "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3),
            "kernel_launches": sum(n for n, _ in per_kernel.values()),
+           "kernel_launches_per_step":
+               sum(n for n, _ in per_kernel.values()) / steps,
            "host_syncs": syncs,
            "port_kernels_ms": ours,
            "top_device_ms": [[k, n, t / 1e3] for k, (n, t) in top]}
@@ -1315,7 +1449,7 @@ def main() -> int:
     durable_launches = phase_durability(dev)
     table = []
     for name, (source, replaces) in KERNELS.items():
-        row = kernels[name]
+        row = kernels[MAIN_OPS.get(name, name)]
         # the count from the main path that runs the kernel: phase 5 for
         # K1-K4 (paged serving), phase 6 for flash prefill (the model);
         # no serving path calls needed (K5), as in the JAX package, so its
@@ -1339,6 +1473,18 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             share_of_bound=row["bound_ms"] / row["ms"]))
+        if name in MAIN_OPS:
+            # K1 / K2: the main path's one-launch op, beside the chain of
+            # ops it replaced and the parity op that stays
+            parity = kernels[name]
+            table[-1].update(
+                op=row["op"], call_ms=row["call_ms"],
+                kernels_per_call=row["kernels_per_call"],
+                chain_ms=row["chain_ms"], chain_call_ms=row["chain_call_ms"],
+                chain_launches=row["chain_launches"],
+                parity_op=dict(op=name, ms=parity["ms"],
+                               call_ms=parity["call_ms"],
+                               bound_ms=parity["bound_ms"]))
     print(smi, flush=True)
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -6,9 +6,12 @@
 * :func:`drop_set` — ``x.at[where(mask, idx, n)].set(v, mode="drop")``:
   torch has no drop mode and raises on an out-of-range index, so inert lanes
   are routed to a pad row that is sliced off.  No host sync.
+* :func:`i32_or_int` — a scalar argument as the kernels take it: a Python
+  int by value, anything else as an int32 tensor on the device.
 """
 from __future__ import annotations
 
+import numbers
 from typing import Optional, Union
 
 import torch
@@ -51,3 +54,14 @@ def i32(x, device: Optional[torch.device] = None) -> torch.Tensor:
     if isinstance(x, int):
         return torch.full((), x, dtype=I32, device=device)
     return torch.as_tensor(x, dtype=I32, device=device)
+
+
+def i32_or_int(x, device: Optional[torch.device] = None):
+    """A Python (or numpy) integer stays an int, which a kernel takes by
+    value, so no fill is launched for it; a tensor or array becomes a
+    contiguous int32 tensor on ``device`` (no copy if it already is one)."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=I32).contiguous()
+    if isinstance(x, numbers.Integral):
+        return int(x)
+    return torch.as_tensor(x, dtype=I32, device=device).contiguous()

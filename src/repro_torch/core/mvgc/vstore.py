@@ -11,9 +11,9 @@ timestamp into one ``MVState`` and exposes the paper's schemes as GC
 * ``slrt``  — ring flush plus a needed-sweep of the implicated slots;
 * ``sweep`` — sweep every slab on each GC step.
 
-Every sweep goes through the compact kernel
-(:func:`repro_torch.kernels.compact.ops.compact`) and every snapshot read
-through version search (:mod:`repro_torch.kernels.version_search.ops`);
+Every sweep is one launch of the compact kernel's sweep
+(:func:`repro_torch.kernels.compact.ops.sweep`) and every snapshot read
+goes through version search (:mod:`repro_torch.kernels.version_search.ops`);
 on CPU tensors those wrappers run their plain versions.  JAX's ``lax.cond``
 becomes a Python ``if`` on a scalar read back from the device.
 
@@ -27,7 +27,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch._tensor import I32, DeviceLike, drop_set, i32, resolve_device
+from repro_torch._tensor import (I32, DeviceLike, i32, i32_or_int,
+                                 resolve_device)
 from repro_torch.core.mvgc import announce as ann
 from repro_torch.core.mvgc import pool, rangetracker as rt
 from repro_torch.core.mvgc.needed import sort_announcements
@@ -135,17 +136,14 @@ def end_snapshot(state: MVState, lanes: torch.Tensor, mask: torch.Tensor
     return state._replace(board=ann.unannounce(state.board, lanes, mask))
 
 
-def _t_batch(t, slot_ids: torch.Tensor) -> torch.Tensor:
-    return i32(t, slot_ids.device).expand(slot_ids.shape).contiguous()
-
-
 def snapshot_read(state: MVState, slot_ids: torch.Tensor, t
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """rtx read (``search(t)``): latest payload at-or-before t per slot,
-    through the version-search kernel."""
+    through the version-search kernel.  ``t`` is a Python int (passed to
+    the kernel by value) or an int32 tensor, 0-d or one per slot."""
     return search_ops.search(state.store.ts, state.store.payload,
                              slot_ids.to(I32).contiguous(),
-                             _t_batch(t, slot_ids))
+                             i32_or_int(t, slot_ids.device))
 
 
 def snapshot_gather(state: MVState, slot_ids: torch.Tensor, t,
@@ -156,7 +154,7 @@ def snapshot_gather(state: MVState, slot_ids: torch.Tensor, t,
     found[B])``; rows of not-found slots are EMPTY-filled."""
     return search_ops.search_gather(
         state.store.ts, state.store.payload, values.contiguous(),
-        slot_ids.to(I32).contiguous(), _t_batch(t, slot_ids))
+        slot_ids.to(I32).contiguous(), i32_or_int(t, slot_ids.device))
 
 
 def current_read(state: MVState, slot_ids: torch.Tensor
@@ -266,35 +264,30 @@ def _policy_gc_step(state: MVState, policy: str = "slrt", force: bool = False,
 
 def _sweep_all_needed(state: MVState, extra_pins=None
                       ) -> Tuple[MVState, torch.Tensor]:
-    """Full-store needed-sweep: the compact kernel over every slab."""
-    S, _ = state.store.ts.shape
+    """Full-store needed-sweep: one sweep launch over every slab."""
     A = _ann_scan(state, extra_pins)
-    new_ts, new_succ, new_pay, freed, _ = compact_ops.compact(
-        state.store.ts, state.store.succ, state.store.payload,
-        torch.ones((S,), dtype=torch.bool, device=A.device), A, state.now)
+    new_ts, new_succ, new_pay, freed = compact_ops.sweep(
+        state.store.ts, state.store.succ, state.store.payload, None, None,
+        A, state.now)
     store = VersionStore(ts=new_ts, succ=new_succ, payload=new_pay)
-    return state._replace(store=store), freed.reshape(-1)
+    return state._replace(store=store), freed
 
 
 def _sweep_slots(state: MVState, slot_ids: torch.Tensor, mask: torch.Tensor,
                  extra_pins=None) -> Tuple[MVState, torch.Tensor]:
-    """needed-sweep of the given slots through the compact kernel.
+    """needed-sweep of the given slots: one sweep launch.
 
     Only masked lanes are written back.  Inert lanes are clamped to slot 0
     by the callers (ring holes, ``-1`` hot keys); writing their unchanged
-    rows back would race with a masked lane of slot 0 (trap C1).  Masked
-    lanes that share a slot carry identical rows."""
+    rows back would race with a masked lane of slot 0 (trap C1).  The sweep
+    computes every slot it writes from the slot's original row, so masked
+    lanes that share a slot agree.  ``freed`` is per lane."""
     A = _ann_scan(state, extra_pins)
-    sid = slot_ids.long()
-    new_ts, new_succ, new_pay, freed2d, _ = compact_ops.compact(
-        state.store.ts[sid], state.store.succ[sid], state.store.payload[sid],
-        mask.contiguous(), A, state.now)
-    store = VersionStore(
-        ts=drop_set(state.store.ts, slot_ids, new_ts, mask),
-        succ=drop_set(state.store.succ, slot_ids, new_succ, mask),
-        payload=drop_set(state.store.payload, slot_ids, new_pay, mask),
-    )
-    return state._replace(store=store), freed2d.reshape(-1)
+    new_ts, new_succ, new_pay, freed = compact_ops.sweep(
+        state.store.ts, state.store.succ, state.store.payload,
+        slot_ids.to(I32).contiguous(), mask.contiguous(), A, state.now)
+    store = VersionStore(ts=new_ts, succ=new_succ, payload=new_pay)
+    return state._replace(store=store), freed
 
 
 # ---------------------------------------------------------------------------

@@ -36,11 +36,17 @@ SIGNATURES = {
     # ts, succ, payload, mask, ann, now, out_ts, out_succ, out_pay,
     # out_freed, count, R, V, P, stream
     "mvgc_compact": [_P] * 11 + [_I] * 3 + [_P],
+    # ts, succ, payload, slot_ids, mask, ann, now, now_val, out_ts,
+    # out_succ, out_pay, out_freed, S, V, R, P, every_slot, stream
+    "mvgc_sweep": [_P] * 7 + [_I] + [_P] * 4 + [_I] * 5 + [_P],
     # ts, succ, ann, now, out, S, V, P, stream
     "mvgc_needed": [_P] * 5 + [_I] * 3 + [_P],
-    # ts, payload, values, slot_ids, t, out_rows, out_pay, out_found,
-    # S, V, T, M, B, stream
-    "mvgc_search_gather": [_P] * 8 + [_I] * 5 + [_P],
+    # ts, payload, values, slot_ids, t, t_val, t_stride, out_rows,
+    # out_pay, out_found, S, V, T, M, B, stream
+    "mvgc_search_gather": [_P] * 5 + [_I] * 2 + [_P] * 3 + [_I] * 5 + [_P],
+    # ts, payload, tables, lengths, slot_ids, t, t_val, t_stride,
+    # out_rows, out_len, S, V, T, MP, B, vec, stream
+    "mvgc_view": [_P] * 6 + [_I] * 2 + [_P] * 2 + [_I] * 6 + [_P],
     # q, k_pages, v_pages, page_table, lengths, out, part_o, part_ml, B, N,
     # Hq, Hkv, D, PS, MP, n_split, is_bf16, stream
     "mvgc_paged_decode": [_P] * 8 + [_I] * 9 + [_P],
@@ -128,13 +134,32 @@ def lib() -> ctypes.CDLL:
 
 
 def stream() -> int:
-    """PyTorch's current CUDA stream, as the pointer the C side takes."""
-    return torch.cuda.current_stream().cuda_stream
+    """PyTorch's current CUDA stream on the current device, as the pointer
+    the C side takes.  Read as the raw pointer: building the ``Stream``
+    object that ``torch.cuda.current_stream()`` returns costs several
+    microseconds of host time per launch."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def int_arg(name: str, x, n: int):
+    """``(tensor or None, value, stride)`` of an int32 argument that is one
+    value or one per item of ``n``: a Python int goes to the kernel by value
+    (no fill is launched for it), an int32 CUDA tensor by pointer, read with
+    stride 0 when 0-d and 1 when ``[n]``."""
+    if not torch.is_tensor(x):
+        return None, int(x), 0
+    require_cuda_i32(name, x)
+    if x.dim() == 0:
+        return x, 0, 0
+    if x.shape != (n,):
+        raise ValueError(f"{name}: expected an int, a 0-d or an i32[{n}] "
+                         f"tensor, got shape {tuple(x.shape)}")
+    return x, 0, 1
 
 
 def require_cuda_i32(name: str, *tensors: torch.Tensor) -> None:

@@ -1,29 +1,34 @@
-"""Compact: fused ``needed(A, now)`` + splice over an ``[R, V]`` row batch
-(K1), and the ``needed(A, now)`` mask alone (K5).
+"""Compact (K1): the store's needed-sweep in one launch (:func:`sweep`, the
+main path) and the fused ``needed(A, now)`` + splice over an ``[R, V]``
+row batch (:func:`compact`, its parity op); and the ``needed(A, now)``
+mask alone (:func:`needed`, K5).
 
 Replaces the Pallas kernels ``compact_pallas`` (``_fused_compact_kernel``)
 and ``needed_pallas`` (``_compact_kernel``) of
-``repro/kernels/compact/kernel.py`` with ``csrc/compact.cu``; both kernels
+``repro/kernels/compact/kernel.py`` with ``csrc/compact.cu``; the kernels
 share one device function for the predicate.  The wrappers dispatch on the
 device of their inputs: CPU tensors take the plain versions
-(:func:`repro_torch.kernels.compact.ref.compact_ref` and ``needed_ref``),
-CUDA tensors launch the kernel or raise.  ``compact.launches`` and
-``needed.launches`` count kernel launches.  As in the JAX package, no
-engine or store calls :func:`needed`; the sweeps go through
-:func:`compact`.
+(:mod:`repro_torch.kernels.compact.ref`), CUDA tensors launch the kernel
+or raise.  ``compact.launches`` counts K1's launches, those of
+:func:`sweep` (also counted alone in ``sweep.launches``) and of
+:func:`compact`; ``needed.launches`` counts K5's.  As in the JAX package,
+no engine or store calls :func:`needed`; the store's sweeps go through
+:func:`sweep`.
 
-Bound on the H100: bytes.  Per entry K1 reads 12 bytes and writes 16, K5
-reads 8 and writes 1; both do ``log2(P)`` compares against the
-announcements they keep in shared memory, far under the card's operation
-rate.  A board larger than the kernels' shared-memory copy of it
-(``kMaxAnn`` in ``csrc/compact.cu``, 12288 entries) raises.
+Bound on the H100: bytes.  The sweep reads and writes 12 bytes per slab
+entry, reads 5 per lane and writes 4 per freed handle; :func:`compact`
+reads 12 bytes per entry and writes 16, K5 reads 8 and writes 1; all do
+``log2(P)`` compares against the announcements they keep in shared
+memory, far under the card's operation rate.  A board larger than the
+kernels' shared-memory copy of it (``kMaxAnn`` in ``csrc/compact.cu``,
+12288 entries) raises.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.compact.ref import compact_ref, needed_ref
+from repro_torch.kernels.compact.ref import compact_ref, needed_ref, sweep_ref
 
 
 def _now(now, like: torch.Tensor) -> torch.Tensor:
@@ -84,5 +89,54 @@ def compact(ts: torch.Tensor, succ: torch.Tensor, payload: torch.Tensor,
     return out_ts, out_succ, out_pay, freed, count[0]
 
 
+def sweep(ts: torch.Tensor, succ: torch.Tensor, payload: torch.Tensor,
+          slot_ids, mask, ann_sorted: torch.Tensor, now):
+    """The needed-sweep of the ``[S, V]`` slab in one launch.  Returns
+    ``(ts', succ', payload', freed)``, all new tensors.
+
+    With ``slot_ids`` (i32[R], each in ``[0, S)``) and ``mask`` (bool[R]),
+    the slots that masked lanes name are swept and ``freed`` is
+    ``[R * V]`` per lane, duplicates included; with both ``None`` every
+    slot is swept and ``freed`` is ``[S * V]``.  ``now`` is an int32
+    device scalar or a Python int (passed to the kernel by value); see
+    :func:`repro_torch.kernels.compact.ref.sweep_ref`.  No host sync."""
+    if (slot_ids is None) != (mask is None):
+        raise ValueError("sweep: give slot_ids and mask together, or neither")
+    if ts.device.type == "cpu":
+        return sweep_ref(ts, succ, payload, slot_ids, mask, ann_sorted, now)
+    _build.require_cuda_i32("sweep", ts, succ, payload, ann_sorted)
+    S, V = ts.shape
+    if succ.shape != ts.shape or payload.shape != ts.shape \
+            or ann_sorted.dim() != 1:
+        raise ValueError("sweep: ts, succ and payload must be i32[S, V] and "
+                         "the board i32[P]")
+    R = S
+    if slot_ids is not None:
+        _build.require_cuda_i32("sweep", slot_ids)
+        R = slot_ids.shape[0]
+        if slot_ids.dim() != 1 or mask.shape != (R,) \
+                or mask.dtype != torch.bool or not mask.is_contiguous() \
+                or mask.device != ts.device:
+            raise ValueError("sweep: slot_ids must be i32[R] with a bool[R] "
+                             "mask")
+    now_t, now_v, _ = _build.int_arg("sweep", now, 1)
+    # one allocation: rows [0, 3S) are the new slab, rows [3S, 3S + R) freed
+    out = torch.empty((3 * S + R, V), dtype=torch.int32, device=ts.device)
+    new_ts, new_succ, new_pay, freed = out.split_with_sizes([S, S, S, R])
+    err = _build.lib().mvgc_sweep(
+        ts.data_ptr(), succ.data_ptr(), payload.data_ptr(),
+        None if slot_ids is None else slot_ids.data_ptr(),
+        None if mask is None else mask.data_ptr(), ann_sorted.data_ptr(),
+        None if now_t is None else now_t.data_ptr(), now_v,
+        new_ts.data_ptr(), new_succ.data_ptr(), new_pay.data_ptr(),
+        freed.data_ptr(), S, V, R, ann_sorted.shape[0], int(slot_ids is None),
+        _build.stream())
+    _build.check("mvgc_sweep", err)
+    sweep.launches += 1
+    compact.launches += 1
+    return new_ts, new_succ, new_pay, freed.view(-1)
+
+
 compact.launches = 0
+sweep.launches = 0
 needed.launches = 0

@@ -1,12 +1,19 @@
 """Plain PyTorch version of the compact kernel: fused ``needed(A, t)`` and
-splice over a row batch (port of ``repro.kernels.compact.ref``).
+splice over a row batch (port of ``repro.kernels.compact.ref``), and the
+store's needed-sweep built on it (``sweep_ref``: the gather / compact /
+scatter composite that ``vstore._sweep_slots`` and ``_sweep_all_needed``
+ran before the sweep kernel).
 
 The broadcast-compare form ``∃a: ts <= a < succ`` is kept on purpose: it is
 independent of the ``searchsorted`` form in ``core.mvgc.needed`` and of the
 kernel's binary search, so the three check each other."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from repro_torch._tensor import drop_set
 
 EMPTY = -1
 TS_MAX = 2_147_483_647
@@ -33,3 +40,26 @@ def compact_ref(ts: torch.Tensor, succ: torch.Tensor, payload: torch.Tensor,
             torch.where(kill, EMPTY, payload),
             torch.where(kill, payload, EMPTY),
             kill.sum(dtype=torch.int32))
+
+
+def sweep_ref(ts: torch.Tensor, succ: torch.Tensor, payload: torch.Tensor,
+              slot_ids: Optional[torch.Tensor], mask: Optional[torch.Tensor],
+              ann_sorted: torch.Tensor, now):
+    """Returns ``(ts', succ', payload', freed)`` of the ``[S, V]`` slab.
+
+    With lanes (``slot_ids[R]``, ``mask[R]``): the rows the lanes name are
+    gathered and compacted, and only masked lanes write theirs back (trap
+    C1); ``freed`` is ``[R * V]`` per lane, duplicates included.  With
+    ``slot_ids = mask = None`` every slot is swept and ``freed`` is
+    ``[S * V]``."""
+    if slot_ids is None:
+        every = torch.ones(ts.shape[:1], dtype=torch.bool, device=ts.device)
+        new_ts, new_succ, new_pay, freed, _ = compact_ref(
+            ts, succ, payload, every, ann_sorted, now)
+        return new_ts, new_succ, new_pay, freed.reshape(-1)
+    sid = slot_ids.long()
+    new_ts, new_succ, new_pay, freed, _ = compact_ref(
+        ts[sid], succ[sid], payload[sid], mask, ann_sorted, now)
+    return (drop_set(ts, slot_ids, new_ts, mask),
+            drop_set(succ, slot_ids, new_succ, mask),
+            drop_set(payload, slot_ids, new_pay, mask), freed.reshape(-1))

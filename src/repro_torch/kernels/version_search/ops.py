@@ -1,13 +1,21 @@
-"""Version search: batched ``search(t)`` (K3) and the fused search plus
-value-row gather (K2).
+"""Version search: batched ``search(t)`` (K3), the fused search plus
+value-row gather (K2's parity op) and the snapshot view (K2's main path).
 
 Replaces the Pallas kernels ``search_pallas`` and ``search_gather_pallas``
 of ``repro/kernels/version_search/kernel.py`` with ``csrc/version_search.cu``
-(one warp per query: the lanes take the masked max over the slab's V
-entries, then copy the value row with coalesced loads).  The wrappers
-dispatch on the device of their inputs: CPU tensors take the plain versions
-in ``ref.py``, CUDA tensors launch the kernel or raise.  ``search.launches``
-and ``search_gather.launches`` count kernel launches.
+(one warp per query: the lanes load ts and payload of the slab row in one
+round trip and take the masked max over its V entries, then copy the value
+row with coalesced loads).  :func:`view` is ``paged.snapshot_view`` in one
+launch: it reads the resolved version's table row and length straight from
+``tables`` and ``lengths``.  The wrappers dispatch on the device of their
+inputs: CPU tensors take the plain versions in ``ref.py``, CUDA tensors
+launch the kernel or raise.  ``search.launches`` counts K3's launches and
+``search_gather.launches`` K2's, those of :func:`view` (also counted alone
+in ``view.launches``) and of :func:`search_gather`.
+
+``t`` is a Python int, passed to the kernel by value (no fill is launched
+for it), or an int32 device tensor, 0-d or one per query ``[B]``, read in
+place (no ``expand().contiguous()``).
 
 Bound on the H100: bytes — each query reads one slab row (2 x V int32) and
 its value row (M int32) and writes M + 2 values, with no arithmetic to
@@ -20,22 +28,29 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.version_search.ref import search_gather_ref, search_ref
+from repro_torch.kernels.version_search.ref import (search_gather_ref,
+                                                     search_ref, view_ref)
+
+
+def _check_slab(ts, payload, slot_ids):
+    _build.require_cuda_i32("version_search", ts, payload, slot_ids)
+    if payload.shape != ts.shape or ts.dim() != 2 or slot_ids.dim() != 1:
+        raise ValueError("version_search: ts and payload must be i32[S, V] "
+                         "and slot_ids i32[B]")
 
 
 def _launch(ts, payload, values, slot_ids, t, out_rows, M, T):
-    _build.require_cuda_i32("version_search", ts, payload, slot_ids, t)
+    _check_slab(ts, payload, slot_ids)
     S, V = ts.shape
     B = slot_ids.shape[0]
-    if payload.shape != ts.shape or t.shape != (B,):
-        raise ValueError("version_search: payload must match ts [S, V] and "
-                         "t must be i32[B]")
+    t_ten, t_val, t_stride = _build.int_arg("version_search", t, B)
     out_pay = torch.empty((B,), dtype=torch.int32, device=ts.device)
     found = torch.empty((B,), dtype=torch.bool, device=ts.device)
     err = _build.lib().mvgc_search_gather(
         ts.data_ptr(), payload.data_ptr(),
         None if values is None else values.data_ptr(),
-        slot_ids.data_ptr(), t.data_ptr(),
+        slot_ids.data_ptr(), None if t_ten is None else t_ten.data_ptr(),
+        t_val, t_stride,
         None if out_rows is None else out_rows.data_ptr(),
         out_pay.data_ptr(), found.data_ptr(), S, V, T, M, B,
         _build.stream())
@@ -44,8 +59,8 @@ def _launch(ts, payload, values, slot_ids, t, out_rows, M, T):
 
 
 def search(ts: torch.Tensor, payload: torch.Tensor, slot_ids: torch.Tensor,
-           t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(payload[B], found[B])`` per query ``(slot_ids[b], t[b])``."""
+           t) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(payload[B], found[B])`` per query ``(slot_ids[b], t)``."""
     if ts.device.type == "cpu":
         return search_ref(ts, payload, slot_ids, t)
     out = _launch(ts, payload, None, slot_ids, t, None, 0, 0)
@@ -54,11 +69,11 @@ def search(ts: torch.Tensor, payload: torch.Tensor, slot_ids: torch.Tensor,
 
 
 def search_gather(ts: torch.Tensor, payload: torch.Tensor,
-                  values: torch.Tensor, slot_ids: torch.Tensor,
-                  t: torch.Tensor
+                  values: torch.Tensor, slot_ids: torch.Tensor, t
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(rows[B, M], payload[B], found[B])``; rows of not-found queries are
-    EMPTY-filled.  Found payloads must index rows of ``values``."""
+    EMPTY-filled.  Found payloads are clamped into ``[0, T)`` to index
+    ``values[T, M]``."""
     if ts.device.type == "cpu":
         return search_gather_ref(ts, payload, values, slot_ids, t)
     _build.require_cuda_i32("search_gather", values)
@@ -70,5 +85,40 @@ def search_gather(ts: torch.Tensor, payload: torch.Tensor,
     return rows, pay, found
 
 
+def view(ts: torch.Tensor, payload: torch.Tensor, tables: torch.Tensor,
+         lengths: torch.Tensor, slot_ids: torch.Tensor, t
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(page_table[B, MP], lengths[B])`` of the snapshot at ``t``: the
+    table row and length of the version ``search(t)`` resolves per slot;
+    NO_PAGE (-1) rows and length 0 where nothing was found (see
+    :func:`repro_torch.kernels.version_search.ref.view_ref`).  One launch,
+    one allocation, no host sync."""
+    if ts.device.type == "cpu":
+        return view_ref(ts, payload, tables, lengths, slot_ids, t)
+    _check_slab(ts, payload, slot_ids)
+    _build.require_cuda_i32("view", tables, lengths)
+    S, V = ts.shape
+    T, MP = tables.shape
+    B = slot_ids.shape[0]
+    if lengths.shape != (T,):
+        raise ValueError("view: lengths must be i32[T] beside tables "
+                         "i32[T, MP]")
+    t_ten, t_val, t_stride = _build.int_arg("version_search", t, B)
+    out = torch.empty((B * MP + B,), dtype=torch.int32, device=ts.device)
+    vec = MP % 4 == 0 and tables.data_ptr() % 16 == 0 \
+        and out.data_ptr() % 16 == 0
+    err = _build.lib().mvgc_view(
+        ts.data_ptr(), payload.data_ptr(), tables.data_ptr(),
+        lengths.data_ptr(), slot_ids.data_ptr(),
+        None if t_ten is None else t_ten.data_ptr(), t_val, t_stride,
+        out.data_ptr(), out.data_ptr() + 4 * B * MP, S, V, T, MP, B,
+        int(vec), _build.stream())
+    _build.check("mvgc_view", err)
+    view.launches += 1
+    search_gather.launches += 1
+    return out[:B * MP].view(B, MP), out[B * MP:]
+
+
 search.launches = 0
 search_gather.launches = 0
+view.launches = 0

@@ -1,6 +1,10 @@
 """Plain PyTorch version of version_search: batched ``search(t)`` over the
 version slabs, with and without the value-row gather (port of
-``repro.kernels.version_search.ref``)."""
+``repro.kernels.version_search.ref``), and the snapshot view built on it
+(``view_ref``: the composite ``paged.snapshot_view`` ran before the view
+kernel).
+
+``t`` is a Python int, a 0-d tensor or one timestamp per query (``[B]``)."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -18,7 +22,8 @@ def search_ref(ts: torch.Tensor, payload: torch.Tensor,
     (masked argmax over V; the first index wins a tie, as ``jnp.argmax``)."""
     sid = slot_ids.long()
     rows_ts = ts[sid]
-    ok = (rows_ts != EMPTY) & (rows_ts <= t[:, None])
+    t_col = t[:, None] if torch.is_tensor(t) and t.dim() == 1 else t
+    ok = (rows_ts != EMPTY) & (rows_ts <= t_col)
     idx = torch.where(ok, rows_ts, NEG_INF_I32).argmax(dim=1)
     found = ok.any(dim=1)
     pay = torch.gather(payload[sid], 1, idx[:, None])[:, 0]
@@ -35,3 +40,16 @@ def search_gather_ref(ts: torch.Tensor, payload: torch.Tensor,
     safe = pay.clamp(0, values.shape[0] - 1).long()
     rows = torch.where(found[:, None], values[safe], EMPTY)
     return rows, pay, found
+
+
+def view_ref(ts: torch.Tensor, payload: torch.Tensor, tables: torch.Tensor,
+             lengths: torch.Tensor, slot_ids: torch.Tensor, t
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(page_table[B, MP], lengths[B])``: search(t) per slot, then the
+    resolved version's table row and length; NO_PAGE (-1) rows and length
+    0 where nothing was found.  The length rides along as an extra value
+    column, as the JAX ``snapshot_view`` gathers it."""
+    MP = tables.shape[1]
+    values = torch.cat([tables, lengths[:, None]], dim=1)
+    rows, _, found = search_gather_ref(ts, payload, values, slot_ids, t)
+    return rows[:, :MP].contiguous(), torch.where(found, rows[:, MP], 0)

@@ -5,8 +5,8 @@ KV lives in fixed-size pages of a pool; each sequence's page table is a
 versioned object whose versions live in a dense ``tables[MAX_VER, MP]``
 array indexed by the descriptor payloads.  Every append commits a new
 table version; snapshot readers resolve a pinned timestamp to a table
-version (``snapshot_view``, through the version-search kernel); a page is
-recycled only when no live table version references it.
+version (``snapshot_view``, one launch of the version-search view); a
+page is recycled only when no live table version references it.
 
 The page pool (``k_pages``/``v_pages``, gigabytes at serving size) is
 updated **in place** by ``append_tokens`` and ``fork_sequence``: the
@@ -20,10 +20,12 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch._tensor import I32, DeviceLike, drop_set, resolve_device
+from repro_torch._tensor import (I32, DeviceLike, drop_set, i32_or_int,
+                                 resolve_device)
 from repro_torch.core.mvgc import vstore
 from repro_torch.core.mvgc.pool import EMPTY
 from repro_torch.core.telemetry import GCConfig, PressureSignal
+from repro_torch.kernels.version_search import ops as search_ops
 
 NO_PAGE = -1
 
@@ -327,13 +329,15 @@ def _sweep_unreferenced(tables: torch.Tensor, table_free: torch.Tensor,
 def snapshot_view(st: PagedKV, seq_ids: torch.Tensor, t
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Resolve a pinned timestamp to (page_table[B, MP], lengths[B]) with
-    one search+gather launch: the visible length rides along as an extra
-    value column.  Not-found rows are NO_PAGE with length 0 — ready for
-    :func:`repro_torch.kernels.decode_attention.ops.paged_decode`."""
-    MP = st.max_pages
-    values = torch.cat([st.tables, st.lengths[:, None]], dim=1)
-    rows, _, found = vstore.snapshot_gather(st.mv, seq_ids, t, values)
-    return rows[:, :MP].contiguous(), torch.where(found, rows[:, MP], 0)
+    one launch of the view kernel, which reads the resolved version's table
+    row and length straight from ``tables`` and ``lengths``.  Not-found
+    rows are NO_PAGE with length 0 — ready for
+    :func:`repro_torch.kernels.decode_attention.ops.paged_decode`.  ``t``
+    is a Python int (passed to the kernel by value) or an int32 tensor,
+    0-d or one per sequence."""
+    return search_ops.view(st.mv.store.ts, st.mv.store.payload, st.tables,
+                           st.lengths, seq_ids.to(I32).contiguous(),
+                           i32_or_int(t, st.tables.device))
 
 
 def _one_lane(lane, like: torch.Tensor) -> torch.Tensor:

@@ -19,14 +19,16 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.convert import to_numpy
 from repro_torch.core.telemetry import GCConfig
 from repro_torch.kernels.compact import ops as compact_ops
-from repro_torch.kernels.compact.ref import compact_ref, needed_ref
+from repro_torch.kernels.compact.ref import compact_ref, needed_ref, sweep_ref
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import paged_decode_ref
 from repro_torch.kernels.flash_prefill import ops as flash_ops
 from repro_torch.kernels.flash_prefill.ref import attention_ref
 from repro_torch.kernels.version_search import ops as search_ops
-from repro_torch.kernels.version_search.ref import search_gather_ref, search_ref
+from repro_torch.kernels.version_search.ref import (search_gather_ref,
+                                                     search_ref, view_ref)
 from repro_torch.models import transformer as tf
+from repro_torch.mvkv import paged
 from repro_torch.serve.engine import MVServeEngine, PagedKVEngine
 
 pytestmark = pytest.mark.gpu
@@ -133,6 +135,174 @@ def test_search_kernels(cuda, S, V, B, M):
     for a, b in zip(search_ops.search_gather(ts, pay, values, ids, t),
                     search_gather_ref(ts, pay, values, ids, t)):
         assert torch.equal(a, b)
+
+
+SWEEP_CASES = {
+    # name: (S, V, R, P); R = 0: every slot swept (no lanes, no mask)
+    "phase5_flush": (256, 8, 4096, 16),   # the slrt flush at phase 5
+    "phase5_every_slot": (256, 8, 0, 16),
+    "ragged": (333, 5, 77, 3),            # S*V, R*V not multiples of 256
+    "ragged_every_slot": (333, 5, 0, 3),
+    "fewer_lanes": (1000, 16, 100, 64),   # R < S
+    "duplicates": (7, 3, 1000, 2),        # each slot named by ~140 lanes
+    "all_false": (300, 8, 500, 5),
+    "one_version": (1000, 1, 3000, 7),    # a slab block spans 256 slots
+    "largest_board": (64, 8, 300, 12 * 1024),  # board above 48 KB of smem
+}
+
+
+def sweep_inputs(cuda, case):
+    """Slabs with EMPTY entries and EMPTY rows, a sorted board with TS_MAX
+    padding, lane ids with duplicates and about 20 % unmasked lanes
+    clamped onto slot 0 (ring holes)."""
+    S, V, R, P = SWEEP_CASES[case]
+    rng = np.random.default_rng(S + V + R + P)
+    ts, succ, pay = slabs(rng, S, V)
+    gone = rng.random(S) < 0.1
+    ts[gone], succ[gone], pay[gone] = EMPTY, TS_MAX, EMPTY
+    # the largest board pins only at or after now (40), or it would pin
+    # every closed version and the case would free nothing
+    low = 40 if case == "largest_board" else 0
+    ann = np.sort(np.where(rng.random(P) < 0.3, TS_MAX,
+                           rng.integers(low, 70, P))).astype(np.int32)
+    ids = mask = None
+    if R:
+        ids = rng.integers(0, S, R).astype(np.int32)
+        mask = rng.random(R) < 0.8
+        if case == "all_false":
+            mask[:] = False
+        ids[~mask] = 0
+        ids, mask = (torch.from_numpy(x).to(cuda) for x in (ids, mask))
+    slab = [torch.from_numpy(x).to(cuda) for x in (ts, succ, pay)]
+    return (*slab, ids, mask, torch.from_numpy(ann).to(cuda),
+            torch.tensor(40, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("case", sorted(SWEEP_CASES))
+def test_sweep_kernel(cuda, case):
+    """K1's one-launch sweep against ``sweep_ref`` (gathers + compact +
+    masked scatters), exactly, with ``now`` on the device and by value."""
+    args = sweep_inputs(cuda, case)
+    want = sweep_ref(*args)
+    before = (compact_ops.compact.launches, compact_ops.sweep.launches)
+    for now in (args[-1], 40):
+        got = compact_ops.sweep(*args[:-1], now)
+        assert [x.shape for x in got] == [x.shape for x in want]
+        for a, b in zip(got, want, strict=True):
+            assert torch.equal(a, b)
+    assert (compact_ops.compact.launches, compact_ops.sweep.launches) == \
+        (before[0] + 2, before[1] + 2)
+    if case != "all_false":
+        assert bool((want[3] != EMPTY).any()), "the sweep freed nothing"
+
+
+def test_sweep_with_no_lanes_changes_nothing(cuda):
+    """R = 0 lanes: the slab comes back unchanged and nothing is freed (an
+    empty lane batch is not the every-slot sweep)."""
+    ts, succ, pay, _, _, ann, now = sweep_inputs(cuda, "ragged")
+    ids = torch.zeros((0,), dtype=torch.int32, device=cuda)
+    mask = torch.zeros((0,), dtype=torch.bool, device=cuda)
+    got = compact_ops.sweep(ts, succ, pay, ids, mask, ann, now)
+    for a, b in zip(got, sweep_ref(ts, succ, pay, ids, mask, ann, now),
+                    strict=True):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(got, (ts, succ, pay)))
+    assert got[3].shape == (0,)
+
+
+VIEW_CASES = [
+    # S, V, B, T, MP, t's form
+    (256, 8, 256, 2048, 256, "int"),      # phase 5's view
+    (256, 8, 256, 2048, 256, "[B]"),
+    (9, 40, 300, 50, 257, "0-d"),         # V > 32, MP % 4 != 0
+    (40, 8, 77, 120, 5, "[B]"),
+    (3, 1, 1, 4, 4, "int"),
+    (40, 8, 77, 120, 8, "unaligned"),     # tables not 16-byte aligned
+]
+
+
+@pytest.mark.parametrize("S,V,B,T,MP,form", VIEW_CASES)
+def test_view_kernel(cuda, S, V, B, T, MP, form):
+    """K2's one-launch view against ``view_ref`` (cat + search_gather +
+    slice + where), exactly: NO_PAGE padding, not-found rows of length 0,
+    found payloads clamped into [0, T)."""
+    rng = np.random.default_rng(S * V + B + MP)
+    ts = np.full((S, V), EMPTY, np.int32)
+    for s in range(S):
+        n = int(rng.integers(0, V + 1))
+        ts[s, rng.permutation(V)[:n]] = rng.permutation(100)[:n]
+    pay = np.where(ts == EMPTY, EMPTY, rng.integers(0, T + 3, (S, V))
+                   ).astype(np.int32)
+    tables = np.where(rng.random((T, MP)) < 0.3, -1,
+                      rng.integers(0, 9999, (T, MP))).astype(np.int32)
+    lengths = rng.integers(0, 999, T).astype(np.int32)
+    ids = rng.integers(0, S, B).astype(np.int32)
+    tq = rng.integers(-1, 110, B).astype(np.int32)
+    ts, pay, lengths, ids, tq = (torch.from_numpy(x).to(cuda)
+                                 for x in (ts, pay, lengths, ids, tq))
+    flat = torch.from_numpy(tables.reshape(-1)).to(cuda)
+    if form == "unaligned":
+        flat = torch.cat([flat[:1], flat])[1:]
+        assert flat.data_ptr() % 16 != 0
+    tables = flat.view(T, MP)
+    t = {"int": 50, "0-d": torch.tensor(50, dtype=torch.int32, device=cuda),
+         "[B]": tq, "unaligned": tq}[form]
+    before = (search_ops.search_gather.launches, search_ops.view.launches)
+    got = search_ops.view(ts, pay, tables, lengths, ids, t)
+    want = view_ref(ts, pay, tables, lengths, ids, t)
+    assert (search_ops.search_gather.launches, search_ops.view.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for a, b in zip(got, want, strict=True):
+        assert a.shape == b.shape and a.is_contiguous()
+        assert torch.equal(a, b)
+    if B > 1:                       # not-found rows and padding present
+        assert bool((got[1] == 0).any()) and bool((got[0] == -1).any())
+
+
+def device_kernels(fn):
+    """Names of the device kernels one call of ``fn`` runs (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                   # builds the library, warms up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if str(e.device_type).endswith("CUDA")]
+
+
+def test_sweep_runs_one_device_kernel(cuda):
+    args = sweep_inputs(cuda, "phase5_flush")
+    names = device_kernels(lambda: compact_ops.sweep(*args))
+    assert len(names) == 1 and "sweep_kernel" in names[0]
+
+
+def test_view_runs_one_device_kernel(cuda):
+    ts, succ, pay = (torch.from_numpy(x).to(cuda) for x in
+                     slabs(np.random.default_rng(0), 256, 8))
+    tables = torch.full((2048, 256), -1, dtype=torch.int32, device=cuda)
+    lengths = torch.zeros(2048, dtype=torch.int32, device=cuda)
+    ids = torch.arange(256, dtype=torch.int32, device=cuda)
+    names = device_kernels(lambda: search_ops.view(ts, pay, tables, lengths,
+                                                   ids, 30))
+    assert len(names) == 1 and "view_kernel" in names[0]
+
+
+def test_snapshot_view_runs_one_device_kernel(cuda):
+    """``paged.snapshot_view`` with int32 ids and a Python-int t: one
+    launch, no fill for t, no copy of the tables."""
+    st = paged.make_paged_kv(4, 16, 2, 4, 1, 4, dtype=torch.float32,
+                             gc=GCConfig(versions_per_slot=4,
+                                         reader_lanes=2), device=cuda)
+    ids = torch.arange(4, dtype=torch.int32, device=cuda)
+    kv = torch.ones((4, 1, 4), device=cuda)
+    for _ in range(3):
+        st, _ = paged.append_tokens(st, ids, kv, kv, ids < 3)
+    t = int(st.mv.now)
+    names = device_kernels(lambda: paged.snapshot_view(st, ids, t))
+    assert len(names) == 1 and "view_kernel" in names[0]
+    tbl, lens = paged.snapshot_view(st, ids, t)
+    assert lens.tolist() == [3, 3, 3, 0]
 
 
 # both versions sum in float32 in another order; a bf16 output may round to

@@ -300,6 +300,108 @@ def test_search_plain_versions_match_jax(seed):
 
 
 # ---------------------------------------------------------------------------
+# the store's needed-sweep (K1's main path): sweep_ref against JAX
+# ---------------------------------------------------------------------------
+SWEEP_CASES = {
+    # name: (S, V, R, P); the lanes' draw is set in _sweep_lanes
+    "duplicates": (6, 4, 20, 3),     # R > S: masked lanes share slots
+    "fewer_lanes": (12, 5, 5, 4),    # R < S
+    "all_false": (7, 3, 9, 2),       # no lane masked: nothing changes
+    "empty_rows": (8, 4, 10, 3),     # slots with no version at all
+    "inert_slot0": (5, 4, 8, 2),     # unmasked lanes clamped onto slot 0
+}
+
+
+def _sweep_state(rng, S, V, P, name):
+    """A JAX MVState with random slabs and board, slot 0 holding nothing
+    to kill (current versions only), and the port's copy of it."""
+    ts, succ, pay = rand_slab(rng, S, V)
+    succ[0] = TS_MAX                      # slot 0: current or free entries
+    if name == "empty_rows":
+        gone = rng.permutation(np.arange(1, S))[:3]
+        ts[gone], succ[gone], pay[gone] = EMPTY, TS_MAX, EMPTY
+    board = rand_ann(rng, P)
+    j = j_vs.make_state(S, V, P)._replace(
+        store=j_pool.VersionStore(J(ts), J(succ), J(pay)),
+        board=j_ann.AnnounceBoard(J(board)), now=jnp.int32(30))
+    return j, mvstate_from_numpy(jax.tree_util.tree_map(np.asarray, j),
+                                 "cpu")
+
+
+def _sweep_lanes(rng, S, R, name):
+    """Lane ids and mask as the store's callers give them: masked lanes
+    anywhere in [0, S) (duplicates allowed), inert lanes clamped onto
+    slot 0, which has nothing to kill, so JAX's write-back of their
+    unchanged rows cannot meet trap C5."""
+    ids = rng.integers(0, S, R).astype(np.int32)
+    mask = rng.random(R) < 0.75
+    if name == "all_false":
+        mask[:] = False
+    if name == "inert_slot0":
+        mask[: R // 2] = False
+    ids[~mask] = 0
+    return ids, mask
+
+
+@pytest.mark.parametrize("case", sorted(SWEEP_CASES))
+@pytest.mark.parametrize("seed", SEEDS)
+def test_sweep_slots_matches_jax(case, seed):
+    """``sweep_ref`` and the port's ``_sweep_slots`` (which runs it on the
+    CPU) against ``repro.core.mvgc.vstore._sweep_slots`` (lax path): the
+    whole slab and the freed handles per lane, exactly."""
+    rng = np.random.default_rng(seed)
+    S, V, R, P = SWEEP_CASES[case]
+    j, t = _sweep_state(rng, S, V, P, case)
+    ids, mask = _sweep_lanes(rng, S, R, case)
+    j2, jfreed = j_vs._sweep_slots(j, J(ids), J(mask), use_kernel=False)
+    t2, tfreed = t_vs._sweep_slots(t, T(ids), T(mask))
+    A = t_needed.sort_announcements(t.board.slots)
+    direct = t_cref.sweep_ref(t.store.ts, t.store.succ, t.store.payload,
+                              T(ids), T(mask), A, t.now)
+    want = (j2.store.ts, j2.store.succ, j2.store.payload, jfreed)
+    for got in ((t2.store.ts, t2.store.succ, t2.store.payload, tfreed),
+                direct):
+        for a, b in zip(want, got, strict=True):
+            same(a, b)
+    freed = to_numpy(tfreed)
+    assert freed.shape == (R * V,)
+    if case == "all_false":
+        assert (freed == EMPTY).all()
+        same(j.store.ts, t2.store.ts)
+    if case == "duplicates":
+        lanes = freed.reshape(R, V)
+        hits = [tuple(lanes[r]) for r in range(R)
+                if mask[r] and (lanes[r] != EMPTY).any()]
+        assert len(hits) > len(set(hits)), "no slot killed through two lanes"
+    assert t_cops.compact.launches == t_cops.sweep.launches == 0
+
+
+@pytest.mark.parametrize("case", ["random", "empty_rows"])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_sweep_all_needed_matches_jax(case, seed):
+    """The every-slot sweep (no lanes, no mask) against
+    ``repro.core.mvgc.vstore._sweep_all_needed``: freed is [S * V]."""
+    rng = np.random.default_rng(seed)
+    S, V, P = 9, 4, 3
+    j, t = _sweep_state(rng, S, V, P, case)
+    j2, jfreed = j_vs._sweep_all_needed(j, use_kernel=False)
+    t2, tfreed = t_vs._sweep_all_needed(t)
+    A = t_needed.sort_announcements(t.board.slots)
+    direct = t_cops.sweep(t.store.ts, t.store.succ, t.store.payload, None,
+                          None, A, t.now)
+    want = (j2.store.ts, j2.store.succ, j2.store.payload, jfreed)
+    for got in ((t2.store.ts, t2.store.succ, t2.store.payload, tfreed),
+                direct):
+        for a, b in zip(want, got, strict=True):
+            same(a, b)
+    assert to_numpy(tfreed).shape == (S * V,)
+    assert (to_numpy(tfreed) != EMPTY).any(), "the sweep freed nothing"
+    with pytest.raises(ValueError):
+        t_cops.sweep(t.store.ts, t.store.succ, t.store.payload, None,
+                     T(np.ones(S, bool)), A, t.now)
+
+
+# ---------------------------------------------------------------------------
 # traps C1 and C2
 # ---------------------------------------------------------------------------
 def _hot_state():

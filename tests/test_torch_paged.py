@@ -23,6 +23,8 @@ from repro.mvkv import paged as jp
 from repro_torch.convert import paged_kv_from_numpy, to_numpy
 from repro_torch.core.telemetry import GCConfig as TGC
 from repro_torch.kernels.decode_attention import ops as t_dops
+from repro_torch.kernels.version_search import ops as t_sops
+from repro_torch.kernels.version_search.ref import view_ref
 from repro_torch.mvkv import paged as tp
 
 SEQS, PAGES, PS, MP, HKV, D, V, LANES = 4, 12, 2, 4, 2, 4, 4, 2
@@ -177,6 +179,53 @@ def test_snapshot_view_feeds_paged_decode(dtype):
         pallas = paged_decode_pallas(jnp.asarray(q), j.k_pages, j.v_pages,
                                      tbl_j, len_j, interpret=True)
         np.testing.assert_allclose(got, np.asarray(pallas), **tol)
+
+
+VIEW_TIMES = {
+    # name: the view's t, from the state's clock ``now``
+    "now": lambda rng, now, B: now,
+    "before_any_version": lambda rng, now, B: 0,
+    "per_sequence": lambda rng, now, B: rng.integers(0, now + 2, B),
+}
+
+
+VIEW_CASES = [(when, form) for when in ("now", "before_any_version")
+              for form in ("int", "0-d", "[B]")] + [("per_sequence", "[B]")]
+
+
+@pytest.mark.parametrize("when,form", VIEW_CASES)
+def test_snapshot_view_matches_jax(when, form):
+    """``view_ref`` and the port's ``snapshot_view`` against
+    ``repro.mvkv.paged.snapshot_view`` on a cache with a never-written
+    sequence (not found), a reset one (length 0) and NO_PAGE padding, with
+    repeated and reordered ids, and ``t`` a Python int, a 0-d tensor or
+    one per sequence."""
+    j = _decode_state(np.float32)
+    t = paged_kv_from_numpy(jax.tree_util.tree_map(np.asarray, j), "cpu")
+    rng = np.random.default_rng(len(when) + len(form))
+    ids = np.array([3, 0, 2, 1, 0, 3, 2], np.int32)
+    now = int(j.mv.now)
+    ts = np.asarray(VIEW_TIMES[when](rng, now, len(ids)), np.int32)
+    if form == "[B]":
+        ts = np.broadcast_to(ts, ids.shape).copy()
+        t_arg = tt(ts)
+    else:
+        t_arg = int(ts) if form == "int" else torch.tensor(int(ts),
+                                                           dtype=torch.int32)
+    want = jp.snapshot_view(j, jnp.asarray(ids), jnp.asarray(ts))
+    st = t.mv.store
+    for got in (tp.snapshot_view(t, tt(ids), t_arg),
+                view_ref(st.ts, st.payload, t.tables, t.lengths, tt(ids),
+                         t_arg)):
+        for a, b in zip(want, got, strict=True):
+            np.testing.assert_array_equal(np.asarray(a), to_numpy(b))
+    tbl, lens = (np.asarray(x) for x in want)
+    assert (tbl == -1).any()
+    if when == "before_any_version":
+        assert (tbl == -1).all() and (lens == 0).all()
+    else:
+        assert (lens[ids == 3] == 0).all() and lens.max() > PS
+    assert t_sops.view.launches == t_sops.search_gather.launches == 0
 
 
 def test_convert_round_trip():
