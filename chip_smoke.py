@@ -11,11 +11,16 @@ Phases, each printing one JSON line:
    decode, flash prefill) against its plain PyTorch version on the card at
    the serving phases' shapes, timed per call (device time from the
    profiler's kernel records, and CUDA events around the call; medians of
-   25), beside its bound; K1's and K2's main-path ops, the one-launch
-   ``sweep`` (the slrt flush's needed-sweep) and ``view``
-   (``paged.snapshot_view``), also against the chains of ops they replaced
-   (rebuilt here from the code that stays), with the device kernels per
-   call of both; paged decode also at 16 sequences of 4096
+   25), beside its bound; K1's, K2's and K3's main-path ops, the one-launch
+   ``sweep`` (the slrt flush's needed-sweep), ``view``
+   (``paged.snapshot_view``) and ``value_at`` (``snapshot_lengths``), also
+   against the chains of ops they replaced (rebuilt here from the code
+   that stays), with the device kernels per call of both; ``value_at``
+   also at phase 6's store (16 slots of 16 versions: the shape the model
+   launches it at, and the kernel table's K3 row); search (K3)
+   also at ``benchmarks/kernel_bench.py``'s largest search shape, by ids
+   and over every slot (K3's and K5's inputs and timing come from
+   ``tools/time_search_needed.py``, which times any checkout's K3 and K5); paged decode also at 16 sequences of 4096
    tokens (the split KV filling the card); flash prefill also at a
    gemma2-2b shape and in float32 (its CUDA-core route; bf16 takes the
    wgmma+TMA kernel); the redesigned rows carry their route, their share
@@ -39,8 +44,9 @@ Phases, each printing one JSON line:
    every 8 steps whose score must stay bit-identical while it holds the
    pin; two prefills of the same prompt must give the same bits; the
    launch counts are zeroed just before the launcher's run and read just
-   after; then a short profiled window of decode steps, whose idle share
-   the phase's line carries;
+   after; ``value_at`` is then held against its plain version on the
+   engine's own store at every timestamp it holds; then a short profiled
+   window of decode steps, whose idle share the phase's line carries;
 7. fork_tiers — the four ``benchmarks/fork_bench.py`` tiers (smoke, beam,
    spec, ckpt_churn) for ebr, steam, dlrt and slrt, with their eager-copy
    and no-checkpoint controls, fork replay validation and a leak check
@@ -56,9 +62,10 @@ Phases, each printing one JSON line:
    before this phase and read just after;
 9. the kernel table as one JSON line, each kernel with the wrapper route
    the main path ran (kernel_route) and only numbers measured in this run
-   (bound_ms computed from its inputs); K1's and K2's rows carry their
-   main-path op (sweep, view) beside the chain it replaced and the parity
-   op (compact, search_gather);
+   (bound_ms computed from its inputs); K1's, K2's and K3's rows carry
+   their main-path op (sweep, view, value_at) beside the chain it
+   replaced and the parity op (compact, search_gather, search), each at
+   the shape of the phase its launches are counted in;
 10. the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits nonzero; nothing is caught.  Without CUDA, or
@@ -70,7 +77,6 @@ import json
 import math
 import os
 import random
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -80,6 +86,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import torch  # noqa: E402
 
@@ -97,11 +104,15 @@ from repro_torch.kernels.flash_prefill import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_prefill.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.version_search import ops as search_ops  # noqa: E402
 from repro_torch.kernels.version_search.ref import (  # noqa: E402
-    search_gather_ref, search_ref, view_ref)
+    search_gather_ref, search_ref, value_at_ref, view_ref)
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serve import forking  # noqa: E402
 from repro_torch.serve.engine import PagedKVEngine  # noqa: E402
+# phase 3's K3 / K5 shapes, inputs and timing, shared with the A/B script
+from time_search_needed import (  # noqa: E402
+    NEEDED_SHAPES, SEARCH_BIG, SEARCH_T_ALL, needed_inputs, search_inputs,
+    time_call)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int32": 67e12}
@@ -139,9 +150,6 @@ MODEL_ARGS = ["--arch", "minitron-4b", "--batch", "16", "--prompt-len",
 STORM = dict(num_seqs=8, num_pages=24, page_size=4, max_pages_per_seq=3,
              versions_per_seq=6, steps=160, min_len=4, max_len=12,
              pin_every=5, pin_hold=3, seed=0)
-# phase 3's needed (K5) shapes (R, V, P): compact's, then
-# benchmarks/kernel_bench.py's two largest compact shapes
-NEEDED_SHAPES = [(2 * 256 * 8, 8, 16), (65536, 8, 256), (32768, 16, 1024)]
 # phase 7: benchmarks/fork_bench.py TIERS, copied (that module imports JAX)
 FORK_TIERS = {
     "smoke": dict(kind="beam", num_seqs=6, num_pages=24, page_size=4,
@@ -201,22 +209,30 @@ KERNELS = {
     "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                       "src/repro/kernels/flash_prefill/kernel.py:125"),
 }
-# device ms of K4 and K6 before their redesign, recorded in earlier runs
+# device ms of K3-K6 before their redesign, recorded in earlier runs
 # (PERF.md section 6, "NVIDIA H100 80GB HBM3, 700.00 W"), not measured
 # here; phase 3's rows carry them as ms_before_recorded
 MS_BEFORE_RECORDED = {"paged_decode": 4.358086, "flash_prefill": 19.320105,
-             "flash_prefill_gemma2_local": 5.816902}
-# K1's and K2's main-path ops: the kernel table's rows of K1 and K2 carry
-# these ops' phase-3 numbers; compact and search_gather stay as parity ops
-MAIN_OPS = {"compact": "sweep", "search_gather": "view"}
+                      "flash_prefill_gemma2_local": 5.816902,
+                      "search": 0.001632, "needed": 0.001632,
+                      "needed_65536x8x256": 0.004736,
+                      "needed_32768x16x1024": 0.007776}
+# K1's, K2's and K3's main-path ops: the kernel table's rows of K1-K3 carry
+# these ops' phase-3 numbers, each at the shape of the phase that counts
+# its launches (K3's: phase 6's store, value_at_model); compact,
+# search_gather and search stay as parity ops
+MAIN_OPS = {"compact": "sweep", "search_gather": "view",
+            "search": "value_at_model"}
 # launch counters; compact's counts K1 (sweep + compact), search_gather's
-# K2 (view + search_gather); sweep and view count their own launches too
+# K2 (view + search_gather), search's K3 (value_at + search); sweep, view
+# and value_at count their own launches too
 WRAPPERS = {"compact": compact_ops.compact,
             "sweep": compact_ops.sweep,
             "needed": compact_ops.needed,
             "search_gather": search_ops.search_gather,
             "view": search_ops.view,
             "search": search_ops.search,
+            "value_at": search_ops.value_at,
             "paged_decode": decode_ops.paged_decode,
             "flash_prefill": flash_ops.flash_attention}
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -233,38 +249,6 @@ def check(cond: bool, what: str) -> None:
 
 def _is_device(event) -> bool:
     return str(event.device_type).endswith("CUDA")
-
-
-def time_call(fn, reps: int = 25, warmup: int = 3) -> dict:
-    """Two times of one call, each the median of ``reps`` calls:
-    ``call_ms`` between CUDA events around the call (it includes the
-    host's time to issue the launches, which dominates a microsecond
-    kernel), and ``device_ms``, the summed duration of the kernels the call
-    ran on the card, from the profiler's kernel records; and ``kernels``,
-    the number of those records per call (the most in any call)."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    per_call, kernels = [], 0
-    for _ in range(reps):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        device = [e for e in prof.events() if _is_device(e)]
-        per_call.append(sum(e.time_range.elapsed_us() for e in device) / 1e3)
-        kernels = max(kernels, len(device))
-    return {"call_ms": statistics.median(times),
-            "device_ms": statistics.median(per_call), "kernels": kernels}
 
 
 def timed(kernel, plain, library=None) -> dict:
@@ -409,18 +393,10 @@ def phase_kernels(dev) -> dict:
         **timed(lambda: search_ops.search_gather(ts, pay, values, ids, t),
                 lambda: search_gather_ref(ts, pay, values, ids, t)))
     out["view"] = view_case(ts, pay, tables.to(dev), lens.to(dev), ids, 2000)
-    got = search_ops.search(ts, pay, ids, t)
-    want = search_ref(ts, pay, ids, t)
-    torch.cuda.synchronize()
-    check(all(torch.equal(a, b) for a, b in zip(got, want)),
-          "search kernel != plain version")
-    nbytes = S * 4 * 2 + S * V * 4 * 2 + S * 5
-    b_ms, b_by = bound(nbytes, S * V * 2, "int32")
-    out["search"] = dict(
-        shape=f"B={S} V={V}", max_abs_err=max_err(got, want),
-        bound_ms=b_ms, bound_by=b_by,
-        **timed(lambda: search_ops.search(ts, pay, ids, t),
-                lambda: search_ref(ts, pay, ids, t)))
+    out["search"] = search_case(ts, pay, ids, t, "search")
+    out["value_at"] = value_at_case(ts, pay, 2000)
+    out["value_at_model"] = value_at_model_case(dev)
+    out.update(search_big_cases(dev))
 
     out.update(decode_cases(dev, g, gd))
     out.update(flash_cases(dev))
@@ -526,31 +502,14 @@ def decode_cases(dev, g, gd) -> dict:
 
 
 def needed_cases(dev) -> dict:
-    """K5 against its plain version at NEEDED_SHAPES, slabs drawn as
-    ``benchmarks/kernel_bench.py`` draws compact's: a quarter never
-    written, 30 % current, the rest closed; a quarter of the board idle
-    (TS_MAX), duplicates allowed.  The mask must be exactly equal.  The
-    first shape is the kernel table's row; its ``launches`` are this
-    phase's (no serving path calls ``needed``)."""
-    g = torch.Generator(device=dev).manual_seed(5)
-    now = 4000
+    """K5 against its plain version at NEEDED_SHAPES on
+    ``needed_inputs``' slabs; the mask must be exactly equal.  The first
+    shape is the kernel table's row; its ``launches`` are this phase's (no
+    serving path calls ``needed``)."""
     rows = {}
     compact_ops.needed.launches = 0
-    for i, (R, V, P) in enumerate(NEEDED_SHAPES):
-        def ints(lo, hi, shape):
-            return torch.randint(lo, hi, shape, generator=g, device=dev,
-                                 dtype=torch.int32)
-        ts = ints(0, now, (R, V))
-        succ = ts + ints(1, now // 2, (R, V))
-        succ[torch.rand((R, V), generator=g, device=dev) < 0.3] = TS_MAX
-        hole = torch.rand((R, V), generator=g, device=dev) < 0.25
-        ts[hole], succ[hole] = EMPTY, TS_MAX
-        n_ann = P - P // 4
-        ann = torch.cat([torch.sort(ints(0, now, (n_ann,))).values,
-                         torch.full((P - n_ann,), TS_MAX, dtype=torch.int32,
-                                    device=dev)])
-        args = (ts, succ, ann, torch.tensor(now, dtype=torch.int32,
-                                            device=dev))
+    for i, ((R, V, P), args) in enumerate(zip(NEEDED_SHAPES,
+                                              needed_inputs(dev))):
         got = compact_ops.needed(*args)
         want = needed_ref(*args)
         torch.cuda.synchronize()
@@ -560,12 +519,129 @@ def needed_cases(dev) -> dict:
               f"needed check at R={R} is all one value: weak check")
         nbytes = R * V * (4 * 2 + 1) + P * 4 + 4
         b_ms, b_by = bound(nbytes, R * V * math.log2(max(P, 2)), "int32")
-        rows["needed" if i == 0 else f"needed_{R}x{V}x{P}"] = dict(
-            shape=f"S={R} V={V} P={P}", max_abs_err=max_err([got], [want]),
-            bound_ms=b_ms, bound_by=b_by,
-            **timed(lambda: compact_ops.needed(*args),
-                    lambda: needed_ref(*args)))
+        name = "needed" if i == 0 else f"needed_{R}x{V}x{P}"
+        row = dict(shape=f"S={R} V={V} P={P}",
+                   max_abs_err=max_err([got], [want]), bound_ms=b_ms,
+                   bound_by=b_by, **timed(lambda: compact_ops.needed(*args),
+                                          lambda: needed_ref(*args)))
+        rows[name] = dict(row, share_of_bound=b_ms / row["ms"],
+                          ms_before_recorded=MS_BEFORE_RECORDED.get(name))
     rows["needed"]["launches_phase3"] = compact_ops.needed.launches
+    return rows
+
+
+def search_case(ts, pay, ids, t, name: str) -> dict:
+    """K3's parity op (``search``, ``search_pallas``'s contract) against
+    its plain version: ids (``None``: every slot) and one ``t`` per
+    query."""
+    got = search_ops.search(ts, pay, ids, t)
+    want = search_ref(ts, pay, ids, t)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want, strict=True)),
+          f"search kernel != plain version ({name})")
+    check(bool(got[1].any()) and not bool(got[1].all()),
+          f"search check ({name}) lacks found or not-found queries")
+    B, V = got[0].shape[0], ts.shape[1]
+    # ids, t, slab rows, payloads and flags
+    nbytes = B * 4 * 2 + B * V * 4 * 2 + B * 5
+    b_ms, b_by = bound(nbytes, B * V * 2, "int32")
+    row = dict(shape=f"B={B} V={V} S={ts.shape[0]}", op="search_ops.search",
+               max_abs_err=max_err(got, want), bound_ms=b_ms, bound_by=b_by,
+               **timed(lambda: search_ops.search(ts, pay, ids, t),
+                       lambda: search_ref(ts, pay, ids, t)))
+    return dict(row, share_of_bound=b_ms / row["ms"],
+                ms_before_recorded=MS_BEFORE_RECORDED.get(name))
+
+
+def value_at_chain(ts, pay, t: int):
+    """``snapshot_lengths`` as it ran before ``value_at``: ``arange`` ids,
+    the search op (payloads and flags), then the lengths masked to 0."""
+    ids = torch.arange(ts.shape[0], dtype=torch.int32, device=ts.device)
+    got, found = search_ops.search(ts, pay, ids, t)
+    return torch.where(found, got, 0)
+
+
+def value_at_case(ts, pay, t: int, what: str = "") -> dict:
+    """K3's main-path op as ``snapshot_lengths`` calls it: every slot (no
+    id array), ``t`` a Python int.  The op, the chain it replaced and the
+    plain version must agree exactly."""
+    got = search_ops.value_at(ts, pay, None, t)
+    want = value_at_ref(ts, pay, None, t)
+    old = value_at_chain(ts, pay, t)
+    torch.cuda.synchronize()
+    S, V = ts.shape
+    where = f"at S={S} V={V}{what}"
+    check(torch.equal(got, want), f"value_at kernel != plain version {where}")
+    check(torch.equal(got, old),
+          f"value_at kernel != the chain it replaced {where}")
+    check(bool((got == 0).any()) and bool((got != 0).any()),
+          f"value_at check {where} lacks found or not-found slots")
+    nbytes = S * V * 4 * 2 + S * 4            # slab rows, values
+    b_ms, b_by = bound(nbytes, S * V * 2, "int32")
+    return dict(shape=f"B={S} V={V} every slot{what}",
+                op="search_ops.value_at",
+                max_abs_err=max_err([got], [want]), bound_ms=b_ms,
+                bound_by=b_by,
+                **chain_row(time_call(lambda: search_ops.value_at(
+                                ts, pay, None, t)),
+                            time_call(lambda: value_at_chain(ts, pay, t)),
+                            time_call(lambda: value_at_ref(ts, pay, None, t)),
+                            b_ms))
+
+
+def model_store_shape() -> tuple[int, int]:
+    """(slots, versions per slot) of phase 6's store: one slot per
+    sequence of the launcher's batch."""
+    return launcher.parse_args(MODEL_ARGS).batch, launcher.VERSIONS_PER_SLOT
+
+
+def value_at_model_case(dev) -> dict:
+    """K3's main-path op at the shape phase 6 launches it: the model
+    engine's ``lengths_at`` over every one of its 16 slots of 16 versions
+    (the kernel's 16-lane query groups), ``t`` by value; the kernel
+    table's K3 row."""
+    ts, _, pay = _store(torch.Generator().manual_seed(6),
+                        *model_store_shape(), dev)
+    return value_at_case(ts, pay, 1000, " (phase 6's store)")
+
+
+def check_value_at_on_store(store) -> int:
+    """``value_at`` on a store's own slabs against its plain version, at
+    0, every timestamp the store holds and one past the last: every
+    snapshot a reader can take of it.  Returns the number of times
+    checked."""
+    stamps = torch.unique(store.ts[store.ts != EMPTY]).tolist()
+    times = [0] + stamps + [stamps[-1] + 1 if stamps else 1]
+    for t in times:
+        got = search_ops.value_at(store.ts, store.payload, None, t)
+        want = value_at_ref(store.ts, store.payload, None, t)
+        check(torch.equal(got, want),
+              f"value_at != plain version on the store at t={t}")
+    return len(times)
+
+
+def search_big_cases(dev) -> dict:
+    """K3 at ``benchmarks/kernel_bench.py``'s largest search shape, with
+    its data: ``search`` over B = 8192 ids with one t each, and
+    ``value_at`` over every one of the S = 65536 slots."""
+    S, V, B = SEARCH_BIG
+    ts, pay, ids, t = search_inputs(S, V, B, dev)
+    rows = {f"search_{S}x{V}x{B}": search_case(ts, pay, ids, t, "search_big")}
+    got = search_ops.value_at(ts, pay, None, SEARCH_T_ALL)
+    want = value_at_ref(ts, pay, None, SEARCH_T_ALL)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "value_at kernel != plain version at "
+          f"S={S}")
+    check(bool((got == 0).any()) and bool((got != 0).any()),
+          f"value_at check at S={S} lacks found or not-found slots")
+    b_ms, b_by = bound(S * V * 4 * 2 + S * 4, S * V * 2, "int32")
+    row = dict(shape=f"B={S} V={V} every slot", op="search_ops.value_at",
+               max_abs_err=max_err([got], [want]), bound_ms=b_ms,
+               bound_by=b_by,
+               **timed(lambda: search_ops.value_at(ts, pay, None,
+                                                   SEARCH_T_ALL),
+                       lambda: value_at_ref(ts, pay, None, SEARCH_T_ALL)))
+    rows[f"value_at_{S}x{V}"] = dict(row, share_of_bound=b_ms / row["ms"])
     return rows
 
 
@@ -1236,9 +1312,9 @@ def phase_serve(dev) -> dict:
             lane = pins % p["reader_lanes"]
             ts = eng.pin(lane)
             view = eng.view_at(ts)
-            # the descriptor read (search, K3) must name the table versions
-            # whose rows and lengths the fused view read
-            pay, found = vstore.snapshot_read(eng.st.mv, ids, ts)
+            # the descriptor read (search, K3, every slot) must name the
+            # table versions whose rows and lengths the fused view read
+            pay, found = vstore.snapshot_read(eng.st.mv, None, ts)
             tbl = pay.clamp(min=0).long()
             check(torch.equal(torch.where(found[:, None], eng.st.tables[tbl],
                                           -1), view[0])
@@ -1339,6 +1415,7 @@ def profile_window(decode_step, steps: int = 16, name: str = "serve") -> dict:
     ours = {k: [n, t / 1e3] for k, (n, t) in per_kernel.items()
             if any(f in k for f in ("sweep_kernel", "compact_kernel",
                                     "needed_kernel", "search_kernel",
+                                    "search_gather_kernel",
                                     "view_kernel", "paged_decode_kernel",
                                     "flash_prefill_kernel"))}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -1395,6 +1472,11 @@ def phase_model(dev) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     launches = {name: w.launches for name, w in WRAPPERS.items()}
     flash_routes = dict(routes)
+    store = engine.state.mv.store
+    check(tuple(store.ts.shape) == model_store_shape(),
+          f"the store is {tuple(store.ts.shape)}, phase 3's value_at_model "
+          f"row {model_store_shape()}")
+    value_at_times = check_value_at_on_store(store)
     prof = profile_window(engine.step, steps=8, name="model")
     toks = rep["tokens"]
     res = dict(
@@ -1414,6 +1496,7 @@ def phase_model(dev) -> tuple[dict, dict]:
             "flash_prefill"], flash_route_launches=flash_routes,
         readers=rep["readers"],
         score_mismatches=rep["score_mismatches"],
+        value_at_times_checked=value_at_times,
         prefill_bits_equal=same, stats_sum=rep["stats_sum"],
         space=rep["space"], tokens_head=toks[:2, :8].tolist())
     emit(res)
@@ -1425,7 +1508,7 @@ def phase_model(dev) -> tuple[dict, dict]:
           f"prefill of {cfg.num_layers} layers")
     check(flash_routes[flash_ops.ROUTES[torch.bfloat16]] == cfg.num_layers,
           f"the bf16 prefill did not run the wgmma kernel: {flash_routes}")
-    for name in ("compact", "search"):
+    for name in ("compact", "search", "value_at"):
         check(launches[name] > 0, f"{name} kernel never launched in model")
     check(rep["readers"] == min(-(-args.steps // args.pin_every),
                                 launcher.READER_LANES),
@@ -1451,11 +1534,13 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         row = kernels[MAIN_OPS.get(name, name)]
         # the count from the main path that runs the kernel: phase 5 for
-        # K1-K4 (paged serving), phase 6 for flash prefill (the model);
-        # no serving path calls needed (K5), as in the JAX package, so its
-        # count is phase 3's
+        # K1, K2 and K4 (paged serving), phase 6 for K3 (the model
+        # engine's snapshot lengths) and flash prefill; no serving path
+        # calls needed (K5), as in the JAX package, so its count is
+        # phase 3's
         launches_from, count = {
             "flash_prefill": ("model", model_launches[name]),
+            "search": ("model", model_launches[name]),
             "needed": ("kernels (phase 3): no serving path calls needed",
                        row.get("launches_phase3", 0)),
         }.get(name, ("serve", launches[name]))
@@ -1474,7 +1559,7 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             share_of_bound=row["bound_ms"] / row["ms"]))
         if name in MAIN_OPS:
-            # K1 / K2: the main path's one-launch op, beside the chain of
+            # K1-K3: the main path's one-launch op, beside the chain of
             # ops it replaced and the parity op that stays
             parity = kernels[name]
             table[-1].update(

@@ -15,12 +15,14 @@ leaf plus ``manifest.json`` with ``step``, ``num_leaves``, ``extra`` and
 ``time``.  Leaves are ordered as ``jax.tree.flatten`` orders them:
 NamedTuple fields and list/tuple items in order, dict items by sorted key,
 depth first, ``None`` an empty subtree.  numpy has no bfloat16, so a
-bfloat16 tensor is saved as its 16-bit pattern (int16), and the manifest's
+bfloat16 tensor is saved as raw 2-byte records (``|V2``), the file the JAX
+manager writes for the same values byte for byte, and the manifest's
 per-leaf ``dtypes`` list says which leaves to view back as bfloat16.  A
-bfloat16 leaf the JAX package wrote loads as raw 2-byte records (``|V2``)
-without ``ml_dtypes``; it is read as bfloat16 bits where the ``like``
-leaf is bfloat16.  float32, int32 and bool trees interchange with the JAX
-package in both directions.
+``|V2`` leaf is read as bfloat16 bits where the manifest or the ``like``
+leaf says bfloat16.  float32, int32 and bool trees interchange with the
+JAX package in both directions; so do bfloat16 leaves as files, but
+``jnp.asarray`` of a loaded ``|V2`` leaf raises, on the port's files as on
+the JAX manager's own (so a JAX engine restores no bfloat16 checkpoint).
 """
 from __future__ import annotations
 
@@ -68,11 +70,24 @@ def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
     return build(like)
 
 
-def _to_numpy(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
+def _save_leaf(path: str, leaf: torch.Tensor) -> str:
+    """Write one leaf as ``.npy``; returns its dtype name for the manifest.
+    A bfloat16 leaf is written as the JAX manager's ``np.save`` writes
+    ``ml_dtypes.bfloat16``: descr ``'<V2'`` (a plain numpy ``V2`` says
+    ``'|V2'``), then the 16-bit patterns."""
     dtype = str(leaf.dtype).removeprefix("torch.")
-    if leaf.dtype == torch.bfloat16:
-        leaf = leaf.view(torch.int16)
-    return leaf.detach().cpu().numpy(), dtype
+    arr = leaf.detach().cpu()
+    if leaf.dtype != torch.bfloat16:
+        np.save(path, arr.numpy())
+        return dtype
+    bits = np.ascontiguousarray(arr.view(torch.int16).numpy()).reshape(
+        tuple(leaf.shape))   # view() of a 0-d tensor comes back 1-d
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False,
+                "shape": bits.shape})
+        f.write(bits.tobytes())
+    return dtype
 
 
 def _from_numpy(arr: np.ndarray, saved: Optional[str], like: Any,
@@ -105,9 +120,8 @@ class CheckpointManager:
         leaves = tree_flatten(tree)
         dtypes = []
         for i, leaf in enumerate(leaves):
-            arr, dtype = _to_numpy(leaf)
-            np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr)
-            dtypes.append(dtype)
+            dtypes.append(_save_leaf(os.path.join(tmp, f"leaf_{i:05d}.npy"),
+                                     leaf))
         manifest = {
             "step": step,
             "num_leaves": len(leaves),

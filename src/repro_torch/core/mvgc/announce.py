@@ -1,6 +1,7 @@
 """Announcement board: one lane per concurrent snapshot reader (port of
-``repro.core.mvgc.announce``).  Announce/unannounce are masked writes; the
-scan is a sort."""
+``repro.core.mvgc.announce``).  Announce/unannounce are masked writes
+with JAX's drop rule: a lane in ``[-P, 0)`` means ``lane + P`` and a lane
+still outside ``[0, P)`` writes nothing; the scan is a sort."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -25,23 +26,17 @@ def make_board(num_lanes: int, device: DeviceLike = None) -> AnnounceBoard:
         (num_lanes,), EMPTY, dtype=I32, device=resolve_device(device)))
 
 
-def _in_range(board: AnnounceBoard, lanes: torch.Tensor) -> torch.Tensor:
-    return (lanes >= 0) & (lanes < board.num_lanes)
-
-
 def announce(board: AnnounceBoard, lanes: torch.Tensor, ts,
              mask: torch.Tensor) -> AnnounceBoard:
     """Pin timestamps: lanes[i] announces ts[i] where mask[i]."""
     ts = torch.as_tensor(ts, dtype=I32, device=board.slots.device)
-    return AnnounceBoard(slots=drop_set(
-        board.slots, lanes, ts.expand(lanes.shape), mask
-        & _in_range(board, lanes)))
+    return AnnounceBoard(slots=drop_set(board.slots, lanes,
+                                        ts.expand(lanes.shape), mask))
 
 
 def unannounce(board: AnnounceBoard, lanes: torch.Tensor,
                mask: torch.Tensor) -> AnnounceBoard:
-    return AnnounceBoard(slots=drop_set(
-        board.slots, lanes, EMPTY, mask & _in_range(board, lanes)))
+    return AnnounceBoard(slots=drop_set(board.slots, lanes, EMPTY, mask))
 
 
 def scan(board: AnnounceBoard) -> torch.Tensor:

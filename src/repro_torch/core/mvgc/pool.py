@@ -14,7 +14,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch._tensor import I32, DeviceLike, drop_set, resolve_device
+from repro_torch._tensor import (I32, DeviceLike, drop_rows, gather_index,
+                                 put_rows, resolve_device)
 
 TS_MAX = 2_147_483_647  # "current version" successor / padding
 EMPTY = -1
@@ -71,12 +72,14 @@ def write(
     """Append one new version to each masked slot; the overwritten current
     version's interval closes at ``new_ts``.  Returns (store', overflow[B]):
     a lane overflows when its slot's slab has no free entry.  Masked slot
-    ids must be unique (one writer per object per step)."""
-    V = store.ts.shape[1]
+    ids must be unique (one writer per object per step).  Ids follow JAX's
+    rules: ``[-S, 0)`` wraps, the rows of ids still out of range are read
+    clamped and their writes dropped."""
+    S, V = store.ts.shape
     B = slot_ids.shape[0]
     new_ts = torch.as_tensor(new_ts, dtype=I32, device=store.ts.device)
     new_ts = new_ts.expand(B)
-    sid = slot_ids.long()
+    sid = gather_index(slot_ids, S)
     rows_ts = store.ts[sid]               # [B, V]
     rows_succ = store.succ[sid]
     rows_valid = rows_ts != EMPTY
@@ -97,10 +100,11 @@ def write(
     rows_pay = torch.where(onehot, payloads.to(I32)[:, None],
                            store.payload[sid])
 
+    dest = drop_rows(slot_ids, do, S)
     new_store = VersionStore(
-        ts=drop_set(store.ts, slot_ids, rows_ts, do),
-        succ=drop_set(store.succ, slot_ids, rows_succ, do),
-        payload=drop_set(store.payload, slot_ids, rows_pay, do),
+        ts=put_rows(store.ts, dest, rows_ts),
+        succ=put_rows(store.succ, dest, rows_succ),
+        payload=put_rows(store.payload, dest, rows_pay),
     )
     return new_store, overflow
 
@@ -118,7 +122,7 @@ def read_at(
     found[B]) by a masked argmax over the V-wide slab."""
     B = slot_ids.shape[0]
     t = torch.as_tensor(t, dtype=I32, device=store.ts.device).expand(B)
-    sid = slot_ids.long()
+    sid = gather_index(slot_ids, store.ts.shape[0])
     rows_ts = store.ts[sid]
     ok = (rows_ts != EMPTY) & (rows_ts <= t[:, None])
     masked = torch.where(ok, rows_ts, -2_147_483_648)
@@ -131,7 +135,7 @@ def read_at(
 def read_current(store: VersionStore, slot_ids: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """peekHead: payload of the current version per queried slot."""
-    sid = slot_ids.long()
+    sid = gather_index(slot_ids, store.ts.shape[0])
     cur = (store.succ[sid] == TS_MAX) & (store.ts[sid] != EMPTY)
     found = cur.any(dim=1)
     payload = _pick(store.payload[sid], first_true(cur))

@@ -12,7 +12,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch._tensor import I32, DeviceLike, drop_set, resolve_device
+from repro_torch._tensor import (I32, DeviceLike, drop_set, gather_index,
+                                 masked_rows, put_rows, resolve_device)
 from repro_torch.core.mvgc.needed import needed_intervals
 from repro_torch.core.mvgc.pool import EMPTY, TS_MAX, VersionStore, free_entries
 
@@ -60,11 +61,12 @@ def push(
     ok = mask & (push_rank < holes.sum(dtype=I32))
     arange = torch.arange(B, dtype=I32, device=holes.device)
     hole_pos = torch.sort(torch.where(holes, arange, B)).values
-    dest = hole_pos[push_rank.clamp(max=B - 1).long()]
+    dest = masked_rows(hole_pos[push_rank.clamp(max=B - 1).long()], ok,
+                       B)
     new_ring = RetireRing(
-        idx=drop_set(ring.idx, dest, flat_idx, ok),
-        low=drop_set(ring.low, dest, low, ok),
-        high=drop_set(ring.high, dest, high, ok),
+        idx=put_rows(ring.idx, dest, flat_idx),
+        low=put_rows(ring.low, dest, low),
+        high=put_rows(ring.high, dest, high),
     )
     return new_ring, mask & ~ok
 
@@ -77,7 +79,10 @@ def flush(
 ) -> Tuple[RetireRing, VersionStore, torch.Tensor]:
     """Intersect the ring with the announcements; free obsolete entries.
 
-    Returns (ring', store', freed_payloads[B]) with EMPTY holes."""
+    Returns (ring', store', freed_payloads[B]) with EMPTY holes.  A flat
+    index follows JAX's rules: ``[-S*V, 0)`` wraps (a slot id of -1 was
+    retired as ``-V + v``), the payload read clamps and the kill drops what
+    is still out of range."""
     S, V = store.ts.shape
     occupied = ring.idx != EMPTY
     needed = needed_intervals(
@@ -86,9 +91,9 @@ def flush(
     kill_flat = drop_set(
         torch.zeros((S * V,), dtype=torch.bool, device=ring.idx.device),
         ring.idx, True, reclaim)
-    safe = ring.idx.clamp(min=0, max=S * V - 1).long()
-    freed_payloads = torch.where(reclaim, store.payload.reshape(-1)[safe],
-                                 EMPTY)
+    freed_payloads = torch.where(
+        reclaim, store.payload.reshape(-1)[gather_index(ring.idx, S * V)],
+        EMPTY)
     store = free_entries(store, kill_flat.reshape(S, V))
     ring = _compact_ring(ring, occupied & needed)
     return ring, store, freed_payloads
@@ -96,10 +101,10 @@ def flush(
 
 def _compact_ring(ring: RetireRing, keep: torch.Tensor) -> RetireRing:
     """Keep the ``keep`` entries, compacted to the front in order."""
-    dest = _rank(keep)
+    dest = masked_rows(_rank(keep), keep, ring.capacity)
 
     def scatter(arr, fill):
-        return drop_set(torch.full_like(arr, fill), dest, arr, keep)
+        return put_rows(torch.full_like(arr, fill), dest, arr)
 
     return RetireRing(
         idx=scatter(ring.idx, EMPTY),

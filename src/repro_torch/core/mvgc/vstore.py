@@ -27,8 +27,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch._tensor import (I32, DeviceLike, i32, i32_or_int,
-                                 resolve_device)
+from repro_torch._tensor import (I32, DeviceLike, gather_index, i32,
+                                 i32_or_int, resolve_device)
 from repro_torch.core.mvgc import announce as ann
 from repro_torch.core.mvgc import pool, rangetracker as rt
 from repro_torch.core.mvgc.needed import sort_announcements
@@ -87,7 +87,10 @@ def write_step(
     extra_pins: Optional[torch.Tensor] = None,
 ) -> Tuple[MVState, torch.Tensor, torch.Tensor]:
     """Tick the clock, append versions, retire the overwritten ones into the
-    ring (RT policies).  Returns (state', freed_payloads, overflow[K])."""
+    ring (RT policies).  Returns (state', freed_payloads, overflow[K]).
+    Slot ids follow JAX's rules (:func:`repro_torch.core.mvgc.pool.write`);
+    the ring records ``slot_id * V + v`` from the id as given, as JAX
+    does."""
     if policy not in POLICIES:
         raise ValueError(f"unknown policy {policy!r}")
     freed = _empty(slot_ids.shape[0], slot_ids)
@@ -98,7 +101,7 @@ def write_step(
     store = state.store
     V = store.ts.shape[1]
 
-    sid = slot_ids.long()
+    sid = gather_index(slot_ids, store.ts.shape[0])
     rows_ts = store.ts[sid]
     is_cur = (store.succ[sid] == TS_MAX) & (rows_ts != EMPTY)
     had_cur = is_cur.any(dim=1) & mask
@@ -136,14 +139,29 @@ def end_snapshot(state: MVState, lanes: torch.Tensor, mask: torch.Tensor
     return state._replace(board=ann.unannounce(state.board, lanes, mask))
 
 
-def snapshot_read(state: MVState, slot_ids: torch.Tensor, t
+def _ids(slot_ids: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if slot_ids is None else slot_ids.to(I32).contiguous()
+
+
+def snapshot_read(state: MVState, slot_ids: Optional[torch.Tensor], t
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """rtx read (``search(t)``): latest payload at-or-before t per slot,
-    through the version-search kernel.  ``t`` is a Python int (passed to
-    the kernel by value) or an int32 tensor, 0-d or one per slot."""
+    through the version-search kernel.  ``slot_ids=None`` reads every
+    slot.  ``t`` is a Python int (passed to the kernel by value) or an
+    int32 tensor, 0-d or one per slot."""
     return search_ops.search(state.store.ts, state.store.payload,
-                             slot_ids.to(I32).contiguous(),
-                             i32_or_int(t, slot_ids.device))
+                             _ids(slot_ids),
+                             i32_or_int(t, state.store.ts.device))
+
+
+def snapshot_value(state: MVState, slot_ids: Optional[torch.Tensor], t
+                   ) -> torch.Tensor:
+    """:func:`snapshot_read`'s payloads with 0 where a slot had no version
+    at ``t``, in one launch (``search_ops.value_at``); ``slot_ids=None``
+    reads every slot."""
+    return search_ops.value_at(state.store.ts, state.store.payload,
+                               _ids(slot_ids),
+                               i32_or_int(t, state.store.ts.device))
 
 
 def snapshot_gather(state: MVState, slot_ids: torch.Tensor, t,

@@ -4,17 +4,18 @@
 //
 // K1 replaces the Pallas kernel compact_pallas / _fused_compact_kernel of
 // repro/kernels/compact/kernel.py; K5 replaces needed_pallas /
-// _compact_kernel of the same file.  Every kernel here runs one thread per
-// (row, v) entry; each block copies the sorted announcement board A[P]
-// into shared memory (P is reader lanes plus extra pins: tens to a few
-// thousand), and every thread evaluates
+// _compact_kernel of the same file.  Every kernel copies the sorted
+// announcement board A[P] (P is reader lanes plus extra pins: tens to a few
+// thousand) into shared memory and evaluates, per (row, v) entry,
 //     need = ts != EMPTY && (succ > now || exists a in A: ts <= a < succ)
-// as a lower-bound binary search for ts in A.  The TPU kernel's broadcast
-// compare over all of A needs no order; the binary search needs A sorted
-// (TS_MAX-padded), which is what the ops' contract (sort_announcements)
-// already gives.  A board above kMaxAnn entries is refused.  Each thread
-// issues its entry's loads and the load of `now` before the barrier that
-// publishes the staged board, so the two round trips overlap.
+// as a lower-bound search for ts in A.  The TPU kernel's broadcast compare
+// over all of A needs no order; the search needs A sorted (TS_MAX-padded),
+// which is what the ops' contract (sort_announcements) already gives.  A
+// board above kMaxAnn entries is refused.
+//
+// K1's kernels run one thread per entry and search the board as it is
+// sorted; each thread issues its entry's loads and the load of `now` before
+// the barrier that publishes the staged board, so the round trips overlap.
 //
 // sweep_kernel is the store's whole needed-sweep (vstore._sweep_slots and
 // _sweep_all_needed), which before took a chain of gathers, this file's
@@ -33,10 +34,31 @@
 //     gathered composite did.  Every write-back of a slot is computed from
 //     its original row, never from one lane's copy, so duplicate lanes
 //     cannot race (trap C1); unmasked lanes write nothing and free nothing.
+//   Lane ids follow JAX's index rules: an id in [-S, 0) means id + S; an
+//   id still outside [0, S) reads its row clamped into [0, S) (the lane
+//   role reports that row's kills, as JAX's gather does) and writes
+//   nothing (the slab role drops it, as JAX's scatter does).
 // K1's parity op (compact_kernel) kills the masked entries of its rows and
 // counts them with __syncthreads_count plus one integer atomicAdd per
 // block: integer addition is order-independent, so the count is exact.
-// K5 writes the mask straight into a bool (one byte) output.
+//
+// K5 (needed_kernel) is bound by bytes, so it is built to stream them:
+// each thread issues its entries' loads, and the load of `now`, before
+// the board barrier.  It has two layouts, chosen by the slab's size.  A
+// large slab (at least 4 x 256 entries per SM) is streamed in runs of
+// kRun = 4 consecutive entries per thread, loaded with one 16-byte load of
+// ts and one of succ, whose 4 bools leave in one 4-byte store (a warp
+// stores 128 contiguous bytes); blocks are as wide as spreads the runs
+// over the SMs (up to 1024 threads, at most kBlocksPerSm blocks per SM
+// walking any further runs with a grid stride), so the board is staged
+// about once per SM instead of once per 256 entries, and it is staged in
+// Eytzinger (breadth-first) order of a perfect tree of 2^L - 1 nodes,
+// TS_MAX-padded: the search is L branch-free shared loads, and the nodes
+// of one level are consecutive words, so the lanes of a warp meet in a
+// bank only from the sixth level on, where the sorted layout's probes at
+// a level lie a power of two apart, all in one bank.  A smaller slab keeps
+// one entry per thread (there, more threads beat fewer wider ones) and
+// the board as it is sorted, which costs less to stage.
 //
 // Bound on the H100: bytes (the sweep: 12 read and 12 written per slab
 // entry, 5 read per lane and 4 written per freed handle, and the board;
@@ -60,6 +82,16 @@ constexpr int kFlagWords = (kThreads + 1 + 3) / 4;
 // so the scan costs one round trip, not one per loop iteration
 constexpr int kPrefetch = 16;
 constexpr int kDefaultSmem = 48 * 1024;
+// K5: entries per thread on a large slab, block widths, blocks per SM
+constexpr int kRun = 4;
+constexpr int kMinThreads = 32;
+constexpr int kMaxThreads = 1024;
+constexpr int kBlocksPerSm = 2;
+
+// A lane id in [-S, 0) means id + S (JAX's index rule).
+__device__ __forceinline__ int wrap(int sid, int S) {
+  return sid < 0 ? sid + S : sid;
+}
 
 // Copies the board into shared memory; every thread of the block calls it.
 __device__ __forceinline__ void stage_board(int* sA, const int* ann, int P) {
@@ -114,7 +146,7 @@ sweep_kernel(const int* __restrict__ ts, const int* __restrict__ succ,
 #pragma unroll
       for (int k = 0; k < kPrefetch; ++k) {
         const int r = threadIdx.x + k * kThreads;
-        pre_sid[k] = r < R ? slot_ids[r] : -1;
+        pre_sid[k] = r < R ? wrap(slot_ids[r], S) : -1;
         pre_m[k] = r < R ? mask[r] : 0;
       }
       for (int i = threadIdx.x; i < s1 - s0; i += kThreads) flag[i] = 0;
@@ -128,7 +160,7 @@ sweep_kernel(const int* __restrict__ ts, const int* __restrict__ succ,
           flag[pre_sid[k] - s0] = 1;
 #pragma unroll 8
       for (int r = threadIdx.x + kPrefetch * kThreads; r < R; r += kThreads) {
-        const int sid = slot_ids[r];
+        const int sid = wrap(slot_ids[r], S);
         const uint8_t m = mask[r];
         if (m && sid >= s0 && sid < s1) flag[sid - s0] = 1;
       }
@@ -153,8 +185,9 @@ sweep_kernel(const int* __restrict__ ts, const int* __restrict__ succ,
   bool live = false;
   if (e < n) {
     const int r = (int)(e / V);
-    const int sid = slot_ids[r];
-    live = mask[r] != 0 && sid >= 0 && sid < S;
+    // JAX's gather rule: wrapped, then clamped into [0, S)
+    const int sid = min(max(wrap(slot_ids[r], S), 0), S - 1);
+    live = mask[r] != 0;
     if (live) {
       const long long src = (long long)sid * V + (e - (long long)r * V);
       t = ts[src];
@@ -206,15 +239,150 @@ __global__ void compact_kernel(const int* __restrict__ ts,
   if (threadIdx.x == 0 && block_kills) atomicAdd(count, block_kills);
 }
 
-__global__ void needed_kernel(const int* __restrict__ ts,
-                              const int* __restrict__ succ,
-                              const int* __restrict__ ann,
-                              const int* __restrict__ now_p,
-                              bool* __restrict__ out, long long n, int P) {
-  extern __shared__ int sA[];  // P ints
-  stage_board(sA, ann, P);
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < n) out[e] = needed_entry(ts[e], succ[e], sA, P, *now_p);
+// Stages the sorted board A[P] into b[1 .. 2^L - 1] in Eytzinger order
+// (node i at depth d = floor(log2 i), position j = i - 2^d, holds the
+// sorted entry of rank (2j + 1) 2^(L-1-d) - 1), TS_MAX past P; b[0] =
+// TS_MAX stands for "no entry >= t".  No barrier: the caller syncs.
+__device__ __forceinline__ void stage_eytzinger(int* b, const int* ann,
+                                                int P, int L) {
+  const int n = (1 << L) - 1;
+  for (int i = threadIdx.x; i <= n; i += blockDim.x) {
+    int v = kTsMax;
+    if (i > 0) {
+      const int d = 31 - __clz(i);
+      const int r = ((2 * (i - (1 << d)) + 1) << (L - 1 - d)) - 1;
+      if (r < P) v = ann[r];
+    }
+    b[i] = v;
+  }
+}
+
+// The run of RUN entries at e0: 16-byte loads when RUN is a multiple of 4,
+// `vec` and the run is whole, else one entry at a time (EMPTY past n).
+template <int RUN>
+__device__ __forceinline__ void load_run(const int* __restrict__ ts,
+                                         const int* __restrict__ succ,
+                                         long long e0, long long n, int vec,
+                                         int* t, int* s) {
+  if (RUN % 4 == 0 && vec && e0 + RUN <= n) {
+    const int4* t4 = reinterpret_cast<const int4*>(ts + e0);
+    const int4* s4 = reinterpret_cast<const int4*>(succ + e0);
+#pragma unroll
+    for (int w = 0; w < RUN / 4; ++w) {
+      const int4 a = t4[w], c = s4[w];
+      t[4 * w] = a.x; t[4 * w + 1] = a.y; t[4 * w + 2] = a.z;
+      t[4 * w + 3] = a.w;
+      s[4 * w] = c.x; s[4 * w + 1] = c.y; s[4 * w + 2] = c.z;
+      s[4 * w + 3] = c.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) {
+      const bool in = e0 + j < n;
+      t[j] = in ? ts[e0 + j] : kEmpty;
+      s[j] = in ? succ[e0 + j] : kTsMax;
+    }
+  }
+}
+
+// needed(A, now) of a run.  kWide: runs of kRun entries, the board staged
+// in Eytzinger order (stage_eytzinger) and each search L branch-free
+// levels; otherwise one entry per thread, the board staged sorted and
+// searched by needed_entry.  One byte per entry, little-endian in 32-bit
+// words, then one store of RUN bytes (4 entries or 1).
+template <bool kWide>
+__global__ void __launch_bounds__(kMaxThreads)
+needed_kernel(const int* __restrict__ ts, const int* __restrict__ succ,
+              const int* __restrict__ ann, const int* __restrict__ now_p,
+              int now_val, uint8_t* __restrict__ out, long long n, int P,
+              int L, int vec) {
+  constexpr int RUN = kWide ? kRun : 1;
+  extern __shared__ int b[];  // the board: 2^L ints (kWide) or P
+  const long long stride = (long long)gridDim.x * blockDim.x * RUN;
+  long long e0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * RUN;
+  int t[RUN], s[RUN];
+  if (e0 < n) load_run<RUN>(ts, succ, e0, n, vec, t, s);
+  const int now = now_p != nullptr ? *now_p : now_val;
+  if (kWide) {
+    stage_eytzinger(b, ann, P, L);
+  } else {
+    for (int i = threadIdx.x; i < P; i += blockDim.x) b[i] = ann[i];
+  }
+  __syncthreads();
+  for (; e0 < n; e0 += stride) {
+    uint32_t word = 0;
+    if constexpr (kWide) {
+      // lower bound of t[j] in the board: k walks down the tree
+      int k[RUN];
+#pragma unroll
+      for (int j = 0; j < RUN; ++j) k[j] = 1;
+      for (int d = 0; d < L; ++d) {
+#pragma unroll
+        for (int j = 0; j < RUN; ++j) k[j] = 2 * k[j] + (b[k[j]] < t[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < RUN; ++j) {
+        const int lb = k[j] >> __ffs(~k[j]);  // 0: every entry < t[j]
+        const bool need = t[j] != kEmpty && (s[j] > now || b[lb] < s[j]);
+        word |= (uint32_t)need << (8 * j);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < RUN; ++j)
+        word |= (uint32_t)needed_entry(t[j], s[j], b, P, now) << (8 * j);
+    }
+    if (RUN == 1) {
+      out[e0] = (uint8_t)word;
+    } else if (vec && e0 + RUN <= n) {
+      *reinterpret_cast<uint32_t*>(out + e0) = word;
+    } else {
+      for (int j = 0; j < RUN && e0 + j < n; ++j)
+        out[e0 + j] = (uint8_t)((word >> (8 * j)) & 1);
+    }
+    if (e0 + stride < n) load_run<RUN>(ts, succ, e0 + stride, n, vec, t, s);
+  }
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
+template <bool kWide>
+cudaError_t launch_needed(const int* ts, const int* succ, const int* ann,
+                          const int* now_p, int now_val, uint8_t* out,
+                          long long n, int P, int L, int vec,
+                          cudaStream_t stream) {
+  constexpr int RUN = kWide ? kRun : 1;
+  const size_t smem = (kWide ? ((size_t)1 << L) : (size_t)P) * sizeof(int);
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        needed_kernel<kWide>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  // as many threads per block (a power of two, kMinThreads to
+  // kMaxThreads) as spread the runs over the SMs, then as many blocks as
+  // the runs need, at most kBlocksPerSm per SM (blocks walk any further
+  // runs with a grid stride)
+  const long long runs = (n + RUN - 1) / RUN;
+  const int sms = sm_count();
+  const long long per_sm = (runs + sms - 1) / sms;
+  int threads = kMinThreads;
+  while (threads < kMaxThreads && threads < per_sm) threads *= 2;
+  const long long want = (runs + threads - 1) / threads;
+  const long long cap = (long long)sms * kBlocksPerSm;
+  needed_kernel<kWide><<<(int)(want < cap ? want : cap), threads, smem,
+                              stream>>>(ts, succ, ann, now_p, now_val, out,
+                                        n, P, L, vec);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -222,14 +390,15 @@ __global__ void needed_kernel(const int* __restrict__ ts,
 // every_slot: every slot is swept, slot_ids / mask are not read and
 // out_freed is [S * V]; otherwise the slots that masked lanes name are
 // swept and out_freed is [R * V].  now_p null: `now` is now_val.  Lane ids
-// outside [0, S) are dropped (the wrapper's contract asks for [0, S)).
+// follow JAX's index rules (see the top of this file).
 extern "C" int mvgc_sweep(const int* ts, const int* succ, const int* pay,
                           const int* slot_ids, const uint8_t* mask,
                           const int* ann, const int* now_p, int now_val,
                           int* out_ts, int* out_succ, int* out_pay,
                           int* out_freed, int S, int V, int R, int P,
                           int every_slot, cudaStream_t stream) {
-  if (P > kMaxAnn) return (int)cudaErrorInvalidValue;
+  if (P > kMaxAnn || (!every_slot && R > 0 && S <= 0))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(kFlagWords + P) * sizeof(int);
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -265,15 +434,26 @@ extern "C" int mvgc_compact(const int* ts, const int* succ, const int* pay,
   return (int)cudaGetLastError();
 }
 
+// K5.  now_p null: `now` is now_val.  vec: 1 when ts, succ and out are
+// 16-byte aligned.
 extern "C" int mvgc_needed(const int* ts, const int* succ, const int* ann,
-                           const int* now, bool* out, int S, int V, int P,
-                           cudaStream_t stream) {
+                           const int* now_p, int now_val, uint8_t* out, int S,
+                           int V, int P, int vec, cudaStream_t stream) {
   const long long n = (long long)S * V;
   if (P > kMaxAnn) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int blocks = (int)((n + kThreads - 1) / kThreads);
-    needed_kernel<<<blocks, kThreads, P * sizeof(int), stream>>>(
-        ts, succ, ann, now, out, n, P);
+    int L = 0;  // the smallest perfect tree that holds the board
+    while ((1 << L) - 1 < P) ++L;
+    // the wide layout once its runs still give every SM a full block of
+    // 256 threads; one entry per thread below that, where more threads
+    // beat fewer wider ones
+    const cudaError_t err =
+        n >= (long long)kRun * sm_count() * 256
+            ? launch_needed<true>(ts, succ, ann, now_p, now_val, out, n, P,
+                                  L, vec, stream)
+            : launch_needed<false>(ts, succ, ann, now_p, now_val, out, n, P,
+                                   L, vec, stream);
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }

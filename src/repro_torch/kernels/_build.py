@@ -39,8 +39,11 @@ SIGNATURES = {
     # ts, succ, payload, slot_ids, mask, ann, now, now_val, out_ts,
     # out_succ, out_pay, out_freed, S, V, R, P, every_slot, stream
     "mvgc_sweep": [_P] * 7 + [_I] + [_P] * 4 + [_I] * 5 + [_P],
-    # ts, succ, ann, now, out, S, V, P, stream
-    "mvgc_needed": [_P] * 5 + [_I] * 3 + [_P],
+    # ts, succ, ann, now, now_val, out, S, V, P, vec, stream
+    "mvgc_needed": [_P] * 4 + [_I, _P] + [_I] * 4 + [_P],
+    # ts, payload, slot_ids, t, t_val, t_stride, out_val, out_found, miss,
+    # S, V, B, stream
+    "mvgc_search": [_P] * 4 + [_I] * 2 + [_P] * 2 + [_I] * 4 + [_P],
     # ts, payload, values, slot_ids, t, t_val, t_stride, out_rows,
     # out_pay, out_found, S, V, T, M, B, stream
     "mvgc_search_gather": [_P] * 5 + [_I] * 2 + [_P] * 3 + [_I] * 5 + [_P],

@@ -19,7 +19,12 @@ Bound on the H100: bytes.  The sweep reads and writes 12 bytes per slab
 entry, reads 5 per lane and writes 4 per freed handle; :func:`compact`
 reads 12 bytes per entry and writes 16, K5 reads 8 and writes 1; all do
 ``log2(P)`` compares against the announcements they keep in shared
-memory, far under the card's operation rate.  A board larger than the
+memory, far under the card's operation rate.  K5 issues its loads
+before the board barrier and, on a large slab, streams runs of 4 entries
+per thread (16-byte loads, one 4-byte store of bools) over about one
+block per SM, with the board in Eytzinger order; a smaller slab takes
+one entry per thread and the board as it is sorted (see
+``csrc/compact.cu``).  A board larger than the
 kernels' shared-memory copy of it (``kMaxAnn`` in ``csrc/compact.cu``,
 12288 entries) raises.
 """
@@ -40,20 +45,22 @@ def needed(ts: torch.Tensor, succ: torch.Tensor, ann_sorted: torch.Tensor,
            now) -> torch.Tensor:
     """bool[S, V]: ``needed(A, now)`` per entry.  ``ann_sorted`` must be
     sorted with TS_MAX padding (``core.mvgc.needed.sort_announcements``),
-    as the plain version's contract already asks."""
+    as the plain version's contract already asks; ``now`` is an int32
+    device scalar or a Python int (passed to the kernel by value)."""
     if ts.device.type == "cpu":
         return needed_ref(ts, succ, ann_sorted, now)
-    now = _now(now, ts)
-    _build.require_cuda_i32("needed", ts, succ, ann_sorted, now)
+    _build.require_cuda_i32("needed", ts, succ, ann_sorted)
     if succ.shape != ts.shape or ts.dim() != 2 or ann_sorted.dim() != 1:
         raise ValueError("needed: ts and succ must be i32[S, V] and the "
                          "board i32[P]")
+    now_t, now_v, _ = _build.int_arg("needed", now, 1)
     S, V = ts.shape
     out = torch.empty((S, V), dtype=torch.bool, device=ts.device)
+    vec = (ts.data_ptr() | succ.data_ptr() | out.data_ptr()) % 16 == 0
     err = _build.lib().mvgc_needed(
         ts.data_ptr(), succ.data_ptr(), ann_sorted.data_ptr(),
-        now.data_ptr(), out.data_ptr(), S, V, ann_sorted.shape[0],
-        _build.stream())
+        None if now_t is None else now_t.data_ptr(), now_v, out.data_ptr(),
+        S, V, ann_sorted.shape[0], int(vec), _build.stream())
     _build.check("mvgc_needed", err)
     needed.launches += 1
     return out
@@ -94,10 +101,11 @@ def sweep(ts: torch.Tensor, succ: torch.Tensor, payload: torch.Tensor,
     """The needed-sweep of the ``[S, V]`` slab in one launch.  Returns
     ``(ts', succ', payload', freed)``, all new tensors.
 
-    With ``slot_ids`` (i32[R], each in ``[0, S)``) and ``mask`` (bool[R]),
+    With ``slot_ids`` (i32[R]) and ``mask`` (bool[R]),
     the slots that masked lanes name are swept and ``freed`` is
     ``[R * V]`` per lane, duplicates included; with both ``None`` every
-    slot is swept and ``freed`` is ``[S * V]``.  ``now`` is an int32
+    slot is swept and ``freed`` is ``[S * V]``.  Lane ids follow JAX's
+    rules (an id in ``[-S, 0)`` wraps; see ``sweep_ref``).  ``now`` is an int32
     device scalar or a Python int (passed to the kernel by value); see
     :func:`repro_torch.kernels.compact.ref.sweep_ref`.  No host sync."""
     if (slot_ids is None) != (mask is None):

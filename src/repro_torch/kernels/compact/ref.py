@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch._tensor import drop_set
+from repro_torch._tensor import drop_rows, gather_index, put_rows
 
 EMPTY = -1
 TS_MAX = 2_147_483_647
@@ -49,17 +49,20 @@ def sweep_ref(ts: torch.Tensor, succ: torch.Tensor, payload: torch.Tensor,
 
     With lanes (``slot_ids[R]``, ``mask[R]``): the rows the lanes name are
     gathered and compacted, and only masked lanes write theirs back (trap
-    C1); ``freed`` is ``[R * V]`` per lane, duplicates included.  With
-    ``slot_ids = mask = None`` every slot is swept and ``freed`` is
-    ``[S * V]``."""
+    C1); ``freed`` is ``[R * V]`` per lane, duplicates included.  Lane ids
+    follow JAX's rules: ``[-S, 0)`` wraps; a masked lane still out of
+    range reads its row clamped into ``[0, S)`` and reports that row's
+    kills in ``freed``, as JAX's gather does, but writes nothing (the
+    drop).  With ``slot_ids = mask = None`` every slot is swept and
+    ``freed`` is ``[S * V]``."""
     if slot_ids is None:
         every = torch.ones(ts.shape[:1], dtype=torch.bool, device=ts.device)
         new_ts, new_succ, new_pay, freed, _ = compact_ref(
             ts, succ, payload, every, ann_sorted, now)
         return new_ts, new_succ, new_pay, freed.reshape(-1)
-    sid = slot_ids.long()
+    sid = gather_index(slot_ids, ts.shape[0])
     new_ts, new_succ, new_pay, freed, _ = compact_ref(
         ts[sid], succ[sid], payload[sid], mask, ann_sorted, now)
-    return (drop_set(ts, slot_ids, new_ts, mask),
-            drop_set(succ, slot_ids, new_succ, mask),
-            drop_set(payload, slot_ids, new_pay, mask), freed.reshape(-1))
+    dest = drop_rows(slot_ids, mask, ts.shape[0])
+    return (put_rows(ts, dest, new_ts), put_rows(succ, dest, new_succ),
+            put_rows(payload, dest, new_pay), freed.reshape(-1))

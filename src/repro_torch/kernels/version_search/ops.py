@@ -1,71 +1,105 @@
-"""Version search: batched ``search(t)`` (K3), the fused search plus
-value-row gather (K2's parity op) and the snapshot view (K2's main path).
+"""Version search: batched ``search(t)`` (K3: :func:`value_at` on the main
+path, :func:`search` its parity op), the fused search plus value-row
+gather (K2's parity op) and the snapshot view (K2's main path).
 
 Replaces the Pallas kernels ``search_pallas`` and ``search_gather_pallas``
-of ``repro/kernels/version_search/kernel.py`` with ``csrc/version_search.cu``
-(one warp per query: the lanes load ts and payload of the slab row in one
-round trip and take the masked max over its V entries, then copy the value
-row with coalesced loads).  :func:`view` is ``paged.snapshot_view`` in one
-launch: it reads the resolved version's table row and length straight from
-``tables`` and ``lengths``.  The wrappers dispatch on the device of their
-inputs: CPU tensors take the plain versions in ``ref.py``, CUDA tensors
-launch the kernel or raise.  ``search.launches`` counts K3's launches and
-``search_gather.launches`` K2's, those of :func:`view` (also counted alone
-in ``view.launches``) and of :func:`search_gather`.
+of ``repro/kernels/version_search/kernel.py`` with ``csrc/version_search.cu``.
+K3 gives each query a group of ``min(32, next_pow2(V))`` lanes (four
+queries per warp at V = 8) that load ts and payload of the slab row in one
+round trip and take the masked max over its V entries.  :func:`value_at`
+is the main path's read (``snapshot_lengths``, ``lengths_at``): the
+resolved payload with 0 where nothing was found, in one launch and one
+allocation, every slot when ``slot_ids`` is None (no id array to build).
+:func:`search` returns ``(payload, found)`` out of one allocation, as
+``search_pallas`` does.  K2 keeps one warp per query and copies the value
+row with coalesced loads; :func:`view` is ``paged.snapshot_view`` in one
+launch: it reads the resolved version's table row and length straight
+from ``tables`` and ``lengths``.  The wrappers dispatch on the device of
+their inputs: CPU tensors take the plain versions in ``ref.py``, CUDA
+tensors launch the kernel or raise.  ``search.launches`` counts K3's
+launches, those of :func:`value_at` (also counted alone in
+``value_at.launches``) and of :func:`search`; ``search_gather.launches``
+counts K2's, those of :func:`view` (also counted alone in
+``view.launches``) and of :func:`search_gather`.
 
-``t`` is a Python int, passed to the kernel by value (no fill is launched
-for it), or an int32 device tensor, 0-d or one per query ``[B]``, read in
-place (no ``expand().contiguous()``).
+Slot ids follow JAX's gather rule: an id in ``[-S, 0)`` means ``id + S``,
+an id still out of range is clamped into ``[0, S)``.  ``t`` is a Python
+int, passed to the kernel by value (no fill is launched for it), or an
+int32 device tensor, 0-d or one per query ``[B]``, read in place (no
+``expand().contiguous()``).
 
-Bound on the H100: bytes — each query reads one slab row (2 x V int32) and
-its value row (M int32) and writes M + 2 values, with no arithmetic to
-speak of; at serving batch sizes the launch itself dominates.
+Bound on the H100: bytes — each query reads its id and one slab row (2 x V
+int32), K2 also its value row (M int32), and writes its outputs, with no
+arithmetic to speak of; at serving batch sizes the launch itself
+dominates.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.version_search.ref import (search_gather_ref,
-                                                     search_ref, view_ref)
+                                                     search_ref, value_at_ref,
+                                                     view_ref)
 
 
 def _check_slab(ts, payload, slot_ids):
-    _build.require_cuda_i32("version_search", ts, payload, slot_ids)
-    if payload.shape != ts.shape or ts.dim() != 2 or slot_ids.dim() != 1:
-        raise ValueError("version_search: ts and payload must be i32[S, V] "
-                         "and slot_ids i32[B]")
+    _build.require_cuda_i32("version_search", ts, payload)
+    if payload.shape != ts.shape or ts.dim() != 2:
+        raise ValueError("version_search: ts and payload must be i32[S, V]")
+    if slot_ids is not None:
+        _build.require_cuda_i32("version_search", slot_ids)
+        if slot_ids.dim() != 1:
+            raise ValueError("version_search: slot_ids must be i32[B]")
 
 
-def _launch(ts, payload, values, slot_ids, t, out_rows, M, T):
+def _search(ts, payload, slot_ids, t, with_found: bool):
+    """One K3 launch: ``(payload or EMPTY, found)`` when ``with_found``,
+    else ``(payload or 0, None)``."""
     _check_slab(ts, payload, slot_ids)
     S, V = ts.shape
-    B = slot_ids.shape[0]
-    t_ten, t_val, t_stride = _build.int_arg("version_search", t, B)
-    out_pay = torch.empty((B,), dtype=torch.int32, device=ts.device)
-    found = torch.empty((B,), dtype=torch.bool, device=ts.device)
-    err = _build.lib().mvgc_search_gather(
+    B = S if slot_ids is None else slot_ids.shape[0]
+    t_ten, t_val, t_stride = _build.int_arg("search", t, B)
+    if with_found:   # one allocation: [B] int32 payloads, then [B] flags
+        buf = torch.empty((5 * B,), dtype=torch.uint8, device=ts.device)
+        out, found = buf[:4 * B].view(torch.int32), buf[4 * B:].view(
+            torch.bool)
+    else:
+        out = torch.empty((B,), dtype=torch.int32, device=ts.device)
+        found = None
+    err = _build.lib().mvgc_search(
         ts.data_ptr(), payload.data_ptr(),
-        None if values is None else values.data_ptr(),
-        slot_ids.data_ptr(), None if t_ten is None else t_ten.data_ptr(),
-        t_val, t_stride,
-        None if out_rows is None else out_rows.data_ptr(),
-        out_pay.data_ptr(), found.data_ptr(), S, V, T, M, B,
-        _build.stream())
-    _build.check("mvgc_search_gather", err)
-    return out_pay, found
+        None if slot_ids is None else slot_ids.data_ptr(),
+        None if t_ten is None else t_ten.data_ptr(), t_val, t_stride,
+        out.data_ptr(), None if found is None else found.data_ptr(),
+        -1 if with_found else 0, S, V, B, _build.stream())
+    _build.check("mvgc_search", err)
+    search.launches += 1
+    return out, found
 
 
-def search(ts: torch.Tensor, payload: torch.Tensor, slot_ids: torch.Tensor,
-           t) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(payload[B], found[B])`` per query ``(slot_ids[b], t)``."""
+def value_at(ts: torch.Tensor, payload: torch.Tensor,
+             slot_ids: Optional[torch.Tensor], t) -> torch.Tensor:
+    """i32[B]: the payload of the latest version with ts <= t per queried
+    slot, 0 where there is none (``slot_ids=None``: every slot).  The main
+    path's snapshot read: one launch, one allocation, no host sync."""
+    if ts.device.type == "cpu":
+        return value_at_ref(ts, payload, slot_ids, t)
+    out, _ = _search(ts, payload, slot_ids, t, with_found=False)
+    value_at.launches += 1
+    return out
+
+
+def search(ts: torch.Tensor, payload: torch.Tensor,
+           slot_ids: Optional[torch.Tensor], t
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(payload[B], found[B])`` per query ``(slot_ids[b], t)``, EMPTY
+    payloads where nothing was found (``slot_ids=None``: every slot)."""
     if ts.device.type == "cpu":
         return search_ref(ts, payload, slot_ids, t)
-    out = _launch(ts, payload, None, slot_ids, t, None, 0, 0)
-    search.launches += 1
-    return out
+    return _search(ts, payload, slot_ids, t, with_found=True)
 
 
 def search_gather(ts: torch.Tensor, payload: torch.Tensor,
@@ -76,13 +110,23 @@ def search_gather(ts: torch.Tensor, payload: torch.Tensor,
     ``values[T, M]``."""
     if ts.device.type == "cpu":
         return search_gather_ref(ts, payload, values, slot_ids, t)
+    _check_slab(ts, payload, slot_ids)
     _build.require_cuda_i32("search_gather", values)
+    S, V = ts.shape
     T, M = values.shape
-    rows = torch.empty((slot_ids.shape[0], M), dtype=torch.int32,
-                       device=ts.device)
-    pay, found = _launch(ts, payload, values, slot_ids, t, rows, M, T)
+    B = slot_ids.shape[0]
+    t_ten, t_val, t_stride = _build.int_arg("search_gather", t, B)
+    rows = torch.empty((B, M), dtype=torch.int32, device=ts.device)
+    out_pay = torch.empty((B,), dtype=torch.int32, device=ts.device)
+    found = torch.empty((B,), dtype=torch.bool, device=ts.device)
+    err = _build.lib().mvgc_search_gather(
+        ts.data_ptr(), payload.data_ptr(), values.data_ptr(),
+        slot_ids.data_ptr(), None if t_ten is None else t_ten.data_ptr(),
+        t_val, t_stride, rows.data_ptr(), out_pay.data_ptr(),
+        found.data_ptr(), S, V, T, M, B, _build.stream())
+    _build.check("mvgc_search_gather", err)
     search_gather.launches += 1
-    return rows, pay, found
+    return rows, out_pay, found
 
 
 def view(ts: torch.Tensor, payload: torch.Tensor, tables: torch.Tensor,
@@ -120,5 +164,6 @@ def view(ts: torch.Tensor, payload: torch.Tensor, tables: torch.Tensor,
 
 
 search.launches = 0
+value_at.launches = 0
 search_gather.launches = 0
 view.launches = 0

@@ -4,23 +4,30 @@ version slabs, with and without the value-row gather (port of
 (``view_ref``: the composite ``paged.snapshot_view`` ran before the view
 kernel).
 
-``t`` is a Python int, a 0-d tensor or one timestamp per query (``[B]``)."""
+``t`` is a Python int, a 0-d tensor or one timestamp per query (``[B]``).
+Slot ids follow JAX's gather rule: ``[-S, 0)`` wraps to ``id + S`` and an
+id still out of range is clamped into ``[0, S)``.  ``slot_ids=None``
+queries every slot (query ``q`` is slot ``q``)."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from repro_torch._tensor import gather_index
 
 EMPTY = -1
 NEG_INF_I32 = -2_147_483_648
 
 
 def search_ref(ts: torch.Tensor, payload: torch.Tensor,
-               slot_ids: torch.Tensor, t: torch.Tensor
+               slot_ids: Optional[torch.Tensor], t
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(payload[B], found[B]): latest version with ts <= t per queried slot
     (masked argmax over V; the first index wins a tie, as ``jnp.argmax``)."""
-    sid = slot_ids.long()
+    if slot_ids is None:
+        slot_ids = torch.arange(ts.shape[0], device=ts.device)
+    sid = gather_index(slot_ids, ts.shape[0])
     rows_ts = ts[sid]
     t_col = t[:, None] if torch.is_tensor(t) and t.dim() == 1 else t
     ok = (rows_ts != EMPTY) & (rows_ts <= t_col)
@@ -28,6 +35,14 @@ def search_ref(ts: torch.Tensor, payload: torch.Tensor,
     found = ok.any(dim=1)
     pay = torch.gather(payload[sid], 1, idx[:, None])[:, 0]
     return torch.where(found, pay, EMPTY), found
+
+
+def value_at_ref(ts: torch.Tensor, payload: torch.Tensor,
+                 slot_ids: Optional[torch.Tensor], t) -> torch.Tensor:
+    """i32[B]: the payload :func:`search_ref` resolves, 0 where nothing was
+    found."""
+    pay, found = search_ref(ts, payload, slot_ids, t)
+    return torch.where(found, pay, 0)
 
 
 def search_gather_ref(ts: torch.Tensor, payload: torch.Tensor,

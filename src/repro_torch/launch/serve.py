@@ -38,6 +38,7 @@ from repro_torch.serve.engine import MVServeEngine
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 SEED = 0   # of the random weights and the prompt, as in the JAX driver
 READER_LANES = 8   # as in the JAX driver
+VERSIONS_PER_SLOT = 16   # as in the JAX driver
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -64,7 +65,8 @@ def build(args: argparse.Namespace):
     cfg: ModelConfig = (reduced_config(args.arch) if args.reduced
                         else get_config(args.arch))
     run = RunConfig(model=cfg, shape=SHAPES["decode_32k"],
-                    gc_policy=args.gc_policy, versions_per_slot=16,
+                    gc_policy=args.gc_policy,
+                    versions_per_slot=VERSIONS_PER_SLOT,
                     reader_lanes=READER_LANES)
     dtype = DTYPES[args.dtype]
     gen = torch.Generator(device=dev).manual_seed(SEED)

@@ -20,8 +20,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch._tensor import (I32, DeviceLike, drop_set, i32_or_int,
-                                 resolve_device)
+from repro_torch._tensor import (I32, DeviceLike, i32_or_int, masked_rows,
+                                 masked_set, put_rows, resolve_device)
 from repro_torch.core.mvgc import vstore
 from repro_torch.core.mvgc.pool import EMPTY
 from repro_torch.core.telemetry import GCConfig, PressureSignal
@@ -85,7 +85,7 @@ def _alloc(free: torch.Tensor, want: torch.Tensor
     rank = torch.cumsum(want.to(I32), dim=0, dtype=I32) - 1
     ok = want & (rank < free.sum(dtype=I32))
     slots = torch.where(ok, pos[rank.clamp(max=n - 1).long()], -1)
-    return drop_set(free, slots, False, ok), slots, ok
+    return masked_set(free, slots, False, ok), slots, ok
 
 
 def _lanes(mask: torch.Tensor) -> torch.Tensor:
@@ -98,9 +98,9 @@ def _recycle(table_free: torch.Tensor, slots: torch.Tensor,
              freed: torch.Tensor, give_back: torch.Tensor) -> torch.Tensor:
     """Hand back table slots of lanes whose descriptor append overflowed,
     then the table slots of every collected descriptor version."""
-    table_free = drop_set(table_free, slots, True, give_back)
+    table_free = masked_set(table_free, slots, True, give_back)
     freed = freed.reshape(-1)
-    return drop_set(table_free, freed, True, freed != EMPTY)
+    return masked_set(table_free, freed, True, freed != EMPTY)
 
 
 def append_tokens(
@@ -148,8 +148,9 @@ def append_tokens(
     new_rows = old_rows.clone()
     new_rows[lane, pcol] = torch.where(needs_page & commit, page_of,
                                        old_rows[lane, pcol])
-    tables = drop_set(st.tables, tslots, new_rows, commit)
-    lengths_arr = drop_set(st.lengths, tslots, lengths + 1, commit)
+    dest = masked_rows(tslots, commit, st.tables.shape[0])
+    tables = put_rows(st.tables, dest, new_rows)
+    lengths_arr = put_rows(st.lengths, dest, lengths + 1)
 
     mv, freed, ovf = vstore.write_step(st.mv, seq_ids, tslots, commit,
                                        policy=gc_policy,
@@ -176,8 +177,9 @@ def reset_sequence(
     ok = mask & got
     empty_rows = torch.full((B, st.max_pages), NO_PAGE, dtype=I32,
                             device=st.tables.device)
-    tables = drop_set(st.tables, tslots, empty_rows, ok)
-    lengths_arr = drop_set(st.lengths, tslots, 0, ok)
+    dest = masked_rows(tslots, ok, st.tables.shape[0])
+    tables = put_rows(st.tables, dest, empty_rows)
+    lengths_arr = put_rows(st.lengths, dest, 0)
     mv, freed, ovf = vstore.write_step(st.mv, seq_ids, tslots, ok,
                                        policy=gc_policy,
                                        extra_pins=extra_pins)
@@ -222,7 +224,7 @@ def fork_sequence(
         ok = lane_ok & got_t
         # hand back pages allocated for lanes that did not fully make it
         giveback = got & ~ok.repeat_interleave(MP)
-        free2 = drop_set(free2, cflat, True, giveback)
+        free2 = masked_set(free2, cflat, True, giveback)
         do_copy2d = want2d & ok[:, None]
         rows = torch.where(do_copy2d, cflat.reshape(B, MP), NO_PAGE)
         src_flat = st.tables[src_safe].clamp(min=0).reshape(-1)
@@ -246,8 +248,9 @@ def fork_sequence(
     st.k_pages[dst] = st.k_pages[src]
     st.v_pages[dst] = st.v_pages[src]
 
-    tables = drop_set(st.tables, tslots, rows, ok)
-    lengths_arr = drop_set(st.lengths, tslots, src_len, ok)
+    dest = masked_rows(tslots, ok, st.tables.shape[0])
+    tables = put_rows(st.tables, dest, rows)
+    lengths_arr = put_rows(st.lengths, dest, src_len)
     mv, freed, ovf = vstore.write_step(st.mv, dst_ids, tslots, ok,
                                        policy=gc_policy,
                                        extra_pins=extra_pins)
@@ -286,7 +289,7 @@ def _after_collect(st: PagedKV, mv: vstore.MVState, freed: torch.Tensor
     """Recycle the table slots of collected versions, sweep the pages no
     live table references; returns (state', pages_freed)."""
     freed = freed.reshape(-1)
-    table_free = drop_set(st.table_free, freed, True, freed != EMPTY)
+    table_free = masked_set(st.table_free, freed, True, freed != EMPTY)
     free_pages = _sweep_unreferenced(st.tables, table_free, st.free)
     pages_freed = free_pages.sum(dtype=I32) - st.free.sum(dtype=I32)
     return st._replace(mv=mv, table_free=table_free, free=free_pages), \
@@ -320,7 +323,7 @@ def _sweep_unreferenced(tables: torch.Tensor, table_free: torch.Tensor,
     free map (True = free)."""
     n_pages = page_free.shape[0]
     refs = torch.where(table_free[:, None], NO_PAGE, tables).reshape(-1)
-    referenced = drop_set(
+    referenced = masked_set(
         torch.zeros((n_pages,), dtype=torch.bool, device=refs.device),
         refs, True, refs >= 0)
     return ~referenced

@@ -5,7 +5,7 @@ sequence's *cache descriptor* (its visible length), a versioned object of
 the MVGC store written once per step and timestamped by the decode clock
 (``vstore.write_step``); snapshot readers pin a timestamp
 (``begin_snapshot``) and read a consistent cross-sequence snapshot of those
-lengths (``snapshot_read``, the paper's ``search(t)``) while decode keeps
+lengths (``snapshot_lengths``, the paper's ``search(t)``) while decode keeps
 writing, and obsolete descriptor versions are reclaimed by the configured
 policy.  The model's cache is updated in place by ``prefill_step`` and
 ``decode_one`` (the engine owns it; a ServeState handed to them is consumed),
@@ -173,14 +173,14 @@ def end_snapshot(state: ServeState, lane: int) -> ServeState:
 
 
 def snapshot_lengths(state: ServeState, t,
-                     seq_ids: Optional[torch.Tensor] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     seq_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Consistent cross-sequence snapshot: each sequence's visible length
-    as of pinned time ``t``, through the version-search kernel (K3)."""
-    if seq_ids is None:
-        seq_ids = torch.arange(state.cache_len.shape[0], dtype=I32,
-                               device=state.cache_len.device)
-    return vstore.snapshot_read(state.mv, seq_ids, t)
+    as of pinned time ``t`` (every sequence when ``seq_ids`` is None), 0
+    for a sequence with no version at ``t``, in one launch of the
+    version-search kernel (K3's ``value_at``).  JAX's ``snapshot_lengths``
+    returns ``(lens, found)`` with EMPTY lengths where not found; every
+    caller masks them to 0, which this does in the kernel."""
+    return vstore.snapshot_value(state.mv, seq_ids, t)
 
 
 def snapshot_score(state: ServeState, cfg: ModelConfig, tokens: torch.Tensor,
@@ -196,8 +196,7 @@ def snapshot_score(state: ServeState, cfg: ModelConfig, tokens: torch.Tensor,
     reads: ``state`` is left bit-identical.  One host sync reads ``span``
     (a reader pinned before a new prefill may see more than
     ``state.longest``)."""
-    lens, found = snapshot_lengths(state, t)
-    lens = torch.where(found, lens, 0)
+    lens = snapshot_lengths(state, t)
     span = int(lens.max()) + tokens.shape[1]
     prefix = [KVCache(c.k[:, :span], c.v[:, :span]) for c in state.cache]
     logits, _ = tf.decode_step(state.params, cfg, tokens, prefix, lens,
@@ -237,8 +236,7 @@ class MVServeEngine:
         self.state = end_snapshot(self.state, lane)
 
     def lengths_at(self, t: int) -> torch.Tensor:
-        lens, found = snapshot_lengths(self.state, t)
-        return torch.where(found, lens, 0)
+        return snapshot_lengths(self.state, t)
 
     def score(self, tokens, t: int) -> torch.Tensor:
         """:func:`snapshot_score` of ``tokens`` [B, 1] at pinned time

@@ -163,6 +163,86 @@ def test_jax_bf16_leaf_restores_as_bf16_bits(tmp_path):
     assert int(got["n"]) == 4 and got["n"].dim() == 0
 
 
+BF16_SHAPES = {"scalar": (), "empty": (0,), "row": (7,), "matrix": (3, 5),
+               "pages": (2, 4, 1, 3)}
+
+
+def bf16_bits(shape):
+    """16-bit patterns of bfloat16 values, both packages' leaves made from
+    them bit for bit: signed zeros, infinities, NaNs of either sign, a
+    subnormal, the largest finite value and random ones."""
+    edge = np.array([0x0000, 0x8000, 0x7F80, 0xFF80, 0x7FC0, 0xFFC1, 0x0001,
+                     0x7F7F, 0x3EAB], np.uint16)
+    n = int(np.prod(shape))
+    rand = np.random.default_rng(n).integers(0, 2**16, n, dtype=np.uint16)
+    bits = np.where(np.arange(n) < len(edge), np.resize(edge, n), rand)
+    return bits.view(np.int16).reshape(shape)
+
+
+def jax_bf16(bits):
+    return jax.lax.bitcast_convert_type(jnp.asarray(bits), jnp.bfloat16)
+
+
+def torch_bf16(bits):
+    return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("name", sorted(BF16_SHAPES))
+def test_bf16_leaf_files_equal_the_jax_managers(tmp_path, name):
+    """Trap C7: the port writes a bfloat16 leaf as the JAX manager does
+    (descr ``'<V2'`` and the 16-bit patterns), byte for byte, and restores
+    its own file bit for bit."""
+    bits = bf16_bits(BF16_SHAPES[name])
+    tree_t = {"k": torch_bf16(bits), "n": torch.tensor(4, dtype=torch.int32)}
+    JManager(str(tmp_path / "jax")).save(3, {"k": jax_bf16(bits),
+                                             "n": jnp.int32(4)})
+    TManager(str(tmp_path / "port")).save(3, tree_t)
+    for leaf in ("leaf_00000.npy", "leaf_00001.npy"):
+        files = [(tmp_path / pkg / "ckpt_00000003" / leaf).read_bytes()
+                 for pkg in ("jax", "port")]
+        assert files[0] == files[1], leaf
+    got, _ = TManager(str(tmp_path / "port")).restore(3, tree_t,
+                                                      device="cpu")
+    assert got["k"].dtype == torch.bfloat16
+    assert np.array_equal(got["k"].view(torch.int16).numpy(), bits)
+
+
+@pytest.mark.parametrize("name", sorted(BF16_SHAPES))
+def test_jax_bf16_checkpoint_restores_bit_for_bit(tmp_path, name):
+    """The JAX manager's bfloat16 checkpoint (no ``dtypes`` list in its
+    manifest) reads back into the port bit for bit where the ``like``
+    leaf is bfloat16, beside a float32 leaf of the same shape."""
+    bits = bf16_bits(BF16_SHAPES[name])
+    f32 = bits.astype(np.float32)
+    JManager(str(tmp_path)).save(2, [jax_bf16(bits), jnp.asarray(f32)])
+    like = [torch.zeros(bits.shape, dtype=torch.bfloat16),
+            torch.zeros(bits.shape)]
+    got, _ = TManager(str(tmp_path)).restore(2, like, device="cpu")
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == bits.shape
+    assert np.array_equal(got[0].view(torch.int16).numpy(), bits)
+    assert np.array_equal(got[1].numpy(), f32)
+
+
+def test_jax_refuses_a_bf16_leaf_as_it_refuses_its_own(tmp_path):
+    """``jnp.asarray`` of a loaded bfloat16 leaf raises on the port's file
+    exactly as on the JAX manager's (what ``PagedKVEngine.restore`` calls
+    on every leaf): a JAX restore of a port checkpoint fails loudly
+    instead of reading int16 values."""
+    bits = bf16_bits((2, 3))
+    JManager(str(tmp_path / "jax")).save(1, {"k": jax_bf16(bits)})
+    TManager(str(tmp_path / "port")).save(1, {"k": torch_bf16(bits)})
+    errors = []
+    for pkg in ("jax", "port"):
+        tree, _ = JManager(str(tmp_path / pkg)).restore(
+            1, {"k": jnp.zeros((2, 3), jnp.bfloat16)})
+        leaf = tree["k"]
+        assert leaf.dtype.kind == "V" and leaf.dtype.itemsize == 2
+        with pytest.raises(TypeError) as err:
+            jnp.asarray(leaf)
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+
+
 def test_restore_defaults_to_the_gpu(tmp_path, monkeypatch):
     mgr = TManager(str(tmp_path))
     mgr.save(0, {"a": torch.ones(2)})

@@ -26,7 +26,8 @@ from repro_torch.kernels.flash_prefill import ops as flash_ops
 from repro_torch.kernels.flash_prefill.ref import attention_ref
 from repro_torch.kernels.version_search import ops as search_ops
 from repro_torch.kernels.version_search.ref import (search_gather_ref,
-                                                     search_ref, view_ref)
+                                                     search_ref, value_at_ref,
+                                                     view_ref)
 from repro_torch.models import transformer as tf
 from repro_torch.mvkv import paged
 from repro_torch.serve.engine import MVServeEngine, PagedKVEngine
@@ -260,15 +261,23 @@ def test_view_kernel(cuda, S, V, B, T, MP, form):
 
 
 def device_kernels(fn):
-    """Names of the device kernels one call of ``fn`` runs (profiler)."""
+    """Names of the device kernels one call of ``fn`` runs (profiler).
+    Under pytest a capture now and then holds no device record at all,
+    for any op (about one in 60 on an H100); such a capture says nothing
+    of the call, so it is taken again, up to 5 times.  A call that
+    launches nothing still returns no name."""
     from torch.profiler import ProfilerActivity, profile
     fn()                                   # builds the library, warms up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if str(e.device_type).endswith("CUDA")]
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if str(e.device_type).endswith("CUDA")]
+        if names:
+            break
+    return names
 
 
 def test_sweep_runs_one_device_kernel(cuda):
@@ -303,6 +312,236 @@ def test_snapshot_view_runs_one_device_kernel(cuda):
     assert len(names) == 1 and "view_kernel" in names[0]
     tbl, lens = paged.snapshot_view(st, ids, t)
     assert lens.tolist() == [3, 3, 3, 0]
+
+
+# ---------------------------------------------------------------------------
+# trap C6: JAX's index rules on the card (wrap [-n, 0), then clamp or drop)
+# ---------------------------------------------------------------------------
+NEG_IDS = [-1, 0, -7, 3, 7, -8, 1000, -1000, 2, -2]   # over S = 7 slots
+
+
+def test_sweep_kernel_negative_and_out_of_range_lanes(cuda):
+    """K1's sweep against ``sweep_ref`` on lane ids -1, -S (slot 0), ids
+    still out of range (read clamped, written nowhere) and in-range ids,
+    with and without a mask."""
+    rng = np.random.default_rng(6)
+    S, V = 7, 4
+    ts, succ, pay = (torch.from_numpy(x).to(cuda) for x in slabs(rng, S, V))
+    ids = torch.tensor(NEG_IDS, dtype=torch.int32, device=cuda)
+    ann = torch.tensor([5, 33, TS_MAX], dtype=torch.int32, device=cuda)
+    for mask in (torch.ones(len(NEG_IDS), dtype=torch.bool, device=cuda),
+                 torch.from_numpy(rng.random(len(NEG_IDS)) < 0.6).to(cuda)):
+        got = compact_ops.sweep(ts, succ, pay, ids, mask, ann, 40)
+        want = sweep_ref(ts, succ, pay, ids, mask, ann, 40)
+        for a, b in zip(got, want, strict=True):
+            assert torch.equal(a, b)
+    assert bool((got[3] != EMPTY).any())
+
+
+@pytest.mark.parametrize("op", ["search", "value_at", "search_gather", "view"])
+def test_search_kernels_negative_and_out_of_range_ids(cuda, op):
+    """K3's ops and K2's against their plain versions on ids that wrap
+    (-1, -S) and ids still out of range (clamped into [0, S)): no kernel
+    reads outside the slab."""
+    rng = np.random.default_rng(7)
+    S, V, T, MP = 7, 8, 30, 12
+    ts = np.full((S, V), EMPTY, np.int32)
+    for s in range(S):
+        n = int(rng.integers(1, V + 1))
+        ts[s, rng.permutation(V)[:n]] = rng.permutation(60)[:n]
+    pay = np.where(ts == EMPTY, EMPTY, rng.integers(0, T, (S, V))
+                   ).astype(np.int32)
+    tables = rng.integers(-1, 999, (T, MP)).astype(np.int32)
+    lengths = rng.integers(0, 99, T).astype(np.int32)
+    ts, pay, tables, lengths = (torch.from_numpy(x).to(cuda)
+                                for x in (ts, pay, tables, lengths))
+    ids = torch.tensor(NEG_IDS, dtype=torch.int32, device=cuda)
+    for t in (40, torch.from_numpy(rng.integers(-1, 70, len(NEG_IDS)).astype(
+            np.int32)).to(cuda)):
+        fn, ref, extra = {
+            "search": (search_ops.search, search_ref, ()),
+            "value_at": (search_ops.value_at, value_at_ref, ()),
+            "search_gather": (search_ops.search_gather, search_gather_ref,
+                              (torch.cat([tables, lengths[:, None]], 1),)),
+            "view": (search_ops.view, view_ref, (tables, lengths)),
+        }[op]
+        got = fn(ts, pay, *extra, ids, t)
+        torch.cuda.synchronize()
+        want = ref(ts, pay, *extra, ids, t)
+        for a, b in zip(as_tuple(got), as_tuple(want), strict=True):
+            assert torch.equal(a, b)
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+# ---------------------------------------------------------------------------
+# K3: value_at / search at the group sizes' edges
+# ---------------------------------------------------------------------------
+def k3_slab(rng, S, V, ties=True, empty_rows=True):
+    """Slabs with EMPTY entries, EMPTY rows and (``ties``) equal
+    timestamps in one row, which the first index must win."""
+    ts = np.full((S, V), EMPTY, np.int32)
+    for s in range(S):
+        n = int(rng.integers(0, V + 1))
+        ts[s, rng.permutation(V)[:n]] = rng.integers(0, 50, n)
+    if ties and V > 1:
+        ts[::3, :] = rng.integers(0, 50)        # a whole row of one value
+    if empty_rows:
+        ts[1::5] = EMPTY
+    pay = np.where(ts == EMPTY, EMPTY, rng.integers(0, 9999, (S, V))
+                   ).astype(np.int32)
+    return torch.from_numpy(ts), torch.from_numpy(pay)
+
+
+@pytest.mark.parametrize("B", [1, 5, 31, 257])
+@pytest.mark.parametrize("V", [1, 3, 8, 16, 32, 40])
+def test_k3_group_edges(cuda, V, B):
+    """K3 at V in {1, 3, 8, 16, 32} (a group of 1, 4, 8, 16 or 32 lanes;
+    40: a group of 32 that loops) and B not a multiple of the queries per
+    warp, with ties, EMPTY rows and not-found queries: ``search`` and
+    ``value_at`` equal their plain versions, with ``t`` by value, 0-d and
+    per query, one launch counted per call."""
+    rng = np.random.default_rng(V * 1000 + B)
+    S = 37
+    ts, pay = (x.to(cuda) for x in k3_slab(rng, S, V))
+    ids = torch.from_numpy(rng.integers(-S, S, B).astype(np.int32)).to(cuda)
+    tq = torch.from_numpy(rng.integers(-1, 60, B).astype(np.int32)).to(cuda)
+    before = (search_ops.search.launches, search_ops.value_at.launches)
+    for t in (25, torch.tensor(25, dtype=torch.int32, device=cuda), tq):
+        got = search_ops.search(ts, pay, ids, t)
+        want = search_ref(ts, pay, ids, t)
+        for a, b in zip(got, want, strict=True):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert torch.equal(a, b)
+        assert torch.equal(search_ops.value_at(ts, pay, ids, t),
+                           torch.where(want[1], want[0], 0))
+    assert (search_ops.search.launches, search_ops.value_at.launches) == \
+        (before[0] + 6, before[1] + 3)
+
+
+@pytest.mark.parametrize("S,V,B", [(37, 3, 31), (256, 8, 256),
+                                   (65536, 8, 8192), (40, 40, 5)])
+def test_k3_runs_one_device_kernel(cuda, S, V, B):
+    """``search`` (ids, per-query t) and ``value_at`` (every slot, t by
+    value): one device kernel per call, by the profiler."""
+    ts, pay = (x.to(cuda) for x in k3_slab(np.random.default_rng(S), S, V))
+    ids = torch.arange(B, dtype=torch.int32, device=cuda) % S
+    tq = torch.full((B,), 30, dtype=torch.int32, device=cuda)
+    for fn in (lambda: search_ops.search(ts, pay, ids, tq),
+               lambda: search_ops.value_at(ts, pay, None, 30)):
+        names = device_kernels(fn)
+        assert len(names) == 1 and "search_kernel" in names[0]
+
+
+@pytest.mark.parametrize("S,V", [(1, 1), (37, 3), (256, 8), (1000, 16),
+                                 (65536, 8)])
+def test_k3_every_slot_mode_equals_explicit_ids(cuda, S, V):
+    """``slot_ids=None`` queries every slot: the same bits as explicit
+    ids ``arange(S)``, on the card and against the plain version."""
+    rng = np.random.default_rng(S + V)
+    ts, pay = (x.to(cuda) for x in k3_slab(rng, S, V))
+    ids = torch.arange(S, dtype=torch.int32, device=cuda)
+    for t in (30, torch.from_numpy(rng.integers(-1, 60, S).astype(
+            np.int32)).to(cuda)):
+        every = search_ops.value_at(ts, pay, None, t)
+        assert torch.equal(every, search_ops.value_at(ts, pay, ids, t))
+        assert torch.equal(every, value_at_ref(ts, pay, None, t))
+        for a, b in zip(search_ops.search(ts, pay, None, t),
+                        search_ops.search(ts, pay, ids, t), strict=True):
+            assert torch.equal(a, b)
+
+
+def test_k3_callers_equal_the_composite_they_replaced(cuda):
+    """``snapshot_lengths`` / ``lengths_at`` (one ``value_at`` launch)
+    against the composite they ran before: ``search`` over ``arange`` ids,
+    then ``where(found, lens, 0)``; and phase 5's every-slot
+    ``snapshot_read`` against explicit ids."""
+    from repro_torch.core.mvgc import vstore
+    from repro_torch.serve import engine as serve_engine
+    cfg = reduced_config("minitron-4b")
+    run = RunConfig(model=cfg, shape=SHAPES["decode_32k"],
+                    versions_per_slot=4, reader_lanes=4)
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(1))
+    eng = MVServeEngine(cfg, run, params, batch=4, max_len=32, device=cuda)
+    eng.prefill(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 8)))
+    pins = [eng.pin(0)]
+    for _ in range(5):
+        eng.step()
+        pins.append(int(eng.state.mv.now))
+    ids = torch.arange(4, dtype=torch.int32, device=cuda)
+    for t in [0, *pins]:
+        pay, found = vstore.snapshot_read(eng.state.mv, ids, t)
+        old = torch.where(found, pay, 0)
+        before = search_ops.value_at.launches
+        assert torch.equal(serve_engine.snapshot_lengths(eng.state, t), old)
+        assert torch.equal(eng.lengths_at(t), old)
+        assert search_ops.value_at.launches == before + 2
+        for a, b in zip(vstore.snapshot_read(eng.state.mv, None, t),
+                        (pay, found), strict=True):
+            assert torch.equal(a, b)
+    names = device_kernels(lambda: eng.lengths_at(pins[-1]))
+    assert len(names) == 1 and "search_kernel" in names[0]
+
+
+# ---------------------------------------------------------------------------
+# K5: runs of 4 entries, the Eytzinger board, packed stores
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("P", [1, 16, 33, 1024, 12 * 1024])
+@pytest.mark.parametrize("S,V", [(1, 1), (3, 5), (4097, 16), (45057, 3),
+                                 (65536, 8), (200003, 8)])
+def test_k5_run_and_board_edges(cuda, S, V, P):
+    """K5's two layouts at every board size: one entry per thread and a
+    sorted board (1, 15 and 65552 entries), runs of 4 and an Eytzinger
+    board (135171 entries: a ragged last run; 524288; 1600024: more runs
+    than the grid holds at once, so blocks stride); boards of 1 to 12288
+    entries (the largest Eytzinger board above 48 KB of shared memory)
+    with duplicates and TS_MAX padding: equal to ``needed_ref``, ``now``
+    by value and on the card."""
+    rng = np.random.default_rng(S * V + P)
+    ts, succ, _ = slabs(rng, S, V)
+    ann = np.where(rng.random(P) < 0.3, TS_MAX, rng.integers(0, 70, P))
+    ann[: P // 3] = ann[P - 1]                       # duplicates
+    ann = torch.from_numpy(np.sort(ann).astype(np.int32)).to(cuda)
+    ts, succ = (torch.from_numpy(x).to(cuda) for x in (ts, succ))
+    rows = max(1, 2**26 // (V * P))        # needed_ref broadcasts over P
+    want = torch.cat([needed_ref(ts[i:i + rows], succ[i:i + rows], ann, 40)
+                      for i in range(0, S, rows)])
+    for now in (40, torch.tensor(40, dtype=torch.int32, device=cuda)):
+        got = compact_ops.needed(ts, succ, ann, now)
+        assert got.dtype == torch.bool and got.shape == (S, V)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S,V,P", [(3, 5, 1), (4096, 8, 16),
+                                   (65536, 8, 256), (32768, 16, 1024),
+                                   (64, 8, 12 * 1024)])
+def test_k5_runs_one_device_kernel(cuda, S, V, P):
+    """One device kernel per ``needed`` call, by the profiler, at an edge
+    shape, phase 3's three shapes and the largest board."""
+    ts, succ, _ = (torch.from_numpy(x).to(cuda)
+                   for x in slabs(np.random.default_rng(P), S, V))
+    ann = torch.sort(torch.randint(0, 70, (P,), dtype=torch.int32,
+                                   device=cuda)).values
+    names = device_kernels(lambda: compact_ops.needed(ts, succ, ann, 40))
+    assert len(names) == 1 and "needed_kernel" in names[0]
+
+
+def test_k5_unaligned_inputs_take_the_scalar_path(cuda):
+    """Views that start off a 16-byte boundary, large enough for runs of
+    4: the kernel reads and writes them one entry at a time, with the same
+    result."""
+    rng = np.random.default_rng(9)
+    ts, succ, _ = slabs(rng, 40001, 8)
+    ts, succ = (torch.from_numpy(x).to(cuda).reshape(-1) for x in (ts, succ))
+    ts_u = ts[1:320001].view(40000, 8)
+    succ_u = succ[3:320003].view(40000, 8)
+    assert ts_u.data_ptr() % 16 and succ_u.data_ptr() % 16
+    ann = torch.tensor([4, 4, 30, 52, TS_MAX], dtype=torch.int32,
+                       device=cuda)
+    assert torch.equal(compact_ops.needed(ts_u, succ_u, ann, 40),
+                       needed_ref(ts_u, succ_u, ann, 40))
 
 
 # both versions sum in float32 in another order; a bf16 output may round to

@@ -140,6 +140,39 @@ def test_score_of_a_reader_pinned_before_a_new_prefill():
                                **TOL)
 
 
+def test_k3_callers_equal_the_search_they_replaced():
+    """K3's callers, each one ``value_at`` launch now, against what they
+    computed before: ``snapshot_lengths`` and ``lengths_at`` against
+    ``search`` over ``arange`` ids masked to 0, and against JAX's
+    ``snapshot_lengths`` masked the same way, at every timestamp of a
+    trace (before the first write too); the every-slot ``snapshot_read``
+    (phase 5's read in ``chip_smoke.py``) against explicit ids."""
+    from repro_torch.core.mvgc import vstore
+    from repro_torch.serve import engine as tengine
+    cfg_j, cfg_t, je, te = engines("slrt")
+    prompt = np.random.default_rng(8).integers(
+        0, cfg_j.vocab_size, (B, T)).astype(np.int32)
+    je.prefill(jnp.asarray(prompt))
+    te.prefill(prompt)
+    for _ in range(6):
+        je.step()
+        te.step()
+    ids = torch.arange(B, dtype=torch.int32)
+    for t in range(int(te.state.mv.now) + 2):
+        pay, found = vstore.snapshot_read(te.state.mv, ids, t)
+        old = torch.where(found, pay, 0)
+        jl, jf = jengine.snapshot_lengths(je.state, jnp.int32(t))
+        np.testing.assert_array_equal(old.numpy(),
+                                      np.where(np.asarray(jf), jl, 0))
+        assert torch.equal(tengine.snapshot_lengths(te.state, t), old)
+        assert torch.equal(te.lengths_at(t), old)
+        for a, b in zip(vstore.snapshot_read(te.state.mv, None, t),
+                        (pay, found), strict=True):
+            assert torch.equal(a, b)
+        if t == 0:
+            assert not bool(found.any())
+
+
 def test_serve_state_from_numpy_round_trip():
     """A JAX ServeState crosses over whole: the port decodes on from it
     exactly as the JAX engine does."""
