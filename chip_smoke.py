@@ -21,9 +21,13 @@ Phases, each printing one JSON line:
    also at ``benchmarks/kernel_bench.py``'s largest search shape, by ids
    and over every slot (K3's and K5's inputs and timing come from
    ``tools/time_search_needed.py``, which times any checkout's K3 and K5); paged decode also at 16 sequences of 4096
-   tokens (the split KV filling the card); flash prefill also at a
-   gemma2-2b shape and in float32 (its CUDA-core route; bf16 takes the
-   wgmma+TMA kernel); the redesigned rows carry their route, their share
+   tokens (the split KV filling the card); flash prefill also at
+   gemma2-2b's shapes (a local layer with window 512; phase 6a's local
+   layers, window 4096, and global layers, no window, once more with q
+   scaled so that the logits reach the softcap, against a control without
+   it; phase 6b's float32 local layer at D 256), at phase 6c's
+   deepseek-moe-16b layers (16 query and 16 KV heads) and in float32 (its CUDA-core route; bf16 takes
+   the wgmma+TMA kernel); the redesigned rows carry their route, their share
    of the bound and their time before the redesign as an earlier run
    recorded it (ms_before_recorded, not measured here); needed (K5, which no
    serving path calls) at compact's shape and at
@@ -45,8 +49,23 @@ Phases, each printing one JSON line:
    pin; two prefills of the same prompt must give the same bits; the
    launch counts are zeroed just before the launcher's run and read just
    after; ``value_at`` is then held against its plain version on the
-   engine's own store at every timestamp it holds; then a short profiled
+   engine's own store at every timestamp it holds, and ``sweep`` (K1) on
+   that store under three boards and three lane sets; then a short profiled
    window of decode steps, whose idle share the phase's line carries;
+6a. gemma2 — gemma2-2b at its full published widths and depth (26 layers
+   alternating a local ring cache of 4096 slots and global attention,
+   head dim 256, softcaps 50 and 30, bf16) through the launcher with
+   phase 6's flags and checks; no position reaches 4096, so no ring wraps
+   under a pinned reader (trap C10);
+6b. gemma2_ring — two layers (one local, one global) at gemma2-2b's full
+   widths in float32: a 6144-token prompt, longer than the ring, so the
+   prefill keeps only the last 4096 positions (the drop path), then 16
+   decode steps that wrap the ring; the same weights and tokens run on
+   the CPU through the plain versions, teacher-forced with the card's
+   tokens, and the logits, the ring and its positions must agree;
+6c. moe — deepseek-moe-16b at its full published widths and depth (28
+   layers, 64 routed experts top-6 and 2 shared, bf16; batch 8, 32
+   steps) through the launcher with phase 6's checks;
 7. fork_tiers — the four ``benchmarks/fork_bench.py`` tiers (smoke, beam,
    spec, ckpt_churn) for ebr, steam, dlrt and slrt, with their eager-copy
    and no-checkpoint controls, fork replay validation and a leak check
@@ -62,7 +81,9 @@ Phases, each printing one JSON line:
    before this phase and read just after;
 9. the kernel table as one JSON line, each kernel with the wrapper route
    the main path ran (kernel_route) and only numbers measured in this run
-   (bound_ms computed from its inputs); K1's, K2's and K3's rows carry
+   (bound_ms computed from its inputs) and its launches in each phase
+   that drives a path (launches_model, _gemma2, _gemma2_ring, _moe,
+   _durability); K1's, K2's and K3's rows carry
    their main-path op (sweep, view, value_at) beside the chain it
    replaced and the parity op (compact, search_gather, search), each at
    the shape of the phase its launches are counted in;
@@ -73,6 +94,7 @@ without the package beside the script, it exits nonzero before any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -92,7 +114,8 @@ import torch  # noqa: E402
 
 from repro_torch._tensor import drop_set  # noqa: E402
 from repro_torch.ckpt.manager import tree_flatten  # noqa: E402
-from repro_torch.core.mvgc import vstore  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.mvgc import announce, vstore  # noqa: E402
 from repro_torch.core.telemetry import GCConfig  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.compact import ops as compact_ops  # noqa: E402
@@ -107,6 +130,7 @@ from repro_torch.kernels.version_search.ref import (  # noqa: E402
     search_gather_ref, search_ref, value_at_ref, view_ref)
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models.attention import LocalKVCache  # noqa: E402
 from repro_torch.serve import forking  # noqa: E402
 from repro_torch.serve.engine import PagedKVEngine  # noqa: E402
 # phase 3's K3 / K5 shapes, inputs and timing, shared with the A/B script
@@ -132,13 +156,34 @@ SERVE = dict(num_seqs=256, num_pages=32768, page_size=16,
              max_len=4096, pin_every=16, pin_hold=4, max_steps=6000,
              max_seconds=420.0, steps_after_pressure=64, seed=0)
 # phase 3's flash prefill cases: the model phase's prefill (minitron-4b
-# heads, bf16, causal), a gemma2-2b local layer (head dim 256, window 512,
-# softcap 50) and a float32 case
+# heads, bf16, causal), gemma2-2b layers (head dim 256, softcap 50),
+# deepseek-moe-16b's layers and float32 cases
 FLASH = {
     "serve": dict(B=16, Hq=24, Hkv=8, T=2048, D=128, window=0, softcap=0.0,
                   dtype="bf16"),
+    # phase 6c's prefill: deepseek-moe-16b's heads (16 query, 16 KV: no
+    # head grouping)
+    "moe": dict(B=8, Hq=16, Hkv=16, T=2048, D=128, window=0, softcap=0.0,
+                dtype="bf16"),
     "gemma2_local": dict(B=16, Hq=8, Hkv=4, T=2048, D=256, window=512,
                          softcap=50.0, dtype="bf16"),
+    # gemma2-2b's two prefill shapes in phase 6a: its local layers (window
+    # 4096) and its global layers (no window), softcap 50 in both; held
+    # to DECODE_TOL plus the bound of P's bf16 rounding (flash_cases)
+    "gemma2_w4096": dict(B=16, Hq=8, Hkv=4, T=2048, D=256, window=4096,
+                         softcap=50.0, dtype="bf16", p_rounding=True),
+    "gemma2_global": dict(B=16, Hq=8, Hkv=4, T=2048, D=256, window=0,
+                          softcap=50.0, dtype="bf16", p_rounding=True),
+    # the same layer with q scaled by 12: logits q.k/sqrt(D) of about
+    # N(0, 12^2), so the cap of 50 bends them (randn's N(0, 1) logits move
+    # by under 0.006 under it); the same inputs with no softcap must fail
+    # the row's limit (flash_cases), which shows the check sees the cap
+    "gemma2_capped": dict(B=4, Hq=8, Hkv=4, T=2048, D=256, window=0,
+                          softcap=50.0, dtype="bf16", p_rounding=True,
+                          q_scale=12.0),
+    # phase 6b's local layer: float32 (the CUDA-core route) at D 256
+    "gemma2_ring_f32": dict(B=1, Hq=8, Hkv=4, T=6144, D=256, window=4096,
+                            softcap=50.0, dtype="f32"),
     "f32": dict(B=4, Hq=24, Hkv=8, T=2048, D=128, window=0, softcap=0.0,
                 dtype="f32"),
 }
@@ -147,6 +192,41 @@ MODEL_ARGS = ["--arch", "minitron-4b", "--batch", "16", "--prompt-len",
               "2048", "--max-len", "4096", "--steps", "64", "--pin-every",
               "8", "--gc-policy", "slrt", "--dtype",
               "bfloat16", "--device", "cuda"]
+# phases 6a and 6c: gemma2-2b and deepseek-moe-16b at full width through
+# the launcher.  gemma2's ring is W = 4096 slots and no position reaches
+# 4096 (2048 + 64), so the readers hold their pins with no wrap and the
+# reader check stays strict (trap C10)
+GEMMA2_ARGS = ["--arch", "gemma2-2b", "--batch", "16", "--prompt-len",
+               "2048", "--max-len", "4096", "--steps", "64", "--pin-every",
+               "8", "--gc-policy", "slrt", "--dtype", "bfloat16",
+               "--device", "cuda"]
+MOE_ARGS = ["--arch", "deepseek-moe-16b", "--batch", "8", "--prompt-len",
+            "2048", "--max-len", "4096", "--steps", "32", "--pin-every", "8",
+            "--gc-policy", "slrt", "--dtype", "bfloat16", "--device", "cuda"]
+# each served model's phase, flags and the published widths it must have
+SERVED = {
+    "model": (MODEL_ARGS, dict(num_layers=32, d_model=3072, hd=128)),
+    "gemma2": (GEMMA2_ARGS, dict(
+        num_layers=26, d_model=2304, num_heads=8, num_kv_heads=4, hd=256,
+        layer_pattern=("local", "attn"), local_window=4096,
+        attn_softcap=50.0, final_softcap=30.0)),
+    "moe": (MOE_ARGS, dict(
+        num_layers=28, d_model=2048, num_heads=16, hd=128, num_experts=64,
+        top_k=6, num_shared_experts=2, d_ff=1408)),
+}
+# phase 6b: the ring's drop and wrap paths at gemma2-2b's full widths, two
+# layers (one local, one global), float32, against the CPU
+RING = dict(layers=2, batch=1, prompt=6144, max_len=8192, steps=16, seed=0)
+# its tolerances, card against CPU, both float32, which sum in other
+# orders (cuBLAS against the CPU's GEMMs, K6's float32 kernel against its
+# plain version).  Each atol is about four times the largest difference
+# an H100 run measured (the phase's max_logit_err and max_ring_err): the
+# last-position logits (final softcap 30) 1.03e-4; the rings' K/V
+# 1.55e-3, larger: RoPE turns a key by the angle p * f, which at
+# positions p near 6000 carries p times any last-bit difference between
+# the two devices' frequencies f (one float32 ulp of f = 1 is 6e-8)
+RING_TOL = {"logits": dict(atol=4e-4, rtol=0.0),
+            "ring": dict(atol=6e-3, rtol=0.0)}
 STORM = dict(num_seqs=8, num_pages=24, page_size=4, max_pages_per_seq=3,
              versions_per_seq=6, steps=160, min_len=4, max_len=12,
              pin_every=5, pin_hold=3, seed=0)
@@ -620,6 +700,46 @@ def check_value_at_on_store(store) -> int:
     return len(times)
 
 
+def check_sweep_on_store(mv) -> dict:
+    """``sweep`` on an engine's own store against its plain version,
+    exactly: every slot, the lanes an slrt flush would give it now (the
+    retire ring's slots, holes masked off) and every slot as a lane, each
+    under the engine's board, under no pin and under a pin at every
+    timestamp the store holds.  The sweep of every slot under no pin must
+    kill a version.  Returns the number of sweeps checked and the versions
+    that sweep killed."""
+    st, now = mv.store, mv.now
+    S, V = st.ts.shape
+    dev = st.ts.device
+    occ = mv.ring.idx != EMPTY
+    ring_slots = torch.where(occ, torch.div(mv.ring.idx, V,
+                                            rounding_mode="floor"), 0)
+    lanes = {"every slot": (None, None),
+             "ring": (ring_slots.to(torch.int32).contiguous(), occ),
+             "slots as lanes": (torch.arange(S, dtype=torch.int32,
+                                             device=dev),
+                                torch.ones((S,), dtype=torch.bool,
+                                           device=dev))}
+    own = announce.scan(mv.board)
+    boards = {"engine": own, "no pin": torch.full_like(own, TS_MAX),
+              "every stamp": torch.unique(st.ts[st.ts != EMPTY]).to(
+                  torch.int32)}
+    killed = None
+    for bname, board in boards.items():
+        for lname, (ids, mask) in lanes.items():
+            args = (st.ts, st.succ, st.payload, ids, mask, board, now)
+            got = compact_ops.sweep(*args)
+            want = sweep_ref(*args)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"sweep != plain version on the store ({lname}, board "
+                  f"{bname})")
+            if bname == "no pin" and ids is None:
+                killed = int(((st.ts != EMPTY) & (got[0] == EMPTY)).sum())
+    check(killed > 0, "the store held no version for the sweep to kill")
+    return dict(sweeps_checked=len(boards) * len(lanes),
+                sweep_killed_unpinned=killed)
+
+
 def search_big_cases(dev) -> dict:
     """K3 at ``benchmarks/kernel_bench.py``'s largest search shape, with
     its data: ``search`` over B = 8192 ids with one t each, and
@@ -773,6 +893,8 @@ def flash_cases(dev) -> dict:
         B, Hq, Hkv, T, D = c["B"], c["Hq"], c["Hkv"], c["T"], c["D"]
         kw = dict(causal=True, window=c["window"], softcap=c["softcap"])
         q = torch.randn((B, Hq, T, D), generator=gd, device=dev, dtype=dtype)
+        if "q_scale" in c:
+            q = q * c["q_scale"]
         k = torch.randn((B, Hkv, T, D), generator=gd, device=dev, dtype=dtype)
         v = torch.randn((B, Hkv, T, D), generator=gd, device=dev, dtype=dtype)
         got = flash_ops.flash_attention(q, k, v, **kw)
@@ -789,8 +911,33 @@ def flash_cases(dev) -> dict:
         # other kernel (the CUDA-core route), so the wgmma kernel is held
         # here only at the bf16 limits; tests/test_torch_gpu.py's marker
         # tests pin its causal, window and S masks exactly.
-        check(torch.allclose(got.float(), want.float(), **DECODE_TOL[kind]),
+        tol = DECODE_TOL[kind]
+        limit = tol["atol"] + tol["rtol"] * want.float().abs()
+        if c.get("p_rounding"):
+            # plus what rounding P to bf16 can move an output by: up to
+            # 2**-8 of each term p_j |v_j|, so 2**-8 * sum_j p_j |v_j|,
+            # the plain version on |V|.  An H100 run found one element
+            # of the gemma2_global row (query row 1: two V values of 3.66
+            # that cancel to 0.000575) at 0.00425 from the plain version,
+            # above the atol: the design's own value, which the same sum
+            # with P rounded to bf16 reproduces to 5e-6
+            limit = limit + 2**-8 * attention_ref(q, k, v.abs(),
+                                                    **kw).float()
+        check(bool(((got.float() - want.float()).abs() <= limit).all()),
               f"flash_prefill {case} differs from plain version (max {err})")
+        uncapped_err = None
+        if "q_scale" in c:
+            # control: the plain version without the cap is outside the
+            # limit, so a kernel that ignored the softcap would fail here
+            uncapped = attention_ref(q, k, v, **dict(kw, softcap=0.0))
+            uncapped_err = max_err([uncapped], [want])
+            check(not bool(((uncapped.float() - want.float()).abs()
+                            <= limit).all()),
+                  f"flash_prefill {case}: the uncapped plain version is "
+                  f"within the limit (max {uncapped_err}), so the check "
+                  "cannot see the softcap")
+            del uncapped
+        del limit
         check(torch.equal(got, flash_ops.flash_attention(q, k, v, **kw)),
               f"flash_prefill {case} not deterministic")
         del want
@@ -808,6 +955,9 @@ def flash_cases(dev) -> dict:
         row = dict(shape=f"B={B} Hq={Hq} Hkv={Hkv} T={T} D={D} "
                          f"window={c['window']} softcap={c['softcap']} {kind}",
                    route=flash_ops.ROUTES[dtype], max_abs_err=err,
+                   **({} if uncapped_err is None else dict(
+                       q_scale=c["q_scale"],
+                       uncapped_max_abs_err=uncapped_err)),
                    **DECODE_TOL[kind], bound_ms=b_ms, bound_by=b_by,
                    **timed(lambda: flash_ops.flash_attention(q, k, v, **kw),
                            lambda: attention_ref(q, k, v, **kw), library))
@@ -1436,10 +1586,27 @@ def profile_window(decode_step, steps: int = 16, name: str = "serve") -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: minitron-4b served at full width through the port's launcher
+# phases 6, 6a and 6c: a model served at full width through the launcher
 # ---------------------------------------------------------------------------
-def phase_model(dev) -> tuple[dict, dict]:
-    args = launcher.parse_args(MODEL_ARGS)
+def _prefill_bits(c, T: int) -> list:
+    """What one prefill writes into a layer's cache: a global cache's
+    first ``T`` columns, a local ring whole (k, v and pos)."""
+    if isinstance(c, LocalKVCache):
+        return [c.k.clone(), c.v.clone(), c.pos.clone()]
+    return [c.k[:, :T].clone(), c.v[:, :T].clone()]
+
+
+def phase_served(dev, name: str) -> tuple[dict, dict]:
+    """Serve ``SERVED[name]``'s model through the launcher: two prefills
+    of the same prompt must give the same bits; the launch counts are
+    zeroed just before the launcher's run and read just after; flash
+    prefill runs once per layer on the bf16 route, compact and value_at
+    run, every pinned reader's score is bit-identical, every token is in
+    the vocabulary; value_at and sweep equal their plain versions on the
+    engine's own store; then a short profiled decode window.  Returns the launches and
+    flash prefill's launches by route."""
+    argv, widths = SERVED[name]
+    args = launcher.parse_args(argv)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1447,8 +1614,8 @@ def phase_model(dev) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     B, T = prompt.shape
-    check(cfg.num_layers == 32 and cfg.d_model == 3072 and cfg.hd == 128,
-          "minitron-4b is not at its published widths")
+    got = {k: getattr(cfg, k) for k in widths}
+    check(got == widths, f"{cfg.name} is not at its published widths: {got}")
 
     # two prefills of the same prompt give the same bits (and warm up)
     st = engine.state
@@ -1456,10 +1623,11 @@ def phase_model(dev) -> tuple[dict, dict]:
     for _ in range(2):
         logits, cache, _ = tf.prefill(st.params, cfg, prompt, st.cache,
                                       inplace=True)
-        outs.append((logits.clone(), cache[-1].k[:, :T].clone(),
-                     cache[-1].v[:, :T].clone()))
+        outs.append([logits.clone()] + _prefill_bits(cache[0], T)
+                    + _prefill_bits(cache[-1], T))
     same = all(torch.equal(a, b) for a, b in zip(*outs))
-    check(same, "two prefills of the same prompt gave different bits")
+    check(same, f"{name}: two prefills of the same prompt gave different "
+          "bits")
     del outs, logits, cache
 
     for w in WRAPPERS.values():
@@ -1470,17 +1638,19 @@ def phase_model(dev) -> tuple[dict, dict]:
     rep = launcher.serve(engine, prompt, steps=args.steps,
                          pin_every=args.pin_every, log=lambda line: None)
     torch.cuda.synchronize()
-    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
     flash_routes = dict(routes)
     store = engine.state.mv.store
-    check(tuple(store.ts.shape) == model_store_shape(),
-          f"the store is {tuple(store.ts.shape)}, phase 3's value_at_model "
-          f"row {model_store_shape()}")
+    if name == "model":
+        check(tuple(store.ts.shape) == model_store_shape(),
+              f"the store is {tuple(store.ts.shape)}, phase 3's "
+              f"value_at_model row {model_store_shape()}")
     value_at_times = check_value_at_on_store(store)
-    prof = profile_window(engine.step, steps=8, name="model")
+    sweeps = check_sweep_on_store(engine.state.mv)
+    prof = profile_window(engine.step, steps=8, name=name)
     toks = rep["tokens"]
     res = dict(
-        phase="model", arch=cfg.name, layers=cfg.num_layers,
+        phase=name, arch=cfg.name, layers=cfg.num_layers,
         d_model=cfg.d_model, parameters=cfg.param_count(), dtype=args.dtype,
         batch=B, prompt_len=T, max_len=args.max_len, steps=args.steps,
         policy=args.gc_policy, build_s=build_s,
@@ -1496,7 +1666,7 @@ def phase_model(dev) -> tuple[dict, dict]:
             "flash_prefill"], flash_route_launches=flash_routes,
         readers=rep["readers"],
         score_mismatches=rep["score_mismatches"],
-        value_at_times_checked=value_at_times,
+        value_at_times_checked=value_at_times, **sweeps,
         prefill_bits_equal=same, stats_sum=rep["stats_sum"],
         space=rep["space"], tokens_head=toks[:2, :8].tolist())
     emit(res)
@@ -1508,14 +1678,128 @@ def phase_model(dev) -> tuple[dict, dict]:
           f"prefill of {cfg.num_layers} layers")
     check(flash_routes[flash_ops.ROUTES[torch.bfloat16]] == cfg.num_layers,
           f"the bf16 prefill did not run the wgmma kernel: {flash_routes}")
-    for name in ("compact", "search", "value_at"):
-        check(launches[name] > 0, f"{name} kernel never launched in model")
+    for k in ("compact", "search", "value_at"):
+        check(launches[k] > 0, f"{k} kernel never launched in {name}")
     check(rep["readers"] == min(-(-args.steps // args.pin_every),
                                 launcher.READER_LANES),
           "fewer readers than pinned")
     check(rep["score_mismatches"] == 0,
           f"{rep['score_mismatches']} pinned scores changed under decode")
+    del engine, st
     return launches, flash_routes
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: gemma2-2b's ring drop and wrap paths against the CPU
+# ---------------------------------------------------------------------------
+def _ring_pass(params, cfg, prompt, dev, steps: int, feed=None):
+    """Prefill ``prompt`` and decode ``steps`` tokens on ``dev`` through
+    the model's passes (in place), greedily or teacher-forced with
+    ``feed``.  Returns the last-position logits of the prefill and of
+    every step (on the CPU), the tokens fed, and the local ring after the
+    prefill and at the end."""
+    B, T = prompt.shape
+    cache = tf.init_cache(cfg, B, RING["max_len"], torch.float32, dev)
+    logits, cache, lens = tf.prefill(params, cfg, prompt.to(dev), cache,
+                                     inplace=True)
+    out, toks = [logits[:, -1].cpu()], []
+    after_prefill = [x.to('cpu', copy=True) for x in cache[0]]
+    for i in range(steps):
+        tok = (feed[i].to(dev) if feed is not None
+               else logits[:, -1].argmax(-1).to(torch.int32)[:, None])
+        toks.append(tok.cpu())
+        logits, cache = tf.decode_step(params, cfg, tok, cache, lens,
+                                       inplace=True, span=T + i + 1)
+        lens = lens + 1
+        out.append(logits[:, -1].cpu())
+    return out, toks, after_prefill, [x.to('cpu', copy=True)
+                                      for x in cache[0]]
+
+
+def phase_gemma2_ring(dev) -> dict:
+    """gemma2-2b's local ring at its full widths where the serving phase
+    cannot reach: two layers (one local, one global), float32, a prompt
+    of 6144 tokens (longer than the 4096-slot ring, so the prefill keeps
+    only the last 4096 positions: the drop path) and 16 decode steps that
+    go on overwriting it (the wrap), no reader.  The same weights and
+    tokens then run on the CPU through the plain versions, teacher-forced
+    with the card's tokens: the last-position logits of the prefill and
+    of every step, and the ring's K/V after the prefill and at the end,
+    must agree within RING_TOL, and the ring's positions exactly."""
+    base = get_config("gemma2-2b")
+    cfg = dataclasses.replace(base, num_layers=RING["layers"])
+    check(cfg.layer_pattern == ("local", "attn") and cfg.hd == 256
+          and cfg.local_window == 4096 and cfg.d_model == 2304,
+          "gemma2-2b is not at its published widths")
+    B, T, steps, W = RING["batch"], RING["prompt"], RING["steps"], \
+        cfg.local_window
+    gen = torch.Generator(device=dev).manual_seed(RING["seed"])
+    params = tf.init_params(cfg, gen, torch.float32)
+    prompt = torch.from_numpy(np.random.default_rng(RING["seed"]).integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32))
+    for w in WRAPPERS.values():
+        w.launches = 0
+    routes = flash_ops.flash_attention.route_launches
+    for r in routes:
+        routes[r] = 0
+    t0 = time.perf_counter()
+    card, toks, ring0, ring = _ring_pass(params, cfg, prompt, dev, steps)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    flash_routes = dict(routes)
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    params_cpu = _to(params, cpu)
+    del params
+    torch.cuda.empty_cache()
+    plain, _, plain_ring0, plain_ring = _ring_pass(params_cpu, cfg, prompt,
+                                                   cpu, steps, feed=toks)
+    cpu_s = time.perf_counter() - t0
+    logit_err = max_err(card, plain)
+    ring_err = max_err(ring[:2] + ring0[:2], plain_ring[:2] + plain_ring0[:2])
+    held = sorted(int(p) for p in ring0[2][0] if p >= 0)
+    held_end = sorted(int(p) for p in ring[2][0] if p >= 0)
+    res = dict(phase="gemma2_ring", arch=cfg.name, layers=cfg.num_layers,
+               d_model=cfg.d_model, dtype="float32", batch=B, prompt_len=T,
+               max_len=RING["max_len"], steps=steps, ring_slots=W,
+               card_s=card_s, cpu_s=cpu_s, max_logit_err=logit_err,
+               max_ring_err=ring_err, tolerance=RING_TOL, launches=launches,
+               flash_route_launches=flash_routes,
+               ring_held_after_prefill=[held[0], held[-1], len(held)],
+               ring_held_at_end=[held_end[0], held_end[-1], len(held_end)])
+    emit(res)
+    check(held == list(range(T - W, T)), "the prefill's ring does not hold "
+          "the last W positions")
+    check(held_end == list(range(T + steps - W, T + steps)),
+          "the decoded ring does not hold the last W positions")
+    check(torch.equal(ring0[2], plain_ring0[2])
+          and torch.equal(ring[2], plain_ring[2]),
+          "the ring's positions differ between the card and the CPU")
+    for i, (a, b) in enumerate(zip(card, plain)):
+        check(bool(torch.isfinite(a).all()), f"gemma2_ring: logits of pass "
+              f"{i} not finite")
+        check(torch.allclose(a, b, **RING_TOL["logits"]),
+              f"gemma2_ring: logits of pass "
+              f"{i} differ from the CPU's (max {float((a - b).abs().max())})")
+    for a, b in zip(ring[:2] + ring0[:2], plain_ring[:2] + plain_ring0[:2]):
+        check(torch.allclose(a, b, **RING_TOL["ring"]),
+              "gemma2_ring: the ring's K/V differ from the CPU's")
+    check(launches["flash_prefill"] == cfg.num_layers
+          and flash_routes[flash_ops.ROUTES[torch.float32]] == cfg.num_layers,
+          f"the float32 prefill did not run K6's CUDA-core route once per "
+          f"layer: {flash_routes}")
+    return launches
+
+
+def _to(x, dev):
+    """Parameters (tensors in nested dicts and lists) on ``dev``."""
+    if isinstance(x, dict):
+        return {k: _to(v, dev) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_to(v, dev) for v in x]
+    return x.to(dev)
 
 
 def main() -> int:
@@ -1526,7 +1810,14 @@ def main() -> int:
     phase_storm(dev)
     launches = phase_serve(dev)
     torch.cuda.empty_cache()
-    model_launches, flash_routes = phase_model(dev)
+    model_launches, flash_routes = phase_served(dev, "model")
+    torch.cuda.empty_cache()
+    served = {}
+    served["gemma2"], _ = phase_served(dev, "gemma2")
+    torch.cuda.empty_cache()
+    served["gemma2_ring"] = phase_gemma2_ring(dev)
+    torch.cuda.empty_cache()
+    served["moe"], _ = phase_served(dev, "moe")
     torch.cuda.empty_cache()
     phase_fork_tiers(dev)
     durable_launches = phase_durability(dev)
@@ -1553,6 +1844,7 @@ def main() -> int:
             replaces=replaces,
             launches=count, launches_from=launches_from,
             launches_model=model_launches[name],
+            **{f"launches_{k}": v[name] for k, v in served.items()},
             launches_durability=durable_launches[name],
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],

@@ -7,10 +7,10 @@ port's tensors on ``device``.  :func:`params_from_numpy` maps a JAX
 model's parameter pytree (layers stacked over superblocks) onto the port's
 per-layer dicts, and :func:`serve_state_from_numpy` a JAX ``ServeState``
 onto the port's, so both packages compute from the same weights.
-:func:`to_numpy` goes back: the same ``NamedTuple`` type with numpy
-leaves (bfloat16 tensors widen to float32, which is exact).  Nothing here
-imports JAX: a JAX array is read through ``numpy.asarray``, and a bfloat16
-numpy array through its 16-bit pattern.
+:func:`to_numpy` goes back: the same ``NamedTuple`` types, lists and
+dicts with numpy leaves (bfloat16 tensors widen to float32, which is
+exact).  Nothing here imports JAX: a JAX array is read through
+``numpy.asarray``, and a bfloat16 numpy array through its 16-bit pattern.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import torch
 from repro_torch._tensor import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.mvgc import announce, pool, rangetracker, vstore
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, LocalKVCache
 from repro_torch.mvkv import paged
 from repro_torch.serve.engine import ServeState
 
@@ -91,33 +91,50 @@ def _per_layer(cfg: ModelConfig, tree: Any) -> List[Any]:
 def params_from_numpy(cfg: ModelConfig, params: Any, device: DeviceLike = None,
                       dtype: Optional[torch.dtype] = None) -> dict:
     """A JAX parameter pytree (``embed``, ``sb/l{j}/{ln1, mixer/{wq, wk, wv,
-    wo}, ln2, ffn/{wu, wg, wd}}`` stacked over superblocks, ``final_norm``,
+    wo}, ln2, ffn/...}`` stacked over superblocks, ``final_norm``,
     ``unembed`` when untied) -> the port's parameters on ``device``, cast to
-    ``dtype`` when given."""
+    ``dtype`` when given.  A mixture of experts' router stays float32, as
+    ``init_moe`` makes it in both packages."""
     dev = resolve_device(device)
 
     def t(x):
         return _cast(x, dev, dtype)
 
+    def layer(tree):
+        out = _map_tree(tree, t)
+        if isinstance(tree.get("ffn"), dict) and "router" in tree["ffn"]:
+            out["ffn"]["router"] = _cast(tree["ffn"]["router"], dev,
+                                         torch.float32)
+        return out
+
     out = {"embed": t(params["embed"]),
-           "layers": [_map_tree(layer, t) for layer in _per_layer(cfg, params)],
+           "layers": [layer(x) for x in _per_layer(cfg, params)],
            "final_norm": t(params["final_norm"])}
     if "unembed" in params:
         out["unembed"] = t(params["unembed"])
     return out
 
 
+def _cache_from_numpy(c: Any, dev: torch.device,
+                      dtype: Optional[torch.dtype]):
+    """One layer's cache; a local ring's ``pos`` stays int32."""
+    k, v = _cast(c.k, dev, dtype), _cast(c.v, dev, dtype)
+    if hasattr(c, "pos"):
+        return LocalKVCache(k, v, tensor_from_numpy(c.pos, dev))
+    return KVCache(k, v)
+
+
 def serve_state_from_numpy(cfg: ModelConfig, state: Any,
                            device: DeviceLike = None,
                            dtype: Optional[torch.dtype] = None):
     """A JAX ``ServeState`` -> the port's, on ``device``; ``dtype`` casts the
-    parameters and the KV cache when given."""
+    parameters (not a router) and the KV caches (not a ring's ``pos``) when
+    given."""
     dev = resolve_device(device)
-    cache = [KVCache(_cast(c.k, dev, dtype), _cast(c.v, dev, dtype))
-             for c in _per_layer(cfg, state.cache)]
     return ServeState(
         params=params_from_numpy(cfg, state.params, dev, dtype),
-        cache=cache,
+        cache=[_cache_from_numpy(c, dev, dtype)
+               for c in _per_layer(cfg, state.cache)],
         cache_len=tensor_from_numpy(state.cache_len, dev),
         mv=mvstate_from_numpy(state.mv, dev),
         last_tokens=tensor_from_numpy(state.last_tokens, dev),
@@ -125,11 +142,16 @@ def serve_state_from_numpy(cfg: ModelConfig, state: Any,
 
 
 def to_numpy(x: Any) -> Any:
-    """Tensors (nested in NamedTuples) -> numpy arrays, structure kept."""
+    """Tensors (nested in NamedTuples, lists and dicts) -> numpy arrays,
+    structure kept."""
     if torch.is_tensor(x):
         if x.dtype == torch.bfloat16:
             x = x.float()
         return x.detach().cpu().numpy()
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*(to_numpy(v) for v in x))
+    if isinstance(x, list):
+        return [to_numpy(v) for v in x]
+    if isinstance(x, dict):
+        return {k: to_numpy(v) for k, v in x.items()}
     return x

@@ -6,6 +6,12 @@ readers (port of ``repro.launch.serve``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b \\
         --batch 16 --prompt-len 2048 --max-len 4096 --steps 64 \\
         --dtype bfloat16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
+        --reduced --device cpu --prompt-len 8 --steps 8
+
+Every decoder-only attention family runs: dense (minitron-4b,
+qwen2.5-32b, starcoder2-7b), local ring caches (gemma2-2b) and mixtures
+of experts (granite-moe-1b-a400m, deepseek-moe-16b).
 
 The flags are the JAX driver's, plus ``--device`` (``cuda`` by default)
 and ``--dtype`` (of the weights and the KV cache).  Weights are random,
@@ -148,8 +154,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
           f"{args.dtype} on {engine.device}")
     rep = serve(engine, prompt, steps=args.steps, pin_every=args.pin_every)
     if rep["score_mismatches"]:
-        raise SystemExit(f"{rep['score_mismatches']} pinned readers' scores "
-                         "changed while they held their pin")
+        msg = (f"{rep['score_mismatches']} pinned readers' scores changed "
+               "while they held their pin")
+        if "local" in cfg.layer_pattern:
+            msg += (f" (trap C10: a local ring keeps {cfg.local_window} "
+                    "positions, and once decode wraps it a pinned reader's "
+                    "window is overwritten, in the JAX package too; keep "
+                    "--prompt-len plus --steps within the window)")
+        raise SystemExit(msg)
     return rep
 
 

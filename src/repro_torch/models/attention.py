@@ -1,5 +1,6 @@
 """GQA attention with RoPE, softcap and a KV cache (port of
-``repro.models.attention``, the prefill and decode modes).
+``repro.models.attention``, the prefill and decode modes, and of the
+local ring of ``repro.models.blocks``).
 
 * prefill (``fill_cache``): K6, the flash prefill kernel
   (:func:`repro_torch.kernels.flash_prefill.ops.flash_attention`), over the
@@ -18,6 +19,11 @@ no row can see a cache column at or past it.  Decode reads only the first
 ``span`` exceeds the cache the writes past its end are dropped.
 ``inplace=True`` writes the new K/V into the given cache; the default
 writes into a copy and leaves the given cache as it was, as JAX does.
+
+Block kind ``local`` (sliding-window attention) keeps a ring,
+:class:`LocalKVCache`, of ``W = min(local_window, L)`` slots: position
+``p`` lives in slot ``p % W``, and ``pos`` records which position each
+slot holds (-1 for an empty one), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -55,17 +61,44 @@ class KVCache(NamedTuple):
     v: torch.Tensor        # [B, L, Hkv, D]
 
 
+class LocalKVCache(NamedTuple):
+    k: torch.Tensor        # [B, W, Hkv, D] ring buffer
+    v: torch.Tensor        # [B, W, Hkv, D]
+    pos: torch.Tensor      # i32[B, W] position held by each slot (-1 empty)
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x`` [B, T, d] times ``w`` [d, H, D] -> [B, T, H, D]."""
     d, H, D = w.shape
     return (x @ w.reshape(d, H * D)).view(*x.shape[:-1], H, D)
 
 
-def _project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor):
+def _project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor):
+    """q, k, v [B, T, H, D] of ``x``, with RoPE at ``positions``."""
     q, k, v = (_proj(x, params[w]) for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    if cfg.rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _flash(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor, window: int) -> torch.Tensor:
+    """K6 over a prompt in the JAX layout [B, T, H, D] (the kernel's is
+    [B, H, T, D]): causal, with ``window`` and the config's softcap."""
+    return flash_attention(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), causal=True, window=window,
+        softcap=cfg.attn_softcap).transpose(1, 2)
+
+
+def _out_proj(params: dict, out: torch.Tensor) -> torch.Tensor:
+    """``out`` [B, T, Hq, D] times ``wo`` [Hq, D, d] -> [B, T, d]."""
+    B, T, Hq, D = out.shape
+    return out.reshape(B, T, Hq * D) @ params["wo"].reshape(Hq * D, -1)
 
 
 def _write(buf: torch.Tensor, positions: torch.Tensor, val: torch.Tensor,
@@ -88,32 +121,43 @@ def _write(buf: torch.Tensor, positions: torch.Tensor, val: torch.Tensor,
     return buf
 
 
-def _decode_attend(cfg: ModelConfig, q: torch.Tensor, cache: KVCache,
-                   cache_len: torch.Tensor, positions: torch.Tensor,
-                   span: int, out_dtype: torch.dtype) -> torch.Tensor:
-    """``q`` [B, T, Hq, D] over the cache prefix -> [B, T, Hq, D].
+def _decode_attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, mask: torch.Tensor,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """``q`` [B, T, Hq, D] over the cache columns ``k``/``v`` [B, L, Hkv,
+    D] that ``mask`` [B, T, L] lets each row see -> [B, T, Hq, D].
 
     Trap T6: ``q`` is scaled in its own dtype before the product, the
     logits are float32 (products of the operands accumulated in float32),
     and the probabilities are normalised, ``p / l``, in the cache's dtype
     before the P V product — all as in the JAX decode."""
     B, T, Hq, D = q.shape
-    Hkv = cache.k.shape[2]
-    L = min(span, cache.k.shape[1])
-    k, v = cache.k[:, :L].float(), cache.v[:, :L].float()
+    Hkv = k.shape[2]
     qf = q.reshape(B, T, Hkv, Hq // Hkv, D) * torch.tensor(
         1.0 / math.sqrt(D), dtype=q.dtype)
-    logits = torch.einsum("bthgd,bshd->bthgs", qf.float(), k)
+    logits = torch.einsum("bthgd,bshd->bthgs", qf.float(), k.float())
     if cfg.attn_softcap > 0:
         logits = softcap(logits, cfg.attn_softcap)
+    logits = logits.masked_fill(~mask[:, :, None, None, :], NEG_INF)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = (p / p.sum(-1, keepdim=True)).to(v.dtype).float()
+    out = torch.einsum("bthgs,bshd->bthgd", p, v.float())
+    return out.reshape(B, T, Hq, D).to(out_dtype)
+
+
+def _global_attend(cfg: ModelConfig, q: torch.Tensor, cache: KVCache,
+                   cache_len: torch.Tensor, positions: torch.Tensor,
+                   span: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """Decode over the first ``min(span, L)`` cache columns: a row sees
+    the columns below its sequence's length and at or before its own
+    position."""
+    T = q.shape[1]
+    L = min(span, cache.k.shape[1])
     cols = torch.arange(L, device=q.device)[None, None, :]
     mask = (cols < (cache_len + T)[:, None, None]) \
         & (cols <= positions[..., None])                        # causal
-    logits = logits.masked_fill(~mask[:, :, None, None, :], NEG_INF)
-    p = torch.exp(logits - logits.amax(-1, keepdim=True))
-    p = (p / p.sum(-1, keepdim=True)).to(cache.v.dtype).float()
-    out = torch.einsum("bthgs,bshd->bthgd", p, v)
-    return out.reshape(B, T, Hq, D).to(out_dtype)
+    return _decode_attend(cfg, q, cache.k[:, :L], cache.v[:, :L], mask,
+                          out_dtype)
 
 
 def attention(
@@ -134,21 +178,66 @@ def attention(
     if (fill_cache is None) == (cache is None):
         raise ValueError("attention: pass fill_cache (prefill) or cache "
                          "(decode)")
-    q, k, v = _project_qkv(params, cfg, x)
-    if cfg.rope:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-    B, T, Hq, D = q.shape
+    q, k, v = _project_qkv(params, cfg, x, positions)
     old = cache if fill_cache is None else fill_cache
     new = KVCache(_write(old.k, positions, k, span, inplace),
                   _write(old.v, positions, v, span, inplace))
     if fill_cache is not None:
-        out = flash_attention(
-            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), causal=True,
-            softcap=cfg.attn_softcap).transpose(1, 2)
+        out = _flash(cfg, q, k, v, window=0)
     else:
-        out = _decode_attend(cfg, q, new, cache_len, positions, span,
+        out = _global_attend(cfg, q, new, cache_len, positions, span,
                              x.dtype)
-    y = out.reshape(B, T, Hq * D) @ params["wo"].reshape(Hq * D, -1)
-    return y, new
+    return _out_proj(params, out), new
+
+
+def _local_ring_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                       positions: torch.Tensor, cache: LocalKVCache,
+                       span: int, inplace: bool
+                       ) -> Tuple[torch.Tensor, LocalKVCache]:
+    """A decode pass of local attention over the ring: position ``p``'s
+    K/V overwrite slot ``p % W``, then each row attends over the slots
+    that hold a position inside its window.
+
+    JAX reads all ``W`` slots.  Before the ring wraps (``span <= W``) slot
+    ``s`` holds position ``s`` or nothing, so no row can see a slot at or
+    past ``span``: only the first ``min(span, W)`` are read, as the global
+    path reads only ``span`` columns.  A ring sliced to its first ``L``
+    slots is the same ring while every position written is below ``L``,
+    since then ``p % L == p % W``."""
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    W = cache.k.shape[1]
+    slot = positions % W          # in [0, W), so JAX's mode="drop" drops
+    cache = LocalKVCache(_write(cache.k, slot, k, W, inplace),   # nothing
+                         _write(cache.v, slot, v, W, inplace),
+                         _write(cache.pos, slot, positions, W, inplace))
+    L = min(span, W)
+    cpos = cache.pos[:, None, :L]                             # [B, 1, L]
+    rows = positions[..., None]                               # [B, T, 1]
+    mask = (cpos >= 0) & (cpos <= rows) & (cpos > rows - cfg.local_window)
+    out = _decode_attend(cfg, q, cache.k[:, :L], cache.v[:, :L], mask,
+                         x.dtype)
+    return _out_proj(params, out), cache
+
+
+def _prefill_local_ring(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                        positions: torch.Tensor, cache: LocalKVCache,
+                        inplace: bool) -> Tuple[torch.Tensor, LocalKVCache]:
+    """Prefill a local layer: K6 over the prompt with the window and the
+    softcap (the Pallas dispatch the JAX module describes; JAX computes it
+    with ``_xla_flash``), and only the last ``W`` positions' K/V kept in
+    the ring (earlier ones are out of every later token's window).
+
+    A prefill's positions are ``0 .. T-1``.  JAX sends those before
+    ``T - W`` to slot ``W`` with ``mode="drop"``; here only the last
+    ``min(T, W)`` tokens are written, each to its own slot."""
+    T = positions.shape[1]
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    W = cache.k.shape[1]
+    last = slice(T - min(T, W), T)
+    slot = positions[:, last] % W
+    cache = LocalKVCache(_write(cache.k, slot, k[:, last], W, inplace),
+                         _write(cache.v, slot, v[:, last], W, inplace),
+                         _write(cache.pos, slot, positions[:, last], W,
+                                inplace))
+    out = _flash(cfg, q, k, v, window=cfg.local_window)
+    return _out_proj(params, out), cache

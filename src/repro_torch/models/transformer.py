@@ -5,8 +5,10 @@ Parameters are a plain dict of tensors: ``embed`` [V, d], ``layers`` (a
 list with one block dict per layer, in depth order — the JAX package stacks
 them as ``sb/l{i}`` over superblocks and runs ``lax.scan``; a Python loop
 over the list replaces the scan), ``final_norm`` [d] and, for untied
-embeddings, ``unembed`` [V, d].  The cache is a list with one
-:class:`repro_torch.models.attention.KVCache` per layer.
+embeddings, ``unembed`` [V, d].  The cache is a list with one cache per
+layer: a :class:`repro_torch.models.attention.KVCache` for a global
+attention layer, a :class:`repro_torch.models.attention.LocalKVCache` ring for
+a local one.
 
 Encoder-decoder and frontend configs are not ported yet and raise.
 """
@@ -17,8 +19,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import KVCache
-from repro_torch.models.blocks import block_apply, init_block, init_block_cache
+from repro_torch.models.blocks import (Cache, block_apply, init_block,
+                                       init_block_cache)
 from repro_torch.models.common import embed_init, rms_norm, softcap
 
 
@@ -53,15 +55,15 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device=None) -> List[KVCache]:
+               device=None) -> List[Cache]:
     return [init_block_cache(cfg, kind, batch, cache_len, dtype, device)
             for kind in _kinds(cfg)]
 
 
 def _serve_pass(params, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: List[KVCache], cache_len: torch.Tensor, mode: str,
+                cache: List[Cache], cache_len: torch.Tensor, mode: str,
                 span: int, inplace: bool
-                ) -> Tuple[torch.Tensor, List[KVCache]]:
+                ) -> Tuple[torch.Tensor, List[Cache]]:
     """Embed, run every block, norm and unembed the **last** position only.
 
     Trap T3: the JAX pass unembeds every position and ``prefill`` keeps the
@@ -88,9 +90,9 @@ def _serve_pass(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: List[KVCache], cache_len: torch.Tensor, *,
+                cache: List[Cache], cache_len: torch.Tensor, *,
                 inplace: bool = False, span: Optional[int] = None
-                ) -> Tuple[torch.Tensor, List[KVCache]]:
+                ) -> Tuple[torch.Tensor, List[Cache]]:
     """One decode step (``tokens`` i32[B, T], T = 1 for greedy decode)
     over the caches.  Returns (logits of the last position [B, 1, V],
     cache').  ``inplace=True`` appends to the given caches; otherwise they
@@ -103,7 +105,7 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: List[KVCache], *, inplace: bool = False):
+            cache: List[Cache], *, inplace: bool = False):
     """Fill empty caches with a prompt through K6.  Returns (last_logits
     [B, 1, V], cache', lengths i32[B])."""
     B, T = tokens.shape

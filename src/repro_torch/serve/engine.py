@@ -44,14 +44,14 @@ from repro_torch.core.mvgc import vstore
 from repro_torch.core.mvgc.pool import EMPTY
 from repro_torch.core.telemetry import GCConfig, ReclaimStats
 from repro_torch.models import transformer as tf
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, LocalKVCache
 from repro_torch.mvkv import paged
 from repro_torch.serve.forking import ForkDAG
 
 
 class ServeState(NamedTuple):
     params: Any
-    cache: Any                     # list of KVCache, one per layer
+    cache: Any                     # a KVCache or LocalKVCache per layer
     cache_len: torch.Tensor        # i32[B]
     mv: vstore.MVState             # versioned cache descriptors
     last_tokens: torch.Tensor      # i32[B, 1]
@@ -183,22 +183,37 @@ def snapshot_lengths(state: ServeState, t,
     return vstore.snapshot_value(state.mv, seq_ids, t)
 
 
+def _score_prefix(c, span: int):
+    """The part of one layer's cache that a pass at ``span`` reads: the
+    first ``span`` columns of a global cache; of a local ring, its first
+    ``min(span, W)`` slots (``LocalKVCache`` k, v and pos), which are the
+    same ring for such a pass (see ``attention._local_ring_decode``)."""
+    if isinstance(c, LocalKVCache):
+        return LocalKVCache(c.k[:, :span], c.v[:, :span], c.pos[:, :span])
+    return KVCache(c.k[:, :span], c.v[:, :span])
+
+
 def snapshot_score(state: ServeState, cfg: ModelConfig, tokens: torch.Tensor,
                    t) -> torch.Tensor:
     """Score candidate tokens [B, 1] against the snapshot at ``t``: the
     attention masks use the snapshot lengths, so the result is atomic with
     respect to ongoing decodes.
 
-    Trap T1: the scored tokens' K/V land at position ``lens[b]``, which
-    decode may already have filled; JAX writes them into a copy of the
-    cache and throws it away.  So does this (``inplace=False``), copying
-    only the first ``span`` columns, all that a pass at these lengths
-    reads: ``state`` is left bit-identical.  One host sync reads ``span``
-    (a reader pinned before a new prefill may see more than
-    ``state.longest``)."""
+    Trap T1: the scored tokens' K/V land at position ``lens[b]`` (in a
+    local ring, at its slot), which decode may already have filled; JAX
+    writes them into a copy of the cache and throws it away.  So does this
+    (``inplace=False``), copying only what a pass at these lengths reads
+    (:func:`_score_prefix`): ``state`` is left bit-identical.  One host
+    sync reads ``span`` (a reader pinned before a new prefill may see more
+    than ``state.longest``).
+
+    Trap C10 (a JAX fault, reproduced): a local ring keeps only the last
+    ``W`` positions, and decode overwrites a slot whether or not a pinned
+    reader's window still covers it, so once the ring wraps a pinned
+    snapshot's score changes, in both packages alike."""
     lens = snapshot_lengths(state, t)
     span = int(lens.max()) + tokens.shape[1]
-    prefix = [KVCache(c.k[:, :span], c.v[:, :span]) for c in state.cache]
+    prefix = [_score_prefix(c, span) for c in state.cache]
     logits, _ = tf.decode_step(state.params, cfg, tokens, prefix, lens,
                                inplace=False, span=span)
     return logits

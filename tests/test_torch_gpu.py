@@ -810,6 +810,30 @@ def test_flash_prefill_kernel(cuda, dtype, B, Hq, Hkv, T, S, D, causal,
         "two calls gave different bits"
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 200])
+def test_flash_prefill_softcap_bends_the_logits(cuda, dtype, window):
+    """gemma2-2b's layer shape with q scaled by 12: the logits q.k/sqrt(D)
+    are about N(0, 12^2), so the cap of 50 bends them (randn's N(0, 1)
+    logits move by under 0.006 under it, which no tolerance here sees).
+    The kernel must agree with the capped plain version and the uncapped
+    plain version must not, which shows the check sees the cap.  The bf16
+    limit adds what rounding P to bf16 can move an output by: 2**-8 of
+    sum_j p_j |v_j|, the plain version on |V|."""
+    q, k, v = flash_inputs(cuda, dtype, 1, 8, 4, 512, 512, 256, seed=3)
+    q = q * 12.0
+    kw = dict(causal=True, window=window, softcap=50.0)
+    got = flash_ops.flash_attention(q, k, v, **kw).float()
+    want = attention_ref(q, k, v, **kw).float()
+    tol = DECODE_TOL[dtype]
+    limit = tol["atol"] + tol["rtol"] * want.abs()
+    if dtype == torch.bfloat16:
+        limit = limit + 2**-8 * attention_ref(q, k, v.abs(), **kw).float()
+    assert bool(((got - want).abs() <= limit).all())
+    uncapped = attention_ref(q, k, v, **dict(kw, softcap=0.0)).float()
+    assert not bool(((uncapped - want).abs() <= limit).all())
+
+
 def masked_attention(q, k, v, mask, softcap=0.0):
     """Attention in float32 under an explicit [T, S] mask (True: seen)."""
     G = q.shape[1] // k.shape[1]
@@ -958,3 +982,58 @@ def test_mv_serve_engine_on_the_card(cuda):
                                atol=1e-4, rtol=1e-4)
     assert g.space() == c.space()
     assert flash_ops.flash_attention.launches - before == cfg.num_layers
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "granite-moe-1b-a400m",
+                                  "deepseek-moe-16b"])
+def test_new_families_on_the_card_match_the_cpu(cuda, arch):
+    """Reduced gemma2-2b (its 16-slot rings wrap in this trace) and the
+    two MoE models in float32: the card's engine against the CPU's on the
+    same weights: tokens and GC stats equal at every step, a pinned
+    reader's score within 1e-4, and the rings' positions equal."""
+    cfg = reduced_config(arch)
+    run = RunConfig(model=cfg, shape=SHAPES["decode_32k"],
+                    versions_per_slot=4, reader_lanes=4)
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(1))
+
+    def to_cpu(x):
+        if isinstance(x, dict):
+            return {k: to_cpu(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [to_cpu(v) for v in x]
+        return x.cpu()
+
+    g = MVServeEngine(cfg, run, params, batch=4, max_len=32, device=cuda)
+    c = MVServeEngine(cfg, run, to_cpu(params), batch=4, max_len=32,
+                      device="cpu")
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 16))
+    g.prefill(prompt)
+    c.prefill(prompt)
+    cand = c.state.last_tokens
+    for i in range(10):
+        assert torch.equal(g.step().cpu(), c.step()), f"step {i}"
+        assert g.last_stats == c.last_stats
+        if i == 2:
+            ts = g.pin(0)
+            assert c.pin(0) == ts
+    torch.testing.assert_close(g.score(cand, ts).cpu(), c.score(cand, ts),
+                               atol=1e-4, rtol=1e-4)
+    for a, b in zip(g.state.cache, c.state.cache):
+        if hasattr(a, "pos"):
+            assert torch.equal(a.pos.cpu(), b.pos)
+
+
+@pytest.mark.parametrize("dispatch", ["global", "grouped"])
+def test_moe_gives_the_same_bits_twice_on_the_card(cuda, dispatch):
+    """The combine adds each token's choices in a fixed order (no
+    atomics), so two calls in bf16 on the card give the same bits."""
+    from repro_torch.models import moe
+    cfg = reduced_config("deepseek-moe-16b", d_model=256, d_ff=512,
+                         num_experts=16, top_k=6, moe_dispatch=dispatch)
+    p = moe.init_moe(torch.Generator(device=cuda).manual_seed(2), cfg,
+                     dtype=torch.bfloat16)
+    x = torch.randn((4, 512, cfg.d_model), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3)
+                    ).to(torch.bfloat16)
+    a = moe.moe(p, cfg, x)[0]
+    assert torch.equal(a, moe.moe(p, cfg, x)[0])

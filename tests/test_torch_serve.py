@@ -1,13 +1,17 @@
 """The port's ``MVServeEngine`` against the JAX engine, both in float32.
 
-One trace per GC policy (slrt, ebr): a prefill of 4 x 16 tokens, 12 greedy
-decode steps, snapshot readers pinned on two lanes, ``lengths_at``,
-``snapshot_score`` and ``unpin``.  Four versions per slot make the pressure
-branch fire.  Every step's tokens and ``last_stats`` must be equal, the
-``MVState`` byte-identical at the end, and the snapshot scores within
-atol = rtol = 1e-4 (float32 sums in other orders).  ``snapshot_score`` must
-leave the port's state bit-identical (trap T1), and the decode steps after
-it must still agree with JAX.  The launcher runs at reduced size on CPU.
+One trace per GC policy (all five) and model family (dense minitron-4b,
+gemma2-2b's local ring caches, granite-moe-1b-a400m's mixture of experts):
+a prefill of 4 x 16 tokens, 12 greedy decode steps, snapshot readers
+pinned on two lanes, ``lengths_at``, ``snapshot_score`` and ``unpin``.
+Four versions per slot make the pressure branch fire.  Every step's
+tokens and ``last_stats`` must be equal, the ``MVState`` byte-identical at
+the end, and the snapshot scores within atol = rtol = 1e-4 (float32 sums
+in other orders).  ``snapshot_score`` must leave the port's state
+bit-identical (trap T1), and the decode steps after it must still agree
+with JAX.  Trap C10 (a pinned score changes once a local ring wraps) is
+reproduced from JAX, state crosses over with rings and routers, and the
+launcher runs at reduced size on CPU.
 """
 import jax
 import jax.numpy as jnp
@@ -25,7 +29,8 @@ from repro.serve import engine as jengine
 
 from repro_torch.configs import SHAPES, reduced_config
 from repro_torch.configs.base import RunConfig
-from repro_torch.convert import params_from_numpy, serve_state_from_numpy
+from repro_torch.convert import (params_from_numpy, serve_state_from_numpy,
+                                 to_numpy)
 from repro_torch.launch import serve as launcher
 from repro_torch.serve.engine import MVServeEngine
 
@@ -33,10 +38,16 @@ ARCH, B, T, STEPS, MAX_LEN, V = "minitron-4b", 4, 16, 12, 32, 4
 PINS = {2: 0, 5: 1}          # step -> lane pinned after it
 SCORE_AT, UNPIN_AT = 7, 9    # lane 0 is read and scored, then unpinned
 TOL = dict(atol=1e-4, rtol=1e-4)
+POLICIES = ["slrt", "ebr", "dlrt", "steam", "sweep"]
+# a dense model, local ring caches (the reduced window of 16 wraps during
+# the trace: the scores are compared as both packages compute them, C10
+# included) and a mixture of experts
+FAMILIES = ["minitron-4b", "gemma2-2b", "granite-moe-1b-a400m"]
 
 
-def engines(policy):
-    cfg_j, cfg_t = jax_reduced(ARCH), reduced_config(ARCH)
+def engines(policy, arch=ARCH, **overrides):
+    cfg_j = jax_reduced(arch, **overrides)
+    cfg_t = reduced_config(arch, **overrides)
     pj = jtf.init_params(cfg_j, jax.random.PRNGKey(7))
     kw = dict(gc_policy=policy, versions_per_slot=V, reader_lanes=4)
     je = jengine.MVServeEngine(cfg_j, JRun(model=cfg_j,
@@ -69,9 +80,12 @@ def assert_mv_equal(mv_j, mv_t):
                                       getattr(mv_t, f), err_msg=f)
 
 
-@pytest.mark.parametrize("policy", ["slrt", "ebr"])
-def test_engine_matches_jax(policy):
-    cfg_j, cfg_t, je, te = engines(policy)
+# the dense cases keep their ids from before the other families came
+@pytest.mark.parametrize("policy,arch", [
+    pytest.param(p, a, id=p if a == ARCH else f"{p}-{a}")
+    for a in FAMILIES for p in POLICIES])
+def test_engine_matches_jax(policy, arch):
+    cfg_j, cfg_t, je, te = engines(policy, arch)
     rng = np.random.default_rng(3)
     prompt = rng.integers(0, cfg_j.vocab_size, (B, T)).astype(np.int32)
     je.prefill(jnp.asarray(prompt))
@@ -188,6 +202,102 @@ def test_serve_state_from_numpy_round_trip():
     assert_mv_equal(je.state.mv, te.state.mv)
 
 
+@pytest.mark.parametrize("arch", ["gemma2-2b", "deepseek-moe-16b"])
+def test_serve_state_round_trip_carries_rings_and_routers(arch):
+    """``serve_state_from_numpy`` with ``dtype=torch.bfloat16`` and back
+    with ``to_numpy``: a local ring's ``pos`` stays int32 and exact, a
+    router stays float32 and exact, every other leaf is the bf16 rounding
+    of JAX's; the bf16 state then decodes on."""
+    cfg_j, cfg_t, je, te = engines("slrt", arch)
+    prompt = np.random.default_rng(6).integers(
+        0, cfg_j.vocab_size, (B, T)).astype(np.int32)
+    je.prefill(jnp.asarray(prompt))
+    for _ in range(2):
+        je.step()
+    ts = serve_state_from_numpy(cfg_t, je.state, "cpu", dtype=torch.bfloat16)
+    back = to_numpy(ts)
+
+    def bf16(x):
+        return torch.from_numpy(np.array(x)).to(torch.bfloat16).float(
+        ).numpy()
+
+    rings = 0
+    for i, c in enumerate(back.cache):
+        r, j = divmod(i, len(cfg_j.layer_pattern))
+        cj = je.state.cache["sb"][f"l{j}"]
+        np.testing.assert_array_equal(c.k, bf16(np.asarray(cj.k)[r]))
+        if cfg_t.layer_pattern[j] == "local":
+            rings += 1
+            assert ts.cache[i].pos.dtype == torch.int32
+            assert c.pos.dtype == np.int32
+            np.testing.assert_array_equal(c.pos, np.asarray(cj.pos)[r])
+    assert rings == (cfg_t.num_layers // 2 if arch == "gemma2-2b" else 0)
+    routers = 0
+    for i, layer in enumerate(back.params["layers"]):
+        r, j = divmod(i, len(cfg_j.layer_pattern))
+        ffn = je.state.params["sb"][f"l{j}"]["ffn"]
+        if "router" in ffn:
+            routers += 1
+            assert ts.params["layers"][i]["ffn"]["router"].dtype \
+                == torch.float32
+            np.testing.assert_array_equal(layer["ffn"]["router"],
+                                          np.asarray(ffn["router"])[r])
+            assert ts.params["layers"][i]["ffn"]["wg"].dtype \
+                == torch.bfloat16
+        np.testing.assert_array_equal(layer["ffn"]["wd"],
+                                      bf16(np.asarray(ffn["wd"])[r]))
+    assert routers == (cfg_t.num_layers if cfg_t.num_experts else 0)
+    np.testing.assert_array_equal(back.cache_len,
+                                  np.asarray(je.state.cache_len))
+    te.state = ts
+    toks = te.step()
+    assert int(toks.min()) >= 0 and int(toks.max()) < cfg_t.vocab_size
+
+
+@pytest.mark.parametrize("window,wraps", [(0, True), (64, False)],
+                         ids=["wraps", "no_wrap"])
+def test_c10_pinned_score_changes_once_the_ring_wraps_as_in_jax(window,
+                                                               wraps):
+    """Trap C10, a JAX fault the port reproduces.  Reduced gemma2-2b with
+    a 16-token prompt fills its ring (window 16); a reader pinned after
+    one decode step scores the same candidates after each further step.
+    Decode overwrites ring slot ``p % W`` whether or not a pinned window
+    covers it, so from the 2nd step on the score differs from the one at
+    the pin, in both packages and at the same steps, and the two packages'
+    scores agree at every step.  With a window of 64 (a ring of the
+    cache's 32 slots that never wraps here) the score never changes."""
+    over = {"local_window": window} if window else {}
+    cfg_j, cfg_t, je, te = engines("slrt", "gemma2-2b", **over)
+    rng = np.random.default_rng(10)
+    prompt = rng.integers(0, cfg_j.vocab_size, (B, T)).astype(np.int32)
+    cand = rng.integers(0, cfg_j.vocab_size, (B, 1)).astype(np.int32)
+    je.prefill(jnp.asarray(prompt))
+    te.prefill(prompt)
+    je.step()
+    te.step()
+    t0 = je.pin(0)
+    assert te.pin(0) == t0
+
+    def scores():
+        sj = np.asarray(jengine.snapshot_score(je.state, cfg_j,
+                                               jnp.asarray(cand),
+                                               jnp.int32(t0)))
+        st = te.score(cand, t0)
+        np.testing.assert_allclose(st.numpy(), sj, **TOL)
+        return sj, st
+
+    base_j, base_t = scores()
+    same_j, same_t = [], []
+    for _ in range(8):
+        je.step()
+        te.step()
+        sj, st = scores()
+        same_j.append(bool(np.array_equal(sj, base_j)))
+        same_t.append(bool(torch.equal(st, base_t)))
+    assert same_t == same_j
+    assert same_j == ([True] + [False] * 7 if wraps else [True] * 8)
+
+
 def test_launcher_reduced_on_cpu(capsys):
     rep = launcher.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                          "--steps", "17"])
@@ -197,3 +307,28 @@ def test_launcher_reduced_on_cpu(capsys):
     assert int(rep["tokens"].max()) < reduced_config(ARCH).vocab_size
     assert rep["snapshot_lengths"][0] == [17] * 4   # pinned after step 0
     assert "[done] space report" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch,flags", [
+    ("gemma2-2b", ["--prompt-len", "8", "--steps", "8"]),
+    ("deepseek-moe-16b", ["--steps", "9"])], ids=["gemma2", "deepseek"])
+def test_launcher_reduced_new_families_on_cpu(arch, flags):
+    """gemma2-2b at flags that keep every position inside its 16-token
+    window (no wrap, so the readers' scores hold: trap C10), and
+    deepseek-moe-16b."""
+    rep = launcher.main(["--arch", arch, "--reduced", "--device", "cpu",
+                         *flags])
+    steps = int(flags[flags.index("--steps") + 1])
+    assert rep["score_mismatches"] == 0 and rep["readers"] == -(-steps // 8)
+    assert tuple(rep["tokens"].shape) == (4, steps)
+    assert 0 <= int(rep["tokens"].min())
+    assert int(rep["tokens"].max()) < reduced_config(arch).vocab_size
+
+
+def test_launcher_names_c10_when_a_pinned_ring_wraps(capsys):
+    """The reader check stays strict: reduced gemma2-2b's default flags
+    (16-token prompt, 32 steps) wrap its ring under pinned readers, the
+    scores change (C10) and the launcher fails, naming the trap."""
+    with pytest.raises(SystemExit, match="C10"):
+        launcher.main(["--arch", "gemma2-2b", "--reduced", "--device",
+                       "cpu"])
