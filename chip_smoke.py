@@ -79,15 +79,33 @@ Phases, each printing one JSON line:
    checkpoint of the whole engine restored into a fresh one, bit-equal,
    that then decodes on identically; the launch counts are zeroed just
    before this phase and read just after;
-9. the kernel table as one JSON line, each kernel with the wrapper route
+9. dist_tiers — the ``benchmarks/dist_bench.py`` tiers (smoke, standard,
+   stall) for ebr, steam, dlrt and slrt on the port's
+   ``ShardedPagedKVEngine`` (hosts stacked on the card, float32): every
+   field of all 12 committed BENCH_dist.json rows but ``wall_s`` must
+   come out, with no pin violation and the stalled host aged out; the
+   stall/steam row's four C11 fields (``DIST_C11_FIELDS``) come from the
+   JAX engine with trap C5 removed;
+10. dist_serve — 4 hosts, each at phase 5's pool (32768 bf16 pages, K+V 2
+   GiB per host, 256 sequences of up to 4096 tokens, slrt), under
+   dist_bench's stall traffic: a reader pins on a rotating host every 16
+   steps, holds 4 and decodes its view with K4 at the pin and at release
+   (views and outputs bit-identical while held); at step 1024 host 1
+   pins, stalls (its rows stop, its announcement ages past the 5 s
+   budget) and never unpins: its view must stay bit-identical, the LWM
+   must advance and every other host must cross its watermark and
+   reclaim; run to 64 steps past the last crossing; the launch counts
+   are zeroed just before this phase and read just after, then a
+   profiled window;
+11. the kernel table as one JSON line, each kernel with the wrapper route
    the main path ran (kernel_route) and only numbers measured in this run
    (bound_ms computed from its inputs) and its launches in each phase
    that drives a path (launches_model, _gemma2, _gemma2_ring, _moe,
-   _durability); K1's, K2's and K3's rows carry
+   _durability, _dist); K1's, K2's and K3's rows carry
    their main-path op (sweep, view, value_at) beside the chain it
    replaced and the parity op (compact, search_gather, search), each at
    the shape of the phase its launches are counted in;
-10. the result line ``{"ok": true, "device": {...}}``.
+12. the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits nonzero; nothing is caught.  Without CUDA, or
 without the package beside the script, it exits nonzero before any result.
@@ -117,6 +135,7 @@ from repro_torch.ckpt.manager import tree_flatten  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.mvgc import announce, vstore  # noqa: E402
 from repro_torch.core.telemetry import GCConfig  # noqa: E402
+from repro_torch.dist import ShardedPagedKVEngine  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.compact import ops as compact_ops  # noqa: E402
 from repro_torch.kernels.compact.ref import (  # noqa: E402
@@ -275,6 +294,46 @@ DURABLE_BEAM = dict(POOL, kind="beam", roots=tuple(range(32)), prefill=1024,
 DURABLE_CHURN = dict(POOL, kind="ckpt", idle=128, phase1_steps=1536,
                      phase2_steps=1280, control_stops_at_give_up=True)
 RESTORE_STEPS = 16
+# phase 9: benchmarks/dist_bench.py TIERS and constants, copied (that
+# module imports JAX)
+DIST_TIERS = {
+    "smoke": dict(hosts=2, num_seqs=4, num_pages=10, page_size=4,
+                  max_pages_per_seq=3, versions_per_seq=6, steps=18,
+                  min_len=4, max_len=9, pin_every=5, pin_hold=3,
+                  stall_host=None, stall_after=0, seed=0),
+    "standard": dict(hosts=4, num_seqs=4, num_pages=10, page_size=4,
+                     max_pages_per_seq=3, versions_per_seq=6, steps=48,
+                     min_len=4, max_len=10, pin_every=6, pin_hold=3,
+                     stall_host=None, stall_after=0, seed=0),
+    "stall": dict(hosts=4, num_seqs=4, num_pages=10, page_size=4,
+                  max_pages_per_seq=3, versions_per_seq=6, steps=60,
+                  min_len=4, max_len=10, pin_every=6, pin_hold=3,
+                  stall_host=1, stall_after=20, seed=0),
+}
+DIST_POLICIES = ("ebr", "steam", "dlrt", "slrt")
+DIST_KV_HEADS, DIST_HEAD_DIM, DIST_READER_LANES = 1, 4, 4
+STALE_AFTER_S = 5.0          # finite staleness budget (stall tier ages past)
+STALLED_AGE_S = 100.0        # injected announcement age of the wedged host
+# trap C11 (ROADMAP.md C, an instance of C5): BENCH_dist.json was written
+# by the JAX engine, whose hot-slot sweep lets an inert lane clamped onto
+# slot 0 write that slot's old row back over its compaction, while the
+# killed handles are freed all the same.  In the stall tier under steam
+# that moves four counters of the row.  The port keeps the compaction, as
+# it does everywhere; it must give the values the JAX engine gives with
+# the inert lanes dropped (tests/test_torch_dist.py, -k c11)
+DIST_C11_FIELDS = {("stall", "steam"): dict(
+    pressure_events=79, reclaims_triggered=79, pages_reclaimed=34,
+    stale_lanes_aged=82)}
+# the fields phase 9's lines print (every field it sets is compared)
+DIST_FIELDS = ("tokens_appended", "pressure_events", "reclaims_triggered",
+               "pages_reclaimed", "peak_pages", "lwm", "lwm_advances",
+               "stale_lanes_aged", "stalled_hosts", "give_ups",
+               "scans_validated", "pin_violations")
+# phase 10: dist_bench's stall traffic at phase 5's pool on each of 4
+# hosts stacked on the card (K+V 2 GiB per host); host 1 pins and stalls
+# at step 1024 and never unpins
+DIST_SERVE = dict(SERVE, hosts=4, stall_host=1, stall_after=1024,
+                  max_seconds=240.0)
 KERNELS = {
     "compact": ("src/repro_torch/csrc/compact.cu",
                 "src/repro/kernels/compact/kernel.py:144"),
@@ -700,14 +759,18 @@ def check_value_at_on_store(store) -> int:
     return len(times)
 
 
-def check_sweep_on_store(mv) -> dict:
+def check_sweep_on_store(mv, pins: dict | None = None,
+                         must_kill: bool = True) -> dict:
     """``sweep`` on an engine's own store against its plain version,
     exactly: every slot, the lanes an slrt flush would give it now (the
     retire ring's slots, holes masked off) and every slot as a lane, each
-    under the engine's board, under no pin and under a pin at every
-    timestamp the store holds.  The sweep of every slot under no pin must
-    kill a version.  Returns the number of sweeps checked and the versions
-    that sweep killed."""
+    under the board the engine's ops sort (``vstore._ann_scan``: the local
+    board, plus each extra pin of ``pins`` as a sharded engine's shard ops
+    append the global LWM), under no pin and under a pin at every
+    timestamp the store holds.  An extra pin of ``TS_MAX`` must sweep as
+    no extra pin does.  The sweep of every slot under no pin must kill a
+    version when ``must_kill``.  Returns the number of sweeps checked and
+    the versions that sweep killed."""
     st, now = mv.store, mv.now
     S, V = st.ts.shape
     dev = st.ts.device
@@ -721,10 +784,13 @@ def check_sweep_on_store(mv) -> dict:
                                 torch.ones((S,), dtype=torch.bool,
                                            device=dev))}
     own = announce.scan(mv.board)
-    boards = {"engine": own, "no pin": torch.full_like(own, TS_MAX),
-              "every stamp": torch.unique(st.ts[st.ts != EMPTY]).to(
-                  torch.int32)}
-    killed = None
+    boards = {"engine": own}
+    for pname, pin in (pins or {}).items():
+        boards[f"engine + {pname}"] = vstore._ann_scan(mv, pin)
+    boards.update({"no pin": torch.full_like(own, TS_MAX),
+                   "every stamp": torch.unique(st.ts[st.ts != EMPTY]).to(
+                       torch.int32)})
+    killed, swept = None, {}
     for bname, board in boards.items():
         for lname, (ids, mask) in lanes.items():
             args = (st.ts, st.succ, st.payload, ids, mask, board, now)
@@ -732,10 +798,18 @@ def check_sweep_on_store(mv) -> dict:
             want = sweep_ref(*args)
             check(all(torch.equal(a, b) for a, b in zip(got, want)),
                   f"sweep != plain version on the store ({lname}, board "
-                  f"{bname})")
+                  f"{bname} of {board.numel()})")
+            swept[bname, lname] = got
             if bname == "no pin" and ids is None:
                 killed = int(((st.ts != EMPTY) & (got[0] == EMPTY)).sum())
-    check(killed > 0, "the store held no version for the sweep to kill")
+    for pname, pin in (pins or {}).items():
+        if int(torch.as_tensor(pin).min()) == TS_MAX:
+            check(all(torch.equal(a, b) for lname in lanes for a, b in
+                      zip(swept[f"engine + {pname}", lname],
+                          swept["engine", lname])),
+                  f"sweep under the extra pin {pname} != no extra pin")
+    check(not must_kill or killed > 0,
+          "the store held no version for the sweep to kill")
     return dict(sweeps_checked=len(boards) * len(lanes),
                 sweep_killed_unpinned=killed)
 
@@ -1404,6 +1478,356 @@ def phase_durability(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 9-10: the multi-host layer (benchmarks/dist_bench.py:124-252)
+# ---------------------------------------------------------------------------
+def _view_checksum(local_st, tbl, ln, page_size: int) -> tuple:
+    """The exact K values of every token a host's snapshot view covers (a
+    wrongly recycled page changes them even when the table is unchanged)."""
+    k = local_st.k_pages[:, :, 0, 0].cpu().numpy()
+    tbl, ln = tbl.cpu().numpy(), ln.cpu().numpy()
+    return tuple((int(ln[s]), tuple(float(k[tbl[s, j // page_size],
+                                              j % page_size])
+                                     for j in range(int(ln[s]))))
+                 for s in range(tbl.shape[0]))
+
+
+def dist_cell(tier: str, policy: str, dev) -> dict:
+    """``dist_bench.run_cell`` on the port's engine: every field of the
+    BENCH_dist.json row that the run sets, but ``wall_s``."""
+    p = DIST_TIERS[tier]
+    H, B, ps = p["hosts"], p["num_seqs"], p["page_size"]
+    eng = ShardedPagedKVEngine(
+        H, B, p["num_pages"], ps, p["max_pages_per_seq"], DIST_KV_HEADS,
+        DIST_HEAD_DIM,
+        gc=GCConfig(policy=policy, versions_per_slot=p["versions_per_seq"],
+                    reader_lanes=DIST_READER_LANES,
+                    stale_after_s=STALE_AFTER_S),
+        dtype=torch.float32, device=dev)
+    rng = random.Random(p["seed"])
+    targets = [[rng.randrange(p["min_len"], p["max_len"] + 1)
+                for _ in range(B)] for _ in range(H)]
+    cur_len = [[0] * B for _ in range(H)]
+    seq_ids = torch.arange(B, dtype=torch.int32, device=dev).expand(H, B)
+    live_mask = np.ones((H, B), bool)      # stalled host rows drop out
+    tokens = completed = pins = validated = violations = 0
+    live_pins = {}       # (host, lane) -> [ts, reference checksum, hold]
+    next_pin = 0
+
+    def checksum(host, ts):
+        return _view_checksum(eng.host_state(host), *eng.view_at(host, ts),
+                              ps)
+
+    def check_pins() -> None:
+        nonlocal validated, violations
+        for (host, lane), (ts, ref, _) in live_pins.items():
+            validated += 1
+            violations += checksum(host, ts) != ref
+
+    for step in range(p["steps"]):
+        if p["stall_host"] is not None and step == p["stall_after"]:
+            ages = np.zeros((H,), np.float32)
+            ages[p["stall_host"]] = STALLED_AGE_S
+            eng.virtual_ages_s = ages
+            live_mask[p["stall_host"], :] = False
+        base = (np.arange(H * B, dtype=np.float32).reshape(H, B)
+                + H * B * (step + 1))
+        kv = torch.as_tensor(base, device=dev)[:, :, None, None].expand(
+            H, B, DIST_KV_HEADS, DIST_HEAD_DIM)
+        failed = eng.step(seq_ids, kv, kv,
+                          torch.as_tensor(live_mask, device=dev))
+        failed = failed.cpu().numpy()
+        for h in range(H):
+            for s in range(B):
+                if live_mask[h, s] and not failed[h, s]:
+                    tokens += 1
+                    cur_len[h][s] += 1
+        done = np.array([[cur_len[h][s] >= targets[h][s] for s in range(B)]
+                         for h in range(H)]) & live_mask
+        if done.any():
+            eng.reset(seq_ids, torch.as_tensor(done, device=dev))
+            for h, s in zip(*np.nonzero(done)):
+                completed += 1
+                cur_len[h][s] = 0
+                targets[h][s] = rng.randrange(p["min_len"], p["max_len"] + 1)
+        if step % p["pin_every"] == 0 and len(live_pins) < H:
+            host = next_pin % H
+            lane = (next_pin // H) % DIST_READER_LANES
+            next_pin += 1
+            if (host, lane) not in live_pins:
+                ts = eng.pin(host, lane)
+                live_pins[(host, lane)] = [ts, checksum(host, ts),
+                                           p["pin_hold"]]
+                pins += 1
+        check_pins()
+        for key in list(live_pins):
+            live_pins[key][2] -= 1
+            # the stalled host never unpins: only aging moves the LWM past it
+            if live_pins[key][2] <= 0 and key[0] != p["stall_host"]:
+                eng.unpin(*key)
+                del live_pins[key]
+    check_pins()
+    for key in list(live_pins):
+        eng.unpin(*key)
+
+    space = eng.space()
+    stalled = int((eng.ages_s() > eng.budget_s()).sum())
+    ts_arr = eng.stacked().mv.store.ts.cpu().numpy()
+    occ = (ts_arr != EMPTY).sum(axis=-1)
+    steps_n = p["steps"]
+    work = tokens + validated
+    return dict(
+        bench="dist", figure=f"dist_kv/{tier}", ds="paged_kv",
+        scheme=policy, mix=tier, scan_size=0, zipf=0.0,
+        n_keys=space["page_pool"], num_procs=H * B, ops_per_proc=steps_n,
+        seed=p["seed"], updates=tokens, lookups=0, scans=pins,
+        scan_keys=validated, total_work=work,
+        ops_per_mwork=round((tokens + pins) / max(1, work) * 1e6, 3),
+        updates_per_mwork=round(tokens / max(1, work) * 1e6, 3),
+        scan_keys_per_mwork=round(validated / max(1, work) * 1e6, 3),
+        peak_space_words=space["peak_pages"],
+        peak_versions=int(occ.max()),
+        avg_space_words=0,
+        end_space_words=space["live_pages"],
+        end_versions_per_list=round(int((ts_arr != EMPTY).sum()) / (H * B),
+                                    4),
+        scans_validated=validated, scan_violations=violations,
+        reclaims_triggered=space["reclaims_triggered"],
+        peak_space_post_reclaim=space["peak_pages_post_reclaim"],
+        pressure_events=space["pressure_events"],
+        pages_reclaimed=space["pages_reclaimed"],
+        peak_pages=space["peak_pages"],
+        peak_pages_post_reclaim=space["peak_pages_post_reclaim"],
+        page_pool=space["page_pool"], page_size=ps,
+        decode_steps=steps_n, tokens_appended=tokens,
+        sequences_completed=completed, forks=0,
+        give_ups=space["give_ups"], snapshot_pins=pins,
+        overflow_count=space["overflows"],
+        dropped_retires=space["dropped_retires"],
+        hosts=H, lwm=space["lwm"], lwm_advances=space["lwm_advances"],
+        stale_lanes_aged=space["stale_lanes_aged"], stalled_hosts=stalled,
+        under_pressure_hosts=space["under_pressure_hosts"],
+        pin_violations=violations)
+
+
+def bench_dist_rows() -> dict:
+    """BENCH_dist.json's rows keyed by (tier, policy), as committed."""
+    with open(os.path.join(ROOT, "BENCH_dist.json")) as f:
+        return {(r["figure"].split("/")[1], r["scheme"]): r
+                for r in json.load(f)["rows"]}
+
+
+def expected_dist_rows() -> dict:
+    """The rows the port must give: BENCH_dist.json's, with the fields
+    trap C11 moves taken from ``DIST_C11_FIELDS``."""
+    return {key: {**row, **DIST_C11_FIELDS.get(key, {})}
+            for key, row in bench_dist_rows().items()}
+
+
+def phase_dist_tiers(dev) -> None:
+    bench = expected_dist_rows()
+    keys = [(t, p) for t in DIST_TIERS for p in DIST_POLICIES]
+    check(set(keys) == set(bench), "dist tiers differ from BENCH_dist.json")
+    for key in keys:
+        t0 = time.perf_counter()
+        got = dist_cell(*key, dev)
+        diff = {f: (v, bench[key][f]) for f, v in got.items()
+                if v != bench[key][f]}
+        emit({"phase": "dist_tiers", "tier": key[0], "policy": key[1],
+              **{f: got[f] for f in DIST_FIELDS},
+              "matches_bench_dist": not diff,
+              "c11_fields": sorted(DIST_C11_FIELDS.get(key, {})),
+              "seconds": time.perf_counter() - t0})
+        check(not diff, f"dist tier {key} differs from BENCH_dist.json: "
+              f"{diff}")
+        check(got["pin_violations"] == 0, f"dist tier {key}: pin violations")
+        check(not got["stalled_hosts"] or got["stale_lanes_aged"] > 0,
+              f"dist tier {key}: the stalled host was never aged out")
+
+
+def phase_dist_serve(dev) -> dict:
+    """4 hosts, each at phase 5's pool, under dist_bench's stall traffic:
+    rotating pinned readers whose views and K4 outputs must stay
+    bit-identical while held, and host 1 wedged with a pin from step 1024
+    on (aged out of the LWM; its own view must stay bit-identical).  Runs
+    until every live host has crossed its watermark, plus 64 steps."""
+    p = DIST_SERVE
+    H, B, N = p["hosts"], p["num_seqs"], p["num_pages"]
+    Hkv, D, Hq = p["kv_heads"], p["head_dim"], p["q_heads"]
+    lanes, stall_host = p["reader_lanes"], p["stall_host"]
+    eng = ShardedPagedKVEngine(
+        H, B, N, p["page_size"], p["max_pages_per_seq"], Hkv, D,
+        gc=GCConfig(policy="slrt", versions_per_slot=p["versions_per_slot"],
+                    reader_lanes=lanes, stale_after_s=STALE_AFTER_S),
+        dtype=torch.bfloat16, device=dev)
+    lo = max(1, int(eng.gc.page_watermark * N))
+    rngs = [random.Random(p["seed"] + h) for h in range(H)]
+    gen = torch.Generator(device=dev).manual_seed(p["seed"])
+    targets = np.array([[rngs[h].randrange(p["min_len"], p["max_len"] + 1)
+                         for _ in range(B)] for h in range(H)])
+    cur = np.zeros((H, B), np.int64)
+    ids = torch.arange(B, dtype=torch.int32, device=dev).expand(H, B)
+    live = np.ones((H, B), bool)
+    live_t = torch.ones((H, B), dtype=torch.bool, device=dev)
+    tokens = completed = pins = views_checked = violations = decodes = 0
+    readers = {}            # (host, lane) -> [ts, view, q, out, hold]
+    crossed = [None] * H    # step at which each host crossed its watermark
+    stall = None
+
+    def decode(host, view, q):
+        st = eng.host_state(host)
+        return decode_ops.paged_decode(q, st.k_pages, st.v_pages, *view)
+
+    def held(host, ts, view) -> bool:
+        return all(torch.equal(a, b)
+                   for a, b in zip(eng.view_at(host, ts), view))
+
+    def decode_step():
+        """One token for every live sequence on every host; finished ones
+        reset, with each host's own target draws."""
+        k = torch.randn((H, B, Hkv, D), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        v = torch.randn((H, B, Hkv, D), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        failed = eng.step(ids, k, v, live_t).cpu().numpy()
+        ok = live & ~failed
+        cur[:] += ok
+        done = (cur >= targets) & live
+        if done.any():
+            eng.reset(ids, torch.as_tensor(done, device=dev))
+            cur[done] = 0
+            for h, s in zip(*np.nonzero(done)):
+                targets[h, s] = rngs[h].randrange(p["min_len"],
+                                                  p["max_len"] + 1)
+        return int(ok.sum()), int(done.sum())
+
+    for w in WRAPPERS.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step = 0
+    while step < p["max_steps"]:
+        if step == p["stall_after"]:
+            # host 1 pins, then wedges: its rows stop, its announcement
+            # ages past the budget, and it never unpins
+            ts = eng.pin(stall_host, lanes - 1)
+            view = eng.view_at(stall_host, ts)
+            q = torch.randn((B, Hq, D), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            stall = [ts, view, q, decode(stall_host, view, q)]
+            decodes += 1
+            ages = np.zeros((H,), np.float32)
+            ages[stall_host] = STALLED_AGE_S
+            eng.virtual_ages_s = ages
+            live[stall_host] = False
+            live_t = torch.as_tensor(live, device=dev)
+        appended, finished = decode_step()
+        tokens += appended
+        completed += finished
+        for h in range(H):
+            if crossed[h] is None and eng.peak_pages_by_host[h] > N - lo:
+                crossed[h] = step
+        if step % p["pin_every"] == 0:
+            host = pins % H
+            if stall is not None and host == stall_host:
+                pins += 1
+                host = pins % H
+            lane = (pins // H) % lanes
+            ts = eng.pin(host, lane)
+            view = eng.view_at(host, ts)
+            q = torch.randn((B, Hq, D), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            readers[(host, lane)] = [ts, view, q, decode(host, view, q),
+                                     p["pin_hold"]]
+            pins += 1
+            decodes += 1
+        for key in list(readers):
+            ts, view, q, out, hold = readers[key]
+            same = held(key[0], ts, view)
+            views_checked += 1
+            readers[key][4] = hold - 1
+            if hold - 1 <= 0:
+                again = decode(key[0], view, q)
+                decodes += 1
+                same = same and torch.equal(again, out)
+                check(bool(torch.isfinite(again.float()).all()),
+                      "decode output not finite")
+                eng.unpin(*key)
+                del readers[key]
+            violations += not same
+        step += 1
+        live_hosts = [h for h in range(H) if stall is None or h != stall_host]
+        if stall is not None and all(crossed[h] is not None
+                                     for h in live_hosts) \
+                and step > max(crossed[h] for h in live_hosts) \
+                + p["steps_after_pressure"]:
+            break
+        if time.perf_counter() - t0 > p["max_seconds"]:
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    stall_same = stall is not None and held(stall_host, stall[0], stall[1]) \
+        and torch.equal(decode(stall_host, stall[1], stall[2]), stall[3])
+    space = eng.space()
+    res = dict(phase="dist_serve", hosts=H, steps=step, seconds=wall,
+               tokens_appended=tokens, tokens_per_s=tokens / wall,
+               ms_per_step=wall / step * 1e3,
+               sequences_completed=completed, snapshot_pins=pins,
+               views_checked=views_checked, decodes=decodes,
+               violations=violations, stalled_view_bit_identical=stall_same,
+               watermark_crossed_at_step=crossed,
+               pages_reclaimed_by_host=eng.pages_reclaimed_by_host,
+               peak_pages_by_host=eng.peak_pages_by_host,
+               lwm_refreshes=eng.lwm_refreshes,
+               lwm_refreshes_per_step=eng.lwm_refreshes / step,
+               space=space,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches)
+    check(stall is not None, f"the stall step never came in {step} steps")
+    # K1 on every shard's own store under the board its shard ops sort:
+    # the local board plus the global LWM as one extra pin (17 entries),
+    # with the LWM a refresh gives now, the TS_MAX sentinel and the
+    # stalled host's pin as a real timestamp.  A pin on every live host
+    # and two more steps first, so that every live store holds superseded
+    # versions that only the pins keep
+    held_now = [(h, next(ln for ln in range(lanes) if (h, ln) not in readers))
+                for h in live_hosts]
+    for h, lane in held_now:
+        eng.pin(h, lane)
+    decode_step()
+    decode_step()
+    lwm = eng.lwm_pins()
+    res["sweep_lwm_pin"] = int(lwm[0, 0])
+    sweeps = [check_sweep_on_store(
+        eng.host_state(h).mv, must_kill=h != stall_host,
+        pins={"LWM now": lwm[h], "TS_MAX": TS_MAX, "stall pin": stall[0]})
+        for h in range(H)]
+    res["sweeps_checked"] = sum(c["sweeps_checked"] for c in sweeps)
+    res["sweep_killed_unpinned_by_host"] = [c["sweep_killed_unpinned"]
+                                            for c in sweeps]
+    for key in list(readers) + held_now:
+        eng.unpin(*key)
+    emit(res)
+    check(violations == 0, f"{violations} pinned-view violations")
+    check(stall_same, "the stalled host's pinned view changed")
+    check(space["stale_lanes_aged"] > 0, "the stalled host was never aged")
+    check(space["lwm_advances"] > 0, "the global LWM never advanced")
+    for h in live_hosts:
+        check(crossed[h] is not None,
+              f"host {h} never crossed its watermark in {step} steps")
+        check(eng.pages_reclaimed_by_host[h] > 0,
+              f"host {h} reclaimed no page")
+    for name in ("sweep", "view", "paged_decode"):
+        check(launches[name] > 0, f"{name} kernel never launched in "
+              "dist_serve")
+    check(launches["flash_prefill"] == 0, "flash prefill ran in dist_serve")
+    check(launches["needed"] == 0, "needed ran in dist_serve")
+    profile_window(decode_step, name="dist")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: full-size serving
 # ---------------------------------------------------------------------------
 def phase_serve(dev) -> dict:
@@ -1821,6 +2245,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_fork_tiers(dev)
     durable_launches = phase_durability(dev)
+    torch.cuda.empty_cache()
+    phase_dist_tiers(dev)
+    dist_launches = phase_dist_serve(dev)
     table = []
     for name, (source, replaces) in KERNELS.items():
         row = kernels[MAIN_OPS.get(name, name)]
@@ -1846,6 +2273,7 @@ def main() -> int:
             launches_model=model_launches[name],
             **{f"launches_{k}": v[name] for k, v in served.items()},
             launches_durability=durable_launches[name],
+            launches_dist=dist_launches[name],
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

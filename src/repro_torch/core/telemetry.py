@@ -1,18 +1,20 @@
 """The pressure/telemetry vocabulary of the MVGC stack (port of
 ``repro.core.telemetry``).
 
-Only what the serving slice uses: :class:`PressureSignal` (the gate output,
-fields are tensors), :class:`ReclaimStats` (host-side counters behind the
-engine's BENCH_serve counter names) and :class:`GCConfig` (the GC knobs of
-the paged cache and its engine in one frozen dataclass).  The
-kernel-dispatch knobs of the JAX config (``use_kernel``,
-``kernel_interpret``) have no counterpart: the port dispatches on the
-tensor's device.
+Only what the serving and multi-host slices use: :class:`PressureSignal`
+(the gate output, fields are tensors), :class:`ReclaimStats` (host-side
+counters behind the engines' BENCH_serve and BENCH_dist counter names) and
+:class:`GCConfig` (the GC knobs of the paged cache and its engines in one
+frozen dataclass).  The kernel-dispatch knobs of the JAX config
+(``use_kernel``, ``kernel_interpret``) and its ``kernel_kwargs()`` have no
+counterpart: the port dispatches on the tensor's device, so the engines,
+the sharded one included, call the paged ops without them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple
+import math
+from typing import Any, Dict, NamedTuple
 
 
 class PressureSignal(NamedTuple):
@@ -72,6 +74,20 @@ class ReclaimStats:
         """Track the all-time live peak."""
         self.peak_live = max(self.peak_live, int(live))
 
+    def as_row(self) -> Dict[str, int]:
+        """The BENCH serve-field names, as the JAX package's ``as_row``."""
+        return {
+            "pressure_events": self.pressure_events,
+            "reclaims_triggered": self.reclaims_triggered,
+            f"{self.unit}_reclaimed": self.reclaimed,
+            "give_ups": self.give_ups,
+            f"peak_{self.unit}": self.peak_live,
+            f"peak_{self.unit}_post_reclaim": self.peak_live_post_reclaim,
+            "stale_lanes_aged": self.stale_lanes_aged,
+            "ckpt_evictions": self.ckpt_evictions,
+            f"ckpt_{self.unit}_freed": self.ckpt_freed,
+        }
+
 
 @dataclasses.dataclass(frozen=True)
 class GCConfig:
@@ -84,4 +100,8 @@ class GCConfig:
     page_watermark: float = 0.25    # paged-pool free-fraction threshold
     hot_k: int = 8                  # hot-slot count for targeted reclaim
     max_reclaim_rounds: int = 3     # reclaim-and-retry attempts per step
+    # multi-host (repro_torch.dist.mvgc): a stalled host's announcement is
+    # aged out of the global LWM after this budget; inf = defer to the
+    # engine's StepWatchdog budget (StepWatchdog.budget_s)
+    stale_after_s: float = math.inf
 

@@ -2,8 +2,10 @@
 
 Each kernel against its plain PyTorch version on the same CUDA tensors, at
 ragged and edge shapes the serving run does not reach, the serve_bench
-storm trace on the card against the same trace on the CPU, and the model
-engine (``MVServeEngine``) at reduced size on the card against the CPU.  These tests
+storm trace on the card against the same trace on the CPU, the model
+engine (``MVServeEngine``) at reduced size on the card against the CPU, and
+the sharded engine's global-LWM pin through K1 and a 4-host trace on the
+card against the CPU.  These tests
 need a GPU and ``nvcc``; without a card they skip.  Run them on the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -17,7 +19,9 @@ import torch
 from repro_torch.configs import SHAPES, reduced_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.convert import to_numpy
+from repro_torch.core.mvgc.needed import sort_announcements
 from repro_torch.core.telemetry import GCConfig
+from repro_torch.dist import ShardedPagedKVEngine
 from repro_torch.kernels.compact import ops as compact_ops
 from repro_torch.kernels.compact.ref import compact_ref, needed_ref, sweep_ref
 from repro_torch.kernels.decode_attention import ops as decode_ops
@@ -1037,3 +1041,86 @@ def test_moe_gives_the_same_bits_twice_on_the_card(cuda, dispatch):
                     ).to(torch.bfloat16)
     a = moe.moe(p, cfg, x)[0]
     assert torch.equal(a, moe.moe(p, cfg, x)[0])
+
+
+# ---------------------------------------------------------------------------
+# the multi-host layer: K1 with the global-LWM pin, a 4-host trace
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("lanes", ["slots", "every_slot"])
+@pytest.mark.parametrize("pin", ["sentinel", "below_now"])
+def test_sweep_with_the_lwm_pin(cuda, pin, lanes):
+    """K1 over the board every shard op sorts: 16 lanes plus the global
+    LWM (17 entries, not a power of two), against ``sweep_ref``; with the
+    TS_MAX sentinel the result equals the sweep with no extra pin."""
+    S, V = 256, 8
+    rng = np.random.default_rng(17)
+    ts, succ, pay = (torch.from_numpy(x).to(cuda) for x in slabs(rng, S, V))
+    board = np.where(rng.random(16) < 0.5, EMPTY,
+                     rng.integers(0, 60, 16)).astype(np.int32)
+    lwm = TS_MAX if pin == "sentinel" else 23          # now is 40
+    slots = torch.from_numpy(board).to(cuda)
+    ann = sort_announcements(torch.cat(
+        [slots, torch.tensor([lwm], dtype=torch.int32, device=cuda)]))
+    assert ann.shape == (17,)
+    ids = mask = None
+    if lanes == "slots":
+        ids = torch.from_numpy(rng.integers(0, S, 64).astype(np.int32)).to(
+            cuda)
+        mask = torch.from_numpy(rng.random(64) < 0.8).to(cuda)
+    got = compact_ops.sweep(ts, succ, pay, ids, mask, ann, 40)
+    for a, b in zip(got, sweep_ref(ts, succ, pay, ids, mask, ann, 40),
+                    strict=True):
+        assert torch.equal(a, b)
+    if pin == "sentinel":
+        no_pin = compact_ops.sweep(ts, succ, pay, ids, mask,
+                                   sort_announcements(slots), 40)
+        for a, b in zip(got, no_pin, strict=True):
+            assert torch.equal(a, b)
+    else:      # every version the LWM sees stays
+        seen = (ts != EMPTY) & (ts <= lwm) & (succ > lwm)
+        assert bool(seen.any()) and torch.equal(got[0][seen], ts[seen])
+
+
+def dist_trace(device):
+    """dist_bench's standard tier geometry (4 hosts of 4 sequences, 10
+    pages of 4 tokens, 6 versions), slrt: 48 steps with resets and a
+    reader pinned on a rotating host every 6 steps for 3 steps."""
+    H, B = 4, 4
+    eng = ShardedPagedKVEngine(
+        H, B, 10, 4, 3, 1, 4,
+        gc=GCConfig(policy="slrt", versions_per_slot=6, reader_lanes=4,
+                    stale_after_s=5.0), device=device)
+    rng = np.random.default_rng(0)
+    targets = rng.integers(4, 11, (H, B))
+    cur = np.zeros((H, B), np.int64)
+    ids = torch.arange(B, dtype=torch.int32).expand(H, B)
+    views, held = [], None
+    for step in range(48):
+        kv = torch.full((H, B, 1, 4), float(step))
+        failed = eng.step(ids, kv, kv, torch.ones((H, B), dtype=torch.bool))
+        cur += ~failed.cpu().numpy()
+        done = cur >= targets
+        if done.any():
+            eng.reset(ids, done)
+            cur[done] = 0
+        if step % 6 == 0:
+            held = ((step // 6) % H, step % 4)
+            ts = eng.pin(*held)
+        if held is not None:
+            views.append([to_numpy(x).tolist()
+                          for x in eng.view_at(held[0], ts)])
+        if step % 6 == 2:
+            eng.unpin(*held)
+            held = None
+    return eng, views
+
+
+def test_sharded_engine_on_the_card_matches_the_cpu(cuda):
+    g, g_views = dist_trace(cuda)
+    c, c_views = dist_trace("cpu")
+    assert g_views == c_views
+    assert g.space() == c.space()
+    assert g.space()["pages_reclaimed"] > 0 and g.space()["lwm_advances"] > 0
+    for a, b in zip(leaves(to_numpy(g.stacked())),
+                    leaves(to_numpy(c.stacked())), strict=True):
+        np.testing.assert_array_equal(a, b)
