@@ -26,8 +26,13 @@ Phases, each printing one JSON line:
    layers, window 4096, and global layers, no window, once more with q
    scaled so that the logits reach the softcap, against a control without
    it; phase 6b's float32 local layer at D 256), at phase 6c's
-   deepseek-moe-16b layers (16 query and 16 KV heads) and in float32 (its CUDA-core route; bf16 takes
-   the wgmma+TMA kernel); the redesigned rows carry their route, their share
+   deepseek-moe-16b layers (16 query and 16 KV heads), at the shapes of
+   phases 6d and 6g in bf16 and float32 (whisper-tiny's encoder, 1500
+   frames, bidirectional; its cross-attention over 1500 columns at 64 rows
+   and at one decode row; a recurrentgemma-9b local layer, 16 query heads
+   over one KV head at D 256, window 2048), with SDPA's time where it
+   computes the same function, and in float32 (its CUDA-core route; bf16
+   takes the wgmma+TMA kernel); the redesigned rows carry their route, their share
    of the bound and their time before the redesign as an earlier run
    recorded it (ms_before_recorded, not measured here); needed (K5, which no
    serving path calls) at compact's shape and at
@@ -66,6 +71,25 @@ Phases, each printing one JSON line:
 6c. moe — deepseek-moe-16b at its full published widths and depth (28
    layers, 64 routed experts top-6 and 2 shared, bf16; batch 8, 32
    steps) through the launcher with phase 6's checks;
+6d. recurrentgemma — recurrentgemma-9b at its full published widths and
+   depth (38 layers: RG-LRU, RG-LRU, local attention with one KV head of
+   256 and a 2048-slot ring; rnn_width 4096, bf16 with float32 gates and
+   states) through the launcher: 16 prompts of 1984 tokens (no position
+   reaches the ring's 2048), 64 steps, phase 6's checks, except that each
+   reader held across a decode step must see its score change (trap C12:
+   a recurrent state is not versioned); in every served phase each
+   reader's lengths_at must be exactly the lengths at its pin;
+6e. xlstm — xlstm-125m at its full published widths and depth (12 layers
+   of mLSTM x 3 and sLSTM, no attention, so no K6) the same way;
+6f. vlm — internvl2-2b at full width through prefill_step (256 seeded
+   patch embeddings before 1792 tokens: lengths 2048) and 64 decode_one
+   steps, a reader every 8 steps held exactly (lengths and scores);
+6g. whisper — whisper-tiny at full width: 16 sequences of 1500 frames and
+   a 64-token decoder prompt through prefill_step, enc_out from
+   _run_encoder, 64 decode_one(enc_out=) steps (K6 bidirectional in the
+   encoder and in every cross-attention, one query row per decode step);
+   readers' lengths exact (a score ignores the encoder in both packages,
+   trap C13, so none is scored);
 7. fork_tiers — the four ``benchmarks/fork_bench.py`` tiers (smoke, beam,
    spec, ckpt_churn) for ebr, steam, dlrt and slrt, with their eager-copy
    and no-checkpoint controls, fork replay validation and a leak check
@@ -101,7 +125,8 @@ Phases, each printing one JSON line:
    the main path ran (kernel_route) and only numbers measured in this run
    (bound_ms computed from its inputs) and its launches in each phase
    that drives a path (launches_model, _gemma2, _gemma2_ring, _moe,
-   _durability, _dist); K1's, K2's and K3's rows carry
+   _recurrentgemma, _xlstm, _vlm, _whisper, _durability, _dist); K1's,
+   K2's and K3's rows carry
    their main-path op (sweep, view, value_at) beside the chain it
    replaced and the parity op (compact, search_gather, search), each at
    the shape of the phase its launches are counted in;
@@ -132,7 +157,8 @@ import torch  # noqa: E402
 
 from repro_torch._tensor import drop_set  # noqa: E402
 from repro_torch.ckpt.manager import tree_flatten  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import SHAPES, get_config  # noqa: E402
+from repro_torch.configs.base import RunConfig  # noqa: E402
 from repro_torch.core.mvgc import announce, vstore  # noqa: E402
 from repro_torch.core.telemetry import GCConfig  # noqa: E402
 from repro_torch.dist import ShardedPagedKVEngine  # noqa: E402
@@ -149,8 +175,9 @@ from repro_torch.kernels.version_search.ref import (  # noqa: E402
     search_gather_ref, search_ref, value_at_ref, view_ref)
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
-from repro_torch.models.attention import LocalKVCache  # noqa: E402
+from repro_torch.models.attention import KVCache  # noqa: E402
 from repro_torch.serve import forking  # noqa: E402
+from repro_torch.serve import engine as serve_engine  # noqa: E402
 from repro_torch.serve.engine import PagedKVEngine  # noqa: E402
 # phase 3's K3 / K5 shapes, inputs and timing, shared with the A/B script
 from time_search_needed import (  # noqa: E402
@@ -206,6 +233,27 @@ FLASH = {
     "f32": dict(B=4, Hq=24, Hkv=8, T=2048, D=128, window=0, softcap=0.0,
                 dtype="f32"),
 }
+# K6 at the shapes of phases 6d and 6g, each in bf16 (the served dtype) and
+# float32: whisper-tiny's encoder (1500 frames, 6 heads of 64,
+# bidirectional), its cross-attention over the 1500 encoder outputs at the
+# prefill's 64 tokens and at a decode step's one row (one valid row of the
+# bf16 route's 128-row tile; S = 1500 ends inside a KV tile), and a
+# recurrentgemma-9b local layer (16 query heads over one KV head, D 256,
+# window 2048 over the 1984-token prompt); bf16 held like the gemma2 rows
+FAMILY_FLASH = {
+    "whisper_encoder": dict(B=16, Hq=6, Hkv=6, T=1500, S=1500, D=64,
+                            window=0, causal=False),
+    "whisper_cross_prefill": dict(B=16, Hq=6, Hkv=6, T=64, S=1500, D=64,
+                                  window=0, causal=False),
+    "whisper_cross_decode": dict(B=16, Hq=6, Hkv=6, T=1, S=1500, D=64,
+                                 window=0, causal=False),
+    "recurrentgemma_local": dict(B=16, Hq=16, Hkv=1, T=1984, D=256,
+                                 window=2048),
+}
+FLASH.update({f"{name}{sfx}": dict(c, softcap=0.0, **kw)
+              for name, c in FAMILY_FLASH.items()
+              for sfx, kw in (("", dict(dtype="bf16", p_rounding=True)),
+                              ("_f32", dict(dtype="f32")))})
 # phase 6: the launcher's flags (minitron-4b at full width, no --reduced)
 MODEL_ARGS = ["--arch", "minitron-4b", "--batch", "16", "--prompt-len",
               "2048", "--max-len", "4096", "--steps", "64", "--pin-every",
@@ -222,6 +270,14 @@ GEMMA2_ARGS = ["--arch", "gemma2-2b", "--batch", "16", "--prompt-len",
 MOE_ARGS = ["--arch", "deepseek-moe-16b", "--batch", "8", "--prompt-len",
             "2048", "--max-len", "4096", "--steps", "32", "--pin-every", "8",
             "--gc-policy", "slrt", "--dtype", "bfloat16", "--device", "cuda"]
+# phases 6d and 6e: recurrentgemma-9b and xlstm-125m at full width through
+# the launcher.  recurrentgemma's local ring is W = 2048 slots and no
+# position reaches 2048 (1984 + 64), so no ring wraps under a reader (C10
+# stays out); every reader's score changes all the same (trap C12)
+RECURRENT_FLAGS = ["--batch", "16", "--prompt-len", "1984", "--max-len",
+                   "4096", "--steps", "64", "--pin-every", "8",
+                   "--gc-policy", "slrt", "--dtype", "bfloat16", "--device",
+                   "cuda"]
 # each served model's phase, flags and the published widths it must have
 SERVED = {
     "model": (MODEL_ARGS, dict(num_layers=32, d_model=3072, hd=128)),
@@ -232,6 +288,31 @@ SERVED = {
     "moe": (MOE_ARGS, dict(
         num_layers=28, d_model=2048, num_heads=16, hd=128, num_experts=64,
         top_k=6, num_shared_experts=2, d_ff=1408)),
+    "recurrentgemma": (["--arch", "recurrentgemma-9b"] + RECURRENT_FLAGS,
+                       dict(num_layers=38, d_model=4096, rnn_width=4096,
+                            hd=256, num_heads=16, num_kv_heads=1,
+                            local_window=2048, d_ff=12288,
+                            layer_pattern=("rglru", "rglru", "local"))),
+    "xlstm": (["--arch", "xlstm-125m"] + RECURRENT_FLAGS, dict(
+        num_layers=12, d_model=768, num_heads=4, proj_factor=2.0,
+        mlstm_chunk=64, layer_pattern=("mlstm", "mlstm", "mlstm",
+                                       "slstm"))),
+}
+# phases 6f and 6g, through prefill_step and decode_one (JAX's engine
+# cannot take frames: trap C13): internvl2-2b with 256 patch embeddings
+# (scale 0.02, as tests/models/test_archs_smoke.py makes them) before a
+# 1792-token prompt, and whisper-tiny over 1500 frames with a 64-token
+# decoder prompt (its decoder holds 448 positions); bf16, slrt, a reader
+# pinned every 8 steps
+FRONTEND = {
+    "vlm": dict(arch="internvl2-2b", batch=16, prefix=256, prompt=1792,
+                max_len=4096, steps=64, pin_every=8, seed=0, widths=dict(
+                    num_layers=24, d_model=2048, num_heads=16,
+                    num_kv_heads=8, d_ff=8192, frontend_tokens=256)),
+    "whisper": dict(arch="whisper-tiny", batch=16, prefix=1500, prompt=64,
+                    max_len=448, steps=64, pin_every=8, seed=0, widths=dict(
+                        num_layers=4, encoder_layers=4, d_model=384,
+                        num_heads=6, hd=64, encoder_tokens=1500)),
 }
 # phase 6b: the ring's drop and wrap paths at gemma2-2b's full widths, two
 # layers (one local, one global), float32, against the CPU
@@ -948,8 +1029,12 @@ def view_case(ts, pay, tables, lengths, ids, t: int) -> dict:
                                                t)), b_ms))
 
 
-def visible_pairs(T: int, window: int) -> int:
-    """(row, column) pairs a causal prefill of T tokens attends to."""
+def visible_pairs(T: int, window: int, S: int | None = None,
+                  causal: bool = True) -> int:
+    """(row, column) pairs a prefill of T tokens attends to: causal over
+    itself, or every one of S columns."""
+    if not causal:
+        return T * S
     if window <= 0:
         return T * (T + 1) // 2
     w = min(window, T)
@@ -965,12 +1050,13 @@ def flash_cases(dev) -> dict:
     for case, c in FLASH.items():
         dtype, kind = DTYPES[c["dtype"]], c["dtype"]
         B, Hq, Hkv, T, D = c["B"], c["Hq"], c["Hkv"], c["T"], c["D"]
-        kw = dict(causal=True, window=c["window"], softcap=c["softcap"])
+        S, causal = c.get("S", T), c.get("causal", True)
+        kw = dict(causal=causal, window=c["window"], softcap=c["softcap"])
         q = torch.randn((B, Hq, T, D), generator=gd, device=dev, dtype=dtype)
         if "q_scale" in c:
             q = q * c["q_scale"]
-        k = torch.randn((B, Hkv, T, D), generator=gd, device=dev, dtype=dtype)
-        v = torch.randn((B, Hkv, T, D), generator=gd, device=dev, dtype=dtype)
+        k = torch.randn((B, Hkv, S, D), generator=gd, device=dev, dtype=dtype)
+        v = torch.randn((B, Hkv, S, D), generator=gd, device=dev, dtype=dtype)
         got = flash_ops.flash_attention(q, k, v, **kw)
         want = attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -1016,18 +1102,20 @@ def flash_cases(dev) -> dict:
               f"flash_prefill {case} not deterministic")
         del want
         elt = 2 if dtype == torch.bfloat16 else 4
-        nbytes = 2 * (B * Hq * T * D + B * Hkv * T * D) * elt
-        ops = 4.0 * B * Hq * D * visible_pairs(T, c["window"])
+        nbytes = 2 * (B * Hq * T * D + B * Hkv * S * D) * elt
+        ops = 4.0 * B * Hq * D * visible_pairs(T, c["window"], S, causal)
         b_ms, b_by = bound(nbytes, ops, kind)
-        # yardstick: SDPA (causal, GQA) where it computes the same function;
-        # it has no logit softcap or window flag
+        # yardstick: SDPA (GQA) where it computes the same function: it has
+        # no logit softcap or window flag (a window as long as the prompt
+        # changes nothing)
         library = None
-        if c["window"] == 0 and c["softcap"] == 0:
+        if (c["window"] == 0 or c["window"] >= T) and c["softcap"] == 0:
             def library():
-                return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+                return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
         name = "flash_prefill" if case == "serve" else f"flash_prefill_{case}"
-        row = dict(shape=f"B={B} Hq={Hq} Hkv={Hkv} T={T} D={D} "
-                         f"window={c['window']} softcap={c['softcap']} {kind}",
+        row = dict(shape=f"B={B} Hq={Hq} Hkv={Hkv} T={T} S={S} D={D} "
+                         f"causal={causal} window={c['window']} "
+                         f"softcap={c['softcap']} {kind}",
                    route=flash_ops.ROUTES[dtype], max_abs_err=err,
                    **({} if uncapped_err is None else dict(
                        q_scale=c["q_scale"],
@@ -2014,21 +2102,44 @@ def profile_window(decode_step, steps: int = 16, name: str = "serve") -> dict:
 # ---------------------------------------------------------------------------
 def _prefill_bits(c, T: int) -> list:
     """What one prefill writes into a layer's cache: a global cache's
-    first ``T`` columns, a local ring whole (k, v and pos)."""
-    if isinstance(c, LocalKVCache):
-        return [c.k.clone(), c.v.clone(), c.pos.clone()]
-    return [c.k[:, :T].clone(), c.v[:, :T].clone()]
+    first ``T`` columns; a local ring (k, v and pos) or a recurrent state
+    whole."""
+    if isinstance(c, KVCache):
+        return [c.k[:, :T].clone(), c.v[:, :T].clone()]
+    return [x.clone() for x in c]
+
+
+def attention_layers(cfg) -> int:
+    """Layers that run K6 at a prefill: the ``attn`` and ``local`` ones."""
+    return sum(k in ("attn", "local") for k in tf._kinds(cfg))
+
+
+def pin_steps(steps: int, pin_every: int) -> list:
+    """The decode steps after which the launcher pins a reader."""
+    return [i for i in range(steps) if i % pin_every == 0][
+        :launcher.READER_LANES]
+
+
+def expected_mismatches(cfg, steps: int, pin_every: int) -> int:
+    """Pinned readers whose score must change: none in an attention-only
+    model whose rings do not wrap; under a recurrent layer every reader
+    held across a decode step (trap C12: the state is not versioned)."""
+    if not set(tf._kinds(cfg)) & set(launcher.RECURRENT_KINDS):
+        return 0
+    return sum(i < steps - 1 for i in pin_steps(steps, pin_every))
 
 
 def phase_served(dev, name: str) -> tuple[dict, dict]:
     """Serve ``SERVED[name]``'s model through the launcher: two prefills
     of the same prompt must give the same bits; the launch counts are
     zeroed just before the launcher's run and read just after; flash
-    prefill runs once per layer on the bf16 route, compact and value_at
-    run, every pinned reader's score is bit-identical, every token is in
-    the vocabulary; value_at and sweep equal their plain versions on the
-    engine's own store; then a short profiled decode window.  Returns the launches and
-    flash prefill's launches by route."""
+    prefill runs once per attention layer on the bf16 route, compact and
+    value_at run, every pinned reader's ``lengths_at`` is exactly the
+    lengths at its pin, its score is bit-identical (under a recurrent
+    layer it changes, exactly for the readers held across a step: trap
+    C12), every token is in the vocabulary; value_at and sweep equal their
+    plain versions on the engine's own store; then a short profiled decode
+    window.  Returns the launches and flash prefill's launches by route."""
     argv, widths = SERVED[name]
     args = launcher.parse_args(argv)
     torch.cuda.synchronize()
@@ -2064,6 +2175,9 @@ def phase_served(dev, name: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in WRAPPERS.items()}
     flash_routes = dict(routes)
+    pins = pin_steps(args.steps, args.pin_every)
+    want_lengths = {lane: [T + i + 1] * B for lane, i in enumerate(pins)}
+    want_mismatches = expected_mismatches(cfg, args.steps, args.pin_every)
     store = engine.state.mv.store
     if name == "model":
         check(tuple(store.ts.shape) == model_store_shape(),
@@ -2086,10 +2200,13 @@ def phase_served(dev, name: str) -> tuple[dict, dict]:
         profile_device_idle_share=prof["device_idle_share"],
         profile_device_busy_ms_per_step=prof["device_busy_ms"] / prof["steps"],
         profile_host_syncs_per_step=prof["host_syncs"] / prof["steps"],
+        profile_kernel_launches_per_step=prof["kernel_launches_per_step"],
         launches=launches, flash_launches_per_prefill=launches[
             "flash_prefill"], flash_route_launches=flash_routes,
         readers=rep["readers"],
         score_mismatches=rep["score_mismatches"],
+        score_mismatches_expected=want_mismatches,
+        reader_lengths_exact=rep["snapshot_lengths"] == want_lengths,
         value_at_times_checked=value_at_times, **sweeps,
         prefill_bits_equal=same, stats_sum=rep["stats_sum"],
         space=rep["space"], tokens_head=toks[:2, :8].tolist())
@@ -2097,20 +2214,195 @@ def phase_served(dev, name: str) -> tuple[dict, dict]:
     check(tuple(toks.shape) == (B, args.steps), "wrong token shape")
     check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
           "a token outside [0, vocab)")
-    check(launches["flash_prefill"] == cfg.num_layers,
+    n_attn = attention_layers(cfg)
+    check(launches["flash_prefill"] == n_attn,
           f"flash prefill launched {launches['flash_prefill']} times in one "
-          f"prefill of {cfg.num_layers} layers")
-    check(flash_routes[flash_ops.ROUTES[torch.bfloat16]] == cfg.num_layers,
+          f"prefill of {n_attn} attention layers")
+    check(flash_routes[flash_ops.ROUTES[torch.bfloat16]] == n_attn,
           f"the bf16 prefill did not run the wgmma kernel: {flash_routes}")
     for k in ("compact", "search", "value_at"):
         check(launches[k] > 0, f"{k} kernel never launched in {name}")
-    check(rep["readers"] == min(-(-args.steps // args.pin_every),
-                                launcher.READER_LANES),
-          "fewer readers than pinned")
-    check(rep["score_mismatches"] == 0,
-          f"{rep['score_mismatches']} pinned scores changed under decode")
+    check(rep["readers"] == len(pins), "fewer readers than pinned")
+    check(rep["snapshot_lengths"] == want_lengths,
+          f"a reader's lengths_at is not the lengths at its pin: "
+          f"{rep['snapshot_lengths']}")
+    check(rep["score_mismatches"] == want_mismatches,
+          f"{rep['score_mismatches']} pinned scores changed under decode, "
+          f"{want_mismatches} expected")
     del engine, st
     return launches, flash_routes
+
+
+# ---------------------------------------------------------------------------
+# phases 6f and 6g: a frontend (patches, frames) through prefill_step and
+# decode_one
+# ---------------------------------------------------------------------------
+def phase_frontend(dev, name: str) -> dict:
+    """Serve ``FRONTEND[name]``'s model at full width through the pure
+    serving steps, as JAX can serve it (its ``MVServeEngine`` takes no
+    frames: trap C13): ``prefill_step`` with the patch or frame embeddings
+    (seeded on the card, scale 0.02), for whisper ``enc_out`` once by
+    ``_run_encoder`` as JAX's caller computes it, then ``decode_one``
+    steps, the stats read each step as ``MVServeEngine.step`` reads them,
+    a reader pinned every ``pin_every`` steps.  Two prefills of the same
+    inputs give the same bits; the launch counts are zeroed just before
+    the served run and read just after: K6 in every attention layer of
+    the prefill (whisper: its encoder's, and cross-attention in every
+    layer, at prefill and at every decode step), compact and value_at;
+    every reader's lengths exactly the lengths at its pin, and (the VLM,
+    attention only) its score bit-identical at release; lengths
+    ``prompt + prefix + steps`` (a VLM's patches are a prefix) or
+    ``prompt + steps``; value_at and sweep equal their plain versions on
+    the state's own store; then a short profiled decode window."""
+    c = FRONTEND[name]
+    cfg = get_config(c["arch"])
+    got = {k: getattr(cfg, k) for k in c["widths"]}
+    check(got == c["widths"], f"{cfg.name} is not at its published widths: "
+          f"{got}")
+    B, T, Nf, steps = c["batch"], c["prompt"], c["prefix"], c["steps"]
+    encdec = cfg.encoder_layers > 0
+    dtype = torch.bfloat16
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(c["seed"])
+    params = tf.init_params(cfg, gen, dtype)
+    run = RunConfig(model=cfg, shape=SHAPES["decode_32k"], gc_policy="slrt",
+                    versions_per_slot=launcher.VERSIONS_PER_SLOT,
+                    reader_lanes=launcher.READER_LANES)
+    tokens = torch.from_numpy(np.random.default_rng(c["seed"]).integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32)).to(dev)
+    fe = (torch.randn((B, Nf, cfg.d_model), generator=gen, device=dev)
+          * 0.02).to(dtype)
+    state = serve_engine.make_serve_state(cfg, run, params, B, c["max_len"],
+                                          dtype, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    # two prefills of the same inputs give the same bits (and warm up)
+    outs = []
+    for _ in range(2):
+        logits, cache, lens = tf.prefill(params, cfg, tokens, state.cache,
+                                         frontend_embeds=fe, inplace=True)
+        span = int(lens[0])
+        outs.append([logits.clone(), lens.clone()]
+                    + _prefill_bits(cache[0], span)
+                    + _prefill_bits(cache[-1], span))
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    check(same, f"{name}: two prefills of the same inputs gave different "
+          "bits")
+    del outs, logits, cache
+
+    for w in WRAPPERS.values():
+        w.launches = 0
+    routes = flash_ops.flash_attention.route_launches
+    for r in routes:
+        routes[r] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = serve_engine.prefill_step(state, cfg, run, tokens, fe)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    enc_out, encoder_s = None, 0.0
+    if encdec:
+        t0 = time.perf_counter()
+        enc_out = tf._run_encoder(params, cfg, fe)
+        torch.cuda.synchronize()
+        encoder_s = time.perf_counter() - t0
+
+    def step(st):
+        st, toks, _, stats = serve_engine.decode_one(st, cfg, run,
+                                                     enc_out=enc_out)
+        values = torch.stack([v.reshape(()) for v in stats.values()])
+        return st, toks, dict(zip(stats, values.tolist()))
+
+    readers, tokens_out, stats_sum = {}, [], {}
+    decode_s = 0.0
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, toks, stats = step(state)
+        decode_s += time.perf_counter() - t0
+        tokens_out.append(toks)
+        for k, v in stats.items():
+            stats_sum[k] = stats_sum.get(k, 0) + v
+        if i % c["pin_every"] == 0 and len(readers) < launcher.READER_LANES:
+            lane = len(readers)
+            state, ts = serve_engine.begin_snapshot(state, lane)
+            ts = int(ts)
+            cand = state.last_tokens.clone()
+            score = (None if encdec else
+                     serve_engine.snapshot_score(state, cfg, cand, ts))
+            readers[lane] = (i, ts, cand, score)
+    mismatches, lengths_exact = 0, True
+    prompt_len = T + (0 if encdec else Nf)
+    for lane, (i, ts, cand, score) in readers.items():
+        lens = serve_engine.snapshot_lengths(state, ts)
+        lengths_exact &= lens.tolist() == [prompt_len + i + 1] * B
+        if score is not None:
+            mismatches += not torch.equal(
+                serve_engine.snapshot_score(state, cfg, cand, ts), score)
+        state = serve_engine.end_snapshot(state, lane)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    flash_routes = dict(routes)
+    lengths = state.cache_len.tolist()
+    value_at_times = check_value_at_on_store(state.mv.store)
+    sweeps = check_sweep_on_store(state.mv)
+    box = [state]
+
+    def profiled_step():
+        box[0] = step(box[0])[0]
+
+    prof = profile_window(profiled_step, steps=8, name=name)
+    toks = torch.cat(tokens_out, dim=1)
+    n_attn = attention_layers(cfg)
+    # whisper: prefill = encoder + self-attention + cross-attention in every
+    # layer; the caller's encoder pass; cross-attention per decode step
+    want_flash = (n_attn if not encdec else
+                  2 * cfg.encoder_layers + 2 * n_attn + steps * n_attn)
+    res = dict(
+        phase=name, arch=cfg.name, layers=cfg.num_layers,
+        encoder_layers=cfg.encoder_layers, d_model=cfg.d_model,
+        parameters=cfg.param_count(), dtype="bfloat16", batch=B,
+        prompt_len=T, prefix=Nf, max_len=c["max_len"], steps=steps,
+        policy="slrt", build_s=build_s, prefill_ms=prefill_s * 1e3,
+        encoder_ms=encoder_s * 1e3,
+        prefill_tokens_per_s=B * (T + Nf) / prefill_s,
+        decode_ms_per_step=decode_s / steps * 1e3,
+        decode_tokens_per_s=B * steps / decode_s,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+        profile_device_idle_share=prof["device_idle_share"],
+        profile_device_busy_ms_per_step=prof["device_busy_ms"] / prof["steps"],
+        profile_host_syncs_per_step=prof["host_syncs"] / prof["steps"],
+        profile_kernel_launches_per_step=prof["kernel_launches_per_step"],
+        launches=launches, flash_launches_expected=want_flash,
+        flash_route_launches=flash_routes, readers=len(readers),
+        reader_lengths_exact=lengths_exact, score_mismatches=mismatches,
+        lengths=sorted(set(lengths)), value_at_times_checked=value_at_times,
+        **sweeps, prefill_bits_equal=same, stats_sum=stats_sum,
+        space=vstore.space_report(state.mv),
+        tokens_head=toks[:2, :8].tolist())
+    emit(res)
+    check(tuple(toks.shape) == (B, steps), "wrong token shape")
+    check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+          "a token outside [0, vocab)")
+    check(lengths == [prompt_len + steps] * B,
+          f"{name}: lengths {sorted(set(lengths))}, not "
+          f"{prompt_len + steps}")
+    check(launches["flash_prefill"] == want_flash
+          and flash_routes[flash_ops.ROUTES[dtype]] == want_flash,
+          f"{name}: flash prefill launched {flash_routes}, {want_flash} "
+          "expected on the bf16 route")
+    for k in ("compact", "search", "value_at"):
+        check(launches[k] > 0, f"{k} kernel never launched in {name}")
+    check(len(readers) == len(pin_steps(steps, c["pin_every"])),
+          "fewer readers than pinned")
+    check(lengths_exact, f"{name}: a reader's lengths are not the lengths "
+          "at its pin")
+    check(mismatches == 0, f"{mismatches} pinned scores changed under "
+          "decode")
+    del state, box, params
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2243,6 +2535,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     served["moe"], _ = phase_served(dev, "moe")
     torch.cuda.empty_cache()
+    for name in ("recurrentgemma", "xlstm"):
+        served[name], _ = phase_served(dev, name)
+        torch.cuda.empty_cache()
+    for name in FRONTEND:
+        served[name] = phase_frontend(dev, name)
+        torch.cuda.empty_cache()
     phase_fork_tiers(dev)
     durable_launches = phase_durability(dev)
     torch.cuda.empty_cache()

@@ -2,11 +2,11 @@
 JAX package with their published widths, and their reduced smoke variants.
 
 A copy, not an import: importing ``repro`` imports JAX.  The port serves
-the decoder-only attention configs: dense (minitron-4b, qwen2.5-32b,
-starcoder2-7b), local ring caches (gemma2-2b) and mixtures of experts
-(granite-moe-1b-a400m, deepseek-moe-16b); the others raise until their
-block kinds (:func:`repro_torch.models.blocks.block_apply`) or their
-encoder and frontend (:mod:`repro_torch.models.transformer`) are ported.
+all ten: dense (minitron-4b, qwen2.5-32b, starcoder2-7b), local ring
+caches (gemma2-2b), mixtures of experts (granite-moe-1b-a400m,
+deepseek-moe-16b), the recurrent families (recurrentgemma-9b,
+xlstm-125m), the VLM prefix (internvl2-2b) and the encoder-decoder
+(whisper-tiny).
 """
 from __future__ import annotations
 

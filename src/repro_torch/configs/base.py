@@ -2,10 +2,8 @@
 ``repro.configs.base``).
 
 Every architecture is a ``ModelConfig`` whose ``layer_pattern`` cycles block
-kinds over the depth.  The port serves the attention kinds (``attn`` and
-``local``, each with a dense MLP or a mixture of experts) so far; the
-recurrent kinds are described here so that the registry is the JAX
-package's, and raise in :func:`repro_torch.models.blocks.block_apply`.
+kinds over the depth (``attn``, ``local``, ``rglru``, ``mlstm``,
+``slstm``: :mod:`repro_torch.models.blocks`).
 
 ``RunConfig`` builds the port's :class:`repro_torch.core.telemetry.GCConfig`,
 which has no kernel-dispatch knobs: the port dispatches on the device of

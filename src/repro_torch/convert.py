@@ -4,9 +4,10 @@
 ``MVState`` / ``PagedKV`` of the JAX package — or any object with the same
 field names whose leaves convert with ``numpy.asarray`` — and build the
 port's tensors on ``device``.  :func:`params_from_numpy` maps a JAX
-model's parameter pytree (layers stacked over superblocks) onto the port's
-per-layer dicts, and :func:`serve_state_from_numpy` a JAX ``ServeState``
-onto the port's, so both packages compute from the same weights.
+model's parameter pytree (layers stacked over superblocks, an encoder's
+too) onto the port's per-layer dicts, and :func:`serve_state_from_numpy` a
+JAX ``ServeState`` onto the port's (KV caches, rings and recurrent
+states), so both packages compute from the same weights.
 :func:`to_numpy` goes back: the same ``NamedTuple`` types, lists and
 dicts with numpy leaves (bfloat16 tensors widen to float32, which is
 exact).  Nothing here imports JAX: a JAX array is read through
@@ -23,6 +24,8 @@ from repro_torch._tensor import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.mvgc import announce, pool, rangetracker, vstore
 from repro_torch.models.attention import KVCache, LocalKVCache
+from repro_torch.models.blocks import RECURRENT_STATES
+from repro_torch.models.transformer import _kinds
 from repro_torch.mvkv import paged
 from repro_torch.serve.engine import ServeState
 
@@ -88,36 +91,65 @@ def _per_layer(cfg: ModelConfig, tree: Any) -> List[Any]:
     return layers + list(tree.get("tail", []))
 
 
+#: mixer leaves that are float32 by construction in both packages, whatever
+#: the block's dtype: a ``dtype`` cast keeps them float32
+F32_MIXER_LEAVES = {"rglru": ("wa", "ba", "wx", "bx", "lambda"),
+                    "mlstm": ("w_if",), "slstm": ("b",)}
+
+
 def params_from_numpy(cfg: ModelConfig, params: Any, device: DeviceLike = None,
                       dtype: Optional[torch.dtype] = None) -> dict:
-    """A JAX parameter pytree (``embed``, ``sb/l{j}/{ln1, mixer/{wq, wk, wv,
-    wo}, ln2, ffn/...}`` stacked over superblocks, ``final_norm``,
-    ``unembed`` when untied) -> the port's parameters on ``device``, cast to
-    ``dtype`` when given.  A mixture of experts' router stays float32, as
-    ``init_moe`` makes it in both packages."""
+    """A JAX parameter pytree (``embed``, ``sb/l{j}/{ln1, mixer/..., ln2,
+    ffn/..., cross_ln, cross/...}`` stacked over superblocks, ``tail``,
+    ``final_norm``, ``unembed`` when untied, ``encoder/{sb/l0 stacked over
+    the encoder's layers, final_norm}`` for an encoder-decoder) -> the
+    port's parameters on ``device``, cast to ``dtype`` when given.  A
+    mixture of experts' router and the recurrent mixers' gate leaves
+    (``F32_MIXER_LEAVES``) stay float32, as both packages' inits make
+    them."""
     dev = resolve_device(device)
 
     def t(x):
         return _cast(x, dev, dtype)
 
-    def layer(tree):
+    def layer(tree, kind):
         out = _map_tree(tree, t)
+        for name in F32_MIXER_LEAVES.get(kind, ()):
+            out["mixer"][name] = _cast(tree["mixer"][name], dev,
+                                       torch.float32)
         if isinstance(tree.get("ffn"), dict) and "router" in tree["ffn"]:
             out["ffn"]["router"] = _cast(tree["ffn"]["router"], dev,
                                          torch.float32)
         return out
 
     out = {"embed": t(params["embed"]),
-           "layers": [layer(x) for x in _per_layer(cfg, params)],
+           "layers": [layer(x, kind) for x, kind in
+                      zip(_per_layer(cfg, params), _kinds(cfg))],
            "final_norm": t(params["final_norm"])}
     if "unembed" in params:
         out["unembed"] = t(params["unembed"])
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {
+            "layers": [layer(_map_tree(enc["sb"]["l0"],
+                                       lambda x, r=r: np.asarray(x)[r]),
+                             "attn")
+                       for r in range(cfg.encoder_layers)],
+            "final_norm": t(enc["final_norm"])}
     return out
+
+
+#: the port's recurrent state of each JAX state's fields
+_STATES = {s._fields: s for s in RECURRENT_STATES}
 
 
 def _cache_from_numpy(c: Any, dev: torch.device,
                       dtype: Optional[torch.dtype]):
-    """One layer's cache; a local ring's ``pos`` stays int32."""
+    """One layer's cache; a local ring's ``pos`` stays int32, a recurrent
+    state float32."""
+    fields = getattr(c, "_fields", ())
+    if fields in _STATES:
+        return _STATES[fields](*(tensor_from_numpy(x, dev) for x in c))
     k, v = _cast(c.k, dev, dtype), _cast(c.v, dev, dtype)
     if hasattr(c, "pos"):
         return LocalKVCache(k, v, tensor_from_numpy(c.pos, dev))
@@ -128,8 +160,8 @@ def serve_state_from_numpy(cfg: ModelConfig, state: Any,
                            device: DeviceLike = None,
                            dtype: Optional[torch.dtype] = None):
     """A JAX ``ServeState`` -> the port's, on ``device``; ``dtype`` casts the
-    parameters (not a router) and the KV caches (not a ring's ``pos``) when
-    given."""
+    parameters (not the float32 leaves) and the KV caches (not a ring's
+    ``pos``, not a recurrent state) when given."""
     dev = resolve_device(device)
     return ServeState(
         params=params_from_numpy(cfg, state.params, dev, dtype),

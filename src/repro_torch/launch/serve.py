@@ -8,10 +8,17 @@ readers (port of ``repro.launch.serve``).
         --dtype bfloat16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
         --reduced --device cpu --prompt-len 8 --steps 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
+        --reduced --device cpu --steps 1
 
-Every decoder-only attention family runs: dense (minitron-4b,
-qwen2.5-32b, starcoder2-7b), local ring caches (gemma2-2b) and mixtures
-of experts (granite-moe-1b-a400m, deepseek-moe-16b).
+Every decoder-only family runs: dense (minitron-4b, qwen2.5-32b,
+starcoder2-7b), local ring caches (gemma2-2b), mixtures of experts
+(granite-moe-1b-a400m, deepseek-moe-16b), the recurrent ones
+(recurrentgemma-9b's RG-LRU, xlstm-125m's mLSTM/sLSTM) and internvl2-2b
+(without patches, as the JAX launcher runs it).  whisper-tiny is refused:
+``MVServeEngine.prefill`` takes no frames, in the JAX package too (trap
+C13), so an encoder-decoder is served through ``prefill_step`` and
+``decode_one`` only.
 
 The flags are the JAX driver's, plus ``--device`` (``cuda`` by default)
 and ``--dtype`` (of the weights and the KV cache).  Weights are random,
@@ -24,7 +31,10 @@ clock (one per reader lane, up to ``READER_LANES``; the JAX driver stops at
 against its snapshot (``snapshot_score``).  At the end each reader reads its
 snapshot lengths (``lengths_at``), scores the same tokens again — the two
 results must be bit-identical, since decode never changes what a pinned
-snapshot sees — and unpins.
+snapshot sees — and unpins.  Two JAX faults break that rule, in both
+packages alike, and the failure names them: a local ring that wraps under
+a pinned reader (trap C10), and any recurrent layer, whose state is not
+versioned (trap C12: a pinned reader scores against the newest state).
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 SEED = 0   # of the random weights and the prompt, as in the JAX driver
 READER_LANES = 8   # as in the JAX driver
 VERSIONS_PER_SLOT = 16   # as in the JAX driver
+RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -67,9 +78,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def build(args: argparse.Namespace):
     """(cfg, engine, prompt) for ``args``: random weights and a random
     prompt from ``SEED``."""
-    dev = resolve_device(args.device)
     cfg: ModelConfig = (reduced_config(args.arch) if args.reduced
                         else get_config(args.arch))
+    if cfg.encoder_layers:
+        raise SystemExit(
+            f"{cfg.name} is an encoder-decoder: MVServeEngine.prefill takes "
+            "no frame embeddings, in the JAX package too (trap C13: JAX's "
+            "fails on None), so this launcher cannot serve it; use "
+            "prefill_step(frontend_embeds=) and decode_one(enc_out=)")
+    dev = resolve_device(args.device)
     run = RunConfig(model=cfg, shape=SHAPES["decode_32k"],
                     gc_policy=args.gc_policy,
                     versions_per_slot=VERSIONS_PER_SLOT,
@@ -156,11 +173,18 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if rep["score_mismatches"]:
         msg = (f"{rep['score_mismatches']} pinned readers' scores changed "
                "while they held their pin")
-        if "local" in cfg.layer_pattern:
-            msg += (f" (trap C10: a local ring keeps {cfg.local_window} "
+        ring = min(cfg.local_window, args.max_len)
+        if "local" in cfg.layer_pattern \
+                and args.prompt_len + args.steps > ring:
+            msg += (f" (trap C10: a local ring keeps {ring} "
                     "positions, and once decode wraps it a pinned reader's "
                     "window is overwritten, in the JAX package too; keep "
                     "--prompt-len plus --steps within the window)")
+        if set(cfg.layer_pattern) & set(RECURRENT_KINDS):
+            msg += (" (trap C12: only the lengths are versioned, so a "
+                    "pinned reader scores against a recurrent layer's "
+                    "newest state, which every decode step changes, in the "
+                    "JAX package too)")
         raise SystemExit(msg)
     return rep
 

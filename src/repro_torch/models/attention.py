@@ -9,6 +9,8 @@ local ring of ``repro.models.blocks``).
   ``_xla_flash``.
 * decode (``cache``): K/V appended at ``cache_len``, then plain tensor code
   over the cache prefix, as the JAX package leaves decode to XLA.
+* no cache (an encoder layer, decoder cross-attention over the encoder's
+  output): K6 as well, bidirectional (``causal=False``).
 
 The public functions keep the JAX layout ``[B, T, H, D]``; the call to K6
 transposes to its ``[B, H, T, D]``.
@@ -74,24 +76,32 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor):
-    """q, k, v [B, T, H, D] of ``x``, with RoPE at ``positions``."""
-    q, k, v = (_proj(x, params[w]) for w in ("wq", "wk", "wv"))
+                 positions: torch.Tensor,
+                 x_kv: Optional[torch.Tensor] = None,
+                 use_rope: Optional[bool] = None):
+    """q of ``x``, k and v of ``x_kv`` (``x`` when None), each
+    [B, T, H, D].  RoPE at ``positions`` when ``use_rope`` (the config's
+    ``rope`` when None) and there is no ``x_kv``, as in JAX."""
+    rotate = (cfg.rope if use_rope is None else use_rope) and x_kv is None
+    x_kv = x if x_kv is None else x_kv
+    q = _proj(x, params["wq"])
+    k, v = _proj(x_kv, params["wk"]), _proj(x_kv, params["wv"])
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    if cfg.rope:
+    if rotate:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def _flash(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
-           v: torch.Tensor, window: int) -> torch.Tensor:
-    """K6 over a prompt in the JAX layout [B, T, H, D] (the kernel's is
-    [B, H, T, D]): causal, with ``window`` and the config's softcap."""
+           v: torch.Tensor, window: int, causal: bool = True) -> torch.Tensor:
+    """K6 in the JAX layout, ``q`` [B, T, Hq, D] over ``k``/``v``
+    [B, S, Hkv, D] (the kernel's is [B, H, T, D]), with ``window`` and the
+    config's softcap."""
     return flash_attention(
         q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(), causal=True, window=window,
+        v.transpose(1, 2).contiguous(), causal=causal, window=window,
         softcap=cfg.attn_softcap).transpose(1, 2)
 
 
@@ -166,18 +176,31 @@ def attention(
     x: torch.Tensor,                       # [B, T, d]
     positions: torch.Tensor,               # i32[B, T], cache_len + t
     *,
-    span: int,
+    span: Optional[int] = None,
     cache: Optional[KVCache] = None,
     cache_len: Optional[torch.Tensor] = None,   # i32[B] tokens in cache
     fill_cache: Optional[KVCache] = None,        # prefill: write K/V here
     inplace: bool = False,
-) -> Tuple[torch.Tensor, KVCache]:
-    """Causal global attention (block kind ``attn``).  Returns (out
-    [B, T, d], updated cache).  Exactly one of ``fill_cache`` (prefill) and
-    ``cache`` (decode) is given."""
-    if (fill_cache is None) == (cache is None):
+    causal: bool = True,
+    x_kv: Optional[torch.Tensor] = None,         # cross-attention source
+    use_rope: Optional[bool] = None,
+) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Global attention (block kind ``attn``).  Returns (out [B, T, d],
+    updated cache).  Modes, as in JAX:
+
+    * prefill (``fill_cache``) and decode (``cache``), causal, need
+      ``span``;
+    * neither cache (an encoder layer, a cross-attention sublayer): K6
+      over ``x_kv`` (``x`` when None), causal only when ``causal`` and no
+      ``x_kv``, no cache (None is returned for it).  A decode step's
+      cross-attention is a K6 call with T = 1."""
+    if fill_cache is None and cache is None:
+        q, k, v = _project_qkv(params, cfg, x, positions, x_kv, use_rope)
+        out = _flash(cfg, q, k, v, window=0, causal=causal and x_kv is None)
+        return _out_proj(params, out), None
+    if fill_cache is not None and cache is not None:
         raise ValueError("attention: pass fill_cache (prefill) or cache "
-                         "(decode)")
+                         "(decode), not both")
     q, k, v = _project_qkv(params, cfg, x, positions)
     old = cache if fill_cache is None else fill_cache
     new = KVCache(_write(old.k, positions, k, span, inplace),

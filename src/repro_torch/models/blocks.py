@@ -1,12 +1,19 @@
-"""Residual block: norm -> mixer -> (+residual) -> norm -> ffn/moe (port of
-``repro.models.blocks`` for the attention families).
+"""Residual block: norm -> mixer -> (+residual) -> cross-attention ->
+norm -> ffn/moe (port of ``repro.models.blocks``).
 
-Block kinds ``attn`` (global attention over a ``KVCache``) and ``local``
+Mixer kinds: ``attn`` (global attention over a ``KVCache``), ``local``
 (sliding-window attention over a ring cache, ``LocalKVCache``; both in
-:mod:`repro_torch.models.attention`), each with a dense MLP or a mixture
-of experts (:mod:`repro_torch.models.moe`).  The recurrent kinds
-(``mlstm``, ``slstm``, ``rglru``) and decoder cross-attention raise
-``NotImplementedError``.
+:mod:`repro_torch.models.attention`), ``rglru`` (:mod:`repro_torch.models.
+rglru`), ``mlstm`` and ``slstm`` (:mod:`repro_torch.models.mlstm`).  A
+recurrent kind's "cache" is its state now (``RGLRUState``, ``MLSTMState``,
+``SLSTMState``, float32 whatever the cache dtype); a pass returns a new
+state and never writes into the one it was given.  ``attn``, ``local`` and
+``rglru`` blocks carry a dense MLP or a mixture of experts
+(:mod:`repro_torch.models.moe`), the xLSTM kinds none.  An encoder-decoder's
+decoder blocks carry a cross-attention sublayer (``cross_ln``, ``cross``).
+
+Modes: ``prefill`` and ``decode`` serve; ``train`` is JAX's cache-free mode,
+which the port runs for the encoder only (``causal=False``, no cache).
 """
 from __future__ import annotations
 
@@ -22,30 +29,44 @@ from repro_torch.models.attention import (KVCache, LocalKVCache,
                                           init_attention)
 from repro_torch.models.common import rms_norm
 from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.models.mlstm import (MLSTMState, SLSTMState, init_mlstm,
+                                      init_slstm, mlstm_chunkwise,
+                                      mlstm_decode, mlstm_init_state, slstm,
+                                      slstm_init_state)
 from repro_torch.models.moe import init_moe, moe
+from repro_torch.models.rglru import (RGLRUState, init_rglru, rglru,
+                                      rglru_decode, rglru_init_state)
 
-ATTENTION_KINDS = ("attn", "local")
+Cache = Union[KVCache, LocalKVCache, RGLRUState, MLSTMState, SLSTMState]
+RECURRENT_STATES = (RGLRUState, MLSTMState, SLSTMState)
 
 
-Cache = Union[KVCache, LocalKVCache]
-
-
-def _require_ported(kind: str) -> None:
-    if kind not in ATTENTION_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (only "
-            f"{', '.join(map(repr, ATTENTION_KINDS))})")
+def _uses_mlp(cfg: ModelConfig, kind: str) -> bool:
+    return kind in ("attn", "local", "rglru") and (cfg.d_ff > 0
+                                                   or cfg.num_experts > 0)
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
-               dtype: torch.dtype = torch.float32) -> dict:
-    _require_ported(kind)
+               dtype: torch.dtype = torch.float32,
+               cross: bool = False) -> dict:
     d, dev = cfg.d_model, gen.device
-    p = {"ln1": torch.zeros((d,), dtype=dtype, device=dev),
-         "mixer": init_attention(gen, cfg, dtype=dtype)}
+    p = {"ln1": torch.zeros((d,), dtype=dtype, device=dev)}
+    if kind in ("attn", "local"):
+        p["mixer"] = init_attention(gen, cfg, dtype=dtype)
+    elif kind == "mlstm":
+        p["mixer"] = init_mlstm(gen, cfg, dtype=dtype)
+    elif kind == "slstm":
+        p["mixer"] = init_slstm(gen, cfg, dtype=dtype)
+    elif kind == "rglru":
+        p["mixer"] = init_rglru(gen, cfg, dtype=dtype)
+    else:
+        raise ValueError(kind)
     if cfg.post_norms:
         p["ln1_post"] = torch.zeros((d,), dtype=dtype, device=dev)
-    if cfg.d_ff > 0 or cfg.num_experts > 0:
+    if cross:
+        p["cross_ln"] = torch.zeros((d,), dtype=dtype, device=dev)
+        p["cross"] = init_attention(gen, cfg, dtype=dtype)
+    if _uses_mlp(cfg, kind):
         p["ln2"] = torch.zeros((d,), dtype=dtype, device=dev)
         p["ffn"] = (init_moe(gen, cfg, dtype=dtype) if cfg.num_experts > 0
                     else init_mlp(gen, cfg, dtype=dtype))
@@ -57,7 +78,14 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                      dtype: torch.dtype = torch.bfloat16,
                      device: Optional[torch.device] = None) -> Cache:
-    _require_ported(kind)
+    if kind == "mlstm":
+        return mlstm_init_state(cfg, batch, device)
+    if kind == "slstm":
+        return slstm_init_state(cfg, batch, device)
+    if kind == "rglru":
+        return rglru_init_state(cfg, batch, device)
+    if kind not in ("attn", "local"):
+        raise ValueError(kind)
     L = cache_len
     if kind == "local":
         L = min(cfg.local_window or cache_len, cache_len)
@@ -71,35 +99,61 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                                          device=device))
 
 
-def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
-                positions: torch.Tensor, *, cache: Cache, span: int,
-                cache_len: Optional[torch.Tensor] = None,
-                mode: str = "prefill",
-                inplace: bool = False) -> Tuple[torch.Tensor, Cache]:
-    """One block in ``mode`` prefill or decode.  Returns (x', cache').  A
-    mixture of experts' auxiliary loss is dropped: serving never reads it,
-    in either package."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode {mode!r}: the port serves prefill and decode")
-    _require_ported(kind)
-    h = rms_norm(x, params["ln1"], cfg.norm_eps)
+def _mixer(params: dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
+           positions: torch.Tensor, cache: Optional[Cache], span: Optional[int],
+           cache_len: Optional[torch.Tensor], mode: str, causal: bool,
+           inplace: bool) -> Tuple[torch.Tensor, Optional[Cache]]:
+    if kind == "rglru":
+        fn = rglru_decode if mode == "decode" else rglru
+        return fn(params, cfg, h, cache)
+    if kind == "mlstm":
+        fn = mlstm_decode if mode == "decode" else mlstm_chunkwise
+        return fn(params, cfg, h, cache)
+    if kind == "slstm":
+        return slstm(params, cfg, h, cache)
+    if mode == "train":
+        if kind != "attn":
+            raise ValueError(f"mode 'train' runs the encoder's 'attn' "
+                             f"blocks, not {kind!r}")
+        return attention(params, cfg, h, positions, causal=causal)
     if kind == "local" and mode == "prefill":
-        h, new_cache = _prefill_local_ring(params["mixer"], cfg, h, positions,
-                                           cache, inplace)
-    elif kind == "local":
-        h, new_cache = _local_ring_decode(params["mixer"], cfg, h, positions,
-                                          cache, span, inplace)
-    elif mode == "prefill":
-        h, new_cache = attention(params["mixer"], cfg, h, positions,
-                                 span=span, fill_cache=cache,
-                                 inplace=inplace)
-    else:
-        h, new_cache = attention(params["mixer"], cfg, h, positions,
-                                 span=span, cache=cache, cache_len=cache_len,
-                                 inplace=inplace)
+        return _prefill_local_ring(params, cfg, h, positions, cache, inplace)
+    if kind == "local":
+        return _local_ring_decode(params, cfg, h, positions, cache, span,
+                                  inplace)
+    if mode == "prefill":
+        return attention(params, cfg, h, positions, span=span,
+                         fill_cache=cache, inplace=inplace)
+    return attention(params, cfg, h, positions, span=span, cache=cache,
+                     cache_len=cache_len, inplace=inplace)
+
+
+def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                positions: torch.Tensor, *, cache: Optional[Cache] = None,
+                span: Optional[int] = None,
+                cache_len: Optional[torch.Tensor] = None,
+                enc_out: Optional[torch.Tensor] = None,
+                mode: str = "prefill", causal: bool = True,
+                inplace: bool = False
+                ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """One block in ``mode`` prefill, decode or train (the encoder's).
+    Returns (x', cache').  A mixture of experts' auxiliary loss is
+    dropped: serving never reads it, in either package.  The
+    cross-attention sublayer attends over ``enc_out``; with none it falls
+    back to ``x`` itself, as JAX's does (trap C13)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}")
+    h = rms_norm(x, params["ln1"], cfg.norm_eps)
+    h, new_cache = _mixer(params["mixer"], cfg, kind, h, positions, cache,
+                          span, cache_len, mode, causal, inplace)
     if cfg.post_norms:
         h = rms_norm(h, params["ln1_post"], cfg.norm_eps)
     x = x + h
+    if "cross" in params:
+        h = rms_norm(x, params["cross_ln"], cfg.norm_eps)
+        h, _ = attention(params["cross"], cfg, h, positions, causal=False,
+                         x_kv=enc_out, use_rope=False)
+        x = x + h
     if "ffn" in params:
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
         if cfg.num_experts > 0:

@@ -1,23 +1,34 @@
-"""The decoder LM's serving passes: prefill and decode (port of the serving
-half of ``repro.models.transformer``).
+"""The LM's serving passes: prefill and decode (port of the serving half
+of ``repro.models.transformer``), for every family of the zoo.
 
 Parameters are a plain dict of tensors: ``embed`` [V, d], ``layers`` (a
 list with one block dict per layer, in depth order — the JAX package stacks
 them as ``sb/l{i}`` over superblocks and runs ``lax.scan``; a Python loop
 over the list replaces the scan), ``final_norm`` [d] and, for untied
-embeddings, ``unembed`` [V, d].  The cache is a list with one cache per
-layer: a :class:`repro_torch.models.attention.KVCache` for a global
-attention layer, a :class:`repro_torch.models.attention.LocalKVCache` ring for
-a local one.
+embeddings, ``unembed`` [V, d].  An encoder-decoder (whisper) adds
+``encoder`` (``layers``, JAX's ``encoder/sb/l0`` unstacked, and
+``final_norm``), and its decoder blocks carry cross-attention.  The cache
+is a list with one entry per layer: a
+:class:`repro_torch.models.attention.KVCache` for a global attention
+layer, a :class:`repro_torch.models.attention.LocalKVCache` ring for a
+local one, a recurrent layer's state (float32) for ``rglru``, ``mlstm``
+and ``slstm``.
 
-Encoder-decoder and frontend configs are not ported yet and raise.
+Frontends, as in JAX: a VLM's precomputed patch embeddings are a prefix
+of the prompt (``prefill(frontend_embeds=)``, lengths ``T + Nf``); an
+encoder-decoder's precomputed frame embeddings go through the encoder
+(:func:`_run_encoder`), whose output every decode step takes
+(``decode_step(enc_out=)``).
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch._tensor import I32
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import (Cache, block_apply, init_block,
                                        init_block_cache)
@@ -29,28 +40,70 @@ def _kinds(cfg: ModelConfig) -> List[str]:
     return [pat[i % len(pat)] for i in range(cfg.num_layers)]
 
 
-def _require_decoder_only(cfg: ModelConfig) -> None:
-    if cfg.encoder_layers > 0 or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and frontend models are not "
-            "ported yet")
+def _is_encdec(cfg: ModelConfig) -> bool:
+    return cfg.encoder_layers > 0
+
+
+def prefix_len(cfg: ModelConfig,
+               frontend_embeds: Optional[torch.Tensor]) -> int:
+    """Positions a prefill puts before the prompt: a VLM's patches (an
+    encoder-decoder's frames go to its encoder instead)."""
+    if frontend_embeds is None or _is_encdec(cfg):
+        return 0
+    return frontend_embeds.shape[1]
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, num_experts=0, post_norms=False)
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
     """Random weights from ``gen`` (on ``gen``'s device) with the JAX
     initializers' distributions."""
-    _require_decoder_only(cfg)
+    dev = gen.device
+    cross = _is_encdec(cfg)
     params: Dict[str, Any] = {
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype),
-        "layers": [init_block(gen, cfg, kind, dtype) for kind in _kinds(cfg)],
-        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
-                                  device=gen.device),
+        "layers": [init_block(gen, cfg, kind, dtype, cross=cross)
+                   for kind in _kinds(cfg)],
+        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(gen, (cfg.vocab_size, cfg.d_model),
                                        dtype)
+    if cross:
+        enc_cfg = _encoder_cfg(cfg)
+        params["encoder"] = {
+            "layers": [init_block(gen, enc_cfg, "attn", dtype)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
+                                      device=dev),
+        }
     return params
+
+
+def _run_encoder(params, cfg: ModelConfig,
+                 enc_x: torch.Tensor) -> torch.Tensor:
+    """The encoder over frame embeddings ``enc_x`` [B, S, d]: fixed
+    sinusoidal positions, then the bidirectional stack (K6 with
+    ``causal=False`` in every layer; RoPE when the config has it, as in
+    JAX), then the final norm."""
+    B, S, d = enc_x.shape
+    pos = torch.arange(S, dtype=I32, device=enc_x.device)
+    half = d // 2
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32,
+                                   device=enc_x.device)
+                      * -math.log(10_000.0) / half)
+    ang = pos[:, None].float() * freqs[None, :]
+    pe = torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(enc_x.dtype)
+    x = enc_x + pe[None]
+    positions = pos[None].expand(B, S)
+    enc_cfg = _encoder_cfg(cfg)
+    for bp in params["encoder"]["layers"]:
+        x, _ = block_apply(bp, enc_cfg, "attn", x, positions, mode="train",
+                           causal=False)
+    return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -62,25 +115,32 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 def _serve_pass(params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: List[Cache], cache_len: torch.Tensor, mode: str,
-                span: int, inplace: bool
+                span: int, inplace: bool,
+                enc_out: Optional[torch.Tensor] = None,
+                frontend_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, List[Cache]]:
-    """Embed, run every block, norm and unembed the **last** position only.
+    """Embed (a VLM's patch embeddings first), run every block, norm and
+    unembed the **last** position only.
 
     Trap T3: the JAX pass unembeds every position and ``prefill`` keeps the
     last; at full width that is a [16, 2048, 256000] float32 tensor (33 GB).
     The norm is per position, so unembedding the last one alone gives the
-    same logits."""
-    _require_decoder_only(cfg)
+    same logits; a prefix changes nothing there."""
     B, T = tokens.shape
     x = params["embed"][tokens.long()]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model, dtype=x.dtype).sqrt()
+    if (cfg.frontend != "none" and not _is_encdec(cfg)
+            and frontend_embeds is not None):
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
+        T = x.shape[1]
     positions = cache_len[:, None] + torch.arange(
         T, dtype=cache_len.dtype, device=x.device)[None]
     new_cache = []
     for bp, kind, c in zip(params["layers"], _kinds(cfg), cache):
         x, c = block_apply(bp, cfg, kind, x, positions, cache=c, span=span,
-                           cache_len=cache_len, mode=mode, inplace=inplace)
+                           cache_len=cache_len, enc_out=enc_out, mode=mode,
+                           inplace=inplace)
         new_cache.append(c)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = x @ params.get("unembed", params["embed"]).T
@@ -91,25 +151,45 @@ def _serve_pass(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: List[Cache], cache_len: torch.Tensor, *,
+                enc_out: Optional[torch.Tensor] = None,
                 inplace: bool = False, span: Optional[int] = None
                 ) -> Tuple[torch.Tensor, List[Cache]]:
     """One decode step (``tokens`` i32[B, T], T = 1 for greedy decode)
-    over the caches.  Returns (logits of the last position [B, 1, V],
-    cache').  ``inplace=True`` appends to the given caches; otherwise they
-    are left as they were.  ``span`` is ``cache_len.max() + T``; a caller
-    that knows it on the host passes it, else one host sync reads it."""
+    over the caches, an encoder-decoder's cross-attention over ``enc_out``.
+    Returns (logits of the last position [B, 1, V], cache').
+    ``inplace=True`` appends to the given KV caches; otherwise they are
+    left as they were.  A recurrent state is never written: the pass
+    returns a new one.  ``span`` is ``cache_len.max() + T``; a caller that
+    knows it on the host passes it, else one host sync reads it."""
     if span is None:
         span = int(cache_len.max()) + tokens.shape[1]
     return _serve_pass(params, cfg, tokens, cache, cache_len, "decode",
-                       span, inplace)
+                       span, inplace, enc_out=enc_out)
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: List[Cache], *, inplace: bool = False):
+            cache: List[Cache], *,
+            frontend_embeds: Optional[torch.Tensor] = None,
+            inplace: bool = False):
     """Fill empty caches with a prompt through K6.  Returns (last_logits
-    [B, 1, V], cache', lengths i32[B])."""
+    [B, 1, V], cache', lengths i32[B]).  A VLM's ``frontend_embeds``
+    [B, Nf, d] are a prefix of the prompt and the lengths are ``T + Nf``;
+    an encoder-decoder's are its frames, which the encoder runs over (a
+    caller that decodes runs :func:`_run_encoder` for ``enc_out``, as
+    JAX's callers do).  An encoder-decoder with no frames raises (JAX
+    fails there too, on ``None``: trap C13)."""
     B, T = tokens.shape
+    enc_out, fe = None, frontend_embeds
+    if _is_encdec(cfg):
+        if frontend_embeds is None:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder: prefill needs its frame "
+                "embeddings (frontend_embeds); the JAX package fails here "
+                "too (trap C13)")
+        enc_out, fe = _run_encoder(params, cfg, frontend_embeds), None
+    total = T + prefix_len(cfg, frontend_embeds)
     zeros = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
     logits, cache = _serve_pass(params, cfg, tokens, cache, zeros, "prefill",
-                                T, inplace)
-    return logits, cache, zeros + T
+                                total, inplace, enc_out=enc_out,
+                                frontend_embeds=fe)
+    return logits, cache, zeros + total

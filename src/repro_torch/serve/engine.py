@@ -9,7 +9,9 @@ lengths (``snapshot_lengths``, the paper's ``search(t)``) while decode keeps
 writing, and obsolete descriptor versions are reclaimed by the configured
 policy.  The model's cache is updated in place by ``prefill_step`` and
 ``decode_one`` (the engine owns it; a ServeState handed to them is consumed),
-and never by the readers: ``snapshot_score`` scores in a copy.
+and never by the readers: ``snapshot_score`` scores in a copy.  A recurrent
+layer's state (RG-LRU, mLSTM, sLSTM) is replaced by each pass, never
+written in place.
 
 **PagedKVEngine** is the paged-KV serving loop with synchronous pressure
 reclamation.  ``step`` appends one token per masked sequence.  A failed
@@ -51,7 +53,7 @@ from repro_torch.serve.forking import ForkDAG
 
 class ServeState(NamedTuple):
     params: Any
-    cache: Any                     # a KVCache or LocalKVCache per layer
+    cache: Any                     # per layer: a KV cache, ring or state
     cache_len: torch.Tensor        # i32[B]
     mv: vstore.MVState             # versioned cache descriptors
     last_tokens: torch.Tensor      # i32[B, 1]
@@ -83,10 +85,16 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
 
 
 def prefill_step(state: ServeState, cfg: ModelConfig, run: RunConfig,
-                 tokens: torch.Tensor) -> ServeState:
+                 tokens: torch.Tensor,
+                 frontend_embeds: Optional[torch.Tensor] = None
+                 ) -> ServeState:
     """Prefill through K6 into the state's cache (in place), then write one
-    descriptor version per sequence."""
+    descriptor version per sequence.  ``frontend_embeds`` are a VLM's patch
+    embeddings (a prefix: the lengths are ``T + Nf``) or an
+    encoder-decoder's frames, as in :func:`repro_torch.models.transformer.
+    prefill`."""
     logits, cache, lens = tf.prefill(state.params, cfg, tokens, state.cache,
+                                     frontend_embeds=frontend_embeds,
                                      inplace=True)
     B = tokens.shape[0]
     ids = torch.arange(B, dtype=I32, device=lens.device)
@@ -95,15 +103,16 @@ def prefill_step(state: ServeState, cfg: ModelConfig, run: RunConfig,
                                         device=lens.device),
         policy=run.gc.policy)
     return ServeState(state.params, cache, lens, mv, _greedy(logits),
-                      tokens.shape[1])
+                      tokens.shape[1] + tf.prefix_len(cfg, frontend_embeds))
 
 
-def decode_one(state: ServeState, cfg: ModelConfig, run: RunConfig
+def decode_one(state: ServeState, cfg: ModelConfig, run: RunConfig,
+               enc_out: Optional[torch.Tensor] = None
                ) -> Tuple[ServeState, torch.Tensor, torch.Tensor,
                           Dict[str, torch.Tensor]]:
     """One greedy decode step for the whole batch, appending to the cache in
-    place.  Returns (state', new_tokens[B, 1], freed_descriptor_payloads,
-    stats).
+    place (an encoder-decoder's cross-attention over ``enc_out``).  Returns
+    (state', new_tokens[B, 1], freed_descriptor_payloads, stats).
 
     After the descriptor write the capacity gate decides: under pressure (a
     watermark crossed, or a lane's append overflowed its slab) the step
@@ -114,7 +123,8 @@ def decode_one(state: ServeState, cfg: ModelConfig, run: RunConfig
     int32 scalars, equal to the JAX engine's."""
     policy = run.gc.policy
     logits, cache = tf.decode_step(state.params, cfg, state.last_tokens,
-                                   state.cache, state.cache_len, inplace=True,
+                                   state.cache, state.cache_len,
+                                   enc_out=enc_out, inplace=True,
                                    span=state.longest + 1)
     new_len = state.cache_len + 1
     B = new_len.shape[0]
@@ -187,10 +197,14 @@ def _score_prefix(c, span: int):
     """The part of one layer's cache that a pass at ``span`` reads: the
     first ``span`` columns of a global cache; of a local ring, its first
     ``min(span, W)`` slots (``LocalKVCache`` k, v and pos), which are the
-    same ring for such a pass (see ``attention._local_ring_decode``)."""
+    same ring for such a pass (see ``attention._local_ring_decode``); a
+    recurrent state whole (the pass returns a new state and leaves it as
+    it is)."""
     if isinstance(c, LocalKVCache):
         return LocalKVCache(c.k[:, :span], c.v[:, :span], c.pos[:, :span])
-    return KVCache(c.k[:, :span], c.v[:, :span])
+    if isinstance(c, KVCache):
+        return KVCache(c.k[:, :span], c.v[:, :span])
+    return c
 
 
 def snapshot_score(state: ServeState, cfg: ModelConfig, tokens: torch.Tensor,
@@ -210,7 +224,16 @@ def snapshot_score(state: ServeState, cfg: ModelConfig, tokens: torch.Tensor,
     Trap C10 (a JAX fault, reproduced): a local ring keeps only the last
     ``W`` positions, and decode overwrites a slot whether or not a pinned
     reader's window still covers it, so once the ring wraps a pinned
-    snapshot's score changes, in both packages alike."""
+    snapshot's score changes, in both packages alike.
+
+    Trap C12 (a JAX fault, reproduced): only the lengths are versioned.  A
+    recurrent layer's state is its state now, so a reader pinned at ``t``
+    scores against the newest state, not the state at ``t``, and its score
+    changes with every decode step, in both packages alike.
+
+    Trap C13 (a JAX fault, reproduced): no ``enc_out`` is passed, so an
+    encoder-decoder's cross-attention falls back to the scored tokens
+    themselves, not the encoder's output, as in JAX."""
     lens = snapshot_lengths(state, t)
     span = int(lens.max()) + tokens.shape[1]
     prefix = [_score_prefix(c, span) for c in state.cache]

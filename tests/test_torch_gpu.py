@@ -989,12 +989,15 @@ def test_mv_serve_engine_on_the_card(cuda):
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "granite-moe-1b-a400m",
-                                  "deepseek-moe-16b"])
+                                  "deepseek-moe-16b", "recurrentgemma-9b",
+                                  "xlstm-125m", "internvl2-2b"])
 def test_new_families_on_the_card_match_the_cpu(cuda, arch):
-    """Reduced gemma2-2b (its 16-slot rings wrap in this trace) and the
-    two MoE models in float32: the card's engine against the CPU's on the
-    same weights: tokens and GC stats equal at every step, a pinned
-    reader's score within 1e-4, and the rings' positions equal."""
+    """Reduced gemma2-2b (its 16-slot rings wrap in this trace), the two
+    MoE models, the recurrent families and internvl2-2b (no patches) in
+    float32: the card's engine against the CPU's on the same weights:
+    tokens and GC stats equal at every step, a pinned reader's score
+    within 1e-4 (a recurrent one scores the newest state on both: C12),
+    and the rings' positions equal."""
     cfg = reduced_config(arch)
     run = RunConfig(model=cfg, shape=SHAPES["decode_32k"],
                     versions_per_slot=4, reader_lanes=4)
@@ -1025,6 +1028,152 @@ def test_new_families_on_the_card_match_the_cpu(cuda, arch):
     for a, b in zip(g.state.cache, c.state.cache):
         if hasattr(a, "pos"):
             assert torch.equal(a.pos.cpu(), b.pos)
+
+
+# K6 at the shapes the last four families serve it (chip_smoke.py's FLASH
+# cases of phases 6d and 6g, at a batch of 2): whisper-tiny's encoder
+# (1500 frames, 6 heads of 64, bidirectional), its cross-attention at a
+# prefill of 64 tokens and at one decode row (127 idle rows of the bf16
+# route's 128-row tile; S = 1500 ends inside a KV tile), and a
+# recurrentgemma-9b local layer (16 query heads over one KV head, D 256,
+# window 2048 over 1984 tokens)
+FAMILY_FLASH = {
+    # B, Hq, Hkv, T, S, D, causal, window
+    "whisper_encoder": (2, 6, 6, 1500, 1500, 64, False, 0),
+    "whisper_cross_prefill": (2, 6, 6, 64, 1500, 64, False, 0),
+    "whisper_cross_decode": (2, 6, 6, 1, 1500, 64, False, 0),
+    "recurrentgemma_local": (1, 16, 1, 1984, 1984, 256, True, 2048),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FAMILY_FLASH))
+def test_flash_prefill_at_the_last_families_shapes(cuda, case, dtype):
+    """K6 against ``attention_ref`` on the card within DECODE_TOL; in bf16
+    plus what rounding P to bf16 can move an output by (2**-8 of
+    sum_j p_j |v_j|, the plain version on |V|), as phase 3's rows hold
+    it; two calls give the same bits."""
+    B, Hq, Hkv, T, S, D, causal, window = FAMILY_FLASH[case]
+    q, k, v = flash_inputs(cuda, dtype, B, Hq, Hkv, T, S, D, seed=4)
+    kw = dict(causal=causal, window=window)
+    got = flash_ops.flash_attention(q, k, v, **kw)
+    want = attention_ref(q, k, v, **kw).float()
+    assert got.shape == q.shape and bool(torch.isfinite(got.float()).all())
+    tol = DECODE_TOL[dtype]
+    limit = tol["atol"] + tol["rtol"] * want.abs()
+    if dtype == torch.bfloat16:
+        limit = limit + 2**-8 * attention_ref(q, k, v.abs(), **kw).float()
+    assert bool(((got.float() - want).abs() <= limit).all()), \
+        float((got.float() - want).abs().max())
+    assert torch.equal(got, flash_ops.flash_attention(q, k, v, **kw))
+
+
+def _layer_on(device, arch, seed):
+    """One full-width layer of ``arch`` (its first kind) in float32 from a
+    seeded generator on the CPU, and the inputs, on ``device``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import init_block, init_block_cache
+    cfg = get_config(arch)
+    kind = cfg.layer_pattern[0]
+    p = init_block(torch.Generator().manual_seed(seed), cfg, kind)
+    x = torch.randn((2, 100, cfg.d_model),
+                    generator=torch.Generator().manual_seed(seed + 1)) * 0.5
+    steps = torch.randn((3, 2, 1, cfg.d_model),
+                        generator=torch.Generator().manual_seed(seed + 2)) \
+        * 0.5
+    state = init_block_cache(cfg, kind, 2, 0, device=device)
+
+    def to(t):
+        if isinstance(t, dict):
+            return {k: to(v) for k, v in t.items()}
+        return t.to(device)
+
+    return cfg, kind, to(p), x.to(device), steps.to(device), state
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-125m"])
+def test_full_width_recurrent_layer_on_the_card_matches_the_cpu(cuda, arch):
+    """One layer at full published width in float32: recurrentgemma-9b's
+    RG-LRU block (d_model and rnn_width 4096, its MLP of 12288) and
+    xlstm-125m's mLSTM block (768 wide, 4 heads of 384): a prefill of 100
+    tokens (the log-depth scan; chunks of 64, a ragged tail) and 3 decode
+    steps on the card against the same on the CPU: outputs within 1e-4 and
+    states within 1e-5 relative (the GEMMs sum in other orders; TF32
+    off)."""
+    from repro_torch.models.blocks import block_apply
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        cfg, kind, p, x, steps, state = _layer_on(dev, arch, 5)
+        pos = torch.zeros((2, 100), dtype=torch.int32, device=dev)
+        y, state = block_apply(p, cfg, kind, x, pos, cache=state,
+                               mode="prefill")
+        ys = [y]
+        for s in steps:
+            y, state = block_apply(p, cfg, kind, s, pos[:, :1], cache=state,
+                                   mode="decode")
+            ys.append(y)
+        outs.append(([t.cpu() for t in ys], [t.cpu() for t in state]))
+    (card_y, card_state), (cpu_y, cpu_state) = outs
+    for a, b in zip(card_y, cpu_y, strict=True):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    for a, b in zip(card_state, cpu_state, strict=True):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "whisper-tiny"])
+def test_frontend_steps_on_the_card_match_the_cpu(cuda, arch):
+    """Reduced internvl2-2b with 8 patch embeddings and whisper-tiny over
+    16 frames in float32 through ``prefill_step`` and ``decode_one`` (with
+    ``enc_out``), on the card against the CPU: tokens and stats equal at
+    every step, the last logits of a decode within 1e-4; K6 runs in every
+    attention layer, the encoder's and the cross-attention included."""
+    from repro_torch.serve import engine as tengine
+    cfg = reduced_config(arch)
+    run = RunConfig(model=cfg, shape=SHAPES["decode_32k"],
+                    versions_per_slot=4, reader_lanes=4)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 9))
+                              .astype(np.int32))
+    fe = torch.from_numpy((rng.standard_normal(
+        (4, cfg.encoder_tokens or cfg.frontend_tokens, cfg.d_model)) * 0.02)
+        .astype(np.float32))
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        p = _to_device(params, dev)
+        st = tengine.make_serve_state(cfg, run, p, 4, 32, torch.float32, dev)
+        before = flash_ops.flash_attention.launches
+        st = tengine.prefill_step(st, cfg, run, tokens.to(dev), fe.to(dev))
+        enc = (tf._run_encoder(p, cfg, fe.to(dev)) if cfg.encoder_layers
+               else None)
+        log = []
+        for _ in range(6):
+            st, toks, _, stats = tengine.decode_one(st, cfg, run,
+                                                    enc_out=enc)
+            log.append((toks.cpu().tolist(),
+                        {k: int(v) for k, v in stats.items()}))
+        launched = flash_ops.flash_attention.launches - before
+        logits, _ = tf.decode_step(p, cfg, st.last_tokens, st.cache,
+                                   st.cache_len, enc_out=enc)
+        runs.append((log, logits.cpu(), launched))
+    card, host = runs
+    assert card[0] == host[0]
+    torch.testing.assert_close(card[1], host[1], atol=1e-4, rtol=1e-4)
+    # prefill: every layer's self-attention (whisper: its encoder, and
+    # cross-attention in every layer); whisper: the caller's encoder pass,
+    # then cross-attention in every layer of the 6 decode steps
+    attn, enc = cfg.num_layers, cfg.encoder_layers
+    want = attn if not enc else (enc + 2 * attn) + enc + 6 * attn
+    assert card[2] == want and host[2] == 0
+
+
+def _to_device(x, dev):
+    if isinstance(x, dict):
+        return {k: _to_device(v, dev) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_to_device(v, dev) for v in x]
+    return x.to(dev)
 
 
 @pytest.mark.parametrize("dispatch", ["global", "grouped"])

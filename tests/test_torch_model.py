@@ -2,9 +2,11 @@
 
 ``rms_norm``, ``rope``, the MLP, attention (prefill and decode, decode
 including a write at position L-1 and a dropped write at L), and the whole
-model's ``prefill`` and ``decode_step`` at reduced widths, in float32.  The
-inputs are numpy arrays from a seed; JAX parameters cross over with
-``repro_torch.convert``.  Tolerances: logits and activations within
+model's ``prefill`` and ``decode_step`` at reduced widths, in float32 (the
+recurrent families' states too), and the parameter trees of the last four
+families against JAX's.  The inputs are numpy arrays from a seed; JAX
+parameters cross over with ``repro_torch.convert``.  Tolerances: logits
+and activations within
 atol = rtol = 1e-4 (matmuls and the flash softmax sum in other orders; the
 port's prefill runs K6's plain version, which scales the float32 logits,
 where JAX's ``_xla_flash`` scales ``q`` first), KV caches within 1e-5 (one
@@ -25,12 +27,13 @@ from repro.models import mlp as jmlp
 from repro.models import transformer as jtf
 
 from repro_torch.configs import reduced_config
-from repro_torch.convert import params_from_numpy, tensor_from_numpy
+from repro_torch.convert import (_per_layer, params_from_numpy,
+                                 tensor_from_numpy)
 from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
 from repro_torch.models import mlp as tmlp
 from repro_torch.models import transformer as ttf
-from repro_torch.models.blocks import block_apply, init_block_cache
+from repro_torch.models.blocks import init_block_cache
 
 LOGITS = dict(atol=1e-4, rtol=1e-4)
 CACHE = dict(atol=1e-5, rtol=1e-5)
@@ -157,16 +160,32 @@ def _model(arch, seed=0, **overrides):
     return cfg_j, cfg_t, pj, params_from_numpy(cfg_t, pj, "cpu")
 
 
-def _cache_np(cfg_j, cache):
-    """JAX stacked cache -> [(k, v)] per layer as numpy."""
-    k, v = np.asarray(cache["sb"]["l0"].k), np.asarray(cache["sb"]["l0"].v)
-    return [(k[i], v[i]) for i in range(cfg_j.num_layers)]
+def assert_caches(cfg_j, cache_j, cache_t):
+    """A JAX stacked cache (KV caches, rings, recurrent states) against
+    the port's per-layer list: every field within ``CACHE``, a ring's
+    ``pos`` exactly."""
+    layers = _per_layer(cfg_j, cache_j)
+    assert len(layers) == len(cache_t) == cfg_j.num_layers
+    for i, (cj, ct) in enumerate(zip(layers, cache_t)):
+        assert cj._fields == ct._fields, i
+        for f, a, b in zip(cj._fields, cj, ct):
+            if f == "pos":
+                np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+            else:
+                np.testing.assert_allclose(b.numpy(), np.asarray(a),
+                                           err_msg=f"layer {i} {f}",
+                                           **CACHE)
 
 
 @pytest.mark.parametrize("arch,overrides", [
     ("minitron-4b", {}), ("starcoder2-7b", {}),
-    ("minitron-4b", GEMMA_STYLE)], ids=["minitron", "starcoder2", "softcaps"])
+    ("minitron-4b", GEMMA_STYLE), ("xlstm-125m", {}),
+    ("recurrentgemma-9b", {})],
+    ids=["minitron", "starcoder2", "softcaps", "xlstm", "recurrentgemma"])
 def test_prefill_then_decode_matches_jax(arch, overrides):
+    """xlstm-125m's mLSTM and sLSTM states and recurrentgemma-9b's RG-LRU
+    states and local rings too (T 13 over the reduced mLSTM's chunks of 8:
+    a ragged tail)."""
     cfg_j, cfg_t, pj, pt = _model(arch, 1, **overrides)
     B, T, L = 3, 13, 24
     rng = np.random.default_rng(11)
@@ -177,34 +196,61 @@ def test_prefill_then_decode_matches_jax(arch, overrides):
     lt, ct, lens_t = ttf.prefill(pt, cfg_t, torch.from_numpy(tokens), ct)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **LOGITS)
     np.testing.assert_array_equal(lens_t.numpy(), np.asarray(lens_j))
-    for (kj, vj), c in zip(_cache_np(cfg_j, cj), ct):
-        np.testing.assert_allclose(c.k.numpy(), kj, **CACHE)
-        np.testing.assert_allclose(c.v.numpy(), vj, **CACHE)
+    assert_caches(cfg_j, cj, ct)
 
     step = rng.integers(0, cfg_j.vocab_size, (B, 1)).astype(np.int32)
     dj, cj2 = jtf.decode_step(pj, cfg_j, jnp.asarray(step), cj, lens_j)
     dt, ct2 = ttf.decode_step(pt, cfg_t, torch.from_numpy(step), ct, lens_t)
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), **LOGITS)
-    for (kj, vj), c in zip(_cache_np(cfg_j, cj2), ct2):
-        np.testing.assert_allclose(c.k.numpy(), kj, **CACHE)
-        np.testing.assert_allclose(c.v.numpy(), vj, **CACHE)
+    assert_caches(cfg_j, cj2, ct2)
+
+
+def _leaves(tree, prefix=""):
+    """{path: tensor or array} of nested dicts and lists."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_leaves(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
 
 
 @pytest.mark.parametrize("arch", ["xlstm-125m", "internvl2-2b",
                                   "recurrentgemma-9b", "whisper-tiny"])
-def test_unported_families_raise(arch):
-    """mLSTM/sLSTM, the VLM frontend, RG-LRU and the encoder-decoder wait
-    for later slices."""
-    cfg = reduced_config(arch)
-    with pytest.raises(NotImplementedError):
-        ttf.init_params(cfg, torch.Generator().manual_seed(0))
-    if cfg.encoder_layers or cfg.frontend != "none":   # blocks are "attn"
-        return
-    x = torch.zeros((1, 2, cfg.d_model))
-    with pytest.raises(NotImplementedError):
-        block_apply({}, cfg, cfg.layer_pattern[0], x,
-                    torch.zeros((1, 2), dtype=torch.int32), cache=None,
-                    span=2)
+def test_family_params_match_the_jax_tree(arch):
+    """The four families of the last slice: ``params_from_numpy`` of JAX's
+    ``init_params`` and the port's own ``init_params`` give the same keys,
+    shapes and dtypes, in float32 and in bf16 (the gate leaves that both
+    packages make float32 stay float32: RG-LRU's ``wa``, ``ba``, ``wx``,
+    ``bx``, ``lambda``, the mLSTM's ``w_if``, the sLSTM's ``b``), and the
+    JAX tree's leaves, unstacked, are the port's values."""
+    cfg_j, cfg_t = jax_reduced(arch), reduced_config(arch)
+    pj = jtf.init_params(cfg_j, jax.random.PRNGKey(2))
+    f32 = {"wa", "ba", "wx", "bx", "lambda", "w_if", "b"}
+    for dtype in (torch.float32, torch.bfloat16):
+        got = _leaves(params_from_numpy(cfg_t, pj, "cpu", dtype=dtype))
+        own = _leaves(ttf.init_params(cfg_t, torch.Generator().manual_seed(0),
+                                      dtype))
+        assert sorted(got) == sorted(own)
+        for path, x in own.items():
+            assert got[path].shape == x.shape, path
+            assert got[path].dtype == x.dtype, path
+            name = path.rsplit("/", 1)[-1]
+            want = torch.float32 if "/mixer/" in path and name in f32 \
+                else dtype
+            assert x.dtype == want, path
+    if cfg_t.encoder_layers:
+        enc = _leaves(params_from_numpy(cfg_t, pj, "cpu")["encoder"])
+        assert len({p.split("/")[1] for p in enc if p.startswith("layers")}) \
+            == cfg_t.encoder_layers
+        np.testing.assert_array_equal(
+            enc["layers/1/mixer/wq"].numpy(),
+            np.asarray(pj["encoder"]["sb"]["l0"]["mixer"]["wq"])[1])
+        assert "cross" in params_from_numpy(cfg_t, pj, "cpu")["layers"][0]
 
 
 def test_init_matches_the_jax_distributions():

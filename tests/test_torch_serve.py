@@ -1,7 +1,8 @@
 """The port's ``MVServeEngine`` against the JAX engine, both in float32.
 
 One trace per GC policy (all five) and model family (dense minitron-4b,
-gemma2-2b's local ring caches, granite-moe-1b-a400m's mixture of experts):
+gemma2-2b's local ring caches, granite-moe-1b-a400m's mixture of experts,
+xlstm-125m's mLSTM/sLSTM and recurrentgemma-9b's RG-LRU with local rings):
 a prefill of 4 x 16 tokens, 12 greedy decode steps, snapshot readers
 pinned on two lanes, ``lengths_at``, ``snapshot_score`` and ``unpin``.
 Four versions per slot make the pressure branch fire.  Every step's
@@ -41,8 +42,10 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 POLICIES = ["slrt", "ebr", "dlrt", "steam", "sweep"]
 # a dense model, local ring caches (the reduced window of 16 wraps during
 # the trace: the scores are compared as both packages compute them, C10
-# included) and a mixture of experts
-FAMILIES = ["minitron-4b", "gemma2-2b", "granite-moe-1b-a400m"]
+# included), a mixture of experts, and the recurrent families (their
+# scores follow the newest state in both packages: C12)
+FAMILIES = ["minitron-4b", "gemma2-2b", "granite-moe-1b-a400m",
+            "xlstm-125m", "recurrentgemma-9b"]
 
 
 def engines(policy, arch=ARCH, **overrides):
