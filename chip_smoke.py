@@ -32,8 +32,13 @@ Phases, each printing one JSON line:
    and at one decode row; a recurrentgemma-9b local layer, 16 query heads
    over one KV head at D 256, window 2048), with SDPA's time where it
    computes the same function, and in float32 (its CUDA-core route; bf16
-   takes the wgmma+TMA kernel); the redesigned rows carry their route, their share
-   of the bound and their time before the redesign as an earlier run
+   takes the wgmma+TMA kernel); K6b, the gradient kernel pair, against
+   attention_bwd_ref from K6's own output and row LSE at gemma2-2b's
+   training layers (T 4096, D 256, softcap 50, window 4096, none and 512),
+   minitron-4b's heads and whisper-tiny's cross-attention, float32, with
+   the backward of SDPA (torch.autograd.grad) as its yardstick where SDPA
+   computes the same function; the redesigned rows carry their route,
+   their share of the bound and their time before the redesign as an earlier run
    recorded it (ms_before_recorded, not measured here); needed (K5, which no
    serving path calls) at compact's shape and at
    ``benchmarks/kernel_bench.py``'s two largest compact shapes;
@@ -121,11 +126,25 @@ Phases, each printing one JSON line:
    reclaim; run to 64 steps past the last crossing; the launch counts
    are zeroed just before this phase and read just after, then a
    profiled window;
+10b. train — gemma2-2b at its full published widths and depth in float32
+   (JAX's training dtype): init_state on the card, then 8 train_step's of
+   B 1 x T 4096 from SyntheticLM (train_4k's global batch of 256 cut to 1
+   for one card); at every step the loss, the gradient norm and every
+   parameter finite, the lr equal to cosine_schedule, the parameters
+   unchanged by step 0 (lr 0) and moved by step 1; K6 twice per attention
+   layer and step (forward and the checkpoint's recompute) and K6b once,
+   both counted from zero over the 8 steps; step seconds, tokens/s, peak
+   memory and a profiled step's idle share; then the launcher's
+   crash/resume at reduced gemma2-2b on the card (exit 42, resume from
+   step 5, the losses against the uninterrupted run's, a TrainState saved
+   and restored bit-equal) and reduced minitron-4b's 30 steps with and
+   without gradient compression (the loss must fall by 0.1 and 0.2);
 11. the kernel table as one JSON line, each kernel with the wrapper route
    the main path ran (kernel_route) and only numbers measured in this run
    (bound_ms computed from its inputs) and its launches in each phase
    that drives a path (launches_model, _gemma2, _gemma2_ring, _moe,
-   _recurrentgemma, _xlstm, _vlm, _whisper, _durability, _dist); K1's,
+   _recurrentgemma, _xlstm, _vlm, _whisper, _durability, _dist, _train;
+   K6b's main path is phase 10b's training); K1's,
    K2's and K3's rows carry
    their main-path op (sweep, view, value_at) beside the chain it
    replaced and the parity op (compact, search_gather, search), each at
@@ -142,6 +161,7 @@ import json
 import math
 import os
 import random
+import re
 import subprocess
 import sys
 import tempfile
@@ -169,11 +189,17 @@ from repro_torch.kernels.compact.ref import (  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import paged_decode_ref  # noqa: E402
 from repro_torch.kernels.flash_prefill import ops as flash_ops  # noqa: E402
-from repro_torch.kernels.flash_prefill.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_prefill.ref import (  # noqa: E402
+    attention_bwd_ref, attention_lse_ref, attention_ref)
 from repro_torch.kernels.version_search import ops as search_ops  # noqa: E402
 from repro_torch.kernels.version_search.ref import (  # noqa: E402
     search_gather_ref, search_ref, value_at_ref, view_ref)
+from repro_torch.ckpt.manager import CheckpointManager  # noqa: E402
+from repro_torch.configs import reduced_config  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch import serve as launcher  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.train.step import init_state, train_step  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.attention import KVCache  # noqa: E402
 from repro_torch.serve import forking  # noqa: E402
@@ -254,6 +280,43 @@ FLASH.update({f"{name}{sfx}": dict(c, softcap=0.0, **kw)
               for name, c in FAMILY_FLASH.items()
               for sfx, kw in (("", dict(dtype="bf16", p_rounding=True)),
                               ("_f32", dict(dtype="f32")))})
+# phase 3's K6b cases (float32, K6b's only route): gemma2-2b's training
+# layers at phase 10b's shape (B 1, T 4096, D 256, softcap 50; its local
+# layers' window 4096 covers the sequence, so they and its global layers
+# compute the same function and one row stands for both) and a window of
+# 512, minitron-4b's heads, whisper-tiny's
+# cross-attention (64 rows over 1500 frames, bidirectional).  "gemma2_train"
+# is the kernel table's row
+FLASH_BWD = {
+    "gemma2_train": dict(B=1, Hq=8, Hkv=4, T=4096, D=256, window=4096,
+                         softcap=50.0),
+    "gemma2_window512": dict(B=1, Hq=8, Hkv=4, T=4096, D=256, window=512,
+                             softcap=50.0),
+    "minitron": dict(B=4, Hq=24, Hkv=8, T=2048, D=128, window=0,
+                     softcap=0.0),
+    "whisper_cross": dict(B=16, Hq=6, Hkv=6, T=64, S=1500, D=64, window=0,
+                          softcap=0.0, causal=False),
+}
+# K6b against attention_bwd_ref: both sum in float32 in other orders over
+# up to 4096 columns; the atol is about 4x the largest difference the first
+# card run of these kernels measured at gemma2-2b's training shape (2.8e-5
+# on dv, whose entries reach 7)
+FLASH_BWD_TOL = dict(atol=1e-4, rtol=1e-4)
+# phase 10b: gemma2-2b at its full published widths and depth, float32 as
+# JAX's init_state makes it, B 1 x T 4096 (train_4k's sequence; its global
+# batch of 256 cut to 1 for one card), 8 steps from SyntheticLM at the
+# launcher's learning rate; then the launcher's crash/resume at reduced
+# widths on the card, and reduced minitron-4b's 30 steps with and without
+# gradient compression (JAX's test_compression_path_trains)
+TRAIN = dict(arch="gemma2-2b", batch=1, seq_len=4096, steps=8, lr=3e-3,
+             seed=0)
+TRAIN_RESUME = ["--arch", "gemma2-2b", "--reduced", "--device", "cuda",
+                "--steps", "12", "--ckpt-every", "5", "--log-every", "1"]
+TRAIN_COMPRESSION = dict(arch="minitron-4b", steps=30, seq_len=32, batch=8,
+                         copy_period=8, lr=3e-3, fall=0.1, fall_plain=0.2)
+# resumed losses against the uninterrupted run's (the same steps from the
+# same bits; CUDA's index backward of the embedding may sum with atomics)
+RESUME_RTOL = 1e-5
 # phase 6: the launcher's flags (minitron-4b at full width, no --reduced)
 MODEL_ARGS = ["--arch", "minitron-4b", "--batch", "16", "--prompt-len",
               "2048", "--max-len", "4096", "--steps", "64", "--pin-every",
@@ -428,6 +491,9 @@ KERNELS = {
                      "src/repro/kernels/decode_attention/kernel.py:114"),
     "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                       "src/repro/kernels/flash_prefill/kernel.py:125"),
+    # K6b has no pallas_call: JAX differentiates _xla_flash by autodiff
+    "flash_backward": ("src/repro_torch/csrc/flash_backward.cu",
+                       "src/repro/models/attention.py:58"),
 }
 # device ms of K3-K6 before their redesign, recorded in earlier runs
 # (PERF.md section 6, "NVIDIA H100 80GB HBM3, 700.00 W"), not measured
@@ -454,7 +520,8 @@ WRAPPERS = {"compact": compact_ops.compact,
             "search": search_ops.search,
             "value_at": search_ops.value_at,
             "paged_decode": decode_ops.paged_decode,
-            "flash_prefill": flash_ops.flash_attention}
+            "flash_prefill": flash_ops.flash_attention,
+            "flash_backward": flash_ops.flash_attention_backward}
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
@@ -620,6 +687,7 @@ def phase_kernels(dev) -> dict:
 
     out.update(decode_cases(dev, g, gd))
     out.update(flash_cases(dev))
+    out.update(flash_backward_cases(dev))
     for name, row in out.items():
         emit({"phase": "kernels", "kernel": name, **row})
     return out
@@ -1126,6 +1194,79 @@ def flash_cases(dev) -> dict:
         rows[name] = dict(row, share_of_bound=b_ms / row["ms"],
                           ms_before_recorded=MS_BEFORE_RECORDED.get(name))
         del q, k, v, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def flash_backward_cases(dev) -> dict:
+    """K6b against attention_bwd_ref at phase 3's FLASH_BWD shapes, from
+    K6's own output and row LSE; the "gemma2_train" case is the kernel
+    table's row.  The yardstick is torch.autograd.grad through SDPA (its
+    backward only) where SDPA computes the same function: no softcap, and
+    a window that covers the sequence or none."""
+    gd = torch.Generator(device=dev).manual_seed(7)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for case, c in FLASH_BWD.items():
+        B, Hq, Hkv, T, D = c["B"], c["Hq"], c["Hkv"], c["T"], c["D"]
+        S, causal = c.get("S", T), c.get("causal", True)
+        kw = dict(causal=causal, window=c["window"], softcap=c["softcap"])
+        q = torch.randn((B, Hq, T, D), generator=gd, device=dev)
+        k = torch.randn((B, Hkv, S, D), generator=gd, device=dev)
+        v = torch.randn((B, Hkv, S, D), generator=gd, device=dev)
+        do = torch.randn((B, Hq, T, D), generator=gd, device=dev)
+        o, lse = flash_ops._launch(q, k, v, causal, c["window"],
+                                   c["softcap"], lse=True)
+        o_ref, lse_ref = attention_lse_ref(q, k, v, **kw)
+        check(max_err([o, lse], [o_ref, lse_ref]) <= 1e-4,
+              f"flash_backward {case}: K6's output or LSE off the plain "
+              "version")
+        del o_ref, lse_ref
+
+        def kernel():
+            return flash_ops.flash_attention_backward(q, k, v, o, do, lse,
+                                                      **kw)
+
+        def plain():
+            return attention_bwd_ref(q, k, v, o, do, lse, **kw)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"flash_backward {case} not finite")
+        check(all(torch.allclose(g, w, **FLASH_BWD_TOL)
+                  for g, w in zip(got, want)),
+              f"flash_backward {case} differs from plain version (max {err})")
+        check(all(torch.equal(a, b) for a, b in zip(got, kernel())),
+              f"flash_backward {case} not deterministic")
+        del got, want
+        library = None
+        if (c["window"] == 0 or c["window"] >= T) and c["softcap"] == 0:
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            out_lib = sdpa(*leaves, is_causal=causal, enable_gqa=True)
+
+            def library():
+                return torch.autograd.grad(out_lib, leaves, do,
+                                           retain_graph=True)
+        # read q, k, v, o, dO and the LSE once, write dq, dk, dv once;
+        # five T x S x D products per query head over the visible pairs
+        nbytes = 4 * (3 * B * Hq * T * D + 2 * B * Hkv * S * D + B * Hq * T
+                      + B * Hq * T * D + 2 * B * Hkv * S * D)
+        ops = 10.0 * B * Hq * D * visible_pairs(T, c["window"], S, causal)
+        b_ms, b_by = bound(nbytes, ops, "f32")
+        name = ("flash_backward" if case == "gemma2_train"
+                else f"flash_backward_{case}")
+        row = dict(shape=f"B={B} Hq={Hq} Hkv={Hkv} T={T} S={S} D={D} "
+                         f"causal={causal} window={c['window']} "
+                         f"softcap={c['softcap']} f32",
+                   route="cuda-core-f32", max_abs_err=err, **FLASH_BWD_TOL,
+                   bound_ms=b_ms, bound_by=b_by,
+                   library_what=None if library is None else
+                   "torch.autograd.grad through SDPA (its backward)",
+                   **timed(kernel, plain, library))
+        rows[name] = dict(row, share_of_bound=b_ms / row["ms"])
+        del q, k, v, do, o, lse, library
         torch.cuda.empty_cache()
     return rows
 
@@ -2079,7 +2220,7 @@ def profile_window(decode_step, steps: int = 16, name: str = "serve") -> dict:
                                     "needed_kernel", "search_kernel",
                                     "search_gather_kernel",
                                     "view_kernel", "paged_decode_kernel",
-                                    "flash_prefill_kernel"))}
+                                    "flash_prefill_kernel", "flash_bwd_"))}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", f"{name}_profile.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cpu_time_total",
@@ -2509,6 +2650,185 @@ def phase_gemma2_ring(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10b: training on the card
+# ---------------------------------------------------------------------------
+def _batch(data: SyntheticLM, dev) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+
+
+def _all_finite(tensors) -> bool:
+    return bool(torch.stack([torch.isfinite(x).all() for x in tensors]).all())
+
+
+def train_full_width(dev) -> dict:
+    """gemma2-2b at full width: init_state on the card in float32, then
+    TRAIN's steps from SyntheticLM; every step's loss, gradient norm and
+    parameters finite, its lr equal to cosine_schedule's, the parameters
+    unchanged by step 0 (lr 0) and moved by step 1; K6 twice per attention
+    layer and step (forward and the checkpoint's recompute), K6b once."""
+    p = TRAIN
+    cfg = get_config(p["arch"])
+    run = RunConfig(model=cfg, shape=SHAPES["train_4k"], lr=p["lr"])
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(
+        p["seed"]))
+    n_params = tf.param_count(state.params)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, p["seq_len"], p["batch"]))
+    n_attn = attention_layers(cfg)
+    probe = state.params["layers"][0]["mixer"]["wq"]
+    for w in WRAPPERS.values():
+        w.launches = 0
+    wgmma0 = flash_ops.flash_attention.route_launches["wgmma+tma"]
+    step_s, losses, gnorms = [], [], []
+    for i in range(p["steps"]):
+        before = probe.detach().clone()
+        batch = _batch(data, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lr_want = adamw.cosine_schedule(state.opt.step, base_lr=run.lr)
+        state, m = train_step(state, batch, cfg, run)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        losses.append(loss)
+        gnorms.append(gnorm)
+        check(math.isfinite(loss) and math.isfinite(gnorm),
+              f"train step {i}: loss {loss} or grad norm {gnorm} not finite")
+        check(torch.equal(m["lr"], lr_want),
+              f"train step {i}: lr {float(m['lr'])} != cosine_schedule")
+        check(_all_finite(tree_flatten(state.params)),
+              f"train step {i}: a parameter is not finite")
+        moved = not torch.equal(before, probe)
+        check(moved == (i > 0), f"train step {i}: parameters "
+              f"{'moved' if moved else 'did not move'} (lr "
+              f"{float(m['lr'])})")
+        del batch, m
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    steps = p["steps"]
+    check(launches["flash_prefill"] == 2 * n_attn * steps,
+          f"train: {launches['flash_prefill']} K6 launches, want "
+          f"{2 * n_attn * steps} (forward and recompute per layer)")
+    check(launches["flash_backward"] == n_attn * steps,
+          f"train: {launches['flash_backward']} K6b calls, want "
+          f"{n_attn * steps}")
+    check(flash_ops.flash_attention.route_launches["wgmma+tma"] == wgmma0,
+          "train: K6 took its bf16 route in a float32 training step")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = profile_window(lambda: train_step(state, _batch(data, dev), cfg,
+                                             run), steps=1, name="train")
+    med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    res = {"phase": "train", "arch": cfg.name, "params": n_params,
+           "batch": p["batch"], "seq_len": p["seq_len"], "steps": steps,
+           "reduced": ["train_4k's global batch 256 cut to 1 (one card)"],
+           "step_s": step_s, "median_step_s": med,
+           "tokens_per_s": p["batch"] * p["seq_len"] / med,
+           "losses": losses, "grad_norms": gnorms,
+           "peak_gib": peak, "device_idle_share": prof["device_idle_share"],
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "launches": launches}
+    emit(res)
+    del state, data, probe
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _launch_train(ckpt: str, *flags: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_RESUME,
+         "--ckpt-dir", ckpt, *flags], capture_output=True, text=True,
+        env=env, timeout=600, cwd=ROOT)
+
+
+def train_resume(dev) -> dict:
+    """The launcher's crash/resume recipe on the card at reduced gemma2-2b
+    (a full-width checkpoint of params, mu and nu is 29 GiB a save): the
+    crash exits 42, the rerun resumes from step 5, and its losses equal
+    the uninterrupted run's within RESUME_RTOL (bit-equal or not is
+    recorded); and a TrainState saved and restored in this process is
+    bit-equal to the one saved."""
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        full = _launch_train(os.path.join(tmp, "full"))
+        check(full.returncode == 0, f"train launcher failed: {full.stderr}")
+        crash = _launch_train(os.path.join(tmp, "ft"),
+                              "--simulate-crash-at", "7")
+        check(crash.returncode == 42, f"crash run exited {crash.returncode}"
+              f", not 42: {crash.stderr[-2000:]}")
+        resume = _launch_train(os.path.join(tmp, "ft"))
+        check(resume.returncode == 0, f"resume failed: {resume.stderr}")
+        check("[restore] resumed from step 5" in resume.stdout,
+              "the rerun did not resume from step 5")
+        want = dict(re.findall(r"step\s+(\d+)\s+loss (\S+)", full.stdout))
+        got = dict(re.findall(r"step\s+(\d+)\s+loss (\S+)", resume.stdout))
+        check(sorted(got, key=int) == [str(i) for i in range(5, 12)],
+              f"resumed steps {sorted(got, key=int)}")
+        rel = max(abs(float(got[k]) / float(want[k]) - 1) for k in got)
+        check(rel <= RESUME_RTOL, f"resumed losses off by {rel} relative")
+        with open(os.path.join(tmp, "ft", "heartbeat.json")) as f:
+            hb = json.load(f)
+        check(hb["host_id"] == 0 and hb["step"] == 11, f"heartbeat {hb}")
+        out.update(resumed_bit_equal=all(got[k] == want[k] for k in got),
+                   resumed_max_rel=rel, resumed_losses=got,
+                   uninterrupted_losses={k: want[k] for k in got})
+
+        cfg = reduced_config("gemma2-2b")
+        run = RunConfig(model=cfg, shape=SHAPES["train_4k"], lr=3e-3)
+        data = SyntheticLM(DataConfig(cfg.vocab_size, 64, 8))
+        state = init_state(cfg, torch.Generator(device=dev).manual_seed(0))
+        for _ in range(5):
+            state, _ = train_step(state, _batch(data, dev), cfg, run)
+        mgr = CheckpointManager(os.path.join(tmp, "inproc"))
+        mgr.save(5, state, extra=data.state_dict())
+        restored, extra = mgr.restore(5, like=state, device=dev)
+        pairs = list(zip(tree_flatten(state), tree_flatten(restored)))
+        check(extra == {"step": 5}, f"restored data state {extra}")
+        check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs),
+              "the restored TrainState differs from the saved one")
+        out["restored_leaves_bit_equal"] = len(pairs)
+    return out
+
+
+def train_compression(dev) -> dict:
+    """Reduced minitron-4b on the card, TRAIN_COMPRESSION's steps with the
+    int8 error-feedback round trip and without: the loss must fall by more
+    than ``fall`` and ``fall_plain``."""
+    p = TRAIN_COMPRESSION
+    cfg = reduced_config(p["arch"])
+    out = {}
+    for comp, fall in ((True, p["fall"]), (False, p["fall_plain"])):
+        run = RunConfig(model=cfg, shape=SHAPES["train_4k"], lr=p["lr"],
+                        grad_compression=comp)
+        data = SyntheticLM(DataConfig(cfg.vocab_size, p["seq_len"],
+                                      p["batch"],
+                                      copy_period=p["copy_period"]))
+        state = init_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                           compression=comp)
+        losses = []
+        for _ in range(p["steps"]):
+            state, m = train_step(state, _batch(data, dev), cfg, run)
+            losses.append(float(m["loss"]))
+        key = "compression" if comp else "plain"
+        check(losses[-1] < losses[0] - fall,
+              f"train {key}: loss {losses[0]} -> {losses[-1]}, not down by "
+              f"{fall}")
+        out[key] = dict(first=losses[0], last=losses[-1])
+    return out
+
+
+def phase_train(dev) -> dict:
+    """Phase 10b: full-width training, then the launcher's crash/resume and
+    gradient compression at reduced widths.  Returns the full-width run's
+    launch counts."""
+    launches = train_full_width(dev)
+    res = {"phase": "train_resume", **train_resume(dev)}
+    res["compression"] = train_compression(dev)
+    emit(res)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _to(x, dev):
     """Parameters (tensors in nested dicts and lists) on ``dev``."""
     if isinstance(x, dict):
@@ -2546,6 +2866,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_dist_tiers(dev)
     dist_launches = phase_dist_serve(dev)
+    torch.cuda.empty_cache()
+    train_launches = phase_train(dev)
     table = []
     for name, (source, replaces) in KERNELS.items():
         row = kernels[MAIN_OPS.get(name, name)]
@@ -2556,6 +2878,7 @@ def main() -> int:
         # phase 3's
         launches_from, count = {
             "flash_prefill": ("model", model_launches[name]),
+            "flash_backward": ("train", train_launches[name]),
             "search": ("model", model_launches[name]),
             "needed": ("kernels (phase 3): no serving path calls needed",
                        row.get("launches_phase3", 0)),
@@ -2563,7 +2886,8 @@ def main() -> int:
         # kernel_route: which of the wrapper's routes the main path ran
         # (flash prefill counts each route's launches; the rest have one)
         kernel_route = (", ".join(r for r, n in flash_routes.items() if n)
-                        if name == "flash_prefill" else "cuda-core")
+                        if name == "flash_prefill" else "cuda-core-f32"
+                        if name == "flash_backward" else "cuda-core")
         table.append(dict(
             name=name, route="cuda", kernel_route=kernel_route, source=source,
             replaces=replaces,
@@ -2572,6 +2896,7 @@ def main() -> int:
             **{f"launches_{k}": v[name] for k, v in served.items()},
             launches_durability=durable_launches[name],
             launches_dist=dist_launches[name],
+            launches_train=train_launches[name],
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

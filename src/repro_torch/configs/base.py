@@ -129,11 +129,16 @@ SHAPES: Dict[str, ShapeConfig] = {
 
 @dataclass(frozen=True)
 class RunConfig:
-    """Serve-time knobs.  ``gc`` holds every GC knob; when it is not passed,
-    ``__post_init__`` assembles it from the flat fields, and when it is, the
-    flat fields are set from it, so the two views never disagree."""
+    """Train and serve knobs.  ``gc`` holds every GC knob; when it is not
+    passed, ``__post_init__`` assembles it from the flat fields, and when it
+    is, the flat fields are set from it, so the two views never disagree.
+    The training knobs are the ones the train launcher sets, with JAX's
+    defaults."""
     model: ModelConfig
     shape: ShapeConfig
+    microbatches: int = 1
+    lr: float = 3e-4
+    grad_compression: bool = False
     gc: Optional[GCConfig] = None
     gc_policy: str = "slrt"
     versions_per_slot: int = 8

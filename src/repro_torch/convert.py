@@ -8,6 +8,9 @@ model's parameter pytree (layers stacked over superblocks, an encoder's
 too) onto the port's per-layer dicts, and :func:`serve_state_from_numpy` a
 JAX ``ServeState`` onto the port's (KV caches, rings and recurrent
 states), so both packages compute from the same weights.
+:func:`train_state_from_numpy` maps a JAX ``TrainState`` onto the port's,
+and :func:`params_to_numpy` a parameter-shaped tree (parameters,
+gradients, moments) back onto JAX's stacked layout.
 :func:`to_numpy` goes back: the same ``NamedTuple`` types, lists and
 dicts with numpy leaves (bfloat16 tensors widen to float32, which is
 exact).  Nothing here imports JAX: a JAX array is read through
@@ -21,13 +24,16 @@ import numpy as np
 import torch
 
 from repro_torch._tensor import DeviceLike, resolve_device
+from repro_torch.ckpt.manager import tree_flatten, tree_unflatten
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.mvgc import announce, pool, rangetracker, vstore
 from repro_torch.models.attention import KVCache, LocalKVCache
 from repro_torch.models.blocks import RECURRENT_STATES
 from repro_torch.models.transformer import _kinds
 from repro_torch.mvkv import paged
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.serve.engine import ServeState
+from repro_torch.train.step import TrainState
 
 
 def tensor_from_numpy(x: Any, device: DeviceLike = None) -> torch.Tensor:
@@ -171,6 +177,65 @@ def serve_state_from_numpy(cfg: ModelConfig, state: Any,
         mv=mvstate_from_numpy(state.mv, dev),
         last_tokens=tensor_from_numpy(state.last_tokens, dev),
         longest=int(np.max(state.cache_len)))
+
+
+def params_to_numpy(cfg: ModelConfig, params: Any) -> dict:
+    """The port's parameter tree (or a tree like it: gradients, moments)
+    -> the JAX layout as numpy arrays: each layer's leaves stacked over
+    superblocks under ``sb/l{j}``, the remainder under ``tail``, an
+    encoder's under ``encoder/sb/l0``; the reverse of
+    :func:`params_from_numpy`."""
+    p, R = len(cfg.layer_pattern), cfg.pattern_repeats
+    layers = to_numpy(params["layers"])
+
+    out = {"embed": to_numpy(params["embed"]),
+           "sb": {f"l{j}": _stack([layers[r * p + j] for r in range(R)])
+                  for j in range(p)},
+           "final_norm": to_numpy(params["final_norm"])}
+    if len(layers) > R * p:
+        out["tail"] = layers[R * p:]
+    if "unembed" in params:
+        out["unembed"] = to_numpy(params["unembed"])
+    if "encoder" in params:
+        enc = to_numpy(params["encoder"])
+        out["encoder"] = {"sb": {"l0": _stack(enc["layers"])},
+                          "final_norm": enc["final_norm"]}
+    return out
+
+
+def _stack(trees: List[Any]) -> Any:
+    """Stack numpy leaves of like trees along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return np.stack(trees)
+
+
+def train_state_from_numpy(cfg: ModelConfig, state: Any,
+                           device: DeviceLike = None):
+    """A JAX ``TrainState`` (params, ``AdamWState(step, mu, nu)``, err,
+    step) -> the port's :class:`repro_torch.train.step.TrainState` on
+    ``device``: params, mu, nu and (with compression) err through
+    :func:`params_from_numpy`'s layer mapping.  JAX's error carry without
+    compression is a ``(1,)`` zero per leaf, stacked or not, so the port's
+    is a ``(1,)`` zero per leaf of its own tree."""
+    dev = resolve_device(device)
+    params = params_from_numpy(cfg, state.params, dev)
+    mu = params_from_numpy(cfg, state.opt.mu, dev)
+    nu = params_from_numpy(cfg, state.opt.nu, dev)
+    leaves = tree_flatten(params)
+    err_leaves = [np.asarray(x) for x in tree_flatten(state.err)]
+    if all(e.shape == (1,) for e in err_leaves) and any(
+            p.shape != (1,) for p in leaves):
+        err = tree_unflatten(params, [
+            torch.zeros((1,), dtype=torch.float32, device=dev)
+            for _ in leaves])
+    else:
+        err = params_from_numpy(cfg, state.err, dev)
+    return TrainState(params=params,
+                      opt=AdamWState(tensor_from_numpy(state.opt.step, dev),
+                                     mu, nu),
+                      err=err, step=tensor_from_numpy(state.step, dev))
 
 
 def to_numpy(x: Any) -> Any:

@@ -103,6 +103,7 @@ template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse,
                      int Hq, int Hkv, int nq, int nk, int D, int causal,
                      int window, float softcap, float scale) {
   constexpr int NG = DP / 64;   // float4 groups of output dims per thread
@@ -232,6 +233,11 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float lt = half_warp_sum(l[i]);
     const int row = q0 + ty * 4 + i;
     if (row >= nq) continue;
+    // the row's log-sum-exp for the backward (K6b); +inf for a row that
+    // sees no column, so that exp(s - lse) is 0 there
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * Hq + h) * nq + row] =
+          lt == 0.f ? INFINITY : m[i] + logf(lt);
     float* dst = out + q_base + (long long)row * D;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
@@ -244,9 +250,10 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DP>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int Hq, int Hkv, int nq, int nk, int D, int causal, int window,
-               float softcap, float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               void* lse, int B, int Hq, int Hkv, int nq, int nk, int D,
+               int causal, int window, float softcap, float scale,
+               cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DP>();
   const cudaError_t e = cudaFuncSetAttribute(
       flash_prefill_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -254,8 +261,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((nq + kBQ - 1) / kBQ, Hq, B);
   flash_prefill_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, Hq, Hkv,
-      nq, nk, D, causal, window, softcap, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out,
+      (float*)lse, Hq, Hkv, nq, nk, D, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -703,15 +710,18 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
 // Hq % Hkv == 0, B, Hq, T >= 1 (the wrapper checks all of it); scale is
 // 1 / sqrt of the unpadded head dim.  bf16 takes the wgmma kernel (D a
 // multiple of 8, 16-byte aligned pointers), float32 the CUDA-core kernel.
+// lse, float32 [B, Hq, T] or null, receives each row's log-sum-exp of its
+// (scaled, capped) logits for the backward; only the float32 kernel
+// writes it (the wgmma kernel refuses a non-null lse).
 extern "C" int mvgc_flash_prefill(const void* q, const void* k, const void* v,
-                                  void* out, int B, int Hq, int Hkv, int T,
-                                  int S, int D, int causal, int window,
-                                  float softcap, float scale, int is_bf16,
-                                  cudaStream_t stream) {
+                                  void* out, void* lse, int B, int Hq,
+                                  int Hkv, int T, int S, int D, int causal,
+                                  int window, float softcap, float scale,
+                                  int is_bf16, cudaStream_t stream) {
   if (D <= 0 || D > 256 || Hkv <= 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (is_bf16) {
-    if (D % 8 != 0) return (int)cudaErrorInvalidValue;
+    if (D % 8 != 0 || lse != nullptr) return (int)cudaErrorInvalidValue;
     if (D <= 64)
       return launch_tc<64>(q, k, v, out, B, Hq, Hkv, T, S, D, causal, window,
                            softcap, scale, stream);
@@ -722,11 +732,11 @@ extern "C" int mvgc_flash_prefill(const void* q, const void* k, const void* v,
                           softcap, scale, stream);
   }
   if (D <= 64)
-    return launch_f32<64>(q, k, v, out, B, Hq, Hkv, T, S, D, causal, window,
-                          softcap, scale, stream);
+    return launch_f32<64>(q, k, v, out, lse, B, Hq, Hkv, T, S, D, causal,
+                          window, softcap, scale, stream);
   if (D <= 128)
-    return launch_f32<128>(q, k, v, out, B, Hq, Hkv, T, S, D, causal, window,
-                           softcap, scale, stream);
-  return launch_f32<256>(q, k, v, out, B, Hq, Hkv, T, S, D, causal, window,
-                         softcap, scale, stream);
+    return launch_f32<128>(q, k, v, out, lse, B, Hq, Hkv, T, S, D, causal,
+                           window, softcap, scale, stream);
+  return launch_f32<256>(q, k, v, out, lse, B, Hq, Hkv, T, S, D, causal,
+                         window, softcap, scale, stream);
 }

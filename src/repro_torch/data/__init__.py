@@ -1,0 +1,1 @@
+"""See the package docstring of :mod:`repro_torch`."""

@@ -53,10 +53,14 @@ SIGNATURES = {
     # q, k_pages, v_pages, page_table, lengths, out, part_o, part_ml, B, N,
     # Hq, Hkv, D, PS, MP, n_split, is_bf16, stream
     "mvgc_paged_decode": [_P] * 8 + [_I] * 9 + [_P],
-    # q, k, v, out, B, Hq, Hkv, T, S, D, causal, window, softcap, scale,
-    # is_bf16, stream
-    "mvgc_flash_prefill": [_P] * 4 + [_I] * 8 + [ctypes.c_float] * 2
+    # q, k, v, out, lse, B, Hq, Hkv, T, S, D, causal, window, softcap,
+    # scale, is_bf16, stream
+    "mvgc_flash_prefill": [_P] * 5 + [_I] * 8 + [ctypes.c_float] * 2
     + [_I, _P],
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, T, S, D,
+    # causal, window, softcap, scale, stream
+    "mvgc_flash_backward": [_P] * 10 + [_I] * 8 + [ctypes.c_float] * 2
+    + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -26,6 +26,19 @@ kernel:
 ``flash_attention.launches`` counts kernel launches and
 ``flash_attention.route_launches`` the launches of each route.
 
+Under autograd (grad enabled and ``q``, ``k`` or ``v`` requiring grad) the
+call goes through :class:`FlashAttention`, a ``torch.autograd.Function``:
+its forward is K6's float32 route storing each row's log-sum-exp (one K6
+launch, counted as above), its backward is K6b
+(:func:`flash_attention_backward`, ``csrc/flash_backward.cu``), which
+recomputes the probabilities tile by tile from that LSE.  The K6 launch
+writes into a fresh tensor through ``ctypes``, so without the Function a
+loss through it would get no gradient for q, k and v.  On CPU tensors both
+halves take their plain versions (:func:`~.ref.attention_lse_ref`,
+:func:`~.ref.attention_bwd_ref`).  Only float32 has a backward kernel: a
+bfloat16 input under autograd raises.  Without grad the call is K6 as
+before, with no LSE stored.
+
 Bound on the H100: operations.  A causal prefill does about ``T^2 D``
 multiply-adds per query head (``T^2 / 2`` visible pairs, two products each)
 against ``2 (Hq + Hkv) T D`` elements moved per batch row: about 1000
@@ -40,7 +53,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_prefill.ref import attention_ref
+from repro_torch.kernels.flash_prefill.ref import (attention_bwd_ref,
+                                                   attention_lse_ref,
+                                                   attention_ref)
 
 #: the kernel of each input dtype
 ROUTES = {torch.bfloat16: "wgmma+tma", torch.float32: "cuda-core-f32"}
@@ -58,18 +73,11 @@ def _tma_ready(t: torch.Tensor, dp: int) -> torch.Tensor:
     return t
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    softcap: float = 0.0) -> torch.Tensor:
-    """``q`` [B, Hq, T, D], ``k``/``v`` [B, Hkv, S, D] -> [B, Hq, T, D] in
-    ``q``'s dtype.  Query row ``i`` sees columns ``j <= i`` (causal) with
-    ``j > i - window`` (window > 0); a row that sees none gives 0."""
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             softcap=softcap)
+def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: int, softcap: float) -> None:
     if q.dim() != 4 or k.dim() != 4:
-        raise ValueError("flash_attention: q and k/v must be 4-d "
-                         "[B, H, T, D] tensors")
+        raise ValueError(f"{name}: q and k/v must be 4-d [B, H, T, D] "
+                         "tensors")
     B, Hq, T, D = q.shape
     Bk, Hkv, S, Dk = k.shape
     if (q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype
@@ -78,30 +86,136 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or not all(t.is_cuda and t.is_contiguous() for t in (q, k, v))
             or not (k.device == q.device and v.device == q.device)):
         raise ValueError(
-            "flash_attention: q, k and v must be contiguous CUDA tensors of "
+            f"{name}: q, k and v must be contiguous CUDA tensors of "
             "one dtype (float32 or bfloat16) on one device, with Hq a "
             f"multiple of Hkv and head_dim <= {MAX_HEAD_DIM}; got "
             f"q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} {k.dtype}, "
             f"v {tuple(v.shape)} {v.dtype}")
     if window < 0 or softcap < 0:
-        raise ValueError("flash_attention: window and softcap must be >= 0")
+        raise ValueError(f"{name}: window and softcap must be >= 0")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int, softcap: float, lse: bool = False):
+    """One K6 launch on CUDA tensors: the output and, when ``lse``, each
+    row's log-sum-exp (float32 route only)."""
+    _check("flash_attention", q, k, v, window, softcap)
+    B, Hq, T, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
     route = ROUTES[q.dtype]
     dp = D
     if route == "wgmma+tma":
         dp = -(-D // 8) * 8
         q, k, v = (_tma_ready(t, dp) for t in (q, k, v))
     out = torch.empty((B, Hq, T, dp), dtype=q.dtype, device=q.device)
+    row_lse = (torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+               if lse else None)
     if out.numel() == 0:
-        return out[..., :D]
+        return out[..., :D], row_lse
     err = _build.lib().mvgc_flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        row_lse.data_ptr() if lse else None,
         B, Hq, Hkv, T, S, dp, int(causal), int(window), float(softcap),
         1.0 / math.sqrt(D), int(route == "wgmma+tma"), _build.stream())
     _build.check("mvgc_flash_prefill", err)
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
-    return out if dp == D else out[..., :D].contiguous()
+    return (out if dp == D else out[..., :D].contiguous()), row_lse
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """``q`` [B, Hq, T, D], ``k``/``v`` [B, Hkv, S, D] -> [B, Hq, T, D] in
+    ``q``'s dtype.  Query row ``i`` sees columns ``j <= i`` (causal) with
+    ``j > i - window`` (window > 0); a row that sees no column gives 0.
+    Differentiable through :class:`FlashAttention` when autograd records
+    the call."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.is_cuda and q.dtype != torch.float32:
+            raise ValueError(
+                "flash_attention: a gradient needs float32 inputs (K6b, the "
+                f"backward kernel, has no {q.dtype} route); got q {q.dtype}")
+        return FlashAttention.apply(q, k, v, causal, window, softcap)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             softcap=softcap)
+    return _launch(q, k, v, causal, window, softcap)[0]
 
 
 flash_attention.launches = 0
 flash_attention.route_launches = {r: 0 for r in ROUTES.values()}
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True, window: int = 0,
+                             softcap: float = 0.0):
+    """K6b: (dq, dk, dv) of :func:`flash_attention` at output ``o``, upstream
+    gradient ``do`` and the forward's row log-sum-exp ``lse`` [B, Hq, T]
+    (float32), under the forward's ``causal``, ``window`` and ``softcap``.
+    CPU tensors take :func:`~.ref.attention_bwd_ref`; CUDA tensors must be
+    float32 and launch the kernel pair (the dq kernel, which also writes
+    the row sums ``rowsum(dO o)``, then the dk/dv kernel), counted as one
+    call in ``flash_attention_backward.launches``."""
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                 window=window, softcap=softcap)
+    _check("flash_attention_backward", q, k, v, window, softcap)
+    B, Hq, T, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    if q.dtype != torch.float32:
+        raise ValueError("flash_attention_backward: K6b has a float32 route "
+                         f"only; got {q.dtype}")
+    if (o.shape != q.shape or do.shape != q.shape or lse.shape != (B, Hq, T)
+            or o.dtype != q.dtype or do.dtype != q.dtype
+            or lse.dtype != torch.float32
+            or not all(t.is_cuda and t.is_contiguous() and t.device == q.device
+                       for t in (o, do, lse))):
+        raise ValueError(
+            "flash_attention_backward: o and do must be contiguous float32 "
+            f"CUDA tensors of q's shape {tuple(q.shape)} and lse float32 "
+            f"[B, Hq, T]; got o {tuple(o.shape)} {o.dtype}, do "
+            f"{tuple(do.shape)} {do.dtype}, lse {tuple(lse.shape)} "
+            f"{lse.dtype}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+    err = _build.lib().mvgc_flash_backward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, T, S, D, int(causal),
+        int(window), float(softcap), 1.0 / math.sqrt(D), _build.stream())
+    _build.check("mvgc_flash_backward", err)
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """K6 with its row LSE forward, K6b backward; plain versions of both
+    on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        if q.device.type == "cpu":
+            out, lse = attention_lse_ref(q, k, v, causal=causal,
+                                         window=window, softcap=softcap)
+        else:
+            out, lse = _launch(q, k, v, causal, window, softcap, lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, softcap = ctx.mask
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, do.contiguous(), lse, causal=causal, window=window,
+            softcap=softcap)
+        return dq, dk, dv, None, None, None

@@ -9,8 +9,13 @@ local ring of ``repro.models.blocks``).
   ``_xla_flash``.
 * decode (``cache``): K/V appended at ``cache_len``, then plain tensor code
   over the cache prefix, as the JAX package leaves decode to XLA.
-* no cache (an encoder layer, decoder cross-attention over the encoder's
-  output): K6 as well, bidirectional (``causal=False``).
+* no cache (JAX's train mode: every layer of a training forward, an
+  encoder layer, decoder cross-attention over the encoder's output): K6
+  as well, with the layer's window (``local``), bidirectional for the
+  encoder and cross-attention (``causal=False``).  Under autograd K6 is
+  the forward of an autograd function whose backward is K6b, the
+  hand-written gradient kernel
+  (:class:`repro_torch.kernels.flash_prefill.ops.FlashAttention`).
 
 The public functions keep the JAX layout ``[B, T, H, D]``; the call to K6
 transposes to its ``[B, H, T, D]``.
@@ -184,19 +189,23 @@ def attention(
     causal: bool = True,
     x_kv: Optional[torch.Tensor] = None,         # cross-attention source
     use_rope: Optional[bool] = None,
+    window: int = 0,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Global attention (block kind ``attn``).  Returns (out [B, T, d],
     updated cache).  Modes, as in JAX:
 
     * prefill (``fill_cache``) and decode (``cache``), causal, need
       ``span``;
-    * neither cache (an encoder layer, a cross-attention sublayer): K6
-      over ``x_kv`` (``x`` when None), causal only when ``causal`` and no
-      ``x_kv``, no cache (None is returned for it).  A decode step's
+    * neither cache (train mode: a training forward's layer, an encoder
+      layer, a cross-attention sublayer): K6 over ``x_kv`` (``x`` when
+      None) with ``window`` (a ``local`` layer's ``cfg.local_window``, as
+      JAX's ``attention(kind="local")``), causal only when ``causal`` and
+      no ``x_kv``, no cache (None is returned for it).  A decode step's
       cross-attention is a K6 call with T = 1."""
     if fill_cache is None and cache is None:
         q, k, v = _project_qkv(params, cfg, x, positions, x_kv, use_rope)
-        out = _flash(cfg, q, k, v, window=0, causal=causal and x_kv is None)
+        out = _flash(cfg, q, k, v, window=window,
+                     causal=causal and x_kv is None)
         return _out_proj(params, out), None
     if fill_cache is not None and cache is not None:
         raise ValueError("attention: pass fill_cache (prefill) or cache "

@@ -12,12 +12,14 @@ state and never writes into the one it was given.  ``attn``, ``local`` and
 (:mod:`repro_torch.models.moe`), the xLSTM kinds none.  An encoder-decoder's
 decoder blocks carry a cross-attention sublayer (``cross_ln``, ``cross``).
 
-Modes: ``prefill`` and ``decode`` serve; ``train`` is JAX's cache-free mode,
-which the port runs for the encoder only (``causal=False``, no cache).
+Modes: ``prefill`` and ``decode`` serve; ``train`` is JAX's cache-free mode
+(a training forward, and the encoder with ``causal=False``): every kind
+runs there, attention through K6 with its window, and the block returns
+the mixture of experts' auxiliary loss in place of a cache.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
@@ -112,10 +114,9 @@ def _mixer(params: dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
     if kind == "slstm":
         return slstm(params, cfg, h, cache)
     if mode == "train":
-        if kind != "attn":
-            raise ValueError(f"mode 'train' runs the encoder's 'attn' "
-                             f"blocks, not {kind!r}")
-        return attention(params, cfg, h, positions, causal=causal)
+        window = cfg.local_window if kind == "local" else 0
+        return attention(params, cfg, h, positions, causal=causal,
+                         window=window)
     if kind == "local" and mode == "prefill":
         return _prefill_local_ring(params, cfg, h, positions, cache, inplace)
     if kind == "local":
@@ -135,10 +136,12 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                 enc_out: Optional[torch.Tensor] = None,
                 mode: str = "prefill", causal: bool = True,
                 inplace: bool = False
-                ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """One block in ``mode`` prefill, decode or train (the encoder's).
-    Returns (x', cache').  A mixture of experts' auxiliary loss is
-    dropped: serving never reads it, in either package.  The
+                ) -> Tuple[torch.Tensor, Any]:
+    """One block in ``mode`` prefill, decode or train.  Returns (x',
+    cache') when serving, where a mixture of experts' auxiliary loss is
+    dropped (serving never reads it, in either package), and (x', aux) in
+    train mode, which has no cache: ``aux`` is the load-balance loss
+    (a float32 scalar tensor) of a mixture of experts, else ``0.0``.  The
     cross-attention sublayer attends over ``enc_out``; with none it falls
     back to ``x`` itself, as JAX's does (trap C13)."""
     if mode not in ("train", "prefill", "decode"):
@@ -154,13 +157,14 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
         h, _ = attention(params["cross"], cfg, h, positions, causal=False,
                          x_kv=enc_out, use_rope=False)
         x = x + h
+    aux = 0.0
     if "ffn" in params:
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
         if cfg.num_experts > 0:
-            h, _ = moe(params["ffn"], cfg, h)
+            h, aux = moe(params["ffn"], cfg, h)
         else:
             h = mlp(params["ffn"], cfg, h)
         if cfg.post_norms:
             h = rms_norm(h, params["ln2_post"], cfg.norm_eps)
         x = x + h
-    return x, new_cache
+    return x, (aux if mode == "train" else new_cache)

@@ -1,5 +1,6 @@
-"""The LM's serving passes: prefill and decode (port of the serving half
-of ``repro.models.transformer``), for every family of the zoo.
+"""The LM (port of ``repro.models.transformer``) for every family of the
+zoo: the training forward and loss (:func:`forward`, :func:`loss_fn`) and
+the serving passes (:func:`prefill`, :func:`decode_step`).
 
 Parameters are a plain dict of tensors: ``embed`` [V, d], ``layers`` (a
 list with one block dict per layer, in depth order — the JAX package stacks
@@ -27,12 +28,15 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._tensor import I32
+from repro_torch.ckpt.manager import tree_flatten
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import (Cache, block_apply, init_block,
                                        init_block_cache)
-from repro_torch.models.common import embed_init, rms_norm, softcap
+from repro_torch.models.common import (cross_entropy_loss, embed_init,
+                                      rms_norm, softcap)
 
 
 def _kinds(cfg: ModelConfig) -> List[str]:
@@ -83,6 +87,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     return params
 
 
+def param_count(params) -> int:
+    return sum(x.numel() for x in tree_flatten(params))
+
+
 def _run_encoder(params, cfg: ModelConfig,
                  enc_x: torch.Tensor) -> torch.Tensor:
     """The encoder over frame embeddings ``enc_x`` [B, S, d]: fixed
@@ -104,6 +112,84 @@ def _run_encoder(params, cfg: ModelConfig,
         x, _ = block_apply(bp, enc_cfg, "attn", x, positions, mode="train",
                            causal=False)
     return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+
+
+def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
+            frontend_embeds: Optional[torch.Tensor], remat: bool
+            ) -> Tuple[torch.Tensor, Any]:
+    """The training forward up to the final norm: (x [B, T_total, d], the
+    summed auxiliary loss of every layer).
+
+    ``remat=True`` checkpoints each layer (``torch.utils.checkpoint``,
+    non-reentrant): the backward recomputes a layer's activations from its
+    input, as JAX's ``jax.checkpoint`` per superblock does; the numbers are
+    the same, only memory differs.  An attention layer's K6 runs again in
+    the recompute, so a training step launches K6 twice per attention
+    layer and K6b once."""
+    B = tokens.shape[0]
+    x = params["embed"][tokens.long()]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model, dtype=x.dtype).sqrt()
+    enc_out = None
+    if _is_encdec(cfg):
+        if frontend_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: forward "
+                             "needs its frame embeddings (frontend_embeds), "
+                             "as in the JAX package")
+        enc_out = _run_encoder(params, cfg, frontend_embeds)
+    elif cfg.frontend != "none" and frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
+    T = x.shape[1]
+    positions = torch.arange(T, dtype=I32, device=x.device)[None].expand(B, T)
+    aux = 0.0
+    for bp, kind in zip(params["layers"], _kinds(cfg)):
+        def layer(h, bp=bp, kind=kind):
+            return block_apply(bp, cfg, kind, h, positions, enc_out=enc_out,
+                               mode="train")
+        if remat:
+            x, a = checkpoint(layer, x, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = layer(x)
+        aux = aux + a
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            frontend_embeds: Optional[torch.Tensor] = None,
+            remat: bool = True) -> Tuple[torch.Tensor, Any]:
+    """Teacher-forced forward: (logits [B, T_total, V], aux loss).  Embed
+    (times ``sqrt(d)`` with ``embed_scale``), a VLM's patch embeddings as a
+    prefix, an encoder-decoder's frames through the encoder, every layer
+    in train mode, the final norm, the tied or untied unembed and the
+    final softcap (float32)."""
+    x, aux = _hidden(params, cfg, tokens, frontend_embeds, remat)
+    logits = x @ params.get("unembed", params["embed"]).T
+    if cfg.final_softcap > 0:
+        logits = softcap(logits.float(), cfg.final_softcap)
+    return logits, aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            remat: bool = True) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Next-token cross-entropy over the text region (a VLM's prefix
+    masked) plus ``0.01 * aux``: (loss, {"ce", "aux"}).
+
+    Only the positions that predict a token are unembedded (the norm is
+    per position, so their logits are :func:`forward`'s), and the final
+    softcap is applied inside :func:`~repro_torch.models.common.
+    cross_entropy_loss`, which keeps no capped copy of the logits."""
+    tokens = batch["tokens"]
+    fe = batch.get("frontend")
+    x, aux = _hidden(params, cfg, tokens, fe, remat)
+    nf = prefix_len(cfg, fe)
+    x = x[:, nf:nf + tokens.shape[1] - 1]
+    logits = x @ params.get("unembed", params["embed"]).T
+    mask = batch.get("loss_mask")
+    mask = mask[:, 1:] if mask is not None else None
+    ce = cross_entropy_loss(logits, tokens[:, 1:], mask,
+                            cap=cfg.final_softcap)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,

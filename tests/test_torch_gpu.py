@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.ckpt.manager import tree_flatten
 from repro_torch.configs import SHAPES, reduced_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.convert import to_numpy
@@ -27,7 +28,9 @@ from repro_torch.kernels.compact.ref import compact_ref, needed_ref, sweep_ref
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import paged_decode_ref
 from repro_torch.kernels.flash_prefill import ops as flash_ops
-from repro_torch.kernels.flash_prefill.ref import attention_ref
+from repro_torch.kernels.flash_prefill.ref import (attention_bwd_ref,
+                                                   attention_lse_ref,
+                                                   attention_ref)
 from repro_torch.kernels.version_search import ops as search_ops
 from repro_torch.kernels.version_search.ref import (search_gather_ref,
                                                      search_ref, value_at_ref,
@@ -949,6 +952,130 @@ def test_flash_prefill_rejects_what_it_cannot_run(cuda):
     with pytest.raises(ValueError):
         flash_ops.flash_attention(*flash_inputs(cuda, torch.float32, 1, 2, 1,
                                                 8, 8, 320))
+
+
+# K6b, the gradient kernel pair: the CPU gradient tests' cases
+# (tests/test_torch_flash_grad.py) and two wider ones
+FLASH_GRAD_CASES = [
+    (2, 4, 4, 64, 64, 16, True, 0, 0.0),
+    (1, 4, 2, 100, 100, 64, True, 9, 0.0),
+    (1, 4, 2, 50, 50, 16, True, 64, 0.0),
+    (1, 8, 2, 70, 70, 64, True, 0, 50.0),
+    (2, 8, 2, 40, 40, 16, True, 0, 0.0),
+    (1, 16, 1, 33, 33, 16, True, 5, 50.0),
+    (1, 2, 1, 40, 40, 256, True, 16, 50.0),
+    (2, 4, 2, 10, 75, 16, False, 0, 0.0),
+    (1, 4, 4, 67, 67, 64, True, 0, 50.0),
+    (1, 8, 4, 300, 300, 256, True, 100, 50.0),   # 10 KV tiles of 32
+    (2, 6, 2, 200, 131, 128, False, 0, 0.0),     # S ends inside a tile
+]
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,T,S,D,causal,window,cap",
+                         FLASH_GRAD_CASES)
+def test_flash_backward_kernel(cuda, B, Hq, Hkv, T, S, D, causal, window,
+                               cap):
+    """K6's row LSE and K6b's dq, dk, dv against the plain versions on the
+    same CUDA tensors (float32; both sum in float32 in other orders), one
+    K6b call per backward, and two calls give the same bits."""
+    q, k, v = flash_inputs(cuda, torch.float32, B, Hq, Hkv, T, S, D, seed=T)
+    do = torch.randn_like(q)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out, lse = flash_ops._launch(q, k, v, causal, window, cap, lse=True)
+    out_r, lse_r = attention_lse_ref(q, k, v, **kw)
+    assert torch.allclose(out, out_r, atol=1e-5, rtol=1e-5)
+    assert torch.allclose(lse, lse_r, atol=1e-5, rtol=1e-5)
+    before = flash_ops.flash_attention_backward.launches
+    got = flash_ops.flash_attention_backward(q, k, v, out, do, lse, **kw)
+    assert flash_ops.flash_attention_backward.launches == before + 1
+    want = attention_bwd_ref(q, k, v, out, do, lse, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert torch.allclose(g, w, **GRAD_TOL)
+    again = flash_ops.flash_attention_backward(q, k, v, out, do, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "two calls gave different bits"
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,T,S,D,causal,window,cap",
+                         [FLASH_GRAD_CASES[3], FLASH_GRAD_CASES[9],
+                          FLASH_GRAD_CASES[10]])
+def test_flash_attention_gradient_matches_autograd_through_ref(
+        cuda, B, Hq, Hkv, T, S, D, causal, window, cap):
+    """The autograd function on the card (K6 with LSE, then K6b) against
+    autograd through the plain ``attention_ref``."""
+    q, k, v = flash_inputs(cuda, torch.float32, B, Hq, Hkv, T, S, D, seed=1)
+    do = torch.randn_like(q)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    a = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    b = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fwd = flash_ops.flash_attention.launches
+    bwd = flash_ops.flash_attention_backward.launches
+    got = torch.autograd.grad(flash_ops.flash_attention(*a, **kw), a, do)
+    assert flash_ops.flash_attention.launches == fwd + 1
+    assert flash_ops.flash_attention_backward.launches == bwd + 1
+    want = torch.autograd.grad(attention_ref(*b, **kw), b, do)
+    for g, w in zip(got, want):
+        assert torch.allclose(g, w, **GRAD_TOL)
+
+
+def test_flash_attention_refuses_a_bf16_gradient(cuda):
+    q, k, v = flash_inputs(cuda, torch.bfloat16, 1, 2, 1, 8, 8, 16)
+    with pytest.raises(ValueError, match="float32"):
+        flash_ops.flash_attention(q.requires_grad_(True), k, v)
+    with pytest.raises(ValueError, match="float32"):
+        flash_ops.flash_attention_backward(q, k, v, q, q, torch.zeros(
+            (1, 2, 8), device=cuda))
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "whisper-tiny"])
+def test_model_gradient_on_the_card_matches_the_cpu(cuda, arch):
+    """Reduced models in float32: every attention layer's backward is a
+    K6b call, and every parameter's gradient on the card (``wq``, ``wk``,
+    ``wv`` and ``ln1`` included, which a K6 launch without the autograd
+    function would leave at zero) is within 1e-4 of the CPU's on the same
+    weights, nonzero wherever the CPU's is."""
+    cfg = reduced_config(arch)
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 16)).astype(
+        np.int32)}
+    if cfg.encoder_layers:
+        batch["frontend"] = (rng.standard_normal(
+            (2, cfg.frontend_tokens, cfg.d_model)) * 0.02).astype(np.float32)
+
+    def grads(p, dev):
+        leaves = tree_flatten(p)
+        for x in leaves:
+            x.requires_grad_(True)
+        loss, _ = tf.loss_fn(p, cfg, {k: torch.from_numpy(v).to(dev)
+                                      for k, v in batch.items()})
+        return loss, torch.autograd.grad(loss, leaves)
+
+    before = flash_ops.flash_attention_backward.launches
+    loss_g, g_g = grads(params, cuda)
+    n_attn = sum(k in ("attn", "local") for k in tf._kinds(cfg))
+    if cfg.encoder_layers:    # the encoder's layers and the cross-attention
+        n_attn += cfg.encoder_layers + cfg.num_layers
+    assert flash_ops.flash_attention_backward.launches - before == n_attn
+
+    def to_cpu(x):
+        if isinstance(x, dict):
+            return {k: to_cpu(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [to_cpu(v) for v in x]
+        return x.detach().cpu()
+
+    loss_c, g_c = grads(to_cpu(params), "cpu")
+    torch.testing.assert_close(loss_g.cpu(), loss_c, atol=1e-5, rtol=1e-5)
+    for a, b in zip(g_g, g_c):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+        if b.any():
+            assert a.any()
+    wq = params["layers"][0]["mixer"]["wq"]
+    assert g_g[[i for i, x in enumerate(tree_flatten(params))
+                if x is wq][0]].abs().sum() > 0
 
 
 def test_mv_serve_engine_on_the_card(cuda):

@@ -52,6 +52,9 @@ def test_package_imports_without_jax():
         "import repro_torch.kernels.flash_prefill.ops\n"
         "import repro_torch.launch.serve, repro_torch.configs\n"
         "import repro_torch.ckpt.manager, repro_torch.serve.forking\n"
+        "import repro_torch.launch.train, repro_torch.train.step\n"
+        "import repro_torch.optim.adamw, repro_torch.optim.compress\n"
+        "import repro_torch.data.pipeline\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
@@ -66,6 +69,8 @@ def _entry_points():
     from repro_torch.configs import SHAPES, reduced_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.launch import serve as launcher
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.train.step import init_state
     from repro_torch.models import transformer as tf
     from repro_torch.serve.engine import MVServeEngine, PagedKVEngine
     cfg = reduced_config("minitron-4b")
@@ -80,6 +85,13 @@ def _entry_points():
         return launcher.build(launcher.parse_args(
             flags + (["--device", device] if device else [])))
 
+    def launch_train(device=None):
+        # build() makes the state only; it never touches the ckpt dir
+        flags = ["--arch", "minitron-4b", "--reduced", "--steps", "1",
+                 "--ckpt-dir", "unused"]
+        return train_launcher.build(train_launcher.parse_args(
+            flags + (["--device", device] if device else [])))
+
     return {
         "make_state": lambda **kw: vstore.make_state(4, 4, 2, **kw),
         "make_paged_kv": lambda **kw: paged.make_paged_kv(
@@ -87,12 +99,15 @@ def _entry_points():
         "PagedKVEngine": lambda **kw: PagedKVEngine(2, 8, 4, 2, 1, 4, **kw),
         "MVServeEngine": mv_serve,
         "launch.serve": launch,
+        "init_state": lambda **kw: init_state(cfg, **kw),
+        "launch.train": launch_train,
     }
 
 
 @pytest.mark.parametrize("name", ["make_state", "make_paged_kv",
                                   "PagedKVEngine", "MVServeEngine",
-                                  "launch.serve"])
+                                  "launch.serve", "init_state",
+                                  "launch.train"])
 def test_entry_points_default_to_the_gpu(name, monkeypatch):
     make = _entry_points()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
