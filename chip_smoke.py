@@ -32,12 +32,14 @@ Phases, each printing one JSON line:
    and at one decode row; a recurrentgemma-9b local layer, 16 query heads
    over one KV head at D 256, window 2048), with SDPA's time where it
    computes the same function, and in float32 (its CUDA-core route; bf16
-   takes the wgmma+TMA kernel); K6b, the gradient kernel pair, against
+   takes the wgmma+TMA kernel); K6b, the gradient kernels, against
    attention_bwd_ref from K6's own output and row LSE at gemma2-2b's
-   training layers (T 4096, D 256, softcap 50, window 4096, none and 512),
-   minitron-4b's heads and whisper-tiny's cross-attention, float32, with
-   the backward of SDPA (torch.autograd.grad) as its yardstick where SDPA
-   computes the same function; the redesigned rows carry their route,
+   training layers (T 4096, D 256, softcap 50, window 4096 and 512),
+   minitron-4b's heads and whisper-tiny's cross-attention, in both of its
+   routes (float32 by split-TF32, and bf16, each bounded in its unit),
+   with the backward of SDPA (torch.autograd.grad) in the same dtype as
+   its yardstick where SDPA computes the same function; the redesigned
+   rows carry their route,
    their share of the bound and their time before the redesign as an earlier run
    recorded it (ms_before_recorded, not measured here); needed (K5, which no
    serving path calls) at compact's shape and at
@@ -134,17 +136,25 @@ Phases, each printing one JSON line:
    unchanged by step 0 (lr 0) and moved by step 1; K6 twice per attention
    layer and step (forward and the checkpoint's recompute) and K6b once,
    both counted from zero over the 8 steps; step seconds, tokens/s, peak
-   memory and a profiled step's idle share; then the launcher's
+   memory and a profiled step's idle share; K6 on its float32 route and
+   K6b on its float32 (split-TF32) route; then the launcher's
    crash/resume at reduced gemma2-2b on the card (exit 42, resume from
    step 5, the losses against the uninterrupted run's, a TrainState saved
    and restored bit-equal) and reduced minitron-4b's 30 steps with and
    without gradient compression (the loss must fall by 0.1 and 0.2);
+10c. train_bf16 — the same gemma2-2b run in bf16 (init_state(dtype=
+   bfloat16), AdamW's moments float32, as in JAX), 4 steps: the same
+   checks, with K6 on its wgmma route and K6b on its bf16 route, counted
+   from zero over the 4 steps (C14: the port refused this before);
+   then a "timeline" line: the wall seconds since the start at the end of
+   each group of phases;
 11. the kernel table as one JSON line, each kernel with the wrapper route
    the main path ran (kernel_route) and only numbers measured in this run
    (bound_ms computed from its inputs) and its launches in each phase
    that drives a path (launches_model, _gemma2, _gemma2_ring, _moe,
-   _recurrentgemma, _xlstm, _vlm, _whisper, _durability, _dist, _train;
-   K6b's main path is phase 10b's training); K1's,
+   _recurrentgemma, _xlstm, _vlm, _whisper, _durability, _dist, _train,
+   _train_bf16; K6b has a row per route, whose main paths are phase 10b's
+   and phase 10c's training); K1's,
    K2's and K3's rows carry
    their main-path op (sweep, view, value_at) beside the chain it
    replaced and the parity op (compact, search_gather, search), each at
@@ -190,7 +200,7 @@ from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import paged_decode_ref  # noqa: E402
 from repro_torch.kernels.flash_prefill import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_prefill.ref import (  # noqa: E402
-    attention_bwd_ref, attention_lse_ref, attention_ref)
+    attention_bwd_ref, attention_lse_ref, attention_ref, bwd_bf16_margin)
 from repro_torch.kernels.version_search import ops as search_ops  # noqa: E402
 from repro_torch.kernels.version_search.ref import (  # noqa: E402
     search_gather_ref, search_ref, value_at_ref, view_ref)
@@ -211,7 +221,7 @@ from time_search_needed import (  # noqa: E402
     time_call)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12, "int32": 67e12}
 EMPTY, TS_MAX = -1, 2**31 - 1
 # paged decode against its plain version: both sum in float32 in another
 # order, so f32 agrees to rounding; a bf16 output may round to the
@@ -280,13 +290,13 @@ FLASH.update({f"{name}{sfx}": dict(c, softcap=0.0, **kw)
               for name, c in FAMILY_FLASH.items()
               for sfx, kw in (("", dict(dtype="bf16", p_rounding=True)),
                               ("_f32", dict(dtype="f32")))})
-# phase 3's K6b cases (float32, K6b's only route): gemma2-2b's training
-# layers at phase 10b's shape (B 1, T 4096, D 256, softcap 50; its local
-# layers' window 4096 covers the sequence, so they and its global layers
-# compute the same function and one row stands for both) and a window of
-# 512, minitron-4b's heads, whisper-tiny's
-# cross-attention (64 rows over 1500 frames, bidirectional).  "gemma2_train"
-# is the kernel table's row
+# phase 3's K6b cases, each in both routes (float32: split-TF32; bf16):
+# gemma2-2b's training layers at phase 10b's shape (B 1, T 4096, D 256,
+# softcap 50; its local layers' window 4096 covers the sequence, so they
+# and its global layers compute the same function and one row stands for
+# both) and a window of 512, minitron-4b's heads, whisper-tiny's
+# cross-attention (64 rows over 1500 frames, bidirectional).
+# "gemma2_train" is the kernel table's row of each route
 FLASH_BWD = {
     "gemma2_train": dict(B=1, Hq=8, Hkv=4, T=4096, D=256, window=4096,
                          softcap=50.0),
@@ -297,10 +307,13 @@ FLASH_BWD = {
     "whisper_cross": dict(B=16, Hq=6, Hkv=6, T=64, S=1500, D=64, window=0,
                           softcap=0.0, causal=False),
 }
-# K6b against attention_bwd_ref: both sum in float32 in other orders over
-# up to 4096 columns; the atol is about 4x the largest difference the first
-# card run of these kernels measured at gemma2-2b's training shape (2.8e-5
-# on dv, whose entries reach 7)
+# K6b's float32 route against attention_bwd_ref: both sum in float32 in
+# other orders over up to 4096 columns; the atol is about 4x the largest
+# difference the first card run of these kernels measured at gemma2-2b's
+# training shape (2.8e-5 on dv, whose entries reach 7).  The bf16 route is
+# held to ref.bwd_bf16_margin: ref.BF16_BWD_TOL (one bf16 rounding of each
+# gradient) plus what rounding P and dX to bf16 can move a gradient by
+# (ref.bwd_bf16_rounding), as flash_cases bounds K6's P
 FLASH_BWD_TOL = dict(atol=1e-4, rtol=1e-4)
 # phase 10b: gemma2-2b at its full published widths and depth, float32 as
 # JAX's init_state makes it, B 1 x T 4096 (train_4k's sequence; its global
@@ -310,6 +323,9 @@ FLASH_BWD_TOL = dict(atol=1e-4, rtol=1e-4)
 # gradient compression (JAX's test_compression_path_trains)
 TRAIN = dict(arch="gemma2-2b", batch=1, seq_len=4096, steps=8, lr=3e-3,
              seed=0)
+# phase 10c: the same in bf16 (init_state(dtype=bfloat16), AdamW's moments
+# float32, as in JAX), 4 steps: K6's wgmma route and K6b's bf16 route
+TRAIN_BF16 = dict(TRAIN, steps=4)
 TRAIN_RESUME = ["--arch", "gemma2-2b", "--reduced", "--device", "cuda",
                 "--steps", "12", "--ckpt-every", "5", "--log-every", "1"]
 TRAIN_COMPRESSION = dict(arch="minitron-4b", steps=30, seq_len=32, batch=8,
@@ -491,15 +507,23 @@ KERNELS = {
                      "src/repro/kernels/decode_attention/kernel.py:114"),
     "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                       "src/repro/kernels/flash_prefill/kernel.py:125"),
-    # K6b has no pallas_call: JAX differentiates _xla_flash by autodiff
+    # K6b has no pallas_call: JAX differentiates _xla_flash by autodiff;
+    # a row per route (float32 split-TF32, bf16)
     "flash_backward": ("src/repro_torch/csrc/flash_backward.cu",
                        "src/repro/models/attention.py:58"),
+    "flash_backward_bf16": ("src/repro_torch/csrc/flash_backward.cu",
+                            "src/repro/models/attention.py:58"),
 }
-# device ms of K3-K6 before their redesign, recorded in earlier runs
+# device ms of K3-K6b before their redesign, recorded in earlier runs
 # (PERF.md section 6, "NVIDIA H100 80GB HBM3, 700.00 W"), not measured
 # here; phase 3's rows carry them as ms_before_recorded
 MS_BEFORE_RECORDED = {"paged_decode": 4.358086, "flash_prefill": 19.320105,
                       "flash_prefill_gemma2_local": 5.816902,
+                      # K6b: the CUDA-core pair it replaced
+                      "flash_backward": 14.693428,
+                      "flash_backward_minitron": 17.038807,
+                      "flash_backward_gemma2_window512": 3.776279,
+                      "flash_backward_whisper_cross": 0.573878,
                       "search": 0.001632, "needed": 0.001632,
                       "needed_65536x8x256": 0.004736,
                       "needed_32768x16x1024": 0.007776}
@@ -523,6 +547,28 @@ WRAPPERS = {"compact": compact_ops.compact,
             "flash_prefill": flash_ops.flash_attention,
             "flash_backward": flash_ops.flash_attention_backward}
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def zero_counts() -> None:
+    """Every wrapper's launch count, and K6's and K6b's per route, set to
+    0."""
+    for w in WRAPPERS.values():
+        w.launches = 0
+    for routes in (flash_ops.flash_attention.route_launches,
+                   flash_ops.flash_attention_backward.route_launches):
+        for r in routes:
+            routes[r] = 0
+
+
+def launch_counts() -> dict:
+    """Launches since zero_counts, by kernel-table row: K6b's float32
+    route as ``flash_backward`` and its bf16 route as
+    ``flash_backward_bf16``."""
+    out = {name: w.launches for name, w in WRAPPERS.items()}
+    routes = flash_ops.flash_attention_backward.route_launches
+    out["flash_backward"] = routes[flash_ops.BWD_ROUTES[torch.float32]]
+    out["flash_backward_bf16"] = routes[flash_ops.BWD_ROUTES[torch.bfloat16]]
+    return out
 
 
 def emit(obj) -> None:
@@ -1199,75 +1245,106 @@ def flash_cases(dev) -> dict:
 
 
 def flash_backward_cases(dev) -> dict:
-    """K6b against attention_bwd_ref at phase 3's FLASH_BWD shapes, from
-    K6's own output and row LSE; the "gemma2_train" case is the kernel
-    table's row.  The yardstick is torch.autograd.grad through SDPA (its
-    backward only) where SDPA computes the same function: no softcap, and
-    a window that covers the sequence or none."""
+    """K6b against attention_bwd_ref at phase 3's FLASH_BWD shapes in both
+    routes, from K6's own output and row LSE (K6's float32 route, or its
+    wgmma route in bf16); the "gemma2_train" cases are the kernel table's
+    rows.  The yardstick is torch.autograd.grad through SDPA in the same
+    dtype (its backward only) where SDPA computes the same function: no
+    softcap, and a window that covers the sequence or none.  Each row's
+    bound is in its route's unit (split-TF32: three tf32 products for each
+    of the backward's; bf16); a float32 row also has the bound of the
+    CUDA-core design it replaced (bound_cuda_core_ms).  A bf16 row records
+    its limit by name and limit_ratio, the largest |got - want| over that
+    limit (at most 1)."""
     gd = torch.Generator(device=dev).manual_seed(7)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     for case, c in FLASH_BWD.items():
-        B, Hq, Hkv, T, D = c["B"], c["Hq"], c["Hkv"], c["T"], c["D"]
-        S, causal = c.get("S", T), c.get("causal", True)
-        kw = dict(causal=causal, window=c["window"], softcap=c["softcap"])
-        q = torch.randn((B, Hq, T, D), generator=gd, device=dev)
-        k = torch.randn((B, Hkv, S, D), generator=gd, device=dev)
-        v = torch.randn((B, Hkv, S, D), generator=gd, device=dev)
-        do = torch.randn((B, Hq, T, D), generator=gd, device=dev)
-        o, lse = flash_ops._launch(q, k, v, causal, c["window"],
-                                   c["softcap"], lse=True)
-        o_ref, lse_ref = attention_lse_ref(q, k, v, **kw)
-        check(max_err([o, lse], [o_ref, lse_ref]) <= 1e-4,
-              f"flash_backward {case}: K6's output or LSE off the plain "
-              "version")
-        del o_ref, lse_ref
+        for kind in ("f32", "bf16"):
+            dtype = DTYPES[kind]
+            B, Hq, Hkv, T, D = c["B"], c["Hq"], c["Hkv"], c["T"], c["D"]
+            S, causal = c.get("S", T), c.get("causal", True)
+            kw = dict(causal=causal, window=c["window"], softcap=c["softcap"])
+            q, k, v, do = (torch.randn(shape, generator=gd, device=dev
+                                       ).to(dtype)
+                           for shape in ((B, Hq, T, D), (B, Hkv, S, D),
+                                         (B, Hkv, S, D), (B, Hq, T, D)))
+            o, lse = flash_ops._launch(q, k, v, causal, c["window"],
+                                       c["softcap"], lse=True)
+            o_ref, lse_ref = attention_lse_ref(q, k, v, **kw)
+            check(max_err([lse], [lse_ref]) <= 1e-4 and (
+                kind == "bf16" or max_err([o], [o_ref]) <= 1e-4),
+                f"flash_backward {case} {kind}: K6's output or LSE off the "
+                "plain version")
+            del o_ref, lse_ref
 
-        def kernel():
-            return flash_ops.flash_attention_backward(q, k, v, o, do, lse,
-                                                      **kw)
+            def kernel():
+                return flash_ops.flash_attention_backward(q, k, v, o, do, lse,
+                                                          **kw)
 
-        def plain():
-            return attention_bwd_ref(q, k, v, o, do, lse, **kw)
+            def plain():
+                return attention_bwd_ref(q, k, v, o, do, lse, **kw)
 
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        err = max_err(got, want)
-        check(all(bool(torch.isfinite(g).all()) for g in got),
-              f"flash_backward {case} not finite")
-        check(all(torch.allclose(g, w, **FLASH_BWD_TOL)
-                  for g, w in zip(got, want)),
-              f"flash_backward {case} differs from plain version (max {err})")
-        check(all(torch.equal(a, b) for a, b in zip(got, kernel())),
-              f"flash_backward {case} not deterministic")
-        del got, want
-        library = None
-        if (c["window"] == 0 or c["window"] >= T) and c["softcap"] == 0:
-            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-            out_lib = sdpa(*leaves, is_causal=causal, enable_gqa=True)
+            route = flash_ops.BWD_ROUTES[dtype]
+            before = flash_ops.flash_attention_backward.route_launches[route]
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            check(flash_ops.flash_attention_backward.route_launches[route]
+                  == before + 1, f"flash_backward {case}: not route {route}")
+            err = max_err(got, want)
+            check(all(bool(torch.isfinite(g).all()) for g in got),
+                  f"flash_backward {case} {kind} not finite")
+            if kind == "f32":
+                tol = FLASH_BWD_TOL
+                ok = all(torch.allclose(g, w, **tol)
+                         for g, w in zip(got, want))
+            else:
+                # the largest |got - want| over its limit (at most 1)
+                tol = dict(tolerance="BF16_BWD_TOL + bwd_bf16_rounding",
+                           limit_ratio=bwd_bf16_margin(got, want, q, k, v, o,
+                                                       do, lse, **kw))
+                ok = tol["limit_ratio"] <= 1.0
+            check(ok, f"flash_backward {case} {kind} differs from plain "
+                  f"version (max {err})")
+            check(all(torch.equal(a, b) for a, b in zip(got, kernel())),
+                  f"flash_backward {case} {kind} not deterministic")
+            del got, want
+            library = None
+            if (c["window"] == 0 or c["window"] >= T) and c["softcap"] == 0:
+                leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+                out_lib = sdpa(*leaves, is_causal=causal, enable_gqa=True)
 
-            def library():
-                return torch.autograd.grad(out_lib, leaves, do,
-                                           retain_graph=True)
-        # read q, k, v, o, dO and the LSE once, write dq, dk, dv once;
-        # five T x S x D products per query head over the visible pairs
-        nbytes = 4 * (3 * B * Hq * T * D + 2 * B * Hkv * S * D + B * Hq * T
-                      + B * Hq * T * D + 2 * B * Hkv * S * D)
-        ops = 10.0 * B * Hq * D * visible_pairs(T, c["window"], S, causal)
-        b_ms, b_by = bound(nbytes, ops, "f32")
-        name = ("flash_backward" if case == "gemma2_train"
-                else f"flash_backward_{case}")
-        row = dict(shape=f"B={B} Hq={Hq} Hkv={Hkv} T={T} S={S} D={D} "
-                         f"causal={causal} window={c['window']} "
-                         f"softcap={c['softcap']} f32",
-                   route="cuda-core-f32", max_abs_err=err, **FLASH_BWD_TOL,
-                   bound_ms=b_ms, bound_by=b_by,
-                   library_what=None if library is None else
-                   "torch.autograd.grad through SDPA (its backward)",
-                   **timed(kernel, plain, library))
-        rows[name] = dict(row, share_of_bound=b_ms / row["ms"])
-        del q, k, v, do, o, lse, library
-        torch.cuda.empty_cache()
+                def library():
+                    return torch.autograd.grad(out_lib, leaves, do,
+                                               retain_graph=True)
+            # read q, k, v, o, dO and the LSE once, write dq, dk, dv once;
+            # five T x S x D products per query head over the visible pairs
+            elt = 2 if kind == "bf16" else 4
+            nbytes = (elt * (3 * B * Hq * T * D + 2 * B * Hkv * S * D
+                             + B * Hq * T * D + 2 * B * Hkv * S * D)
+                      + 4 * B * Hq * T)
+            ops = 10.0 * B * Hq * D * visible_pairs(T, c["window"], S, causal)
+            b_ms, b_by = (bound(nbytes, 3 * ops, "tf32") if kind == "f32"
+                          else bound(nbytes, ops, "bf16"))
+            name = "flash_backward" + ("_bf16" if kind == "bf16" else "") + (
+                "" if case == "gemma2_train" else f"_{case}")
+            row = dict(shape=f"B={B} Hq={Hq} Hkv={Hkv} T={T} S={S} D={D} "
+                             f"causal={causal} window={c['window']} "
+                             f"softcap={c['softcap']} {kind}",
+                       route=route, max_abs_err=err, **tol, bound_ms=b_ms,
+                       bound_by=b_by,
+                       bound_unit="tf32 x 3" if kind == "f32" else "bf16",
+                       # the CUDA-core design this route replaced (float32)
+                       **({} if kind == "bf16" else dict(
+                           bound_cuda_core_ms=bound(nbytes, ops, "f32")[0])),
+                       library_what=None if library is None else
+                       "torch.autograd.grad through SDPA (its backward), "
+                       + kind,
+                       **timed(kernel, plain, library))
+            rows[name] = dict(row, share_of_bound=b_ms / row["ms"],
+                              ms_before_recorded=MS_BEFORE_RECORDED.get(name))
+            del q, k, v, do, o, lse, library
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1668,8 +1745,7 @@ def restore_check(eng: PagedKVEngine, dev) -> dict:
 def phase_durability(dev) -> dict:
     """The slice's main path at phase 5's pool size: fork validation
     (beam), checkpoint-armed eviction (churn) and save/restore."""
-    for w in WRAPPERS.values():
-        w.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1693,7 +1769,7 @@ def phase_durability(dev) -> dict:
     restore = restore_check(run.eng, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    launches = launch_counts()
     emit({"phase": "durability", "part": "restore", **restore,
           "seconds": wall,
           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -1929,8 +2005,7 @@ def phase_dist_serve(dev) -> dict:
                                                   p["max_len"] + 1)
         return int(ok.sum()), int(done.sum())
 
-    for w in WRAPPERS.values():
-        w.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1995,7 +2070,7 @@ def phase_dist_serve(dev) -> dict:
             break
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    launches = launch_counts()
     stall_same = stall is not None and held(stall_host, stall[0], stall[1]) \
         and torch.equal(decode(stall_host, stall[1], stall[2]), stall[3])
     space = eng.space()
@@ -2099,8 +2174,7 @@ def phase_serve(dev) -> dict:
                              for _ in range(int(done.sum()))]
         return int((~failed).sum()), int(done.sum())
 
-    for w in WRAPPERS.values():
-        w.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2152,7 +2226,7 @@ def phase_serve(dev) -> dict:
             break
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    launches = launch_counts()
     for lane in list(readers):
         eng.unpin(lane)
     res = dict(phase="serve", steps=step, seconds=wall,
@@ -2306,15 +2380,12 @@ def phase_served(dev, name: str) -> tuple[dict, dict]:
           "bits")
     del outs, logits, cache
 
-    for w in WRAPPERS.values():
-        w.launches = 0
+    zero_counts()
     routes = flash_ops.flash_attention.route_launches
-    for r in routes:
-        routes[r] = 0
     rep = launcher.serve(engine, prompt, steps=args.steps,
                          pin_every=args.pin_every, log=lambda line: None)
     torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    launches = launch_counts()
     flash_routes = dict(routes)
     pins = pin_steps(args.steps, args.pin_every)
     want_lengths = {lane: [T + i + 1] * B for lane, i in enumerate(pins)}
@@ -2434,11 +2505,8 @@ def phase_frontend(dev, name: str) -> dict:
           "bits")
     del outs, logits, cache
 
-    for w in WRAPPERS.values():
-        w.launches = 0
+    zero_counts()
     routes = flash_ops.flash_attention.route_launches
-    for r in routes:
-        routes[r] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = serve_engine.prefill_step(state, cfg, run, tokens, fe)
@@ -2484,7 +2552,7 @@ def phase_frontend(dev, name: str) -> dict:
                 serve_engine.snapshot_score(state, cfg, cand, ts), score)
         state = serve_engine.end_snapshot(state, lane)
     torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    launches = launch_counts()
     flash_routes = dict(routes)
     lengths = state.cache_len.tolist()
     value_at_times = check_value_at_on_store(state.mv.store)
@@ -2594,16 +2662,13 @@ def phase_gemma2_ring(dev) -> dict:
     params = tf.init_params(cfg, gen, torch.float32)
     prompt = torch.from_numpy(np.random.default_rng(RING["seed"]).integers(
         0, cfg.vocab_size, (B, T)).astype(np.int32))
-    for w in WRAPPERS.values():
-        w.launches = 0
+    zero_counts()
     routes = flash_ops.flash_attention.route_launches
-    for r in routes:
-        routes[r] = 0
     t0 = time.perf_counter()
     card, toks, ring0, ring = _ring_pass(params, cfg, prompt, dev, steps)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    launches = launch_counts()
     flash_routes = dict(routes)
 
     cpu = torch.device("cpu")
@@ -2661,25 +2726,32 @@ def _all_finite(tensors) -> bool:
     return bool(torch.stack([torch.isfinite(x).all() for x in tensors]).all())
 
 
-def train_full_width(dev) -> dict:
-    """gemma2-2b at full width: init_state on the card in float32, then
-    TRAIN's steps from SyntheticLM; every step's loss, gradient norm and
+def train_full_width(dev, dtype=torch.float32) -> dict:
+    """gemma2-2b at full width: init_state on the card in ``dtype``
+    (float32: TRAIN, phase 10b; bf16: TRAIN_BF16, phase 10c), then its
+    steps from SyntheticLM; every step's loss, gradient norm and
     parameters finite, its lr equal to cosine_schedule's, the parameters
-    unchanged by step 0 (lr 0) and moved by step 1; K6 twice per attention
-    layer and step (forward and the checkpoint's recompute), K6b once."""
-    p = TRAIN
+    unchanged by step 0 (lr 0) and moved by step 1, AdamW's moments
+    float32; K6 twice per attention layer and step (forward and the
+    checkpoint's recompute) on the dtype's route, K6b once on its route."""
+    bf16 = dtype == torch.bfloat16
+    p = TRAIN_BF16 if bf16 else TRAIN
     cfg = get_config(p["arch"])
     run = RunConfig(model=cfg, shape=SHAPES["train_4k"], lr=p["lr"])
     torch.cuda.reset_peak_memory_stats()
     state = init_state(cfg, torch.Generator(device=dev).manual_seed(
-        p["seed"]))
+        p["seed"]), dtype=dtype)
+    check({x.dtype for x in tree_flatten(state.params)} <= {dtype,
+                                                            torch.float32}
+          and {x.dtype for x in tree_flatten(state.opt.mu)
+               + tree_flatten(state.opt.nu)} == {torch.float32},
+          f"train {dtype}: parameter or moment dtypes")
     n_params = tf.param_count(state.params)
     data = SyntheticLM(DataConfig(cfg.vocab_size, p["seq_len"], p["batch"]))
     n_attn = attention_layers(cfg)
     probe = state.params["layers"][0]["mixer"]["wq"]
-    for w in WRAPPERS.values():
-        w.launches = 0
-    wgmma0 = flash_ops.flash_attention.route_launches["wgmma+tma"]
+    check(probe.dtype == dtype, f"train: wq is {probe.dtype}")
+    zero_counts()
     step_s, losses, gnorms = [], [], []
     for i in range(p["steps"]):
         before = probe.detach().clone()
@@ -2704,27 +2776,35 @@ def train_full_width(dev) -> dict:
               f"{'moved' if moved else 'did not move'} (lr "
               f"{float(m['lr'])})")
         del batch, m
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    launches = launch_counts()
     steps = p["steps"]
-    check(launches["flash_prefill"] == 2 * n_attn * steps,
-          f"train: {launches['flash_prefill']} K6 launches, want "
-          f"{2 * n_attn * steps} (forward and recompute per layer)")
-    check(launches["flash_backward"] == n_attn * steps,
-          f"train: {launches['flash_backward']} K6b calls, want "
-          f"{n_attn * steps}")
-    check(flash_ops.flash_attention.route_launches["wgmma+tma"] == wgmma0,
-          "train: K6 took its bf16 route in a float32 training step")
+    k6_route = flash_ops.ROUTES[dtype]
+    k6 = dict(flash_ops.flash_attention.route_launches)
+    check(k6 == {r: 2 * n_attn * steps if r == k6_route else 0 for r in k6},
+          f"train {dtype}: K6 launches by route {k6}, want "
+          f"{2 * n_attn * steps} on {k6_route} (forward and recompute per "
+          "layer)")
+    k6b = {flash_ops.BWD_ROUTES[torch.float32]: launches["flash_backward"],
+           flash_ops.BWD_ROUTES[torch.bfloat16]:
+               launches["flash_backward_bf16"]}
+    k6b_route = flash_ops.BWD_ROUTES[dtype]
+    check(k6b == {r: n_attn * steps if r == k6b_route else 0 for r in k6b},
+          f"train {dtype}: K6b calls by route {k6b}, want {n_attn * steps} "
+          f"on {k6b_route}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     prof = profile_window(lambda: train_step(state, _batch(data, dev), cfg,
-                                             run), steps=1, name="train")
+                                             run), steps=1,
+                          name="train_bf16" if bf16 else "train")
     med = sorted(step_s[1:])[len(step_s[1:]) // 2]
-    res = {"phase": "train", "arch": cfg.name, "params": n_params,
+    res = {"phase": "train_bf16" if bf16 else "train", "arch": cfg.name,
+           "dtype": str(dtype), "params": n_params,
            "batch": p["batch"], "seq_len": p["seq_len"], "steps": steps,
            "reduced": ["train_4k's global batch 256 cut to 1 (one card)"],
            "step_s": step_s, "median_step_s": med,
            "tokens_per_s": p["batch"] * p["seq_len"] / med,
            "losses": losses, "grad_norms": gnorms,
            "peak_gib": peak, "device_idle_share": prof["device_idle_share"],
+           "k6_routes": k6, "k6b_routes": k6b,
            "launches_per_step": {k: v / steps for k, v in launches.items()},
            "launches": launches}
     emit(res)
@@ -2817,16 +2897,17 @@ def train_compression(dev) -> dict:
     return out
 
 
-def phase_train(dev) -> dict:
-    """Phase 10b: full-width training, then the launcher's crash/resume and
-    gradient compression at reduced widths.  Returns the full-width run's
-    launch counts."""
+def phase_train(dev) -> tuple[dict, dict]:
+    """Phase 10b: full-width training in float32, then the launcher's
+    crash/resume and gradient compression at reduced widths; phase 10c:
+    full-width training in bf16.  Returns the two full-width runs' launch
+    counts."""
     launches = train_full_width(dev)
     res = {"phase": "train_resume", **train_resume(dev)}
     res["compression"] = train_compression(dev)
     emit(res)
     torch.cuda.empty_cache()
-    return launches
+    return launches, train_full_width(dev, torch.bfloat16)
 
 
 def _to(x, dev):
@@ -2839,15 +2920,26 @@ def _to(x, dev):
 
 
 def main() -> int:
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def lap(name: str) -> None:
+        """Wall seconds since the script started, at the end of a phase."""
+        seconds[name] = time.perf_counter() - t0
+
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
+    lap("build")
     kernels = phase_kernels(dev)
+    lap("kernels")
     phase_storm(dev)
     launches = phase_serve(dev)
     torch.cuda.empty_cache()
+    lap("serve")
     model_launches, flash_routes = phase_served(dev, "model")
     torch.cuda.empty_cache()
+    lap("model")
     served = {}
     served["gemma2"], _ = phase_served(dev, "gemma2")
     torch.cuda.empty_cache()
@@ -2861,13 +2953,18 @@ def main() -> int:
     for name in FRONTEND:
         served[name] = phase_frontend(dev, name)
         torch.cuda.empty_cache()
+    lap("served")
     phase_fork_tiers(dev)
     durable_launches = phase_durability(dev)
     torch.cuda.empty_cache()
+    lap("durability")
     phase_dist_tiers(dev)
     dist_launches = phase_dist_serve(dev)
     torch.cuda.empty_cache()
-    train_launches = phase_train(dev)
+    lap("dist")
+    train_launches, bf16_launches = phase_train(dev)
+    lap("train")
+    emit({"phase": "timeline", "seconds_at_end_of": seconds})
     table = []
     for name, (source, replaces) in KERNELS.items():
         row = kernels[MAIN_OPS.get(name, name)]
@@ -2879,6 +2976,7 @@ def main() -> int:
         launches_from, count = {
             "flash_prefill": ("model", model_launches[name]),
             "flash_backward": ("train", train_launches[name]),
+            "flash_backward_bf16": ("train_bf16", bf16_launches[name]),
             "search": ("model", model_launches[name]),
             "needed": ("kernels (phase 3): no serving path calls needed",
                        row.get("launches_phase3", 0)),
@@ -2886,8 +2984,11 @@ def main() -> int:
         # kernel_route: which of the wrapper's routes the main path ran
         # (flash prefill counts each route's launches; the rest have one)
         kernel_route = (", ".join(r for r, n in flash_routes.items() if n)
-                        if name == "flash_prefill" else "cuda-core-f32"
-                        if name == "flash_backward" else "cuda-core")
+                        if name == "flash_prefill" else
+                        flash_ops.BWD_ROUTES[torch.float32]
+                        if name == "flash_backward" else
+                        flash_ops.BWD_ROUTES[torch.bfloat16]
+                        if name == "flash_backward_bf16" else "cuda-core")
         table.append(dict(
             name=name, route="cuda", kernel_route=kernel_route, source=source,
             replaces=replaces,
@@ -2897,10 +2998,13 @@ def main() -> int:
             launches_durability=durable_launches[name],
             launches_dist=dist_launches[name],
             launches_train=train_launches[name],
+            launches_train_bf16=bf16_launches[name],
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
-            share_of_bound=row["bound_ms"] / row["ms"]))
+            share_of_bound=row["bound_ms"] / row["ms"],
+            **({"bound_unit": row["bound_unit"]}
+               if name.startswith("flash_backward") else {})))
         if name in MAIN_OPS:
             # K1-K3: the main path's one-launch op, beside the chain of
             # ops it replaced and the parity op that stays

@@ -42,7 +42,10 @@
 //   a KV tile is 96 columns at DP 128, 128 at 64 and 32 at 256, the widths
 //   that timed best on the H100 within the registers ptxas gives a thread
 //   of this 384-thread block (168, setmaxnreg or not: O alone is DP / 2 of
-//   them).  The tensor maps are 3-d (D, rows, B * heads), so rows past S
+//   them).  Given an lse pointer (a training step's forward), the epilogue
+//   writes each row's log-sum-exp m + log l for K6b: l sums P before its
+//   rounding, so it is the LSE of the float32 logits, as the float32
+//   route's.  The tensor maps are 3-d (D, rows, B * heads), so rows past S
 //   or T load as zeros and never spill into the next head: a weight of 0
 //   never meets a NaN, as the TPU kernel's zeroing of padded KV rows
 //   ensures.  The row stride must be a multiple of 16 bytes (the wrapper
@@ -291,10 +294,6 @@ struct Tc {
   static_assert(SMEM <= 232448, "shared memory of a block on the H100");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
                "r"(count)
@@ -348,46 +347,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Pins registers at this point of the program: after a wait, so no read
-// of an accumulator moves above it; before wgmma.fence, so no instruction
-// that defines an operand (the rescale of O, the packing of P) moves into
-// the wgmma pipeline stage, where ptxas would serialize the wgmma.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -415,8 +374,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 flash_prefill_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
-                           __nv_bfloat16* __restrict__ out, int Hq, int Hkv,
-                           int nq, int nk, int Dp, int causal, int window,
+                           __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ lse, int Hq, int Hkv, int nq,
+                           int nk, int Dp, int causal, int window,
                            float softcap, float scale) {
   using C = Tc<DP>;
   constexpr int BK = C::BK;
@@ -625,6 +585,15 @@ flash_prefill_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const float inv0 = lt0 == 0.f ? 0.f : 1.f / lt0;
   const float inv1 = lt1 == 0.f ? 0.f : 1.f / lt1;
   const long long head = ((long long)b * Hq + h) * (long long)nq;
+  // the row's log-sum-exp for the backward (K6b), in natural units of the
+  // scaled, capped float32 logits (m and l are in the log2 domain, l summed
+  // before P's rounding); +inf for a row that sees no column
+  if (lse != nullptr && lane % 4 == 0) {
+    if (r0 < nq)
+      lse[head + r0] = lt0 == 0.f ? INFINITY : (m0 + log2f(lt0)) / kLog2e;
+    if (r1 < nq)
+      lse[head + r1] = lt1 == 0.f ? INFINITY : (m1 + log2f(lt1)) / kLog2e;
+  }
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j) {
     const int col = 8 * j + cq;
@@ -681,13 +650,27 @@ bool make_map(CUtensorMap* map, const void* ptr, int Dp, int rows, int heads,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+__global__ void fill_inf(float* __restrict__ p, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) p[i] = INFINITY;
+}
+
 template <int DP>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
-              int Hq, int Hkv, int nq, int nk, int Dp, int causal, int window,
-              float softcap, float scale, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              void* lse, int B, int Hq, int Hkv, int nq, int nk, int Dp,
+              int causal, int window, float softcap, float scale,
+              cudaStream_t stream) {
   using C = Tc<DP>;
-  if (nk == 0)   // no column to see: every row is 0
+  if (nk == 0) {   // no column to see: every row is 0, its LSE +inf
+    if (lse != nullptr) {
+      const long long n = (long long)B * Hq * nq;
+      fill_inf<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>((float*)lse,
+                                                                n);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+    }
     return (int)cudaMemsetAsync(out, 0, (size_t)B * Hq * nq * Dp * 2, stream);
+  }
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, Dp, nq, B * Hq, kTcRows) ||
       !make_map(&mk, k, Dp, nk, B * Hkv, C::BK) ||
@@ -699,8 +682,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((nq + kTcRows - 1) / kTcRows, Hq, B);
   flash_prefill_kernel_wgmma<DP><<<grid, kTcThreads, C::SMEM, stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)out, Hq, Hkv, nq, nk, Dp, causal, window,
-      softcap, scale);
+      mq, mk, mv, (__nv_bfloat16*)out, (float*)lse, Hq, Hkv, nq, nk, Dp,
+      causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -711,8 +694,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
 // 1 / sqrt of the unpadded head dim.  bf16 takes the wgmma kernel (D a
 // multiple of 8, 16-byte aligned pointers), float32 the CUDA-core kernel.
 // lse, float32 [B, Hq, T] or null, receives each row's log-sum-exp of its
-// (scaled, capped) logits for the backward; only the float32 kernel
-// writes it (the wgmma kernel refuses a non-null lse).
+// (scaled, capped) float32 logits for the backward (K6b), on both routes.
 extern "C" int mvgc_flash_prefill(const void* q, const void* k, const void* v,
                                   void* out, void* lse, int B, int Hq,
                                   int Hkv, int T, int S, int D, int causal,
@@ -721,15 +703,15 @@ extern "C" int mvgc_flash_prefill(const void* q, const void* k, const void* v,
   if (D <= 0 || D > 256 || Hkv <= 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (is_bf16) {
-    if (D % 8 != 0 || lse != nullptr) return (int)cudaErrorInvalidValue;
+    if (D % 8 != 0) return (int)cudaErrorInvalidValue;
     if (D <= 64)
-      return launch_tc<64>(q, k, v, out, B, Hq, Hkv, T, S, D, causal, window,
-                           softcap, scale, stream);
+      return launch_tc<64>(q, k, v, out, lse, B, Hq, Hkv, T, S, D, causal,
+                           window, softcap, scale, stream);
     if (D <= 128)
-      return launch_tc<128>(q, k, v, out, B, Hq, Hkv, T, S, D, causal, window,
-                            softcap, scale, stream);
-    return launch_tc<256>(q, k, v, out, B, Hq, Hkv, T, S, D, causal, window,
-                          softcap, scale, stream);
+      return launch_tc<128>(q, k, v, out, lse, B, Hq, Hkv, T, S, D, causal,
+                            window, softcap, scale, stream);
+    return launch_tc<256>(q, k, v, out, lse, B, Hq, Hkv, T, S, D, causal,
+                          window, softcap, scale, stream);
   }
   if (D <= 64)
     return launch_f32<64>(q, k, v, out, lse, B, Hq, Hkv, T, S, D, causal,

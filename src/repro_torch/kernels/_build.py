@@ -10,7 +10,8 @@ and loads.
 
 Each C entry point takes device pointers, int sizes and the CUDA stream, and
 returns ``cudaGetLastError()`` after its launch; :func:`check` turns a
-nonzero return into an exception.
+nonzero return into an exception.  ``mvgc_flash_backward_workspace`` returns
+the bytes of scratch K6b needs (``RESTYPES``).
 """
 from __future__ import annotations
 
@@ -57,11 +58,15 @@ SIGNATURES = {
     # scale, is_bf16, stream
     "mvgc_flash_prefill": [_P] * 5 + [_I] * 8 + [ctypes.c_float] * 2
     + [_I, _P],
-    # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, T, S, D,
-    # causal, window, softcap, scale, stream
+    # q, k, v, o, dout, lse, work, dq, dk, dv, B, Hq, Hkv, T, S, D,
+    # causal, window, softcap, scale, is_bf16, stream
     "mvgc_flash_backward": [_P] * 10 + [_I] * 8 + [ctypes.c_float] * 2
-    + [_P],
+    + [_I, _P],
+    # B, Hq, Hkv, T, S, D, is_bf16 -> bytes of mvgc_flash_backward's work
+    "mvgc_flash_backward_workspace": [_I] * 7,
 }
+#: return types other than the C error code
+RESTYPES = {"mvgc_flash_backward_workspace": ctypes.c_longlong}
 
 _lib: Optional[ctypes.CDLL] = None
 #: seconds the last build in this process took (0.0 before any build)
@@ -135,7 +140,7 @@ def lib() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         _lib = handle
     return _lib
 

@@ -28,16 +28,42 @@ kernel:
 
 Under autograd (grad enabled and ``q``, ``k`` or ``v`` requiring grad) the
 call goes through :class:`FlashAttention`, a ``torch.autograd.Function``:
-its forward is K6's float32 route storing each row's log-sum-exp (one K6
-launch, counted as above), its backward is K6b
+its forward is K6 storing each row's log-sum-exp of the float32 logits
+(either route; one K6 launch, counted as above), its backward is K6b
 (:func:`flash_attention_backward`, ``csrc/flash_backward.cu``), which
 recomputes the probabilities tile by tile from that LSE.  The K6 launch
 writes into a fresh tensor through ``ctypes``, so without the Function a
 loss through it would get no gradient for q, k and v.  On CPU tensors both
 halves take their plain versions (:func:`~.ref.attention_lse_ref`,
-:func:`~.ref.attention_bwd_ref`).  Only float32 has a backward kernel: a
-bfloat16 input under autograd raises.  Without grad the call is K6 as
-before, with no LSE stored.
+:func:`~.ref.attention_bwd_ref`).  Without grad the call is K6 as before,
+with no LSE stored.
+
+K6b runs on the tensor cores by dtype (``BWD_ROUTES``), in one design
+for both routes, the split: after a pass for ``delta = rowsum(dO o)`` and
+a copy pass (``Q^T``, ``dO^T``, ``K^T``; in float32 also the tf32
+``lo`` halves), one kernel sums dK and dV a KV tile per block over the query
+heads and tiles that see it, and a second sums dQ a query tile per block
+over the KV tiles it sees, recomputing the logits (7 products where the
+backward needs 5, and 9 at D 256, where dK's and dV's kernel splits the
+head dim).  A design that saved the two products by writing each KV
+tile's share of dQ to float32 partials did not beat it on an H100
+(``csrc/flash_backward.cu``'s header, ``PERF.md``).  Each element is
+summed in a fixed order with no atomics, so two calls give the same bits.
+
+* ``"wgmma-bf16"``: bf16 operands, float32 accumulation; P and dX rounded
+  to bf16 for their products, dK, dV and dQ rounded once.  Bound: ``10 B
+  Hq D pairs`` operations at the bf16 rate (989 TFLOP/s).
+* ``"wgmma-tf32x3"`` (float32): split-TF32, ``x = hi + lo`` with ``hi =
+  tf32(x)`` and ``hi hi + hi lo + lo hi`` per product on the tf32 tensor
+  cores, about float32's accuracy (``hi`` is ``x`` itself, whose top 19
+  bits the tensor cores read; ``lo`` a copy).  Bound: three times those operations at
+  the tf32 rate (495 TFLOP/s).
+
+A head dim that is not 64, 128 or 256 is padded with zero dims to the
+next of them here (the kernel loads 128-byte slices of it) and the
+gradients are written at the real ``D``; the scale stays ``1/sqrt(D)``.
+``flash_attention_backward.launches`` counts calls and ``.route_launches``
+the calls of each route.
 
 Bound on the H100: operations.  A causal prefill does about ``T^2 D``
 multiply-adds per query head (``T^2 / 2`` visible pairs, two products each)
@@ -59,6 +85,8 @@ from repro_torch.kernels.flash_prefill.ref import (attention_bwd_ref,
 
 #: the kernel of each input dtype
 ROUTES = {torch.bfloat16: "wgmma+tma", torch.float32: "cuda-core-f32"}
+#: K6b's route of each input dtype
+BWD_ROUTES = {torch.bfloat16: "wgmma-bf16", torch.float32: "wgmma-tf32x3"}
 #: the kernel's largest head dim (its widest shared-memory tile)
 MAX_HEAD_DIM = 256
 
@@ -98,7 +126,7 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             window: int, softcap: float, lse: bool = False):
     """One K6 launch on CUDA tensors: the output and, when ``lse``, each
-    row's log-sum-exp (float32 route only)."""
+    row's log-sum-exp, float32 [B, Hq, T]."""
     _check("flash_attention", q, k, v, window, softcap)
     B, Hq, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
@@ -132,10 +160,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Differentiable through :class:`FlashAttention` when autograd records
     the call."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if q.is_cuda and q.dtype != torch.float32:
-            raise ValueError(
-                "flash_attention: a gradient needs float32 inputs (K6b, the "
-                f"backward kernel, has no {q.dtype} route); got q {q.dtype}")
         return FlashAttention.apply(q, k, v, causal, window, softcap)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
@@ -147,6 +171,11 @@ flash_attention.launches = 0
 flash_attention.route_launches = {r: 0 for r in ROUTES.values()}
 
 
+def _head_dim(D: int) -> int:
+    """K6b's padded head dim: 64, 128 or 256."""
+    return 64 if D <= 64 else 128 if D <= 128 else 256
+
+
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, lse: torch.Tensor, *,
@@ -155,45 +184,52 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     """K6b: (dq, dk, dv) of :func:`flash_attention` at output ``o``, upstream
     gradient ``do`` and the forward's row log-sum-exp ``lse`` [B, Hq, T]
     (float32), under the forward's ``causal``, ``window`` and ``softcap``.
-    CPU tensors take :func:`~.ref.attention_bwd_ref`; CUDA tensors must be
-    float32 and launch the kernel pair (the dq kernel, which also writes
-    the row sums ``rowsum(dO o)``, then the dk/dv kernel), counted as one
-    call in ``flash_attention_backward.launches``."""
+    CPU tensors take :func:`~.ref.attention_bwd_ref`; CUDA tensors (bf16
+    or float32) launch the kernels of their route (``BWD_ROUTES``), counted
+    as one call in ``flash_attention_backward.launches`` and in its
+    route's ``route_launches``."""
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
                                  window=window, softcap=softcap)
     _check("flash_attention_backward", q, k, v, window, softcap)
     B, Hq, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
-    if q.dtype != torch.float32:
-        raise ValueError("flash_attention_backward: K6b has a float32 route "
-                         f"only; got {q.dtype}")
     if (o.shape != q.shape or do.shape != q.shape or lse.shape != (B, Hq, T)
             or o.dtype != q.dtype or do.dtype != q.dtype
             or lse.dtype != torch.float32
             or not all(t.is_cuda and t.is_contiguous() and t.device == q.device
                        for t in (o, do, lse))):
         raise ValueError(
-            "flash_attention_backward: o and do must be contiguous float32 "
-            f"CUDA tensors of q's shape {tuple(q.shape)} and lse float32 "
-            f"[B, Hq, T]; got o {tuple(o.shape)} {o.dtype}, do "
+            "flash_attention_backward: o and do must be contiguous CUDA "
+            f"tensors of q's shape {tuple(q.shape)} and dtype, and lse "
+            f"float32 [B, Hq, T]; got o {tuple(o.shape)} {o.dtype}, do "
             f"{tuple(do.shape)} {do.dtype}, lse {tuple(lse.shape)} "
             f"{lse.dtype}")
+    route = BWD_ROUTES[q.dtype]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
-    err = _build.lib().mvgc_flash_backward(
+    dp = _head_dim(D)
+    q, k, v, o, do = (_tma_ready(t, dp) for t in (q, k, v, o, do))
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    lib = _build.lib()
+    work = torch.empty(lib.mvgc_flash_backward_workspace(
+        B, Hq, Hkv, T, S, D, is_bf16), dtype=torch.uint8, device=q.device)
+    err = lib.mvgc_flash_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, T, S, D, int(causal),
-        int(window), float(softcap), 1.0 / math.sqrt(D), _build.stream())
+        int(window), float(softcap), 1.0 / math.sqrt(D), is_bf16,
+        _build.stream())
     _build.check("mvgc_flash_backward", err)
     flash_attention_backward.launches += 1
+    flash_attention_backward.route_launches[route] += 1
     return dq, dk, dv
 
 
 flash_attention_backward.launches = 0
+flash_attention_backward.route_launches = {r: 0
+                                           for r in BWD_ROUTES.values()}
 
 
 class FlashAttention(torch.autograd.Function):

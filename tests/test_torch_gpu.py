@@ -28,9 +28,11 @@ from repro_torch.kernels.compact.ref import compact_ref, needed_ref, sweep_ref
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import paged_decode_ref
 from repro_torch.kernels.flash_prefill import ops as flash_ops
-from repro_torch.kernels.flash_prefill.ref import (attention_bwd_ref,
+from repro_torch.kernels.flash_prefill.ref import (_p_dx, _products,
+                                                   attention_bwd_ref,
                                                    attention_lse_ref,
-                                                   attention_ref)
+                                                   attention_ref,
+                                                   bwd_bf16_margin)
 from repro_torch.kernels.version_search import ops as search_ops
 from repro_torch.kernels.version_search.ref import (search_gather_ref,
                                                      search_ref, value_at_ref,
@@ -954,7 +956,7 @@ def test_flash_prefill_rejects_what_it_cannot_run(cuda):
                                                 8, 8, 320))
 
 
-# K6b, the gradient kernel pair: the CPU gradient tests' cases
+# K6b, the gradient kernels: the CPU gradient tests' cases
 # (tests/test_torch_flash_grad.py) and two wider ones
 FLASH_GRAD_CASES = [
     (2, 4, 4, 64, 64, 16, True, 0, 0.0),
@@ -970,32 +972,6 @@ FLASH_GRAD_CASES = [
     (2, 6, 2, 200, 131, 128, False, 0, 0.0),     # S ends inside a tile
 ]
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
-
-
-@pytest.mark.parametrize("B,Hq,Hkv,T,S,D,causal,window,cap",
-                         FLASH_GRAD_CASES)
-def test_flash_backward_kernel(cuda, B, Hq, Hkv, T, S, D, causal, window,
-                               cap):
-    """K6's row LSE and K6b's dq, dk, dv against the plain versions on the
-    same CUDA tensors (float32; both sum in float32 in other orders), one
-    K6b call per backward, and two calls give the same bits."""
-    q, k, v = flash_inputs(cuda, torch.float32, B, Hq, Hkv, T, S, D, seed=T)
-    do = torch.randn_like(q)
-    kw = dict(causal=causal, window=window, softcap=cap)
-    out, lse = flash_ops._launch(q, k, v, causal, window, cap, lse=True)
-    out_r, lse_r = attention_lse_ref(q, k, v, **kw)
-    assert torch.allclose(out, out_r, atol=1e-5, rtol=1e-5)
-    assert torch.allclose(lse, lse_r, atol=1e-5, rtol=1e-5)
-    before = flash_ops.flash_attention_backward.launches
-    got = flash_ops.flash_attention_backward(q, k, v, out, do, lse, **kw)
-    assert flash_ops.flash_attention_backward.launches == before + 1
-    want = attention_bwd_ref(q, k, v, out, do, lse, **kw)
-    for g, w in zip(got, want):
-        assert g.shape == w.shape
-        assert torch.allclose(g, w, **GRAD_TOL)
-    again = flash_ops.flash_attention_backward(q, k, v, out, do, lse, **kw)
-    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
-        "two calls gave different bits"
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,T,S,D,causal,window,cap",
@@ -1020,13 +996,186 @@ def test_flash_attention_gradient_matches_autograd_through_ref(
         assert torch.allclose(g, w, **GRAD_TOL)
 
 
-def test_flash_attention_refuses_a_bf16_gradient(cuda):
-    q, k, v = flash_inputs(cuda, torch.bfloat16, 1, 2, 1, 8, 8, 16)
-    with pytest.raises(ValueError, match="float32"):
-        flash_ops.flash_attention(q.requires_grad_(True), k, v)
-    with pytest.raises(ValueError, match="float32"):
-        flash_ops.flash_attention_backward(q, k, v, q, q, torch.zeros(
-            (1, 2, 8), device=cuda))
+# more K6b edges: one query tile's dQ summed over 64 KV tiles (S 4096,
+# bidirectional), and a window of 1 (each query tile sees only the KV tile
+# on its diagonal, each row only itself: P = 1 there, so dv = do summed
+# over the group and dq = dk = 0)
+FLASH_GRAD_EDGES = [
+    (1, 4, 2, 64, 4096, 128, False, 0, 0.0),
+    (1, 4, 2, 256, 256, 64, True, 1, 0.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,T,S,D,causal,window,cap",
+                         FLASH_GRAD_CASES + FLASH_GRAD_EDGES)
+def test_flash_backward_kernel(cuda, dtype, B, Hq, Hkv, T, S, D, causal,
+                               window, cap):
+    """K6's row LSE (its float32 route, or its wgmma route in bf16) and
+    K6b's dq, dk, dv on the dtype's route against the plain versions on
+    the same CUDA tensors: float32 (split-TF32) within GRAD_TOL (both sum
+    in float32 in other orders), bf16 within bwd_bf16_margin; one K6b call
+    of that route per backward, and two calls give the same bits."""
+    q, k, v = flash_inputs(cuda, dtype, B, Hq, Hkv, T, S, D, seed=T)
+    do = torch.randn_like(q)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out, lse = flash_ops._launch(q, k, v, causal, window, cap, lse=True)
+    out_r, lse_r = attention_lse_ref(q, k, v, **kw)
+    if dtype == torch.float32:
+        assert torch.allclose(out, out_r, atol=1e-5, rtol=1e-5)
+    assert torch.allclose(lse, lse_r, atol=1e-5, rtol=1e-5)
+    before = flash_ops.flash_attention_backward.launches
+    routes = dict(flash_ops.flash_attention_backward.route_launches)
+    got = flash_ops.flash_attention_backward(q, k, v, out, do, lse, **kw)
+    assert flash_ops.flash_attention_backward.launches == before + 1
+    after = flash_ops.flash_attention_backward.route_launches
+    assert {r: after[r] - routes[r] for r in after} == \
+        {r: int(r == flash_ops.BWD_ROUTES[dtype]) for r in after}
+    want = attention_bwd_ref(q, k, v, out, do, lse, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g).all())
+    if dtype == torch.float32:
+        assert all(torch.allclose(g, w, **GRAD_TOL) for g, w in zip(got, want))
+    else:
+        assert bwd_bf16_margin(got, want, q, k, v, out, do, lse, **kw) <= 1.0
+    again = flash_ops.flash_attention_backward(q, k, v, out, do, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "two calls gave different bits"
+    if window == 1:
+        G = Hq // Hkv
+        tol = GRAD_TOL if dtype == torch.float32 else DECODE_TOL[dtype]
+        dv = do.float().view(B, Hkv, G, T, D).sum(2)
+        assert torch.allclose(got[2].float(), dv, **tol)
+        for g in got[:2]:
+            assert torch.allclose(g.float(), torch.zeros_like(g.float()),
+                                  **tol)
+
+
+def test_bf16_limit_catches_a_dropped_kv_tile(cuda):
+    """bwd_bf16_margin is tight enough to see a wrong sum on the card:
+    K6b's bf16 dq at T 4096 passes, and the same dq with one KV tile's
+    share (64 columns, from the plain version's dX) taken out of the last
+    query tile's rows does not."""
+    B, Hq, Hkv, T, D = 1, 4, 2, 4096, 128
+    q, k, v = flash_inputs(cuda, torch.bfloat16, B, Hq, Hkv, T, T, D, seed=3)
+    do = torch.randn_like(q)
+    out, lse = flash_ops._launch(q, k, v, True, 0, 0.0, lse=True)
+    got = flash_ops.flash_attention_backward(q, k, v, out, do, lse)
+    want = attention_bwd_ref(q, k, v, out, do, lse)
+    inputs = (q, k, v, out, do, lse)
+    assert bwd_bf16_margin(got, want, *inputs) <= 1.0
+    # the share of KV columns 320..383 (all visible) in the last 64 query
+    # rows' dq, as attention_bwd_ref computes it
+    rows, cols = slice(T - 64, T), slice(320, 384)
+    qr, dor = q[:, :, rows], do[:, :, rows]
+    p, dx = _p_dx(qr, k[:, :, cols], v[:, :, cols], out[:, :, rows], dor,
+                  lse[:, :, rows], False, 0, 0.0)
+    dq = got[0].float()
+    dq[:, :, rows] -= _products(p, dx, qr.float(), k[:, :, cols].float(),
+                                dor.float(), 1.0 / math.sqrt(D))[0]
+    assert bwd_bf16_margin((dq.bfloat16(),) + tuple(got[1:]), want,
+                           *inputs) > 1.0
+
+
+@pytest.mark.parametrize("Hq,Hkv,T,D,window,cap", [
+    (4, 2, 300, 128, 0, 0.0),
+    (4, 2, 300, 64, 100, 0.0),
+    (8, 4, 300, 256, 70, 50.0),
+    (2, 1, 1000, 20, 0, 0.0),      # D padded to 24
+])
+def test_flash_prefill_wgmma_lse(cuda, Hq, Hkv, T, D, window, cap):
+    """K6's wgmma route writes each row's log-sum-exp of the float32
+    logits (before P is rounded to bf16): against attention_lse_ref on the
+    same bf16 inputs, and the output is the one the call without an LSE
+    gives, bit for bit."""
+    q, k, v = flash_inputs(cuda, torch.bfloat16, 1, Hq, Hkv, T, T, D, seed=5)
+    kw = dict(causal=True, window=window, softcap=cap)
+    before = flash_ops.flash_attention.route_launches["wgmma+tma"]
+    out, lse = flash_ops._launch(q, k, v, True, window, cap, lse=True)
+    assert flash_ops.flash_attention.route_launches["wgmma+tma"] == \
+        before + 1
+    _, want = attention_lse_ref(q, k, v, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    assert torch.allclose(lse, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(out, flash_ops.flash_attention(q, k, v, **kw))
+
+
+def test_flash_attention_runs_a_bf16_gradient(cuda):
+    """C14 closed: bf16 inputs under autograd run K6's wgmma route (with
+    its LSE) forward and K6b's bf16 route backward, and raise nothing."""
+    q, k, v = (x.requires_grad_(True) for x in flash_inputs(
+        cuda, torch.bfloat16, 1, 4, 2, 130, 130, 128))
+    fwd = dict(flash_ops.flash_attention.route_launches)
+    bwd = dict(flash_ops.flash_attention_backward.route_launches)
+    out = flash_ops.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), torch.randn_like(out))
+    assert flash_ops.flash_attention.route_launches["wgmma+tma"] == \
+        fwd["wgmma+tma"] + 1
+    assert flash_ops.flash_attention_backward.route_launches[
+        "wgmma-bf16"] == bwd["wgmma-bf16"] + 1
+    assert all(g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+               for g in grads)
+
+
+def test_model_bf16_gradient_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """Reduced gemma2-2b in bf16 (C14): every attention layer's backward a
+    K6b bf16 call, and every parameter's gradient on the card within 2**-4
+    of its leaf's largest magnitude of the CPU's on the same weights (the
+    card rounds P and dX to bf16 in K6 and K6b and sums the bf16 matmuls
+    in other orders than the CPU; a few bf16 roundings of the largest
+    terms), nonzero wherever the CPU's is; the loss within 1e-2.  The
+    limit sees a wrong gradient: the CPU's with the first 8 KV columns'
+    share removed from every layer's dq is outside it."""
+    cfg = reduced_config("gemma2-2b")
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                            dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+
+    def grads(p, dev):
+        leaves = tree_flatten(p)
+        for x in leaves:
+            x.requires_grad_(True)
+        loss, _ = tf.loss_fn(p, cfg, {"tokens": torch.from_numpy(tokens).to(
+            dev)})
+        return loss, torch.autograd.grad(loss, leaves)
+
+    before = flash_ops.flash_attention_backward.route_launches["wgmma-bf16"]
+    loss_g, g_g = grads(params, cuda)
+    n_attn = sum(k in ("attn", "local") for k in tf._kinds(cfg))
+    assert flash_ops.flash_attention_backward.route_launches[
+        "wgmma-bf16"] - before == n_attn
+
+    def to_cpu(x):
+        if isinstance(x, dict):
+            return {k: to_cpu(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [to_cpu(v) for v in x]
+        return x.detach().cpu()
+
+    def within(g_c):
+        return all(float((a.float().cpu() - b.float()).abs().max())
+                   <= 2.0**-4 * float(b.float().abs().max())
+                   for a, b in zip(g_g, g_c))
+
+    loss_c, g_c = grads(to_cpu(params), "cpu")
+    torch.testing.assert_close(loss_g.float().cpu(), loss_c.float(),
+                               atol=1e-2, rtol=0)
+    assert within(g_c)
+    for a, b in zip(g_g, g_c):
+        if b.any():
+            assert a.any()
+
+    plain = flash_ops.attention_bwd_ref
+
+    def without_first_columns(q, k, v, o, do, lse, **kw):
+        dq, dk, dv = plain(q, k, v, o, do, lse, **kw)
+        share = plain(q, k[:, :, :8], v[:, :, :8], o, do, lse, **kw)[0]
+        return (dq.float() - share.float()).to(dq.dtype), dk, dv
+
+    monkeypatch.setattr(flash_ops, "attention_bwd_ref", without_first_columns)
+    assert not within(grads(to_cpu(params), "cpu")[1])
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "whisper-tiny"])
