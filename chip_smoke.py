@@ -146,6 +146,31 @@ Phases, each printing one JSON line:
    bfloat16), AdamW's moments float32, as in JAX), 4 steps: the same
    checks, with K6 on its wgmma route and K6b on its bf16 route, counted
    from zero over the 4 steps (C14: the port refused this before);
+10d-10f. four rank processes of this script (``--rank``), each on the
+   card (cuda:0), joined by gloo through a file store (NCCL refuses two
+   ranks of one group on one GPU); only the collectives cross gloo,
+   through host memory.  First phase 10e's one-rank reference runs in a
+   process of its own, so that its memory is the card's again.  Then
+   each rank runs 10e and 10f, then 10d (10e needs the card's memory
+   most):
+   10d dist_ranks — phase 10's traffic loop unchanged, its engine spread over
+   the 4 ranks by the default mesh (one host each, the LWM over the min
+   ring), to phase 10's step count: every counter, the LWM after every
+   step, the pages reclaimed and the peak per host and a digest of every
+   view and K4 output must equal phase 10's run; then phase 9's smoke
+   and stall rows at 4 ranks;
+   10e train_sharded — gemma2-2b at full widths and depth in float32 on
+   a 2 x 2 (data, model) mesh with fsdp=True, each leaf gathered at use,
+   B 2 x T 2048, 2 steps: the losses and gradient norms within rtol 1e-4
+   of the one-rank step, SHARDED_LEAVES' shards (mu, nu) within their
+   stated limits and each parameter's change over the run against the
+   one-rank step's (step 0's rate is 0: the update shows only there), K6
+   and K6b counted on every rank, each rank's peak memory;
+   10f pipeline — minitron-4b's 32 layers in bf16 over 4 stage ranks
+   (GPipe, M 8 microbatches of B 2 x T 2048): the output bit-equal to the
+   same 32 layers in sequence on the card.
+   A rank that fails, or outlives RANKS_TIMEOUT_S, fails the phase; every
+   rank is stopped before the script goes on;
    then a "timeline" line: the wall seconds since the start at the end of
    each group of phases;
 11. the kernel table as one JSON line, each kernel with the wrapper route
@@ -153,7 +178,8 @@ Phases, each printing one JSON line:
    (bound_ms computed from its inputs) and its launches in each phase
    that drives a path (launches_model, _gemma2, _gemma2_ring, _moe,
    _recurrentgemma, _xlstm, _vlm, _whisper, _durability, _dist, _train,
-   _train_bf16; K6b has a row per route, whose main paths are phase 10b's
+   _train_bf16, and _dist_ranks, _train_sharded and _pipeline summed over
+   the ranks; K6b has a row per route, whose main paths are phase 10b's
    and phase 10c's training); K1's,
    K2's and K3's rows carry
    their main-path op (sweep, view, value_at) beside the chain it
@@ -167,6 +193,8 @@ without the package beside the script, it exits nonzero before any result.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import itertools
 import json
 import math
 import os
@@ -184,6 +212,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from repro_torch._tensor import drop_set  # noqa: E402
 from repro_torch.ckpt.manager import tree_flatten  # noqa: E402
@@ -192,6 +221,12 @@ from repro_torch.configs.base import RunConfig  # noqa: E402
 from repro_torch.core.mvgc import announce, vstore  # noqa: E402
 from repro_torch.core.telemetry import GCConfig  # noqa: E402
 from repro_torch.dist import ShardedPagedKVEngine  # noqa: E402
+from repro_torch.dist.overlap import wire  # noqa: E402
+from repro_torch.dist.sharding import (  # noqa: E402
+    _paths, param_shardings, place_train_state)
+from repro_torch.launch.mesh import make_gc_mesh, make_host_mesh  # noqa: E402
+from repro_torch.train.pipeline_parallel import pipeline_forward  # noqa: E402
+from repro_torch.models.blocks import block_apply, init_block  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.compact import ops as compact_ops  # noqa: E402
 from repro_torch.kernels.compact.ref import (  # noqa: E402
@@ -333,6 +368,48 @@ TRAIN_COMPRESSION = dict(arch="minitron-4b", steps=30, seq_len=32, batch=8,
 # resumed losses against the uninterrupted run's (the same steps from the
 # same bits; CUDA's index backward of the embedding may sum with atomics)
 RESUME_RTOL = 1e-5
+# phases 10d-10f: four rank processes on the one card (cuda:0), joined by
+# gloo through a file store: NCCL refuses two ranks of one group on one
+# GPU.  Each rank's state lives on the card; only the collectives cross
+# gloo, through host memory
+RANKS = 4
+RANKS_TIMEOUT_S = 900          # each rank's own limit: a deadlock fails
+# 10d replays BENCH_dist.json's smoke and stall tiers at 4 ranks (8 rows):
+# the three rank phases take more than the 240 s aimed at on top of the
+# script (10e's gathers cross gloo), so the standard tier's 4 rows, which
+# add no host count or stall the other two lack, are left to phase 9 and
+# the CPU tests
+RANK_TIERS = ("smoke", "stall")
+# 10e: gemma2-2b at its full widths and depth in float32 on a 2 x 2 (data,
+# model) mesh with fsdp=True: B 2 (one sequence per data row), 2 steps at
+# phase 10b's schedule, against the one-rank train_step on the same
+# batches from the same state (run first in a process of its own, so that
+# its memory is the card's again before the ranks start)
+TRAIN_SHARDED = dict(TRAIN, batch=2, seq_len=2048, steps=2, mesh=(2, 2))
+# the leaves held against the one-rank step (replicated norms, attention
+# and MLP matrices split over model and data), with their AdamW moments
+SHARDED_LEAVES = ("final_norm", "layers/0/ln1", "layers/0/mixer/wq",
+                  "layers/0/mixer/wo", "layers/25/ffn/wd")
+# loss and gradient norm: JAX's limit for the sharded step's loss
+# (tests/launch/test_distributed.py:98); mu and nu within this share of
+# each leaf's largest entry (float32 sums in another order).  Step 0's
+# rate is 0, so both losses read the initial parameters: the update shows
+# only in the parameters, held by their change over the run (p - p0)
+# against the one-rank step's change: where that is at least half the
+# rates' sum (AdamW's normalized step near 1) and the gradient is not near
+# zero (the one-rank step's second moment at least SHARDED_GRAD_SHARE of
+# the leaf's largest, in root: a gradient entry near zero carries float32
+# rounding of the leaf's large terms, which AdamW's normalization lifts to
+# a full step), within SHARDED_UPDATE_RTOL of it (a skipped update is 1,
+# one of the wrong sign 2); elsewhere within twice the rates' sum; both
+# plus 4 float32 spacings of p0 (tests/_torch_ranks.py's check_update,
+# the same limits)
+SHARDED_RTOL, SHARDED_MOMENT_SHARE, SHARDED_UPDATE_RTOL = 1e-4, 1e-4, 1e-2
+SHARDED_GRAD_SHARE = 1e-3
+# 10f: minitron-4b's 32 layers at full widths in bf16 over 4 stage ranks
+# (8 layers each), M 8 microbatches of B 2 x T 2048 of seeded activations
+PIPELINE = dict(arch="minitron-4b", microbatches=8, batch=2, seq_len=2048,
+                seed=0)
 # phase 6: the launcher's flags (minitron-4b at full width, no --reduced)
 MODEL_ARGS = ["--arch", "minitron-4b", "--batch", "16", "--prompt-len",
               "2048", "--max-len", "4096", "--steps", "64", "--pin-every",
@@ -554,6 +631,7 @@ def zero_counts() -> None:
     0."""
     for w in WRAPPERS.values():
         w.launches = 0
+    wire.copies = 0
     for routes in (flash_ops.flash_attention.route_launches,
                    flash_ops.flash_attention_backward.route_launches):
         for r in routes:
@@ -1928,10 +2006,14 @@ def expected_dist_rows() -> dict:
             for key, row in bench_dist_rows().items()}
 
 
-def phase_dist_tiers(dev) -> None:
+def phase_dist_tiers(dev, tiers=tuple(DIST_TIERS)) -> None:
+    """BENCH_dist.json's rows of ``tiers`` (phase 9: every tier) through
+    ``dist_cell``, each against the committed row."""
     bench = expected_dist_rows()
-    keys = [(t, p) for t in DIST_TIERS for p in DIST_POLICIES]
-    check(set(keys) == set(bench), "dist tiers differ from BENCH_dist.json")
+    keys = [(t, p) for t in tiers for p in DIST_POLICIES]
+    check(set(keys) <= set(bench) and (
+        tiers != tuple(DIST_TIERS) or set(keys) == set(bench)),
+        "dist tiers differ from BENCH_dist.json")
     for key in keys:
         t0 = time.perf_counter()
         got = dist_cell(*key, dev)
@@ -1949,13 +2031,28 @@ def phase_dist_tiers(dev) -> None:
               f"dist tier {key}: the stalled host was never aged out")
 
 
-def phase_dist_serve(dev) -> dict:
+def _digest(*tensors) -> str:
+    """A digest of tensors' exact bytes (a view's tables and lengths, a
+    decode's output)."""
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+def phase_dist_serve(dev, p: dict = DIST_SERVE, name: str = "dist"
+                     ) -> dict:
     """4 hosts, each at phase 5's pool, under dist_bench's stall traffic:
     rotating pinned readers whose views and K4 outputs must stay
     bit-identical while held, and host 1 wedged with a pin from step 1024
     on (aged out of the LWM; its own view must stay bit-identical).  Runs
-    until every live host has crossed its watermark, plus 64 steps."""
-    p = DIST_SERVE
+    until every live host has crossed its watermark, plus 64 steps.  The
+    same loop runs on every rank of phase 10d, the engine spread over
+    them by its default mesh: each host's reads (views, K4, the final K1
+    check) run where its shard is (``host_apply``).  Returns the phase's
+    line, with the LWM after every step and a digest of every view and
+    decode output."""
     H, B, N = p["hosts"], p["num_seqs"], p["num_pages"]
     Hkv, D, Hq = p["kv_heads"], p["head_dim"], p["q_heads"]
     lanes, stall_host = p["reader_lanes"], p["stall_host"]
@@ -1978,9 +2075,13 @@ def phase_dist_serve(dev) -> dict:
     crossed = [None] * H    # step at which each host crossed its watermark
     stall = None
 
+    lwm_trace, digests = [], []
+
     def decode(host, view, q):
-        st = eng.host_state(host)
-        return decode_ops.paged_decode(q, st.k_pages, st.v_pages, *view)
+        out = eng.host_apply(host, lambda st: decode_ops.paged_decode(
+            q, st.k_pages, st.v_pages, *view))
+        digests.append(_digest(out))
+        return out
 
     def held(host, ts, view) -> bool:
         return all(torch.equal(a, b)
@@ -2016,6 +2117,7 @@ def phase_dist_serve(dev) -> dict:
             # ages past the budget, and it never unpins
             ts = eng.pin(stall_host, lanes - 1)
             view = eng.view_at(stall_host, ts)
+            digests.append(_digest(*view))
             q = torch.randn((B, Hq, D), generator=gen, device=dev,
                             dtype=torch.bfloat16)
             stall = [ts, view, q, decode(stall_host, view, q)]
@@ -2026,6 +2128,7 @@ def phase_dist_serve(dev) -> dict:
             live[stall_host] = False
             live_t = torch.as_tensor(live, device=dev)
         appended, finished = decode_step()
+        lwm_trace.append(eng._last_lwm)
         tokens += appended
         completed += finished
         for h in range(H):
@@ -2039,6 +2142,7 @@ def phase_dist_serve(dev) -> dict:
             lane = (pins // H) % lanes
             ts = eng.pin(host, lane)
             view = eng.view_at(host, ts)
+            digests.append(_digest(*view))
             q = torch.randn((B, Hq, D), generator=gen, device=dev,
                             dtype=torch.bfloat16)
             readers[(host, lane)] = [ts, view, q, decode(host, view, q),
@@ -2066,6 +2170,9 @@ def phase_dist_serve(dev) -> dict:
                 and step > max(crossed[h] for h in live_hosts) \
                 + p["steps_after_pressure"]:
             break
+        # ranks must take the same branch: over ranks (phase 10d) the step
+        # count is phase 10's and max_seconds is inf, as a clock read on
+        # each rank could stop one rank a step before the others
         if time.perf_counter() - t0 > p["max_seconds"]:
             break
     torch.cuda.synchronize()
@@ -2074,7 +2181,7 @@ def phase_dist_serve(dev) -> dict:
     stall_same = stall is not None and held(stall_host, stall[0], stall[1]) \
         and torch.equal(decode(stall_host, stall[1], stall[2]), stall[3])
     space = eng.space()
-    res = dict(phase="dist_serve", hosts=H, steps=step, seconds=wall,
+    res = dict(phase=f"{name}_serve", hosts=H, steps=step, seconds=wall,
                tokens_appended=tokens, tokens_per_s=tokens / wall,
                ms_per_step=wall / step * 1e3,
                sequences_completed=completed, snapshot_pins=pins,
@@ -2103,16 +2210,19 @@ def phase_dist_serve(dev) -> dict:
     decode_step()
     lwm = eng.lwm_pins()
     res["sweep_lwm_pin"] = int(lwm[0, 0])
-    sweeps = [check_sweep_on_store(
-        eng.host_state(h).mv, must_kill=h != stall_host,
-        pins={"LWM now": lwm[h], "TS_MAX": TS_MAX, "stall pin": stall[0]})
+    sweeps = [eng.host_apply(h, lambda st, h=h: check_sweep_on_store(
+        st.mv, must_kill=h != stall_host,
+        pins={"LWM now": lwm[h], "TS_MAX": TS_MAX, "stall pin": stall[0]}))
         for h in range(H)]
     res["sweeps_checked"] = sum(c["sweeps_checked"] for c in sweeps)
     res["sweep_killed_unpinned_by_host"] = [c["sweep_killed_unpinned"]
                                             for c in sweeps]
     for key in list(readers) + held_now:
         eng.unpin(*key)
-    emit(res)
+    res.update(lwm_trace=lwm_trace, digests=digests,
+               wire_copies=wire.copies)
+    emit({k: v for k, v in res.items()
+          if k not in ("lwm_trace", "digests")})
     check(violations == 0, f"{violations} pinned-view violations")
     check(stall_same, "the stalled host's pinned view changed")
     check(space["stale_lanes_aged"] > 0, "the stalled host was never aged")
@@ -2127,8 +2237,8 @@ def phase_dist_serve(dev) -> dict:
               "dist_serve")
     check(launches["flash_prefill"] == 0, "flash prefill ran in dist_serve")
     check(launches["needed"] == 0, "needed ran in dist_serve")
-    profile_window(decode_step, name="dist")
-    return launches
+    res["profile"] = profile_window(decode_step, name=name)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2910,6 +3020,483 @@ def phase_train(dev) -> tuple[dict, dict]:
     return launches, train_full_width(dev, torch.bfloat16)
 
 
+# ---------------------------------------------------------------------------
+# phases 10d-10f: placement over four rank processes on the card
+# ---------------------------------------------------------------------------
+def _sharded_run(cfg) -> RunConfig:
+    return RunConfig(model=cfg, shape=SHAPES["train_4k"],
+                     lr=TRAIN_SHARDED["lr"])
+
+
+def _mesh_stand_in() -> object:
+    """The 2 x 2 mesh as the sharding rules read it (axis sizes only)."""
+    return type("Mesh", (), {"shape": dict(zip(
+        ("data", "model"), TRAIN_SHARDED["mesh"]))})()
+
+
+def train_sharded_reference(dev, io: str) -> int:
+    """Phase 10e's one-rank run, in a process of its own (``chip_smoke.py
+    --train-reference IO``), so that its 52 GiB are the card's again when
+    it exits: TRAIN_SHARDED's steps of the plain ``train_step`` from the
+    seed's state on the same batches.  Writes the losses, gradient norms,
+    step seconds, peak memory and each SHARDED_LEAVES' spec on the 2 x 2
+    mesh to ``IO/reference.json`` and the leaves (params, mu, nu, and the
+    initial params as p0) as ``.npy`` beside it."""
+    p = TRAIN_SHARDED
+    cfg = get_config(p["arch"])
+    run = _sharded_run(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(
+        p["seed"]))
+    for path, x in _paths(state.params):
+        name = "/".join(path)
+        if name in SHARDED_LEAVES:
+            np.save(os.path.join(io, "reference_p0_" + name.replace("/", ".")
+                                 + ".npy"), x.detach().float().cpu().numpy())
+    data = SyntheticLM(DataConfig(cfg.vocab_size, p["seq_len"], p["batch"]))
+    losses, norms, step_s, rates = [], [], [], 0.0
+    for _ in range(p["steps"]):
+        batch = _batch(data, dev)
+        rates += float(adamw.cosine_schedule(state.opt.step,
+                                             base_lr=run.lr))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch, cfg, run)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    specs = dict(_paths(param_shardings(state.params, _mesh_stand_in(),
+                                        fsdp=True)))
+    for kind, tree in (("param", state.params), ("mu", state.opt.mu),
+                       ("nu", state.opt.nu)):
+        for path, x in _paths(tree):
+            name = "/".join(path)
+            if name in SHARDED_LEAVES:
+                np.save(os.path.join(io, f"reference_{kind}_"
+                                     + name.replace("/", ".") + ".npy"),
+                        x.detach().float().cpu().numpy())
+    with open(os.path.join(io, "reference.json"), "w") as f:
+        json.dump({"losses": losses, "grad_norms": norms, "step_s": step_s,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "specs": {n: list(specs[tuple(n.split("/"))])
+                             for n in SHARDED_LEAVES},
+                   "rates": rates},
+                  f)
+    return 0
+
+
+def _on_card(tree) -> bool:
+    return all(x.is_cuda for x in tree_flatten(tree))
+
+
+def rank_dist(dev, rank: int, steps: int) -> dict:
+    """Phase 10d on one rank: phase 10's traffic loop, unchanged, on the engine
+    that its default mesh spreads over the ranks (one host each), to
+    phase 10's step count (a time limit per rank would let the ranks stop
+    apart); then phase 9's rows of RANK_TIERS at 4 ranks."""
+    p = dict(DIST_SERVE, max_steps=steps, max_seconds=math.inf)
+    res = phase_dist_serve(dev, p, name=f"dist_rank{rank}")
+    t0 = time.perf_counter()
+    phase_dist_tiers(dev, RANK_TIERS)
+    res["tiers_seconds"] = time.perf_counter() - t0
+    return res
+
+
+def rank_train_sharded(dev, rank: int, world: int, io: str) -> dict:
+    """Phase 10e on one rank: the seed's state placed over the 2 x 2 mesh
+    (each rank builds it whole in turn, keeps its shards and frees it: a
+    float32 state is 31 GiB), then the sharded train_step; this rank's
+    shards of SHARDED_LEAVES go to ``io``."""
+    p = TRAIN_SHARDED
+    cfg = get_config(p["arch"])
+    run = _sharded_run(cfg)
+    mesh = make_host_mesh(*p["mesh"], device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(world):
+        if r == rank:
+            full = init_state(cfg, torch.Generator(device=dev).manual_seed(
+                p["seed"]))
+            state, pl = place_train_state(full, mesh, fsdp=True)
+            del full
+            torch.cuda.empty_cache()
+        dist.barrier()
+    check(_on_card(state.params) and _on_card(state.opt.mu)
+          and _on_card(state.opt.nu), f"rank {rank}: a shard is off the card")
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    state_gib = torch.cuda.memory_allocated() / 2**30
+    for path, x in _paths(state.params):
+        name = "/".join(path)
+        if name in SHARDED_LEAVES:
+            np.save(os.path.join(io, f"sharded_{rank}_p0_"
+                                 + name.replace("/", ".") + ".npy"),
+                    x.detach().float().cpu().numpy())
+    emit({"phase": "train_sharded_rank", "rank": rank,
+          "state_gib": state_gib, "init_peak_gib": init_peak})
+    data = SyntheticLM(DataConfig(cfg.vocab_size, p["seq_len"], p["batch"]))
+    n_attn = attention_layers(cfg)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_s = [], [], []
+    for i in range(p["steps"]):
+        batch = _batch(data, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            state, m = train_step(state, batch, cfg, run, placement=pl)
+        except torch.OutOfMemoryError:
+            print(torch.cuda.memory_summary(abbreviated=True), flush=True)
+            raise
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        emit({"phase": "train_sharded_rank", "rank": rank, "step": i,
+              "seconds": step_s[-1],
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        check(math.isfinite(losses[-1]) and math.isfinite(norms[-1]),
+              f"rank {rank} step {i}: loss or grad norm not finite")
+    launches = launch_counts()
+    copies = wire.copies
+    k6 = dict(flash_ops.flash_attention.route_launches)
+    k6_route = flash_ops.ROUTES[torch.float32]
+    check(k6 == {r: 2 * n_attn * p["steps"] if r == k6_route else 0
+                 for r in k6}, f"rank {rank}: K6 launches {k6}")
+    check(launches["flash_backward"] == n_attn * p["steps"],
+          f"rank {rank}: K6b launches {launches['flash_backward']}")
+    for kind, tree in (("param", state.params), ("mu", state.opt.mu),
+                       ("nu", state.opt.nu)):
+        for path, x in _paths(tree):
+            name = "/".join(path)
+            if name in SHARDED_LEAVES:
+                np.save(os.path.join(io, f"sharded_{rank}_{kind}_"
+                                     + name.replace("/", ".") + ".npy"),
+                        x.detach().float().cpu().numpy())
+    coord = dict(zip(("data", "model"), mesh.get_coordinate()))
+    out = {"coord": coord, "losses": losses, "grad_norms": norms,
+           "step_s": step_s, "init_peak_gib": init_peak,
+           "state_gib": state_gib,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches, "wire_copies": copies,
+           "local_params": sum(x.numel() for x in tree_flatten(
+               state.params))}
+    del state, data
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def rank_pipeline(dev, rank: int, world: int) -> dict:
+    """Phase 10f on one rank: its stage's 8 of minitron-4b's 32 layers
+    (each layer's weights from its own seed), ``pipeline_forward`` over
+    the 4 stage ranks; then stage 0 runs the same 32 layers in sequence
+    on each microbatch, and the two must give the same bits."""
+    p = PIPELINE
+    cfg = get_config(p["arch"])
+    kinds = tf._kinds(cfg)
+    L, M, B, T = cfg.num_layers, p["microbatches"], p["batch"], p["seq_len"]
+    mesh = make_gc_mesh(world, axis="stage", device=dev)
+    sid, per = mesh.get_local_rank("stage"), cfg.num_layers // world
+
+    def layer(i):
+        gen = torch.Generator(device=dev).manual_seed(p["seed"] + 1 + i)
+        return init_block(gen, cfg, kinds[i], torch.bfloat16), kinds[i]
+
+    positions = torch.arange(T, dtype=torch.int32, device=dev)[None] \
+        .expand(B, T)
+
+    def apply(stage, h):
+        for bp, kind in stage:
+            h, _ = block_apply(bp, cfg, kind, h, positions, mode="train")
+        return h
+
+    stage = [layer(i) for i in range(sid * per, (sid + 1) * per)]
+    x = torch.randn((M, B, T, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(p["seed"]), device=dev, dtype=torch.bfloat16)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y = pipeline_forward(apply, stage, x, mesh=mesh, axis="stage")
+    torch.cuda.synchronize()
+    out = {"stage": sid, "layers": [sid * per, (sid + 1) * per],
+           "seconds": time.perf_counter() - t0,
+           "launches": launch_counts(), "wire_copies": wire.copies,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "finite": bool(torch.isfinite(y.float()).all())}
+    if sid == 0:
+        del stage
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            h = x.clone()
+            for i in range(L):
+                one = [layer(i)]
+                for m in range(M):
+                    h[m] = apply(one, h[m])
+                del one
+        torch.cuda.synchronize()
+        out.update(sequential_seconds=time.perf_counter() - t0,
+                   bit_equal=torch.equal(y, h),
+                   max_abs_err=float((y.float() - h.float()).abs().max()))
+    dist.barrier()
+    return out
+
+
+def rank_main(rank: int, world: int, io: str) -> int:
+    """One rank of phases 10d-10f (``chip_smoke.py --rank R WORLD IO``):
+    joins the gloo group through ``IO/store``, runs the three phases
+    (10e, 10f, then 10d) and writes ``IO/rank{R}.json``."""
+    from datetime import timedelta
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(io, "store"),
+        rank=rank, world_size=world, timeout=timedelta(seconds=300))
+    dev = torch.device("cuda", 0)
+    _build.lib()
+    with open(os.path.join(io, "ref.json")) as f:
+        ref = json.load(f)
+    try:
+        # 10e first: its gemma2-2b state is the phase that needs the card's
+        # memory most
+        out = {"train": rank_train_sharded(dev, rank, world, io)}
+        out["pipeline"] = rank_pipeline(dev, rank, world)
+        torch.cuda.empty_cache()
+        out["dist"] = rank_dist(dev, rank, ref["dist_steps"])
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(io, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _spawn(io: str, argvs: list) -> None:
+    """Start a process of this script for each argument list and wait for
+    them; the first that fails or outlives RANKS_TIMEOUT_S fails the
+    phase, and every process is stopped before this returns."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    logs = [open(os.path.join(io, f"proc{r}.log"), "w")
+            for r in range(len(argvs))]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), *argv], env=env,
+        cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r, argv in enumerate(argvs)]
+    t0 = time.monotonic()
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad or time.monotonic() - t0 > RANKS_TIMEOUT_S:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(io, f"proc{r}.log")) as f:
+                tail = f.read()[-12000:]
+            check(False, f"{' '.join(argvs[r])} exited {p.returncode}:\n"
+                  f"{tail}")
+
+
+#: the fields of phase 10's line that phase 10d's ranks must equal
+DIST_RANK_FIELDS = ("steps", "tokens_appended", "sequences_completed",
+                    "snapshot_pins", "views_checked", "decodes",
+                    "violations", "stalled_view_bit_identical",
+                    "watermark_crossed_at_step", "pages_reclaimed_by_host",
+                    "peak_pages_by_host", "lwm_refreshes", "space",
+                    "sweep_lwm_pin", "sweeps_checked",
+                    "sweep_killed_unpinned_by_host", "lwm_trace", "digests")
+
+
+def _ref_shard(full: torch.Tensor, spec, coord: dict) -> np.ndarray:
+    x = full
+    for d, axis in enumerate(spec):
+        if axis is not None:
+            x = x.chunk(TRAIN_SHARDED["mesh"][("data", "model").index(axis)],
+                        dim=d)[coord[axis]]
+    return x.numpy()
+
+
+def check_train_sharded(io: str, ref: dict, trains: list) -> tuple:
+    """Phase 10e's checks: each rank's losses and gradient norms against
+    the one-rank reference's, and its shards of SHARDED_LEAVES (mu and nu
+    within their limits, each parameter's change over the run against the
+    reference's).  Returns (the largest |error| of each leaf and kind, the
+    update check's worst errors and counts)."""
+    worst, update = {}, {"rel": 0.0, "abs": 0.0, "big": 0, "n": 0}
+    for r, res in enumerate(trains):
+        np.testing.assert_allclose(res["losses"], ref["losses"],
+                                   rtol=SHARDED_RTOL)
+        np.testing.assert_allclose(res["grad_norms"], ref["grad_norms"],
+                                   rtol=SHARDED_RTOL)
+        for name, kind in itertools.product(
+                SHARDED_LEAVES, ("param", "mu", "nu")):
+            leaf = name.replace("/", ".")
+            got = np.load(os.path.join(
+                io, f"sharded_{r}_{kind}_{leaf}.npy"))
+            spec, coord = ref["specs"][name], res["coord"]
+            want = _ref_shard(torch.from_numpy(np.load(os.path.join(
+                io, f"reference_{kind}_{leaf}.npy"))), spec, coord)
+            check(got.shape == want.shape,
+                  f"train_sharded: rank {r} {name} shard {got.shape}")
+            worst[f"{name}:{kind}"] = max(
+                worst.get(f"{name}:{kind}", 0.0),
+                float(np.abs(got - want).max()))
+            if kind != "param":
+                np.testing.assert_allclose(got, want, rtol=0, atol=(
+                    SHARDED_MOMENT_SHARE * float(np.abs(want).max())))
+                continue
+            p0, nu = (_ref_shard(torch.from_numpy(np.load(os.path.join(
+                io, f"reference_{k}_{leaf}.npy"))), spec, coord)
+                for k in ("p0", "nu"))
+            # every rank starts from the reference's state, bit for bit
+            check(np.array_equal(np.load(os.path.join(
+                io, f"sharded_{r}_p0_{leaf}.npy")), p0),
+                f"train_sharded: rank {r} {name} starts elsewhere")
+            dg, dw = got - p0, want - p0
+            err = np.abs(dg - dw)
+            spacing = 4 * np.finfo(np.float32).eps * np.abs(p0)
+            scale = np.sqrt(np.load(os.path.join(
+                io, f"reference_nu_{leaf}.npy")).max())
+            big = ((np.abs(dw) >= 0.5 * ref["rates"])
+                   & (np.sqrt(nu) >= SHARDED_GRAD_SHARE * scale))
+            check(np.all(err[big] <= SHARDED_UPDATE_RTOL
+                         * np.abs(dw[big]) + spacing[big])
+                  and np.all(err <= 2 * ref["rates"] + spacing),
+                  f"train_sharded: rank {r} {name}'s update differs "
+                  "from the one-rank step's")
+            if big.any():
+                update["rel"] = max(update["rel"], float(
+                    (err[big] / np.abs(dw[big])).max()))
+            update["abs"] = max(update["abs"], float(err.max()))
+            update["big"] += int(big.sum())
+            update["n"] += big.size
+    check(update["big"] > 0, "train_sharded: no parameter of "
+          f"{SHARDED_LEAVES} was updated")
+    return worst, update
+
+
+def phase_ranks(dev, dist_ref: dict) -> dict:
+    """Phases 10d-10f over RANKS rank processes on the card: the one-rank
+    reference of 10e first (freed before the ranks start), then the ranks,
+    then each phase's checks against phase 10's run and the reference.
+    Returns each phase's launches, summed over the ranks."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as io:
+        with open(os.path.join(io, "ref.json"), "w") as f:
+            json.dump({"dist_steps": dist_ref["steps"]}, f)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _spawn(io, [["--train-reference", io]])
+        with open(os.path.join(io, "reference.json")) as f:
+            ref = json.load(f)
+        ref_wall = time.perf_counter() - t0
+        parent_gib = torch.cuda.memory_reserved() / 2**30
+        free_gib = torch.cuda.mem_get_info()[0] / 2**30
+        t0 = time.perf_counter()
+        _spawn(io, [["--rank", str(r), str(RANKS), io]
+                    for r in range(RANKS)])
+        wall = time.perf_counter() - t0
+        outs = []
+        for r in range(RANKS):
+            with open(os.path.join(io, f"rank{r}.json")) as f:
+                outs.append(json.load(f))
+        # 10d: every rank ran phase 10's traffic to phase 10's result
+        dist_runs = [o["dist"] for o in outs]
+        for r, res in enumerate(dist_runs):
+            diff = [k for k in DIST_RANK_FIELDS if res[k] != dist_ref[k]]
+            check(not diff, f"dist_ranks: rank {r} differs from phase 10 "
+                  f"in {diff}")
+            for name in ("sweep", "view", "paged_decode"):
+                check(res["launches"][name] > 0,
+                      f"dist_ranks: rank {r} never launched {name}")
+        summed = {k: sum(res["launches"][k] for res in dist_runs)
+                  for k in dist_runs[0]["launches"]}
+        emit({"phase": "dist_ranks", "ranks": RANKS,
+              "hosts_per_rank": DIST_SERVE["hosts"] // RANKS,
+              "steps": dist_ref["steps"], "matches_phase_10": True,
+              "lwm_trace_len": len(dist_ref["lwm_trace"]),
+              "digests": len(dist_ref["digests"]),
+              "seconds_by_rank": [x["seconds"] for x in dist_runs],
+              "ms_per_step_by_rank": [x["ms_per_step"] for x in dist_runs],
+              "tokens_per_s_by_rank": [x["tokens_per_s"] for x in dist_runs],
+              "wire_copies_per_step_by_rank": [
+                  x["wire_copies"] / x["steps"] for x in dist_runs],
+              "idle_share_by_rank": [x["profile"]["device_idle_share"]
+                                     for x in dist_runs],
+              "peak_memory_gib_by_rank": [x["peak_memory_gib"]
+                                          for x in dist_runs],
+              "tiers_seconds_by_rank": [x["tiers_seconds"]
+                                        for x in dist_runs],
+              "one_process_ms_per_step": dist_ref["ms_per_step"],
+              "launches_by_rank": [x["launches"] for x in dist_runs],
+              "launches": summed})
+        # 10e: the sharded step against the one-rank step
+        trains = [o["train"] for o in outs]
+        worst, update = check_train_sharded(io, ref, trains)
+        emit({"phase": "train_sharded", "arch": TRAIN_SHARDED["arch"],
+              "mesh": TRAIN_SHARDED["mesh"], "fsdp": True,
+              "batch": TRAIN_SHARDED["batch"],
+              "seq_len": TRAIN_SHARDED["seq_len"],
+              "steps": TRAIN_SHARDED["steps"],
+              "losses": trains[0]["losses"], "ref_losses": ref["losses"],
+              "grad_norms": trains[0]["grad_norms"],
+              "ref_grad_norms": ref["grad_norms"],
+              "max_abs_err": worst, "rates": ref["rates"],
+              "update_max_rel_err": update["rel"],
+              "update_max_abs_err": update["abs"],
+              "update_share_held_relative": update["big"] / update["n"],
+              "update_rtol": SHARDED_UPDATE_RTOL,
+              "step_s_by_rank": [x["step_s"] for x in trains],
+              "ref_step_s": ref["step_s"], "ref_peak_gib": ref["peak_gib"],
+              "ref_wall_s": ref_wall, "parent_reserved_gib": parent_gib,
+              "free_gib_at_spawn": free_gib,
+              "init_peak_gib_by_rank": [x["init_peak_gib"] for x in trains],
+              "peak_gib_by_rank": [x["peak_gib"] for x in trains],
+              "peak_gib_sum": sum(x["peak_gib"] for x in trains),
+              "local_params_by_rank": [x["local_params"] for x in trains],
+              "wire_copies_by_rank": [x["wire_copies"] for x in trains],
+              "launches_by_rank": [x["launches"] for x in trains]})
+        # 10f: the stages' output against the sequential forward
+        pipes = [o["pipeline"] for o in outs]
+        first = next(x for x in pipes if x["stage"] == 0)
+        check(all(x["finite"] for x in pipes), "pipeline: output not finite")
+        check(first["bit_equal"], "pipeline: the stages' output differs "
+              f"from the sequential forward by {first['max_abs_err']}")
+        for r, x in enumerate(pipes):
+            check(x["launches"]["flash_prefill"] == (
+                PIPELINE["microbatches"] * attention_layers(get_config(
+                    PIPELINE["arch"])) // RANKS),
+                  f"pipeline: rank {r} K6 launches "
+                  f"{x['launches']['flash_prefill']}")
+        emit({"phase": "pipeline", "arch": PIPELINE["arch"],
+              "stages": RANKS, **{k: PIPELINE[k] for k in (
+                  "microbatches", "batch", "seq_len")},
+              "bit_equal": first["bit_equal"],
+              "max_abs_err": first["max_abs_err"],
+              "seconds_by_rank": [x["seconds"] for x in pipes],
+              "sequential_seconds": first["sequential_seconds"],
+              "peak_gib_by_rank": [x["peak_gib"] for x in pipes],
+              "wire_copies_by_rank": [x["wire_copies"] for x in pipes],
+              "launches_by_rank": [x["launches"] for x in pipes],
+              "ranks_wall_s": wall})
+
+    def total(key):
+        return {k: sum(o[key]["launches"][k] for o in outs)
+                for k in outs[0][key]["launches"]}
+    return {"dist_ranks": summed, "train_sharded": total("train"),
+            "pipeline": total("pipeline")}
+
+
 def _to(x, dev):
     """Parameters (tensors in nested dicts and lists) on ``dev``."""
     if isinstance(x, dict):
@@ -2959,11 +3546,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("durability")
     phase_dist_tiers(dev)
-    dist_launches = phase_dist_serve(dev)
+    dist_ref = phase_dist_serve(dev)
+    dist_launches = dist_ref["launches"]
     torch.cuda.empty_cache()
     lap("dist")
     train_launches, bf16_launches = phase_train(dev)
     lap("train")
+    rank_launches = phase_ranks(dev, dist_ref)
+    del dist_ref
+    lap("ranks")
     emit({"phase": "timeline", "seconds_at_end_of": seconds})
     table = []
     for name, (source, replaces) in KERNELS.items():
@@ -2999,6 +3590,7 @@ def main() -> int:
             launches_dist=dist_launches[name],
             launches_train=train_launches[name],
             launches_train_bf16=bf16_launches[name],
+            **{f"launches_{k}": v[name] for k, v in rank_launches.items()},
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
@@ -3026,4 +3618,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--train-reference"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _build.lib()
+        sys.exit(train_sharded_reference(torch.device("cuda", 0),
+                                         sys.argv[2]))
     sys.exit(main())

@@ -53,21 +53,24 @@ def tree_flatten(tree: Any) -> List[torch.Tensor]:
 def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
     """Rebuild ``like``'s structure around ``leaves`` (in
     :func:`tree_flatten` order)."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            out = {k: build(node[k]) for k in sorted(node)}
-            return {k: out[k] for k in node}
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return type(node)(*(build(v) for v in node))
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
 
-    return build(like)
+def _build(node: Any, it) -> Any:
+    # a module-level recursion: a nested function that calls itself is a
+    # reference cycle through its closure, which would keep ``leaves``
+    # (gradients, gathered parameters) alive until Python's cycle
+    # collector runs
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        out = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: out[k] for k in node}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(_build(v, it) for v in node))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, it) for v in node)
+    return next(it)
 
 
 def _save_leaf(path: str, leaf: torch.Tensor) -> str:

@@ -20,15 +20,29 @@ as ``extra_pins``, so no shard reclaims a version pinned by any live host.
 **The host dim.**  The JAX engine stacks every leaf with a leading ``[H]``
 dim and runs the ops under ``jax.vmap``.  The ops are independent per
 host, so :class:`ShardedPagedKVEngine` holds one single-host ``PagedKV``
-per host, all on one ``device``, and runs each op host by host: every host
+per host it owns, on ``device``, and runs each op host by host: every host
 runs every op, as under ``vmap``, even with no lane masked on it.  It
-stacks only where the JAX engine's result is stacked: the ``[H, P]`` board
-of the LWM refresh, :meth:`~ShardedPagedKVEngine.pressure` (a
-``PressureSignal`` with ``[H]`` fields), the checkpoint files (JAX's
-``[H, ...]`` layout, leaf for leaf) and
-:meth:`~ShardedPagedKVEngine.stacked`.  All hosts live on one device, as
-in the JAX engine when its mesh has one position (no ring); placing them
-over several devices or ranks waits for a device mesh.
+stacks only where the JAX engine's result is stacked: the board of the
+LWM refresh, :meth:`~ShardedPagedKVEngine.pressure` (a ``PressureSignal``
+with ``[H]`` fields), the checkpoint files (JAX's ``[H, ...]`` layout,
+leaf for leaf) and :meth:`~ShardedPagedKVEngine.stacked`.
+
+**Ranks.**  The engine takes a mesh as JAX's does (a ``DeviceMesh`` from
+:func:`repro_torch.launch.mesh.make_gc_mesh`, the default when the
+process has a default group).  When the mesh's axis has ``n > 1``
+positions, ``n`` divides ``hosts`` and this rank is on it, rank ``r`` of
+the axis holds hosts ``[r H/n, (r+1) H/n)`` (``host_stacked_sharding``'s
+placement), and the LWM crosses the ranks by ``ring_all_reduce(reduce=
+"min")`` over the axis's group; otherwise the rank holds every host and no
+ring runs, as JAX keeps the stack unsharded.  The API stays JAX's single
+controller's: every rank calls every entry point in the same order with
+the full ``[H, ...]`` arguments, and every entry point returns on every
+rank what the one-device engine returns (``step``, ``reset``, ``fork``,
+``reclaim``, ``pressure``, ``live_pages``, ``space``, ``view_at``,
+``host_state``, ``stats``, ``lwm_advances``, the per-host peaks and
+reclaims).  A host's reads run on the rank that holds it and cross to the
+others (:meth:`~ShardedPagedKVEngine.host_apply`).  Every collective is
+gloo's, through host memory (:mod:`repro_torch.dist.overlap`).
 
 Accounting is one :class:`repro_torch.core.telemetry.ReclaimStats` (plus
 ``stale_lanes_aged`` and ``lwm_advances``), the counters of
@@ -37,24 +51,37 @@ retry's deficit floor is the failed-lane count over all hosts, every host
 reclaims in every pass, and the retry rounds are counted once per engine
 round, not per host.  Host syncs: every LWM refresh reads the reduced
 LWM and the aged-lane count (one sync), and every retry decision reads
-the failed-lane count.
+the failed-lane count; over ranks every gather of per-host values is one
+more (``overlap.wire.copies`` counts them).
+
+Trap: **ranks must take the same branch.**  Each decision the JAX engine
+takes from a value over all ``[H]`` hosts (the retry loop's failed count
+and its deficit floor, the pressure gate, the live sum of the peak, the
+pages a reclaim freed) is taken here from that value gathered over the
+group, so every rank takes the same branch; a rank that branched alone
+would leave its peers waiting at the next collective.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._tensor import I32, DeviceLike, drop_set, resolve_device
 from repro_torch.ckpt.manager import (CheckpointManager, tree_flatten,
                                       tree_unflatten)
 from repro_torch.core.mvgc.pool import EMPTY, TS_MAX
 from repro_torch.core.telemetry import GCConfig, PressureSignal, ReclaimStats
+from repro_torch.dist.overlap import (all_gather_cat, broadcast_tree,
+                                      ring_all_reduce, wire)
 from repro_torch.dist.straggler import StepWatchdog
+from repro_torch.launch.mesh import make_gc_mesh
 from repro_torch.mvkv import paged
 
 
@@ -125,12 +152,13 @@ class ShardedPagedKVEngine:
     """Multi-host paged-KV serving with global-LWM reclamation.
 
     ``hosts`` shards, each owning ``num_seqs`` sequences and ``num_pages``
-    pool pages, on ``device`` (``cuda`` unless the caller passes another).
-    The batched entry points take ``[H, ...]``-leading arguments (tensors
-    on any device, or array-likes).  Every GC-bearing op first refreshes the
-    global LWM (contributions -> staleness aging -> min) and passes it to
-    the shard ops as ``extra_pins``.  Per-host :class:`StepWatchdog`
-    instances supply the staleness budget when ``gc.stale_after_s`` is inf;
+    pool pages, on ``device`` (``cuda`` unless the caller passes another),
+    placed over ``mesh`` (module docstring, "Ranks").  The batched entry
+    points take ``[H, ...]``-leading arguments (tensors on any device, or
+    array-likes).  Every GC-bearing op first refreshes the global LWM
+    (contributions -> staleness aging -> min) and passes it to the shard
+    ops as ``extra_pins``.  Per-host :class:`StepWatchdog` instances supply
+    the staleness budget when ``gc.stale_after_s`` is inf;
     ``virtual_ages_s`` lets tests and benchmarks inject deterministic
     announcement ages instead of the wall clock.  A ``host`` argument is
     an index in ``[-H, H)``."""
@@ -138,16 +166,32 @@ class ShardedPagedKVEngine:
     def __init__(self, hosts: int, num_seqs: int, num_pages: int,
                  page_size: int, max_pages_per_seq: int, kv_heads: int,
                  head_dim: int, *, gc: Optional[GCConfig] = None,
-                 dtype: torch.dtype = torch.float32,
+                 mesh=None, dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None):
         self.gc = gc if gc is not None else GCConfig()
         self.hosts = hosts
         self.device = resolve_device(device)
+        if mesh is None and dist.is_initialized():
+            mesh = make_gc_mesh(hosts, device=self.device)
+        self.mesh = mesh
+        #: the mesh axis's group when the hosts are spread over its ranks
+        self.group: Optional[dist.ProcessGroup] = None
+        self._ring: Optional[Callable] = None
+        self.lo, self.hi = 0, hosts       # the hosts this rank holds
+        if mesh is not None:
+            axis = mesh.mesh_dim_names[0]
+            n, coord = mesh.mesh.shape[0], mesh.get_coordinate()
+            if n > 1 and hosts % n == 0 and coord is not None:
+                self.group = mesh.get_group(axis)
+                k = hosts // n
+                self.lo, self.hi = coord[0] * k, (coord[0] + 1) * k
+                self._ring = functools.partial(ring_all_reduce, reduce="min",
+                                               group=self.group)
         self.shards: List[paged.PagedKV] = [
             paged.make_paged_kv(num_seqs, num_pages, page_size,
                                 max_pages_per_seq, kv_heads, head_dim, dtype,
                                 gc=self.gc, device=self.device)
-            for _ in range(hosts)]
+            for _ in range(self.lo, self.hi)]
         self.watchdogs: List[StepWatchdog] = [StepWatchdog()
                                               for _ in range(hosts)]
         # deterministic announcement ages for tests/benches (None = fresh)
@@ -165,6 +209,56 @@ class ShardedPagedKVEngine:
         self.lwm_refreshes = 0
         self.pages_reclaimed_by_host = [0] * hosts
         self.peak_pages_by_host = [0] * hosts
+
+    # -- hosts and ranks ----------------------------------------------------
+    @property
+    def local_hosts(self) -> range:
+        """The hosts whose shards this rank holds."""
+        return range(self.lo, self.hi)
+
+    def _host(self, host: int) -> int:
+        if not -self.hosts <= host < self.hosts:
+            raise IndexError(f"host {host} of {self.hosts}")
+        return host % self.hosts
+
+    def _holds(self, h: int) -> bool:
+        return self.lo <= h < self.hi
+
+    def _shard(self, h: int) -> paged.PagedKV:
+        return self.shards[h - self.lo]
+
+    def _all(self, local: torch.Tensor) -> torch.Tensor:
+        """This rank's ``[h_local, ...]`` rows -> every host's ``[H, ...]``
+        on every rank (on the engine's device)."""
+        if self.group is None:
+            return local
+        return all_gather_cat(local, self.group).to(self.device)
+
+    def _all_ints(self, *per_host: List[torch.Tensor]) -> List[List[int]]:
+        """Per-host device scalars (one list of this rank's hosts each) ->
+        every host's values as Python ints, one list each, in one host
+        sync (and one gather over the ranks)."""
+        rows = torch.stack([torch.stack([s.reshape(()).to(I32) for s in col])
+                            for col in per_host], dim=1)
+        rows = wire(rows) if self.group is None else \
+            all_gather_cat(wire(rows), self.group)
+        return rows.T.tolist()
+
+    def _from(self, h: int, value: Any) -> Any:
+        """``value`` as the rank holding host ``h`` computed it, on every
+        rank (the others pass anything)."""
+        if self.group is None:
+            return value
+        return broadcast_tree(value, h // (self.hi - self.lo), self.group,
+                              self.device)
+
+    def host_apply(self, host: int, fn: Callable[[paged.PagedKV], Any]
+                   ) -> Any:
+        """``fn(host's shard)`` run on the rank that holds the host (a read
+        where the pages are), its result (tensors in tuples, lists and
+        dicts, or plain values) on every rank."""
+        h = self._host(host)
+        return self._from(h, fn(self._shard(h)) if self._holds(h) else None)
 
     # -- inputs -------------------------------------------------------------
     def _ids(self, x) -> torch.Tensor:
@@ -198,11 +292,22 @@ class ShardedPagedKVEngine:
         """One global-LWM refresh: contributions -> staleness aging -> min.
         Returns the per-host ``extra_pins`` ``i32[H, 1]`` (every host gets
         the same LWM) and accounts ``stale_lanes_aged`` and
-        ``lwm_advances``.  One host sync."""
+        ``lwm_advances``.  One host sync.
+
+        Over ranks the ``min`` ring carries the contributions: each rank
+        fills its hosts' entries of an ``[H]`` vector and ``TS_MAX`` (the
+        identity of ``min``) elsewhere, and after the ring every rank holds
+        every host's contribution, so all of them age the same vector and
+        take the same LWM and aged-lane count from one collective."""
         self.lwm_refreshes += 1
         slots = torch.stack([s.mv.board.slots for s in self.shards])
-        aged, n_aged = age_out_stale(_contributions(slots), self.ages_s(),
-                                     self.budget_s())
+        contrib = _contributions(slots)
+        if self._ring is not None:
+            padded = torch.full((self.hosts,), TS_MAX, dtype=I32,
+                                device=self.device)
+            padded[self.lo:self.hi] = contrib
+            contrib = self._ring(padded)
+        aged, n_aged = age_out_stale(contrib, self.ages_s(), self.budget_s())
         lwm = global_lwm(aged)
         n, val = self._ints(n_aged, lwm)
         self.stats.stale_lanes_aged += n
@@ -215,52 +320,58 @@ class ShardedPagedKVEngine:
 
     # -- accounting ---------------------------------------------------------
     def _note_peak(self) -> None:
-        live = self._ints(*(paged.live_pages(s) for s in self.shards))
+        # same branch on every rank: the sum over every host's live pages
+        # at this moment, gathered
+        live, = self._all_ints([paged.live_pages(s) for s in self.shards])
         self.peak_pages_by_host = [max(a, b) for a, b in
                                    zip(self.peak_pages_by_host, live)]
         self.stats.note_live(sum(live))
 
     def _any_pressure(self) -> bool:
-        return bool(torch.stack([
+        # same branch on every rank: the gate of every host, gathered
+        up, = self._all_ints([
             paged.page_pressure(s, self.gc.page_watermark).under_pressure
-            for s in self.shards]).any())
+            for s in self.shards])
+        return any(up)
 
     def _reclaim_once(self, pins: torch.Tensor, extra_deficit: int = 0,
                       deficit: Optional[int] = None) -> None:
         """One reclaim pass on every host, under pressure or not: each
         chases ``max(its gate deficit, 1, extra_deficit)`` pages, or exactly
-        ``deficit`` pages when given (no gate, no checkpoint eviction)."""
+        ``deficit`` pages when given (no gate, no checkpoint eviction).
+        ``extra_deficit`` is the failed-lane count over every host, the
+        same on every rank."""
         floor = max(1, extra_deficit)
         pages = []
-        for h, st in enumerate(self.shards):
+        for i, st in enumerate(self.shards):
+            h = self.lo + i
             want = int(deficit) if deficit is not None else \
                 paged.page_pressure(st, self.gc.page_watermark
                                     ).deficit.clamp(min=floor)
             st, freed = paged.reclaim_on_pressure(
                 st, paged.hot_sequences(st, self.gc.hot_k), want,
                 gc_policy=self.gc.policy, extra_pins=pins[h])
-            self.shards[h] = st
+            self.shards[i] = st
             pages.append(freed)
-        by_host = self._ints(*pages)
+        by_host, = self._all_ints(pages)
         # checkpoint-coupled eviction (DESIGN.md §14): when any host is
         # still under pressure, every host drops its idle sole-survivor
         # sequences that durable storage already holds
         if deficit is None and self.ckpt_max >= 0 and self._any_pressure():
             evicted, ck_pages = [], []
-            for h, st in enumerate(self.shards):
+            for i, st in enumerate(self.shards):
                 st, freed, n_ev = paged.evict_checkpointed(
-                    st, self.ckpt_max, pins[h])
-                self.shards[h] = st
+                    st, self.ckpt_max, pins[self.lo + i])
+                self.shards[i] = st
                 evicted.append(n_ev)
                 ck_pages.append(freed)
-            got = self._ints(*evicted, *ck_pages)
-            ck_by_host = got[self.hosts:]
-            self.stats.note_ckpt_eviction(sum(got[:self.hosts]),
-                                          sum(ck_by_host))
+            evicted, ck_by_host = self._all_ints(evicted, ck_pages)
+            self.stats.note_ckpt_eviction(sum(evicted), sum(ck_by_host))
             by_host = [a + b for a, b in zip(by_host, ck_by_host)]
         self._note_reclaim(by_host)
 
     def _note_reclaim(self, by_host: List[int]) -> None:
+        # by_host is every host's, gathered: the same on every rank
         for h, n in enumerate(by_host):
             self.pages_reclaimed_by_host[h] += max(0, n)
         self.stats.note_reclaim(sum(by_host), int(self.live_pages()))
@@ -268,19 +379,23 @@ class ShardedPagedKVEngine:
     # -- batched serving ops (all args [H, ...]-leading) --------------------
     def _run(self, op, mask: torch.Tensor, pins: torch.Tensor
              ) -> torch.Tensor:
-        """``op(h, shard, mask[h], pins[h])`` on every host; failed[H, B]."""
+        """``op(h, shard, mask[h], pins[h])`` on every host this rank
+        holds; every host's failed[H, B] on every rank."""
         failed = []
-        for h in range(self.hosts):
-            self.shards[h], f = op(h, self.shards[h], mask[h], pins[h])
+        for i in range(len(self.shards)):
+            h = self.lo + i
+            self.shards[i], f = op(h, self.shards[i], mask[h], pins[h])
             failed.append(f)
-        return torch.stack(failed)
+        return self._all(torch.stack(failed))
 
     def _retry(self, op, mask: torch.Tensor, note_peak: bool
                ) -> Tuple[torch.Tensor, torch.Tensor, int]:
         """Run ``op`` on every host; while lanes fail, reclaim on every host
         and retry the failed lanes (one shared round counter, a fresh LWM
         before each retry).  Returns (failed[H, B], the last pins, the
-        failed-lane count)."""
+        failed-lane count).  ``failed`` is every host's, so the loop's
+        count, its deficit floor and its exit are the same on every
+        rank."""
         pins = self.lwm_pins()
         failed = self._run(op, mask, pins)
         if note_peak:
@@ -353,37 +468,49 @@ class ShardedPagedKVEngine:
         return before - int(self.live_pages())
 
     # -- host-local pins and snapshot reads ---------------------------------
-    def _set_lane(self, host: int, lane: int, value) -> None:
-        st = self.shards[host]
+    def _set_lane(self, h: int, lane: int, value) -> None:
+        st = self._shard(h)
         one = torch.ones((1,), dtype=torch.bool, device=self.device)
         slots = drop_set(st.mv.board.slots, self._ids([lane]), value, one)
-        self.shards[host] = st._replace(mv=st.mv._replace(
+        self.shards[h - self.lo] = st._replace(mv=st.mv._replace(
             board=st.mv.board._replace(slots=slots)))
 
     def pin(self, host: int, lane: int) -> int:
         """Pin ``host``'s current timestamp on its local board lane,
-        written straight into the board: the announcement never leaves the
-        host; only the LWM reduction sees it.  Returns the timestamp."""
-        now = self.shards[host].mv.now
-        self._set_lane(host, lane, now.reshape(1))
-        return int(now)
+        written straight into the board of the rank that holds it: the
+        announcement never leaves the host; only the LWM reduction sees it.
+        Returns the timestamp (on every rank)."""
+        h = self._host(host)
+        now = None
+        if self._holds(h):
+            now = self._shard(h).mv.now
+            self._set_lane(h, lane, now.reshape(1))
+            now = int(now)
+        return int(self._from(h, now))
 
     def unpin(self, host: int, lane: int) -> None:
-        self._set_lane(host, lane, EMPTY)
+        h = self._host(host)
+        if self._holds(h):
+            self._set_lane(h, lane, EMPTY)
 
     def host_state(self, host: int) -> paged.PagedKV:
-        """This host's shard, a plain single-host ``PagedKV``."""
-        return self.shards[host]
+        """This host's shard, a plain single-host ``PagedKV``, on every
+        rank (over ranks the whole shard crosses: a read that needs part
+        of it is cheaper through :meth:`host_apply`)."""
+        return self.host_apply(host, lambda st: st)
 
     def view_at(self, host: int, t: int, seq_ids=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Snapshot-read ``host``'s shard at pinned time ``t``: (page
-        tables, visible lengths), ``paged.snapshot_view`` on the shard."""
-        local = self.shards[host]
-        if seq_ids is None:
-            seq_ids = torch.arange(local.mv.store.ts.shape[0], dtype=I32,
+        tables, visible lengths), ``paged.snapshot_view`` on the shard, run
+        where the shard is."""
+        def view(local):
+            ids = seq_ids
+            if ids is None:
+                ids = torch.arange(local.mv.store.ts.shape[0], dtype=I32,
                                    device=self.device)
-        return paged.snapshot_view(local, self._ids(seq_ids), int(t))
+            return paged.snapshot_view(local, self._ids(ids), int(t))
+        return tuple(self.host_apply(host, view))
 
     # -- durability (DESIGN.md §14) ------------------------------------------
     @staticmethod
@@ -395,9 +522,13 @@ class ShardedPagedKVEngine:
         """Checkpoint the host-stacked state (the JAX engine's ``[H, ...]``
         files) and the engine's accounting, then advance ``ckpt_max`` to
         the slowest host's clock: a version is durable across the hosts
-        only once every shard has passed it.  Returns the manifest step."""
+        only once every shard has passed it.  Over ranks the first rank of
+        the group writes, once every rank has gathered the stacked state,
+        and every rank returns once the files are there.  Returns the
+        manifest step."""
         mgr = self._manager(directory)
-        ts = int(torch.stack([s.mv.now for s in self.shards]).min())
+        nows, = self._all_ints([s.mv.now for s in self.shards])
+        ts = min(nows)
         step = ts if step is None else int(step)
         extra = {
             "stats": dataclasses.asdict(self.stats),
@@ -406,14 +537,18 @@ class ShardedPagedKVEngine:
             "last_lwm": self._last_lwm,
             "ckpt_max": ts,
         }
-        mgr.save(step, self.stacked(), extra=extra)
+        tree = self.stacked()
+        if self.group is None or dist.get_rank(self.group) == 0:
+            mgr.save(step, tree, extra=extra)
+        if self.group is not None:
+            dist.barrier(group=self.group)
         self.ckpt_max = ts
         return step
 
     def restore(self, directory, step: Optional[int] = None) -> int:
         """Inverse of :meth:`checkpoint` (``step=None``: the latest):
-        unstack the saved state into the shards and replay the accounting.
-        Returns the step restored."""
+        unstack the saved state into the shards this rank holds and replay
+        the accounting.  Returns the step restored."""
         mgr = self._manager(directory)
         if step is None:
             step = mgr.latest_step()
@@ -427,8 +562,8 @@ class ShardedPagedKVEngine:
                for x in tree_flatten(tree)):
             raise ValueError(f"checkpoint {step} is not stacked over "
                              f"{self.hosts} hosts")
-        self.shards = [_tree_map(lambda x, h=h: x[h], tree)
-                       for h in range(self.hosts)]
+        self.shards = [_tree_map(lambda x, h=h: x[h].clone(), tree)
+                       for h in self.local_hosts]
         self.stats = ReclaimStats(**extra.get("stats", {}))
         self.forks = int(extra.get("forks", 0))
         self.lwm_advances = int(extra.get("lwm_advances", 0))
@@ -438,30 +573,33 @@ class ShardedPagedKVEngine:
 
     # -- telemetry -----------------------------------------------------------
     def stacked(self) -> paged.PagedKV:
-        """A host-stacked copy of the state: the JAX engine's ``st``."""
-        return _tree_map(lambda *xs: torch.stack(xs), *self.shards)
+        """A host-stacked copy of the state, every host's on every rank:
+        the JAX engine's ``st``."""
+        return _tree_map(lambda *xs: self._all(torch.stack(xs)),
+                         *self.shards)
 
     def live_pages(self) -> torch.Tensor:
-        return torch.stack([paged.live_pages(s) for s in self.shards]).sum(
-            dtype=I32)
+        live, = self._all_ints([paged.live_pages(s) for s in self.shards])
+        return torch.tensor(sum(live), dtype=I32)
 
     def pressure(self) -> PressureSignal:
         """The capacity gate over all shards: ``PressureSignal`` with
         ``[H]`` fields."""
         sigs = [paged.page_pressure(s, self.gc.page_watermark)
                 for s in self.shards]
-        return PressureSignal(*(torch.stack(f) for f in zip(*sigs)))
+        return PressureSignal(*(self._all(torch.stack(f))
+                                for f in zip(*sigs)))
 
     def space(self) -> Dict[str, int]:
         """Flat counters for BENCH_dist rows: the ReclaimStats vocabulary
         plus the multi-host fields, as the JAX engine's ``space()``."""
-        sig = self.pressure()
-        live, free, up, ovf, dropped = self._ints(
-            self.live_pages(),
-            torch.stack([s.free.sum(dtype=I32) for s in self.shards]).sum(),
-            sig.under_pressure.sum(),
-            torch.stack([s.mv.overflow_count for s in self.shards]).sum(),
-            torch.stack([s.mv.dropped_retires for s in self.shards]).sum())
+        live, free, up, ovf, dropped = (sum(c) for c in self._all_ints(
+            [paged.live_pages(s) for s in self.shards],
+            [s.free.sum(dtype=I32) for s in self.shards],
+            [paged.page_pressure(s, self.gc.page_watermark).under_pressure
+             for s in self.shards],
+            [s.mv.overflow_count for s in self.shards],
+            [s.mv.dropped_retires for s in self.shards]))
         rep = dict(self.stats.as_row())
         rep["hosts"] = self.hosts
         rep["live_pages"] = live

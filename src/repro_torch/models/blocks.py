@@ -135,7 +135,7 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                 cache_len: Optional[torch.Tensor] = None,
                 enc_out: Optional[torch.Tensor] = None,
                 mode: str = "prefill", causal: bool = True,
-                inplace: bool = False
+                inplace: bool = False, group=None
                 ) -> Tuple[torch.Tensor, Any]:
     """One block in ``mode`` prefill, decode or train.  Returns (x',
     cache') when serving, where a mixture of experts' auxiliary loss is
@@ -143,7 +143,9 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     train mode, which has no cache: ``aux`` is the load-balance loss
     (a float32 scalar tensor) of a mixture of experts, else ``0.0``.  The
     cross-attention sublayer attends over ``enc_out``; with none it falls
-    back to ``x`` itself, as JAX's does (trap C13)."""
+    back to ``x`` itself, as JAX's does (trap C13).  ``group``: the ranks
+    that split a training batch's rows, for a mixture of experts'
+    statistics of the whole batch (:func:`repro_torch.models.moe.moe`)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
@@ -161,7 +163,7 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     if "ffn" in params:
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
         if cfg.num_experts > 0:
-            h, aux = moe(params["ffn"], cfg, h)
+            h, aux = moe(params["ffn"], cfg, h, group)
         else:
             h = mlp(params["ffn"], cfg, h)
         if cfg.post_norms:

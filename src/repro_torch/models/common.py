@@ -128,10 +128,13 @@ class _RowCrossEntropy(torch.autograd.Function):
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None,
                        z_loss: float = 1e-4,
-                       cap: float = 0.0) -> torch.Tensor:
+                       cap: float = 0.0,
+                       count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token cross-entropy with a z-loss ``z_loss * lse^2`` (PaLM), in
     float32: ``logits`` [..., V], ``labels`` int [...]; with ``mask`` the
-    weighted mean over ``max(mask.sum(), 1)``, else the mean.
+    weighted sum over ``max(count, 1)``, where ``count`` is the mask's sum
+    (``mask.sum()`` unless given: a caller that holds only some rows of
+    the batch passes the whole batch's), else the mean.
 
     ``cap > 0`` applies the final softcap to ``logits`` first, inside the
     loss, so that no capped copy of the logits is kept (the JAX package
@@ -145,5 +148,6 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                                   cap)
     if mask is not None:
         m = mask.reshape(-1).to(loss.dtype)
-        return (loss * m).sum() / torch.clamp(m.sum(), min=1.0)
+        count = m.sum() if count is None else count.to(loss.dtype)
+        return (loss * m).sum() / torch.clamp(count, min=1.0)
     return loss.mean()

@@ -21,6 +21,20 @@ Where torch and JAX differ (each named where it arises):
   each (token, choice) finds its slot, and a token's ``k`` contributions
   are added one at a time in a fixed order, that of its slots (by
   expert), as JAX's scatter adds them.
+
+**A batch split over ranks** (``group``, a
+:class:`repro_torch.dist.sharding.BatchGroup`; training on a placed state
+only).  JAX's GSPMD step routes the global batch, and this layer reads two
+statistics of every token in it: the expert counts of the load-balance
+loss, and, in the global dispatch, the capacity (from the global token
+count) and each assignment's rank within its expert (after every token of
+the rows before it).  So each rank takes the counts of every rank of the
+group (:meth:`~repro_torch.dist.sharding.BatchGroup.rows`, the same call
+on every rank of the group: trap "ranks must take the same branch"), sums
+them for the loss, offsets its ranks by the counts of the ranks before it
+and sizes the buckets from ``n`` times its tokens.  Its load-balance loss
+is then ``n`` times its share of the global one (its own tokens' mean
+probabilities against the global counts), as the placement expects.
 """
 from __future__ import annotations
 
@@ -49,11 +63,13 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def moe(params: dict, cfg: ModelConfig, x: torch.Tensor
+def moe(params: dict, cfg: ModelConfig, x: torch.Tensor, group=None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``group``: the ranks that split the batch's rows, None when ``x``
+    is the whole batch (see the module docstring)."""
     if cfg.moe_dispatch == "grouped":
-        return moe_grouped(params, cfg, x)
-    return moe_global(params, cfg, x)
+        return moe_grouped(params, cfg, x, group)
+    return moe_global(params, cfg, x, group)
 
 
 def capacity(cfg: ModelConfig, n: int) -> int:
@@ -64,9 +80,11 @@ def capacity(cfg: ModelConfig, n: int) -> int:
     return max(1, int(cfg.moe_capacity_factor * n * k / E), min(n * k, 128))
 
 
-def _route(params: dict, cfg: ModelConfig, x: torch.Tensor):
-    """float32 router probabilities, the top-k gate weights (renormalised)
-    and expert ids [..., k], and the Switch load-balance loss."""
+def _route(params: dict, cfg: ModelConfig, x: torch.Tensor, group=None):
+    """The top-k gate weights (renormalised, from float32 router
+    probabilities) and expert ids [..., k], the Switch load-balance loss,
+    and each expert's assignments on the ranks of ``group`` before this
+    one (None without a group)."""
     E, k = cfg.num_experts, cfg.top_k
     probs = torch.softmax(x.float() @ params["router"], dim=-1)
     top = torch.sort(probs, dim=-1, descending=True, stable=True)  # trap C2
@@ -76,9 +94,15 @@ def _route(params: dict, cfg: ModelConfig, x: torch.Tensor):
     # counts by a scatter-add of ones, as JAX's .at[].add(1.0): exact in
     # any order, and with no host sync (bincount reads its input's range)
     flat = gate_idx.reshape(-1)
-    ce = probs.new_zeros((E,)).scatter_add_(
-        0, flat, torch.ones_like(flat, dtype=probs.dtype)) / flat.numel()
-    return gate_vals, gate_idx, E * torch.sum(me * ce)
+    counts = probs.new_zeros((E,)).scatter_add_(
+        0, flat, torch.ones_like(flat, dtype=probs.dtype))
+    before, n = None, 1
+    if group is not None:
+        every = group.rows(counts)                              # [n, E]
+        counts, before = every.sum(0), every[:group.index].sum(0)
+        n = group.n
+    ce = counts / (flat.numel() * n)
+    return gate_vals, gate_idx, E * torch.sum(me * ce), before
 
 
 def _experts(params: dict, cfg: ModelConfig, be: torch.Tensor
@@ -90,18 +114,23 @@ def _experts(params: dict, cfg: ModelConfig, be: torch.Tensor
 
 
 def _dispatch_combine(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                      C: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      C: int, group=None, offset: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Route, sort and bucket the tokens of each group (row) of ``x``
     [G, n, d] on their own with capacity ``C``, run the experts, combine:
-    -> ([G, n, d], aux)."""
+    -> ([G, n, d], aux).  ``offset``: ``x`` is one group that continues
+    the rows of the ranks of ``group`` before this one, so each rank
+    within an expert starts after their assignments to it."""
     G, n, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
-    gate_vals, gate_idx, aux = _route(params, cfg, x)          # [G, n, k]
+    gate_vals, gate_idx, aux, before = _route(params, cfg, x, group)
     sorted_e, order = torch.sort(gate_idx.reshape(G, n * k), dim=-1,
                                  stable=True)
     # rank within its expert = position - first position of that expert
     first = torch.searchsorted(sorted_e, sorted_e, side="left")
     rank = torch.arange(n * k, device=x.device) - first
+    if offset and before is not None:
+        rank = rank + before.long()[sorted_e]
     dest = torch.where(rank < C, sorted_e * C + rank, E * C)    # E*C = drop
     gidx = torch.arange(G, device=x.device)[:, None]
     buckets = x.new_zeros((G, E * C + 1, d))
@@ -125,24 +154,29 @@ def _dispatch_combine(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return out, aux
 
 
-def moe_global(params: dict, cfg: ModelConfig, x: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_global(params: dict, cfg: ModelConfig, x: torch.Tensor,
+               group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x`` [B, T, d] -> (out [B, T, d], load-balance aux loss): one sort
-    over all ``B * T * k`` assignments, capacity from ``B * T`` tokens."""
+    over all ``B * T * k`` assignments, capacity from ``B * T`` tokens
+    (over ``group``: the global batch's)."""
     B, T, d = x.shape
+    n = group.n if group is not None else 1
     out, aux = _dispatch_combine(params, cfg, x.reshape(1, B * T, d),
-                                 capacity(cfg, B * T))
+                                 capacity(cfg, B * T * n), group,
+                                 offset=True)
     out = out.view(B, T, d)
     if cfg.num_shared_experts:
         out = out + mlp(params["shared"], cfg, x)
     return out, aux
 
 
-def moe_grouped(params: dict, cfg: ModelConfig, x: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_grouped(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-sequence dispatch: routing, sort, rank and capacity (from ``T``
-    tokens) independently per batch row."""
-    out, aux = _dispatch_combine(params, cfg, x, capacity(cfg, x.shape[1]))
+    tokens) independently per batch row; over ``group`` only the
+    load-balance counts cross the ranks."""
+    out, aux = _dispatch_combine(params, cfg, x, capacity(cfg, x.shape[1]),
+                                 group)
     if cfg.num_shared_experts:
         out = out + mlp(params["shared"], cfg, x)
     return out, aux

@@ -91,8 +91,14 @@ def param_count(params) -> int:
     return sum(x.numel() for x in tree_flatten(params))
 
 
-def _run_encoder(params, cfg: ModelConfig,
-                 enc_x: torch.Tensor) -> torch.Tensor:
+def _take(tree, *path):
+    """The parameters at ``path`` as they are: :func:`loss_fn`'s default
+    ``gather``."""
+    return tree
+
+
+def _run_encoder(params, cfg: ModelConfig, enc_x: torch.Tensor,
+                 gather=_take) -> torch.Tensor:
     """The encoder over frame embeddings ``enc_x`` [B, S, d]: fixed
     sinusoidal positions, then the bidirectional stack (K6 with
     ``causal=False`` in every layer; RoPE when the config has it, as in
@@ -108,15 +114,16 @@ def _run_encoder(params, cfg: ModelConfig,
     x = enc_x + pe[None]
     positions = pos[None].expand(B, S)
     enc_cfg = _encoder_cfg(cfg)
-    for bp in params["encoder"]["layers"]:
-        x, _ = block_apply(bp, enc_cfg, "attn", x, positions, mode="train",
-                           causal=False)
-    return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+    for i, bp in enumerate(params["encoder"]["layers"]):
+        x, _ = block_apply(gather(bp, "encoder", "layers", i), enc_cfg,
+                           "attn", x, positions, mode="train", causal=False)
+    return rms_norm(x, gather(params["encoder"]["final_norm"], "encoder",
+                              "final_norm"), cfg.norm_eps)
 
 
 def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
-            frontend_embeds: Optional[torch.Tensor], remat: bool
-            ) -> Tuple[torch.Tensor, Any]:
+            frontend_embeds: Optional[torch.Tensor], remat: bool,
+            gather=_take, group=None) -> Tuple[torch.Tensor, Any]:
     """The training forward up to the final norm: (x [B, T_total, d], the
     summed auxiliary loss of every layer).
 
@@ -125,9 +132,17 @@ def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
     input, as JAX's ``jax.checkpoint`` per superblock does; the numbers are
     the same, only memory differs.  An attention layer's K6 runs again in
     the recompute, so a training step launches K6 twice per attention
-    layer and K6b once."""
+    layer and K6b once.
+
+    ``gather(subtree, *path)`` gives the parameters at ``path`` just
+    before their use (a layer's inside its checkpoint, so the recompute
+    calls it again): :meth:`repro_torch.dist.sharding.Placement.gather`
+    on a sharded state, the subtree itself by default.  ``group`` (a
+    :class:`repro_torch.dist.sharding.BatchGroup`) says that ``tokens``
+    are this rank's rows of a batch split over ranks: a mixture of
+    experts reads the whole batch's statistics over it."""
     B = tokens.shape[0]
-    x = params["embed"][tokens.long()]
+    x = gather(params["embed"], "embed")[tokens.long()]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model, dtype=x.dtype).sqrt()
     enc_out = None
@@ -136,23 +151,25 @@ def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
             raise ValueError(f"{cfg.name} is an encoder-decoder: forward "
                              "needs its frame embeddings (frontend_embeds), "
                              "as in the JAX package")
-        enc_out = _run_encoder(params, cfg, frontend_embeds)
+        enc_out = _run_encoder(params, cfg, frontend_embeds, gather)
     elif cfg.frontend != "none" and frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     T = x.shape[1]
     positions = torch.arange(T, dtype=I32, device=x.device)[None].expand(B, T)
     aux = 0.0
-    for bp, kind in zip(params["layers"], _kinds(cfg)):
-        def layer(h, bp=bp, kind=kind):
-            return block_apply(bp, cfg, kind, h, positions, enc_out=enc_out,
-                               mode="train")
+    for i, (bp, kind) in enumerate(zip(params["layers"], _kinds(cfg))):
+        def layer(h, bp=bp, kind=kind, i=i):
+            return block_apply(gather(bp, "layers", i), cfg, kind, h,
+                               positions, enc_out=enc_out, mode="train",
+                               group=group)
         if remat:
             x, a = checkpoint(layer, x, use_reentrant=False,
                               preserve_rng_state=False)
         else:
             x, a = layer(x)
         aux = aux + a
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+    return rms_norm(x, gather(params["final_norm"], "final_norm"),
+                    cfg.norm_eps), aux
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -171,24 +188,38 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            remat: bool = True) -> Tuple[torch.Tensor, Dict[str, Any]]:
+            remat: bool = True, gather=_take, group=None
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Next-token cross-entropy over the text region (a VLM's prefix
     masked) plus ``0.01 * aux``: (loss, {"ce", "aux"}).
 
     Only the positions that predict a token are unembedded (the norm is
     per position, so their logits are :func:`forward`'s), and the final
     softcap is applied inside :func:`~repro_torch.models.common.
-    cross_entropy_loss`, which keeps no capped copy of the logits."""
+    cross_entropy_loss`, which keeps no capped copy of the logits.
+    ``gather`` and ``group`` are :func:`_hidden`'s.  Over a ``group`` of
+    ``n`` ranks that split the batch's rows, the loss is ``n`` times this
+    rank's share of the whole batch's (the mask's sum is the whole
+    batch's), so that its mean over the ranks is the whole batch's loss,
+    as JAX's GSPMD step computes it."""
     tokens = batch["tokens"]
     fe = batch.get("frontend")
-    x, aux = _hidden(params, cfg, tokens, fe, remat)
+    x, aux = _hidden(params, cfg, tokens, fe, remat, gather, group)
     nf = prefix_len(cfg, fe)
     x = x[:, nf:nf + tokens.shape[1] - 1]
-    logits = x @ params.get("unembed", params["embed"]).T
+    name = "unembed" if "unembed" in params else "embed"
+    logits = x @ gather(params[name], name).T
     mask = batch.get("loss_mask")
     mask = mask[:, 1:] if mask is not None else None
+    count = None
+    if group is not None:
+        mask = mask if mask is not None else torch.ones_like(
+            tokens[:, 1:], dtype=torch.float32)
+        count = group.rows(mask.float().sum()).sum()
     ce = cross_entropy_loss(logits, tokens[:, 1:], mask,
-                            cap=cfg.final_softcap)
+                            cap=cfg.final_softcap, count=count)
+    if group is not None:
+        ce = ce * group.n
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 

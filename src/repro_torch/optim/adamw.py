@@ -16,7 +16,7 @@ JAX's order.
 from __future__ import annotations
 
 import math
-from typing import Any, List, NamedTuple, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -52,11 +52,16 @@ def global_norm(tree) -> torch.Tensor:
 
 def apply(params, grads, state: AdamWState, *, lr, b1: float = 0.9,
           b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1,
-          grad_clip: float = 1.0) -> Tuple[Any, AdamWState, dict]:
+          grad_clip: float = 1.0, gnorm: Optional[torch.Tensor] = None
+          ) -> Tuple[Any, AdamWState, dict]:
     """One AdamW step with the gradients clipped to global norm
-    ``grad_clip`` (0 = no clipping).  Returns (params, state, {"grad_norm"}),
-    the parameters and moments updated in place."""
-    gnorm = global_norm(grads)
+    ``grad_clip`` (0 = no clipping).  ``gnorm`` is that norm when the
+    caller holds shards of the gradients and took it over the ranks
+    (``Placement.global_norm``); else :func:`global_norm` of ``grads``.
+    Returns (params, state, {"grad_norm"}), the parameters and moments
+    updated in place."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = (torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
              if grad_clip else 1.0)
     step = state.step + 1

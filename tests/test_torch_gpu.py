@@ -5,7 +5,10 @@ ragged and edge shapes the serving run does not reach, the serve_bench
 storm trace on the card against the same trace on the CPU, the model
 engine (``MVServeEngine``) at reduced size on the card against the CPU, and
 the sharded engine's global-LWM pin through K1 and a 4-host trace on the
-card against the CPU.  These tests
+card against the CPU, and the rank programs of ``tests/_torch_ranks.py``
+on 4 gloo ranks on the card (the engine over meshes of 2 and 4 ranks,
+the pipeline, the 2 x 2 sharded step and data parallelism) against the
+one-process port on the card.  These tests
 need a GPU and ``nvcc``; without a card they skip.  Run them on the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -1549,3 +1552,130 @@ def test_sharded_engine_on_the_card_matches_the_cpu(cuda):
     for a, b in zip(leaves(to_numpy(g.stacked())),
                     leaves(to_numpy(c.stacked())), strict=True):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# placement over ranks on the card: 4 gloo ranks on one GPU
+# (tests/_torch_ranks.py; tests/test_torch_ranks.py runs the same programs
+# on the CPU against JAX)
+# ---------------------------------------------------------------------------
+RANKS = 4
+
+
+@pytest.fixture(scope="module")
+def card_ranks(tmp_path_factory):
+    """The engine, pipeline and train programs on 4 rank processes, each
+    on ``cuda:0``; inputs written from seeds, the checkpoint they restore
+    written by the one-process port on the card.  Returns (io, that
+    engine)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import _torch_ranks as R
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.kernels import _build
+    from repro_torch.train.step import init_state
+    _build.lib()                       # built once, before the ranks load it
+    io = tmp_path_factory.mktemp("card_ranks")
+    rng = np.random.default_rng(0)
+    S, M, mb, d = (R.PIPE[k] for k in ("S", "M", "mb", "d"))
+    np.savez(io / "pipeline_in_0.npz",
+             ws=(rng.standard_normal((S, d, d)) * 0.3).astype(np.float32),
+             x=rng.standard_normal((M, mb, d)).astype(np.float32))
+    for case, (arch, over, _) in R.TRAIN_CASES.items():
+        CheckpointManager(str(io / f"train_state_{case}")).save(
+            0, init_state(reduced_config(arch, **over),
+                          torch.Generator().manual_seed(0), device="cpu"))
+    ceng = R.engine(R.CKPT_HOSTS, "cuda", hot_k=4)
+    R.drive_ckpt(ceng, 5, 0, np.random.default_rng(0))
+    ceng.pin(1, 0)
+    ceng.checkpoint(str(io / "ckpt_jax"))
+    R.spawn(RANKS, str(io), "cuda", ["engine", "pipeline", "train"],
+            timeout=900)
+    return str(io), ceng
+
+
+def _records(io, rank):
+    import json
+    import _torch_ranks as R
+    return json.loads(str(R.load(io, "engine", rank)["records"]))
+
+
+def test_rank_engine_matches_one_process_on_the_card(card_ranks):
+    """Every protocol record of every rank (meshes of 2 and 4) equals the
+    one-process engine's on the card (a pressure level is a float32
+    quotient, which the card and the CPU may round apart); the tiers give
+    the committed rows; the checkpoint interchange equals the one-process
+    engine's."""
+    import importlib.util
+    import json
+    import os
+    import _torch_ranks as R
+    io, ceng = card_ranks
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    expected = smoke.expected_dist_rows()
+    want = {name: json.loads(json.dumps(proto(
+        lambda hosts, **kw: R.engine(hosts, "cuda", None, **kw)),
+        sort_keys=True)) for name, proto in R.PROTOCOLS.items()}
+    saved = R.engine(R.CKPT_HOSTS, "cuda", hot_k=4)
+    R.drive_ckpt(saved, 5, 0, np.random.default_rng(0))
+    saved.pin(1, 0)
+    saved_end = json.loads(json.dumps(R.finish(saved), sort_keys=True))
+    failed = R.drive_ckpt(ceng, 4, 5, np.random.default_rng(1))
+    ceng_end = json.loads(json.dumps(R.finish(ceng), sort_keys=True))
+    for rank in range(RANKS):
+        recs = _records(io, rank)
+        for name in R.PROTOCOLS:
+            for n in (2, RANKS):
+                assert recs[f"{name}@{n}"] == want[name], (rank, name, n)
+        for key in R.TIERS:
+            got = recs["tier:" + "/".join(key)]
+            assert {f: expected[key][f] for f in got} == got, (rank, key)
+        assert {k: v for k, v in recs["ckpt_port"].items()
+                if k != "step"} == saved_end
+        assert recs["ckpt_jax"]["failed"] == failed
+        assert {k: v for k, v in recs["ckpt_jax"].items()
+                if k not in ("step", "restored", "failed")} == ceng_end
+
+
+def test_rank_pipeline_on_the_card_matches_sequential(card_ranks):
+    import _torch_ranks as R
+    io, _ = card_ranks
+    inp = R.load(io, "pipeline_in", 0)
+    want = torch.from_numpy(inp["x"])
+    for w in inp["ws"]:
+        want = torch.tanh(want @ torch.from_numpy(w))
+    for rank in range(RANKS):
+        y = R.load(io, "pipeline", rank)["y"]
+        np.testing.assert_allclose(y, want.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["dense", "moe"])
+def test_rank_train_on_the_card_matches_one_rank(card_ranks, cuda, case):
+    """The 2 x 2 sharded step (K6 and K6b on every rank) on distinct rows,
+    dense and MoE (``_torch_ranks.TRAIN_CASES``), and, for the dense case,
+    data parallelism over the data groups, against the one-rank step on
+    the card from the same state, 3 steps: ``_torch_ranks.check_run``'s
+    limits, the losses and gradient norms within JAX's rtol 1e-4; the
+    planted faults (the update skipped, a wrong half) fail them."""
+    import _torch_ranks as R
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.train.step import init_state
+    io, _ = card_ranks
+    arch, over, _ = R.TRAIN_CASES[case]
+    state, _ = CheckpointManager(f"{io}/train_state_{case}").restore(
+        0, like=init_state(reduced_config(arch, **over), device=cuda),
+        device=cuda)
+    ref = R.one_rank(state, case, cuda)
+    R.check_run(R.placed(io, case, case), ref, ref["p0"], rtol=R.JAX_RTOL)
+    if case != "dense":
+        return
+    for rec in R.data_parallel(io, "dp"):
+        R.check_run(rec, ref, ref["p0"], rtol=R.JAX_RTOL)
+    for fault in ("fault_skip", "fault_half"):
+        with pytest.raises(AssertionError):
+            R.check_run(R.placed(io, fault), ref, ref["p0"],
+                        rtol=R.JAX_RTOL)

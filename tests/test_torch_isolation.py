@@ -55,6 +55,8 @@ def test_package_imports_without_jax():
         "import repro_torch.launch.train, repro_torch.train.step\n"
         "import repro_torch.optim.adamw, repro_torch.optim.compress\n"
         "import repro_torch.data.pipeline\n"
+        "import repro_torch.dist.sharding, repro_torch.launch.mesh\n"
+        "import repro_torch.train.pipeline_parallel\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
@@ -73,6 +75,9 @@ def _entry_points():
     from repro_torch.train.step import init_state
     from repro_torch.models import transformer as tf
     from repro_torch.serve.engine import MVServeEngine, PagedKVEngine
+    from repro_torch.dist.mvgc import ShardedPagedKVEngine
+    from repro_torch.launch import mesh as tmesh
+    import torch.distributed as dist
     cfg = reduced_config("minitron-4b")
     run = RunConfig(model=cfg, shape=SHAPES["decode_32k"])
 
@@ -92,7 +97,26 @@ def _entry_points():
         return train_launcher.build(train_launcher.parse_args(
             flags + (["--device", device] if device else [])))
 
+    def in_a_group_of_one(make):
+        """A mesh constructor starts a gloo world of one in a process without
+        a group; stop it again, so no other test finds it."""
+        def run(**kw):
+            try:
+                return make(**kw)
+            finally:
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+        return run
+
+    def engine_on_a_mesh(**kw):
+        mesh = tmesh.make_gc_mesh(2, device="cpu")
+        return ShardedPagedKVEngine(2, 4, 8, 4, 2, 1, 4, mesh=mesh, **kw)
+
     return {
+        "make_host_mesh": in_a_group_of_one(
+            lambda **kw: tmesh.make_host_mesh(1, 1, **kw)),
+        "make_gc_mesh": in_a_group_of_one(tmesh.make_gc_mesh),
+        "ShardedPagedKVEngine(mesh=)": in_a_group_of_one(engine_on_a_mesh),
         "make_state": lambda **kw: vstore.make_state(4, 4, 2, **kw),
         "make_paged_kv": lambda **kw: paged.make_paged_kv(
             2, 8, 4, 2, 1, 4, gc=None, **kw),
@@ -104,7 +128,9 @@ def _entry_points():
     }
 
 
-@pytest.mark.parametrize("name", ["make_state", "make_paged_kv",
+@pytest.mark.parametrize("name", ["make_host_mesh", "make_gc_mesh",
+                                  "ShardedPagedKVEngine(mesh=)",
+                                  "make_state", "make_paged_kv",
                                   "PagedKVEngine", "MVServeEngine",
                                   "launch.serve", "init_state",
                                   "launch.train"])

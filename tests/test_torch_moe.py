@@ -66,7 +66,7 @@ def run_both(dispatch, cfg_j, cfg_t, pj, pt, x):
 
 def loads(cfg, pt, x, groups):
     """Assignments per expert in each dispatch group (the port's router)."""
-    _, idx, _ = tmoe._route(pt, cfg, torch.from_numpy(x))
+    _, idx, _, _ = tmoe._route(pt, cfg, torch.from_numpy(x))
     idx = idx.reshape(groups, -1)
     return torch.stack([torch.bincount(r, minlength=cfg.num_experts)
                         for r in idx])
@@ -122,7 +122,7 @@ def test_router_ties_follow_lax_top_k(tie, dispatch):
          * 0.5).astype(np.float32)
     _, idx_j = jax.lax.top_k(jax.nn.softmax(
         jnp.asarray(x) @ jnp.asarray(router), axis=-1), cfg_j.top_k)
-    _, idx_t, _ = tmoe._route(pt, cfg_t, torch.from_numpy(x))
+    _, idx_t, _, _ = tmoe._route(pt, cfg_t, torch.from_numpy(x))
     np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
     if tie == "all":
         assert bool((idx_t == torch.tensor([0, 1])).all())
