@@ -11,7 +11,10 @@ Phases, each printing one JSON line:
    decode, flash prefill) against its plain PyTorch version on the card at
    the serving phases' shapes, timed per call (device time from the
    profiler's kernel records, and CUDA events around the call; medians of
-   25), beside its bound; K1's, K2's and K3's main-path ops, the one-launch
+   25), beside its bound (``repro_torch/launch/roofline.py``: the H100's
+   peaks and each kernel's bytes and operations from its shapes, which
+   the dry run's op counter charges too); K1's, K2's and K3's main-path
+   ops, the one-launch
    ``sweep`` (the slrt flush's needed-sweep), ``view``
    (``paged.snapshot_view``) and ``value_at`` (``snapshot_lengths``), also
    against the chains of ops they replaced (rebuilt here from the code
@@ -44,6 +47,13 @@ Phases, each printing one JSON line:
    recorded it (ms_before_recorded, not measured here); needed (K5, which no
    serving path calls) at compact's shape and at
    ``benchmarks/kernel_bench.py``'s two largest compact shapes;
+3b. charge_hook — the host time of the kernel wrappers' cost hook
+   (``repro_torch.kernels.cost.charged``) with no op counter: CHARGE_CALLS
+   calls of a decorated wrapper against as many of the same function
+   undecorated (``__wrapped__``), in CHARGE_ROUNDS alternating rounds, the
+   queue drained around each; K3's ``value_at`` at phase 6's store and
+   K6's forward at one bf16 query row; medians of host microseconds a
+   call, decorated and undecorated, and their difference;
 4. storm  — the ``benchmarks/serve_bench.py`` storm trace for ebr, steam,
    dlrt and slrt; its counters must equal the committed BENCH_serve.json;
 5. serve  — PagedKVEngine (policy slrt) at the KV geometry of one
@@ -171,6 +181,18 @@ Phases, each printing one JSON line:
    same 32 layers in sequence on the card.
    A rank that fails, or outlives RANKS_TIMEOUT_S, fails the phase; every
    rank is stopped before the script goes on;
+10g. dryrun — the dry run (``repro_torch/launch/dryrun.py``: rank 0's
+   program of a cell on fake CUDA tensors, nothing built or launched), in
+   five processes started together after 10f, the last timed phase (one
+   fake default group a process; run last, so that they take no host
+   time from a phase that reads times): the CLI's ``--smoke`` and
+   ``--smoke --mesh host2``, JAX's oracle cell whisper-tiny x decode_32k
+   on the 256-rank pod and minitron-4b x train_4k on the pod must exit 0;
+   then phase 10c's own cell (gemma2-2b, bf16, B 1 x T 4096, one rank)
+   is held against 10c's run: its kernel census must equal the launches
+   10c's wrappers counted per step (K6 52, K6b 26), and its predicted
+   peak (argument_bytes + temp_bytes) lie within DRYRUN_PEAK_RTOL (15 %)
+   of 10c's measured peak, both printed;
    then a "timeline" line: the wall seconds since the start at the end of
    each group of phases;
 11. the kernel table as one JSON line, each kernel with the wrapper route
@@ -200,6 +222,7 @@ import math
 import os
 import random
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -228,6 +251,7 @@ from repro_torch.launch.mesh import make_gc_mesh, make_host_mesh  # noqa: E402
 from repro_torch.train.pipeline_parallel import pipeline_forward  # noqa: E402
 from repro_torch.models.blocks import block_apply, init_block  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import cost as kernel_cost  # noqa: E402
 from repro_torch.kernels.compact import ops as compact_ops  # noqa: E402
 from repro_torch.kernels.compact.ref import (  # noqa: E402
     compact_ref, needed_ref, sweep_ref)
@@ -243,6 +267,10 @@ from repro_torch.ckpt.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import reduced_config  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch import serve as launcher  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
+from repro_torch.launch.dryrun import (  # noqa: E402
+    cell_path as dryrun_cell_path)
+from repro_torch.launch.roofline import bound  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train.step import init_state, train_step  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -255,8 +283,6 @@ from time_search_needed import (  # noqa: E402
     NEEDED_SHAPES, SEARCH_BIG, SEARCH_T_ALL, needed_inputs, search_inputs,
     time_call)
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-PEAK_OPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12, "int32": 67e12}
 EMPTY, TS_MAX = -1, 2**31 - 1
 # paged decode against its plain version: both sum in float32 in another
 # order, so f32 agrees to rounding; a bf16 output may round to the
@@ -358,9 +384,41 @@ FLASH_BWD_TOL = dict(atol=1e-4, rtol=1e-4)
 # gradient compression (JAX's test_compression_path_trains)
 TRAIN = dict(arch="gemma2-2b", batch=1, seq_len=4096, steps=8, lr=3e-3,
              seed=0)
+# phase 3b: calls a round and rounds of the cost hook's host timing
+CHARGE_CALLS = 5000
+CHARGE_ROUNDS = 5
 # phase 10c: the same in bf16 (init_state(dtype=bfloat16), AdamW's moments
 # float32, as in JAX), 4 steps: K6's wgmma route and K6b's bf16 route
 TRAIN_BF16 = dict(TRAIN, steps=4)
+# phase 10g: the dry run (repro_torch/launch/dryrun.py) on the card's
+# machine, each in a process of its own (one fake default group a
+# process), all started together after phase 10f, the last timed phase
+# (they are CPU-bound, and every earlier phase reads host or device
+# times): the CLI's smoke cells, JAX's oracle cell
+# (tests/launch/test_distributed.py:105-114) and a zoo model's train_4k
+# on the 256-rank pod; then phase 10c's own cell on one rank, held
+# against 10c's run: its kernel census equal to the launches 10c's
+# wrappers count per step, and its predicted peak (argument_bytes +
+# temp_bytes) within DRYRUN_PEAK_RTOL of 10c's measured peak (the limit
+# stated before the first card run)
+DRYRUN_CLI = (("--smoke",), ("--smoke", "--mesh", "host2"),
+              ("--arch", "whisper-tiny", "--shape", "decode_32k", "--mesh",
+               "pod", "--force"),
+              ("--arch", "minitron-4b", "--shape", "train_4k", "--mesh",
+               "pod", "--force"))
+DRYRUN_TRAIN = """
+import json, sys
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+p = json.loads(sys.argv[1])
+shape = ShapeConfig("train_4k_b%d" % p["batch"], "train", p["seq_len"],
+                    p["batch"])
+counter, memory, chips = dryrun.trace_cell(p["arch"], shape, "host")
+print(json.dumps({"kernels": counter.result()["kernels"], "memory": memory,
+                  "chips": chips, "device": dryrun.dry_device().type}))
+"""
+DRYRUN_PEAK_RTOL = 0.15
+DRYRUN_TIMEOUT_S = 600
 TRAIN_RESUME = ["--arch", "gemma2-2b", "--reduced", "--device", "cuda",
                 "--steps", "12", "--ckpt-every", "5", "--log-every", "1"]
 TRAIN_COMPRESSION = dict(arch="minitron-4b", steps=30, seq_len=32, batch=8,
@@ -676,12 +734,6 @@ def timed(kernel, plain, library=None) -> dict:
     return out
 
 
-def bound(nbytes: float, ops: float, kind: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[kind] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def max_err(got, want) -> float:
     return max(float((g.float() - w.float()).abs().max()) if g.numel() else 0.0
                for g, w in zip(got, want))
@@ -762,8 +814,7 @@ def phase_kernels(dev) -> dict:
               f"compact kernel != plain version at R={R}")
         check(int(got[4]) > 0, "compact killed nothing: weak check")
         if main_shape:
-            nbytes = R * V * 4 * 3 + R + P * 4 + 4 + R * V * 4 * 4 + 4
-            b_ms, b_by = bound(nbytes, R * V * (math.log2(P) + 8), "int32")
+            b_ms, b_by = bound(*roofline.compact_cost(R, V, P))
             out["compact"] = dict(
                 shape=f"R={R} V={V} P={P}", max_abs_err=max_err(got, want),
                 bound_ms=b_ms, bound_by=b_by,
@@ -796,8 +847,7 @@ def phase_kernels(dev) -> dict:
           "search_gather check lacks -1 padding or not-found rows")
     M = values.shape[1]
     found = int(got[2].sum())
-    nbytes = S * 4 * 2 + S * V * 4 * 2 + found * M * 4 + S * (M * 4 + 5)
-    b_ms, b_by = bound(nbytes, S * V * 2, "int32")
+    b_ms, b_by = bound(*roofline.search_gather_cost(S, V, M, found))
     out["search_gather"] = dict(
         shape=f"B={S} V={V} M={M} T={max_ver}", max_abs_err=max_err(got, want),
         bound_ms=b_ms, bound_by=b_by,
@@ -884,11 +934,8 @@ def decode_cases(dev, g, gd) -> dict:
                 del kp, vp
                 torch.cuda.empty_cache()
                 continue
-            elt = 2
-            nbytes = (2 * B * Hq * D * elt + B * 4
-                      + int((table >= 0).sum()) * 4
-                      + visible * Hkv * D * elt * 2)
-            b_ms, b_by = bound(nbytes, 4.0 * visible * Hq * D, "bf16")
+            b_ms, b_by = bound(*roofline.paged_decode_cost(
+                B, Hq, Hkv, D, 2, int((table >= 0).sum()), visible))
             # yardstick: SDPA over K/V gathered densely beforehand (the
             # gather is not timed), one query token, GQA, length mask
             kd = kp[table.long()].reshape(B, MP * PS, Hkv, D).transpose(1, 2)
@@ -929,8 +976,7 @@ def needed_cases(dev) -> dict:
               f"needed kernel != plain version at R={R} V={V} P={P}")
         check(bool(got.any()) and not bool(got.all()),
               f"needed check at R={R} is all one value: weak check")
-        nbytes = R * V * (4 * 2 + 1) + P * 4 + 4
-        b_ms, b_by = bound(nbytes, R * V * math.log2(max(P, 2)), "int32")
+        b_ms, b_by = bound(*roofline.needed_cost(R, V, P))
         name = "needed" if i == 0 else f"needed_{R}x{V}x{P}"
         row = dict(shape=f"S={R} V={V} P={P}",
                    max_abs_err=max_err([got], [want]), bound_ms=b_ms,
@@ -954,9 +1000,7 @@ def search_case(ts, pay, ids, t, name: str) -> dict:
     check(bool(got[1].any()) and not bool(got[1].all()),
           f"search check ({name}) lacks found or not-found queries")
     B, V = got[0].shape[0], ts.shape[1]
-    # ids, t, slab rows, payloads and flags
-    nbytes = B * 4 * 2 + B * V * 4 * 2 + B * 5
-    b_ms, b_by = bound(nbytes, B * V * 2, "int32")
+    b_ms, b_by = bound(*roofline.search_cost(B, V))
     row = dict(shape=f"B={B} V={V} S={ts.shape[0]}", op="search_ops.search",
                max_abs_err=max_err(got, want), bound_ms=b_ms, bound_by=b_by,
                **timed(lambda: search_ops.search(ts, pay, ids, t),
@@ -988,8 +1032,7 @@ def value_at_case(ts, pay, t: int, what: str = "") -> dict:
           f"value_at kernel != the chain it replaced {where}")
     check(bool((got == 0).any()) and bool((got != 0).any()),
           f"value_at check {where} lacks found or not-found slots")
-    nbytes = S * V * 4 * 2 + S * 4            # slab rows, values
-    b_ms, b_by = bound(nbytes, S * V * 2, "int32")
+    b_ms, b_by = bound(*roofline.value_at_cost(S, V))
     return dict(shape=f"B={S} V={V} every slot{what}",
                 op="search_ops.value_at",
                 max_abs_err=max_err([got], [want]), bound_ms=b_ms,
@@ -1101,7 +1144,7 @@ def search_big_cases(dev) -> dict:
           f"S={S}")
     check(bool((got == 0).any()) and bool((got != 0).any()),
           f"value_at check at S={S} lacks found or not-found slots")
-    b_ms, b_by = bound(S * V * 4 * 2 + S * 4, S * V * 2, "int32")
+    b_ms, b_by = bound(*roofline.value_at_cost(S, V))
     row = dict(shape=f"B={S} V={V} every slot", op="search_ops.value_at",
                max_abs_err=max_err([got], [want]), bound_ms=b_ms,
                bound_by=b_by,
@@ -1167,9 +1210,7 @@ def sweep_case(dev) -> dict:
     check(all(torch.equal(a, b) for a, b in zip(got, old, strict=True)),
           "sweep kernel != the chain it replaced")
     check(bool((got[3] != EMPTY).any()), "sweep freed nothing: weak check")
-    # slab read and written, lane ids and mask, freed, board and now
-    nbytes = S * V * 12 * 2 + R * 5 + R * V * 4 + P * 4 + 4
-    b_ms, b_by = bound(nbytes, (S + R) * V * math.log2(P), "int32")
+    b_ms, b_by = bound(*roofline.sweep_cost(S, V, R, P))
     return dict(shape=f"S={S} V={V} R={R} P={P}", op="compact_ops.sweep",
                 max_abs_err=max_err(got, want), bound_ms=b_ms, bound_by=b_by,
                 **chain_row(time_call(lambda: compact_ops.sweep(*args)),
@@ -1206,10 +1247,7 @@ def view_case(ts, pay, tables, lengths, ids, t: int) -> dict:
           "view check lacks -1 padding or not-found rows")
     (B, MP), T, V = got[0].shape, tables.shape[0], ts.shape[1]
     found = int(search_ops.search(ts, pay, ids, t)[1].sum())
-    # ids, t, slab rows, found table rows and lengths, outputs
-    nbytes = B * 4 + 4 + B * V * 4 * 2 + found * (MP + 1) * 4 \
-        + B * (MP + 1) * 4
-    b_ms, b_by = bound(nbytes, B * V * 2, "int32")
+    b_ms, b_by = bound(*roofline.view_cost(B, V, MP, found))
     return dict(shape=f"B={B} V={V} T={T} MP={MP}", op="search_ops.view",
                 max_abs_err=max_err(got, want), bound_ms=b_ms, bound_by=b_by,
                 **chain_row(
@@ -1219,18 +1257,6 @@ def view_case(ts, pay, tables, lengths, ids, t: int) -> dict:
                                                  ids, t)),
                     time_call(lambda: view_ref(ts, pay, tables, lengths, ids,
                                                t)), b_ms))
-
-
-def visible_pairs(T: int, window: int, S: int | None = None,
-                  causal: bool = True) -> int:
-    """(row, column) pairs a prefill of T tokens attends to: causal over
-    itself, or every one of S columns."""
-    if not causal:
-        return T * S
-    if window <= 0:
-        return T * (T + 1) // 2
-    w = min(window, T)
-    return w * (w + 1) // 2 + (T - w) * w
 
 
 def flash_cases(dev) -> dict:
@@ -1293,10 +1319,8 @@ def flash_cases(dev) -> dict:
         check(torch.equal(got, flash_ops.flash_attention(q, k, v, **kw)),
               f"flash_prefill {case} not deterministic")
         del want
-        elt = 2 if dtype == torch.bfloat16 else 4
-        nbytes = 2 * (B * Hq * T * D + B * Hkv * S * D) * elt
-        ops = 4.0 * B * Hq * D * visible_pairs(T, c["window"], S, causal)
-        b_ms, b_by = bound(nbytes, ops, kind)
+        b_ms, b_by = bound(*roofline.flash_prefill_cost(
+            B, Hq, Hkv, T, S, D, q.element_size(), c["window"], causal))
         # yardstick: SDPA (GQA) where it computes the same function: it has
         # no logit softcap or window flag (a window as long as the prompt
         # changes nothing)
@@ -1395,15 +1419,9 @@ def flash_backward_cases(dev) -> dict:
                 def library():
                     return torch.autograd.grad(out_lib, leaves, do,
                                                retain_graph=True)
-            # read q, k, v, o, dO and the LSE once, write dq, dk, dv once;
-            # five T x S x D products per query head over the visible pairs
-            elt = 2 if kind == "bf16" else 4
-            nbytes = (elt * (3 * B * Hq * T * D + 2 * B * Hkv * S * D
-                             + B * Hq * T * D + 2 * B * Hkv * S * D)
-                      + 4 * B * Hq * T)
-            ops = 10.0 * B * Hq * D * visible_pairs(T, c["window"], S, causal)
-            b_ms, b_by = (bound(nbytes, 3 * ops, "tf32") if kind == "f32"
-                          else bound(nbytes, ops, "bf16"))
+            cost = roofline.flash_backward_cost(
+                B, Hq, Hkv, T, S, D, q.element_size(), c["window"], causal)
+            b_ms, b_by = roofline.flash_backward_bound(cost)
             name = "flash_backward" + ("_bf16" if kind == "bf16" else "") + (
                 "" if case == "gemma2_train" else f"_{case}")
             row = dict(shape=f"B={B} Hq={Hq} Hkv={Hkv} T={T} S={S} D={D} "
@@ -1414,7 +1432,7 @@ def flash_backward_cases(dev) -> dict:
                        bound_unit="tf32 x 3" if kind == "f32" else "bf16",
                        # the CUDA-core design this route replaced (float32)
                        **({} if kind == "bf16" else dict(
-                           bound_cuda_core_ms=bound(nbytes, ops, "f32")[0])),
+                           bound_cuda_core_ms=bound(*cost)[0])),
                        library_what=None if library is None else
                        "torch.autograd.grad through SDPA (its backward), "
                        + kind,
@@ -1492,6 +1510,52 @@ def storm_cell(policy: str, dev) -> dict:
                 peak_pages_post_reclaim=eng.peak_pages_post_reclaim,
                 give_ups=eng.give_ups, tokens_appended=tokens,
                 scan_violations=violations)
+
+
+def _host_us(fn, calls: int) -> float:
+    """Host microseconds a call of ``fn`` over ``calls`` calls, the queue
+    drained before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def phase_charge_hook(dev) -> dict:
+    """Phase 3b: the host cost of the wrappers' cost hook with no counter:
+    each wrapper decorated against the same function undecorated."""
+    check(not kernel_cost.ACTIVE, "an op counter is counting")
+    g = torch.Generator(device=dev).manual_seed(0)
+    ts, pay = (torch.randint(0, 1000, (16, 16), device=dev, generator=g,
+                             dtype=torch.int32) for _ in range(2))
+    q = torch.randn(1, 8, 1, 64, device=dev, generator=g,
+                    dtype=torch.bfloat16)
+    kv = torch.randn(1, 8, 64, 64, device=dev, generator=g,
+                     dtype=torch.bfloat16)
+    cases = {"value_at": (search_ops.value_at,
+                          lambda f: f(ts, pay, None, 500)),
+             "flash_prefill": (flash_ops._forward,
+                               lambda f: f(q, kv, kv, False, 0, 0.0, False))}
+    res = {}
+    for name, (wrapped, call) in cases.items():
+        fns = {"decorated": wrapped, "undecorated": wrapped.__wrapped__}
+        for f in fns.values():
+            _host_us(lambda: call(f), 100)
+        rounds = {k: [] for k in fns}
+        for _ in range(CHARGE_ROUNDS):
+            for k, f in fns.items():
+                rounds[k].append(_host_us(lambda: call(f), CHARGE_CALLS))
+        med = {k: statistics.median(v) for k, v in rounds.items()}
+        res[name] = {"decorated_us": med["decorated"],
+                     "undecorated_us": med["undecorated"],
+                     "hook_us": med["decorated"] - med["undecorated"],
+                     "rounds_us": rounds}
+    out = {"phase": "charge_hook", "calls": CHARGE_CALLS,
+           "rounds": CHARGE_ROUNDS, "wrappers": res}
+    emit(out)
+    return out
 
 
 def phase_storm(dev) -> None:
@@ -2920,7 +2984,7 @@ def train_full_width(dev, dtype=torch.float32) -> dict:
     emit(res)
     del state, data, probe
     torch.cuda.empty_cache()
-    return launches
+    return res
 
 
 def _launch_train(ckpt: str, *flags: str) -> subprocess.CompletedProcess:
@@ -3010,14 +3074,89 @@ def train_compression(dev) -> dict:
 def phase_train(dev) -> tuple[dict, dict]:
     """Phase 10b: full-width training in float32, then the launcher's
     crash/resume and gradient compression at reduced widths; phase 10c:
-    full-width training in bf16.  Returns the two full-width runs' launch
-    counts."""
-    launches = train_full_width(dev)
+    full-width training in bf16.  Returns the two full-width runs' lines
+    (their launch counts and peaks)."""
+    f32 = train_full_width(dev)
     res = {"phase": "train_resume", **train_resume(dev)}
     res["compression"] = train_compression(dev)
     emit(res)
     torch.cuda.empty_cache()
-    return launches, train_full_width(dev, torch.bfloat16)
+    return f32, train_full_width(dev, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# phase 10g: the dry run, held against phase 10c
+# ---------------------------------------------------------------------------
+def phase_dryrun(bf16: dict) -> dict:
+    """Phase 10g: the dry runs, each in a process of its own, all started
+    at once (they need no card: their tensors are fake); every one must
+    exit 0; phase 10c's cell's kernel census must equal 10c's launches per
+    step (K6 and K6b), and its predicted peak lie within DRYRUN_PEAK_RTOL
+    of 10c's measured one."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    argvs = [("cli " + " ".join(a),
+              ["-m", "repro_torch.launch.dryrun", *a]) for a in DRYRUN_CLI]
+    argvs.append(("train_bf16", ["-c", DRYRUN_TRAIN, json.dumps(TRAIN_BF16)]))
+    procs = [(name, subprocess.Popen([sys.executable, *argv], env=env,
+                                     cwd=ROOT, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True))
+             for name, argv in argvs]
+    outs = {}
+    try:
+        for name, p in procs:
+            left = max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0))
+            outs[name] = p.communicate(timeout=left)[0]
+            check(p.returncode == 0, f"dry run {name} exited {p.returncode}"
+                  f":\n{outs[name][-3000:]}")
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cells = {name: [ln for ln in out.splitlines()
+                    if ln.startswith(("OK", "FAIL"))]
+             for name, out in outs.items() if name != "train_bf16"}
+    # the record each CLI cell wrote (its OK line names the cell), with
+    # its kernel census
+    records = []
+    for argv in DRYRUN_CLI:
+        line = cells["cli " + " ".join(argv)]
+        check(len(line) == 1 and line[0].startswith("OK"),
+              f"dry run {argv}: {line}")
+        arch, shape, mesh = line[0].split()[1:4]
+        variant = ((("smoke" if mesh == "host" else f"smoke_{mesh}"))
+                   if "--smoke" in argv else "baseline")
+        with open(dryrun_cell_path(arch, shape, mesh, variant)) as f:
+            r = json.load(f)
+        records.append({k: r[k] for k in (
+            "arch", "shape", "mesh", "variant", "chips", "device",
+            "flops_per_device", "bytes_per_device",
+            "collective_bytes_per_device", "memory", "kernels", "trace_s")})
+    rec = json.loads(outs["train_bf16"].strip().splitlines()[-1])
+    steps = TRAIN_BF16["steps"]
+    want = {k: v / steps for k, v in bf16["launches"].items()
+            if v and k in ("flash_prefill", "flash_backward",
+                           "flash_backward_bf16")}
+    census = {k: v["launches"] for k, v in rec["kernels"].items()}
+    check(census == want, f"dry run census {census} != phase 10c's "
+          f"launches per step {want}")
+    mem = rec["memory"]
+    predicted = (mem["argument_bytes"] + mem["temp_bytes"]) / 2**30
+    measured = bf16["peak_gib"]
+    gap = abs(predicted - measured) / measured
+    check(gap <= DRYRUN_PEAK_RTOL, f"dry run peak {predicted:.2f} GiB, "
+          f"phase 10c {measured:.2f} GiB: {gap:.1%} apart, limit "
+          f"{DRYRUN_PEAK_RTOL:.0%}")
+    res = {"phase": "dryrun", "cells": cells, "records": records,
+           "device": rec["device"],
+           "census_per_step": census, "train_bf16_launches_per_step": want,
+           "predicted_peak_gib": predicted, "measured_peak_gib": measured,
+           "peak_gap": gap, "peak_rtol": DRYRUN_PEAK_RTOL,
+           "memory": mem, "seconds": time.perf_counter() - t0}
+    emit(res)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3519,6 +3658,7 @@ def main() -> int:
     phase_build()
     lap("build")
     kernels = phase_kernels(dev)
+    phase_charge_hook(dev)
     lap("kernels")
     phase_storm(dev)
     launches = phase_serve(dev)
@@ -3550,11 +3690,14 @@ def main() -> int:
     dist_launches = dist_ref["launches"]
     torch.cuda.empty_cache()
     lap("dist")
-    train_launches, bf16_launches = phase_train(dev)
+    f32_run, bf16_run = phase_train(dev)
+    train_launches, bf16_launches = f32_run["launches"], bf16_run["launches"]
     lap("train")
     rank_launches = phase_ranks(dev, dist_ref)
     del dist_ref
     lap("ranks")
+    phase_dryrun(bf16_run)
+    lap("dryrun")
     emit({"phase": "timeline", "seconds_at_end_of": seconds})
     table = []
     for name, (source, replaces) in KERNELS.items():

@@ -99,8 +99,15 @@ ARCHS: Dict[str, ModelConfig] = {
     ]
 }
 
-__all__ = ["ARCHS", "ModelConfig", "RunConfig", "SHAPES", "ShapeConfig",
-           "get_config", "list_archs", "reduced", "reduced_config"]
+# long_500k needs sub-quadratic handling of the 524288-token context:
+# SSM (O(1) state), hybrid (bounded local windows + RG-LRU), gemma2 (local
+# half bounded by window; global half linear per decoded token).  Pure
+# full-attention archs and whisper (architecturally bounded decoder) skip it.
+LONG_CONTEXT_ARCHS = {"xlstm-125m", "recurrentgemma-9b", "gemma2-2b"}
+
+__all__ = ["ARCHS", "LONG_CONTEXT_ARCHS", "ModelConfig", "RunConfig",
+           "SHAPES", "ShapeConfig", "get_config", "list_archs", "reduced",
+           "reduced_config", "runnable"]
 
 
 def get_config(name: str) -> ModelConfig:
@@ -109,6 +116,14 @@ def get_config(name: str) -> ModelConfig:
 
 def list_archs() -> List[str]:
     return list(ARCHS)
+
+
+def runnable(arch: str, shape: str) -> bool:
+    """Whether the (arch, shape) cell runs: long_500k only for
+    :data:`LONG_CONTEXT_ARCHS`."""
+    if shape == "long_500k":
+        return arch in LONG_CONTEXT_ARCHS
+    return True
 
 
 def reduced_config(name: str, **overrides) -> ModelConfig:

@@ -110,6 +110,22 @@ class ModelConfig:
             total += self.encoder_layers * (attn + mlp + 2 * d)
         return total
 
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: top_k + shared experts only),
+        the JAX package's formula."""
+        if not self.num_experts:
+            return self.param_count()
+        d = self.d_model
+        full_moe = (self.num_experts + self.num_shared_experts) * 3 * d \
+            * self.d_ff
+        active_moe = (self.top_k + self.num_shared_experts) * 3 * d \
+            * self.d_ff
+        n_moe_layers = sum(
+            1 for i in range(self.num_layers)
+            if self.layer_pattern[i % len(self.layer_pattern)]
+            in ("attn", "local"))
+        return self.param_count() - n_moe_layers * (full_moe - active_moe)
+
 
 @dataclass(frozen=True)
 class ShapeConfig:
@@ -136,6 +152,9 @@ class RunConfig:
     defaults."""
     model: ModelConfig
     shape: ShapeConfig
+    # shard parameters over the data axis too (ZeRO-3): the specs a placed
+    # state takes (``param_shardings(fsdp=)``, ``launch/specs.py``)
+    fsdp: bool = False
     microbatches: int = 1
     lr: float = 3e-4
     grad_compression: bool = False

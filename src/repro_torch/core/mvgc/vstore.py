@@ -262,9 +262,10 @@ def _policy_gc_step(state: MVState, policy: str = "slrt", force: bool = False,
             return _sweep_all_needed(state, extra_pins=extra_pins)
         return state, _empty(B, state.now)
 
-    # dlrt / slrt: flush once the ring crosses the threshold (a host sync)
+    # dlrt / slrt: flush once the ring crosses the threshold (a host sync;
+    # a boolean read, which a dry run's op counter explores both ways)
     thresh = int(B * flush_fraction)
-    if not (force or int(rt.ring_size(state.ring)) >= thresh):
+    if not (force or bool(rt.ring_size(state.ring) >= thresh)):
         return state, _empty(B + B * V, state.now)
     A = _ann_scan(state, extra_pins)
     occ = state.ring.idx != EMPTY

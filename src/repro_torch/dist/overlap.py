@@ -30,7 +30,11 @@ caller's device.  State stays on the card; only the collectives' operands
 cross.  The helpers below (:func:`exchange`, :func:`all_gather_cat`,
 :func:`all_reduce_`, :func:`broadcast_`, :func:`broadcast_tree`) are the
 port's collectives built on it; each is a per-rank function that every
-rank of ``group`` calls in the same order.
+rank of ``group`` calls in the same order.  Under an op counter
+(:mod:`repro_torch.launch.op_cost`; the hook is
+:func:`repro_torch.kernels.cost.collective`) each charges one collective by
+``hlo_cost``'s byte model, and the host copies and gloo ops inside it are
+not counted.
 """
 from __future__ import annotations
 
@@ -38,6 +42,8 @@ from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.kernels.cost import collective
 
 REDUCES = ("sum", "mean", "min")
 
@@ -53,6 +59,18 @@ def wire(x: torch.Tensor) -> torch.Tensor:
 
 
 wire.copies = 0
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _write_back(x: torch.Tensor, buf: torch.Tensor) -> None:
+    """``buf``'s values into ``x`` where :func:`wire` made ``buf`` a copy
+    (a CUDA tensor or a strided one; else they share memory)."""
+    if x.is_cuda or not x.is_contiguous():
+        with torch.no_grad():
+            x.copy_(buf)
 
 
 def _raw(x: torch.Tensor) -> torch.Tensor:
@@ -77,13 +95,15 @@ def exchange(send: torch.Tensor, dst: int, src: int,
     shape and dtype from group rank ``src``, in one batch (every rank of a
     ring posts both, so no order of blocking calls can deadlock).  Returns
     the received tensor on ``send``'s device."""
-    out = wire(send)
-    recv = torch.empty_like(out)
-    ops = [dist.P2POp(dist.isend, _raw(out), _global(group, dst), group),
-           dist.P2POp(dist.irecv, _raw(recv), _global(group, src), group)]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    return recv.to(send.device)
+    with collective("collective-permute", _nbytes(send)):
+        out = wire(send)
+        recv = torch.empty_like(out)
+        ops = [dist.P2POp(dist.isend, _raw(out), _global(group, dst), group),
+               dist.P2POp(dist.irecv, _raw(recv), _global(group, src),
+                          group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return recv.to(send.device)
 
 
 def all_gather_cat(x: torch.Tensor, group: Optional[dist.ProcessGroup],
@@ -96,14 +116,16 @@ def all_gather_cat(x: torch.Tensor, group: Optional[dist.ProcessGroup],
     n = world(group)
     if n == 1:
         return x
-    mine = wire(x)
-    parts = [mine if r == dist.get_rank(group) else torch.empty_like(mine)
-             for r in range(n)]
-    works = [dist.broadcast(_raw(parts[r]), _global(group, r), group=group,
-                            async_op=True) for r in range(n)]
-    for w in works:
-        w.wait()
-    return torch.cat(parts, dim=dim).to(x.device)
+    with collective("all-gather", n * _nbytes(x)):
+        mine = wire(x)
+        parts = [mine if r == dist.get_rank(group)
+                 else torch.empty_like(mine) for r in range(n)]
+        works = [dist.broadcast(_raw(parts[r]), _global(group, r),
+                                group=group, async_op=True)
+                 for r in range(n)]
+        for w in works:
+            w.wait()
+        return torch.cat(parts, dim=dim).to(x.device)
 
 
 def all_reduce_(x: torch.Tensor, group: Optional[dist.ProcessGroup],
@@ -112,11 +134,10 @@ def all_reduce_(x: torch.Tensor, group: Optional[dist.ProcessGroup],
     (every rank gets the same bits) and returned."""
     if world(group) == 1:
         return x
-    buf = wire(x)
-    dist.all_reduce(buf, op=op, group=group)
-    if buf.data_ptr() != x.data_ptr():
-        with torch.no_grad():
-            x.copy_(buf)
+    with collective("all-reduce", _nbytes(x)):
+        buf = wire(x)
+        dist.all_reduce(buf, op=op, group=group)
+        _write_back(x, buf)
     return x
 
 
@@ -126,11 +147,10 @@ def broadcast_(x: torch.Tensor, src: int,
     shape and dtype on all of them) and returned."""
     if world(group) == 1:
         return x
-    buf = wire(x)
-    dist.broadcast(_raw(buf), _global(group, src), group=group)
-    if buf.data_ptr() != x.data_ptr():
-        with torch.no_grad():
-            x.copy_(buf)
+    with collective("broadcast", _nbytes(x)):
+        buf = wire(x)
+        dist.broadcast(_raw(buf), _global(group, src), group=group)
+        _write_back(x, buf)
     return x
 
 
@@ -174,6 +194,11 @@ def ring_all_reduce(x: torch.Tensor, reduce: str = "sum",
     n = world(group)
     if n == 1:
         return x / 1.0 if reduce == "mean" else x.clone()
+    with collective("all-reduce", _nbytes(x)):
+        return _ring(x, reduce, group, n)
+
+
+def _ring(x: torch.Tensor, reduce: str, group, n: int) -> torch.Tensor:
     r = dist.get_rank(group)
     nxt, prv = (r + 1) % n, (r - 1) % n
     flat = wire(x).reshape(-1)           # the hops run in host memory

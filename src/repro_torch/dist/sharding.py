@@ -73,7 +73,10 @@ class Spec(tuple):
 # ---------------------------------------------------------------------------
 def axis_sizes(mesh) -> Dict[str, int]:
     """Axis name -> size of a ``DeviceMesh`` or of anything whose
-    ``shape`` is such a mapping (a JAX mesh, a test's stand-in)."""
+    ``shape`` is such a mapping (a JAX mesh, a test's stand-in), or of
+    such a mapping itself."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
     names = getattr(mesh, "mesh_dim_names", None)
     if names is not None:
         return dict(zip(names, mesh.mesh.shape))
@@ -349,8 +352,13 @@ class Placement:
         at ``path``), each gathered over the axes that shard it just
         now; autograd sends each full leaf's gradient back to its shard
         (:meth:`_reduce_grad`).  Called inside a checkpointed layer, the
-        recompute gathers again."""
+        recompute gathers again.  With grad disabled (serving) a leaf
+        that no axis splits is the shard itself, not a copy."""
         prefix = tuple(str(p) for p in path)
+        if not torch.is_grad_enabled():
+            return tree_unflatten(tree, [
+                self._gather(x, prefix + p) if self._split(prefix + p)
+                else x for p, x in _paths(tree)])
         return tree_unflatten(tree, [
             _Gather.apply(x, self, prefix + p) for p, x in _paths(tree)])
 
@@ -361,7 +369,7 @@ class Placement:
         the :class:`BatchGroup` that split them (None when the rows do not
         divide over the batch axes: then every rank takes the whole
         batch, as JAX replicates it)."""
-        spec = batch_spec(batch["tokens"], self.mesh)
+        spec = batch_spec(batch["tokens"], self.sizes)
         if spec[0] is None:
             return dict(batch), None
         group = BatchGroup(self, _axes_of(spec[0]))
@@ -412,6 +420,106 @@ class BatchGroup:
         for a in reversed(self.axes):          # minor axis first
             y = all_gather_cat(y, self._pl._group(a), dim=0)
         return y
+
+
+class ServePlacement:
+    """One rank's placement of a serve state over ``mesh``: what JAX's
+    decode and prefill cells compile (``launch/specs.py``'s
+    ``build_serve_cell``), run by this rank.
+
+    * The parameters by ``param_specs`` (:func:`param_shardings` with
+      ``fsdp=False``), each gathered at use, layer by layer
+      (:meth:`param`, the :class:`Placement` of a train state).
+    * The cache by ``cache_specs`` (``specs.cache_shardings``: per layer,
+      the layer's cache type holding a spec per leaf).  Dim 0 of every
+      leaf is the batch: when it is split, this rank computes its rows of
+      the batch (:attr:`group`, :meth:`rows`) and its leaves hold those
+      rows.  Each layer's leaves are gathered at use over the axes of
+      their other dims (heads or sequence, a recurrent state's width;
+      :meth:`cache_in`), and after the layer its new leaves are cut back
+      to this rank's shard (:meth:`cache_out`): the in-place K/V write
+      (trap T1), a local ring's ``pos`` and a replaced recurrent state
+      alike.
+    * What the whole batch reads (new lengths for the store, tokens) is
+      gathered over the batch axes (:meth:`whole`)."""
+
+    def __init__(self, mesh, param_specs, cache_specs):
+        self.params = Placement(mesh, param_specs)
+        self.cache_specs = cache_specs
+        lead = _axes_of(tuple(cache_specs[0])[0][0])
+        self.group = (BatchGroup(self.params, lead)
+                      if _axis_size(self.params.sizes, lead) > 1 else None)
+
+    def param(self, tree, *path):
+        return self.params.gather(tree, *path)
+
+    def rows(self, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """This rank's rows of a batch-major tensor."""
+        if x is None or self.group is None:
+            return x
+        return x.chunk(self.group.n, dim=0)[self.group.index]
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole batch's rows from every rank's ``x``, on every rank."""
+        if self.group is None:
+            return x
+        return self.group.rows(x).reshape(-1, *x.shape[1:])
+
+    def _dims(self, spec, first: int):
+        """(dim, its axes of size > 1, major first) of each dim from
+        ``first`` on that an axis splits."""
+        out = []
+        for d, e in enumerate(spec):
+            axes = [a for a in _axes_of(e) if self.params.sizes[a] > 1]
+            if d >= first and axes:
+                out.append((d, tuple(axes)))
+        return out
+
+    def _gather_leaf(self, x, spec, first: int):
+        for d, axes in self._dims(spec, first):
+            for a in reversed(axes):               # minor axis first
+                x = all_gather_cat(x, self.params._group(a), dim=d)
+        return x
+
+    def _cut_leaf(self, x, spec, first: int):
+        for d, axes in self._dims(spec, first):
+            idx, k = self.params._index(axes)
+            x = x.chunk(k, dim=d)[idx]
+        return x
+
+    def cache_in(self, c, i: int):
+        """Layer ``i``'s cache leaves, each gathered over the axes of its
+        dims but the batch's (the shard itself when none splits it)."""
+        return type(c)(*(self._gather_leaf(x, s, 1)
+                         for x, s in zip(c, self.cache_specs[i])))
+
+    def cache_out(self, new, old, i: int):
+        """Layer ``i``'s new cache cut back to this rank's shard: a split
+        leaf's piece is written into the old shard, in place; a leaf no
+        axis splits is the layer's own."""
+        out = []
+        for n, o, spec in zip(new, old, self.cache_specs[i]):
+            if self._dims(spec, 1):
+                with torch.no_grad():
+                    o.copy_(self._cut_leaf(n, spec, 1))
+                n = o
+            out.append(n)
+        return type(new)(*out)
+
+    def shard_cache(self, cache):
+        """This rank's shard of a whole cache (the same on every rank):
+        each leaf cut along every dim its spec splits, batch included
+        (contiguous copies)."""
+        return [type(c)(*(self._cut_leaf(x, s, 0).clone(
+            memory_format=torch.contiguous_format)
+            for x, s in zip(c, specs)))
+            for c, specs in zip(cache, self.cache_specs)]
+
+    def gather_cache(self, cache):
+        """The whole cache from every rank's shards, on every rank."""
+        return [type(c)(*(self._gather_leaf(x, s, 0)
+                          for x, s in zip(c, specs)))
+                for c, specs in zip(cache, self.cache_specs)]
 
 
 def place_train_state(state, mesh, *, fsdp: bool = False,

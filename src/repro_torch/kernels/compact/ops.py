@@ -13,7 +13,11 @@ or raise.  ``compact.launches`` counts K1's launches, those of
 :func:`sweep` (also counted alone in ``sweep.launches``) and of
 :func:`compact`; ``needed.launches`` counts K5's.  As in the JAX package,
 no engine or store calls :func:`needed`; the store's sweeps go through
-:func:`sweep`.
+:func:`sweep`.  Fake tensors (a dry run, :mod:`repro_torch.launch.dryrun`)
+get empty results of the kernel's shapes, and each call is charged its
+kernel's analytic cost (:mod:`repro_torch.kernels.cost`) under an op
+counter (:mod:`repro_torch.launch.op_cost`), at one check of
+:data:`repro_torch.kernels.cost.ACTIVE` a call when none counts.
 
 Bound on the H100: bytes.  The sweep reads and writes 12 bytes per slab
 entry, reads 5 per lane and writes 4 per freed handle; :func:`compact`
@@ -31,8 +35,9 @@ kernels' shared-memory copy of it (``kMaxAnn`` in ``csrc/compact.cu``,
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.compact.ref import compact_ref, needed_ref, sweep_ref
 
 
@@ -41,12 +46,16 @@ def _now(now, like: torch.Tensor) -> torch.Tensor:
                            device=like.device).reshape(1)
 
 
+@cost.charged("needed", lambda ts, ann_sorted, **_: cost.needed_cost(
+    *ts.shape, ann_sorted.shape[0]))
 def needed(ts: torch.Tensor, succ: torch.Tensor, ann_sorted: torch.Tensor,
            now) -> torch.Tensor:
     """bool[S, V]: ``needed(A, now)`` per entry.  ``ann_sorted`` must be
     sorted with TS_MAX padding (``core.mvgc.needed.sort_announcements``),
     as the plain version's contract already asks; ``now`` is an int32
     device scalar or a Python int (passed to the kernel by value)."""
+    if is_fake(ts):
+        return ts.new_empty(ts.shape, dtype=torch.bool)
     if ts.device.type == "cpu":
         return needed_ref(ts, succ, ann_sorted, now)
     _build.require_cuda_i32("needed", ts, succ, ann_sorted)
@@ -66,10 +75,15 @@ def needed(ts: torch.Tensor, succ: torch.Tensor, ann_sorted: torch.Tensor,
     return out
 
 
+@cost.charged("compact", lambda ts, ann_sorted, **_: cost.compact_cost(
+    *ts.shape, ann_sorted.shape[0]))
 def compact(ts: torch.Tensor, succ: torch.Tensor, payload: torch.Tensor,
             mask: torch.Tensor, ann_sorted: torch.Tensor, now: torch.Tensor):
     """Fused needed + splice.  Returns ``(ts', succ', payload', freed,
     n_freed)`` (see :func:`compact_ref`); all outputs are new tensors."""
+    if is_fake(ts):
+        return (*(ts.new_empty(ts.shape) for _ in range(4)),
+                ts.new_empty(()))
     if ts.device.type == "cpu":
         return compact_ref(ts, succ, payload, mask, ann_sorted, now)
     now = _now(now, ts)
@@ -96,6 +110,14 @@ def compact(ts: torch.Tensor, succ: torch.Tensor, payload: torch.Tensor,
     return out_ts, out_succ, out_pay, freed, count[0]
 
 
+def _sweep_cost(ts, slot_ids, ann_sorted, **_) -> cost.Cost:
+    S, V = ts.shape
+    return cost.sweep_cost(S, V, S if slot_ids is None else
+                           slot_ids.shape[0], ann_sorted.shape[0],
+                           lanes=slot_ids is not None)
+
+
+@cost.charged("sweep", _sweep_cost)
 def sweep(ts: torch.Tensor, succ: torch.Tensor, payload: torch.Tensor,
           slot_ids, mask, ann_sorted: torch.Tensor, now):
     """The needed-sweep of the ``[S, V]`` slab in one launch.  Returns
@@ -110,6 +132,12 @@ def sweep(ts: torch.Tensor, succ: torch.Tensor, payload: torch.Tensor,
     :func:`repro_torch.kernels.compact.ref.sweep_ref`.  No host sync."""
     if (slot_ids is None) != (mask is None):
         raise ValueError("sweep: give slot_ids and mask together, or neither")
+    if is_fake(ts):
+        S, V = ts.shape
+        R = S if slot_ids is None else slot_ids.shape[0]
+        new_ts, new_succ, new_pay, freed = ts.new_empty(
+            (3 * S + R, V)).split_with_sizes([S, S, S, R])
+        return new_ts, new_succ, new_pay, freed.view(-1)
     if ts.device.type == "cpu":
         return sweep_ref(ts, succ, payload, slot_ids, mask, ann_sorted, now)
     _build.require_cuda_i32("sweep", ts, succ, payload, ann_sorted)

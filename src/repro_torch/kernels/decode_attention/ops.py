@@ -16,6 +16,9 @@ and writes partial softmax statistics to scratch that this wrapper
 allocates; the combine merges the partials in split order.  The number of
 splits comes from :func:`split_plan` on the host (it never reads
 ``lengths``).  ``paged_decode.launches`` counts wrapper calls, one per call.
+Fake tensors (a dry run) get an empty output, and each call is charged
+K4's analytic cost (:mod:`repro_torch.kernels.cost`, every page of every
+table visible) under an op counter (:mod:`repro_torch.launch.op_cost`).
 
 Bound on the H100: bytes — every visible K and V element is read once and
 feeds only 2G multiply-adds (G = Hq / Hkv query heads per kv head), far
@@ -27,8 +30,9 @@ lane reads 16-byte vectors and stages its next two steps of K and V in a
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.decode_attention.ref import paged_decode_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -61,12 +65,23 @@ def split_plan(B: int, Hq: int, Hkv: int, PS: int, MP: int, sms: int) -> int:
     return -(-MP // chunk)
 
 
+def _paged_decode_cost(q, k_pages, page_table, **_) -> cost.Cost:
+    """K4's cost with every page of every table visible."""
+    B, Hq, D = q.shape
+    MP, PS, Hkv = page_table.shape[1], k_pages.shape[1], k_pages.shape[2]
+    return cost.paged_decode_cost(B, Hq, Hkv, D, q.element_size(), B * MP,
+                                  B * MP * PS)
+
+
+@cost.charged("paged_decode", _paged_decode_cost)
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                  v_pages: torch.Tensor, page_table: torch.Tensor,
                  lengths: torch.Tensor) -> torch.Tensor:
     """``q`` [B, Hq, D], ``k/v_pages`` [N, PS, Hkv, D], ``page_table``
     i32[B, MP] (``-1`` allowed past each length), ``lengths`` i32[B] ->
     ``[B, Hq, D]`` in ``q``'s dtype; length 0 gives zeros."""
+    if is_fake(q):
+        return q.new_empty(q.shape)
     if q.device.type == "cpu":
         return paged_decode_ref(q, k_pages, v_pages, page_table, lengths)
     _build.require_cuda_i32("paged_decode", page_table, lengths)

@@ -24,7 +24,11 @@ kernel:
   cores (the tensor cores would round float32 to TF32).
 
 ``flash_attention.launches`` counts kernel launches and
-``flash_attention.route_launches`` the launches of each route.
+``flash_attention.route_launches`` the launches of each route.  Fake
+tensors (a dry run, :mod:`repro_torch.launch.dryrun`) get empty results of
+the kernels' shapes, and each call of K6 or K6b is charged its analytic
+cost (:mod:`repro_torch.kernels.cost`) under an op counter
+(:mod:`repro_torch.launch.op_cost`), whatever route it takes.
 
 Under autograd (grad enabled and ``q``, ``k`` or ``v`` requiring grad) the
 call goes through :class:`FlashAttention`, a ``torch.autograd.Function``:
@@ -77,8 +81,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.flash_prefill.ref import (attention_bwd_ref,
                                                    attention_lse_ref,
                                                    attention_ref)
@@ -151,6 +156,33 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     return (out if dp == D else out[..., :D].contiguous()), row_lse
 
 
+def _shapes(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int
+            ) -> dict:
+    """The arguments of K6's and K6b's cost functions."""
+    B, Hq, T, D = q.shape
+    return dict(B=B, Hq=Hq, Hkv=k.shape[1], T=T, S=k.shape[2], D=D,
+                elt=q.element_size(), window=window, causal=causal)
+
+
+@cost.charged("flash_prefill", lambda q, k, causal, window, **_:
+              cost.flash_prefill_cost(**_shapes(q, k, causal, window)))
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, window: int, softcap: float, lse: bool):
+    """K6 on any tensors: the output and, when ``lse``, the row LSE.  Fake
+    tensors (a dry run) get empty results of the kernel's shapes, CPU
+    tensors the plain version, CUDA tensors a launch; each is charged as
+    one launch under an op counter."""
+    if is_fake(q):
+        return q.new_empty(q.shape), (
+            q.new_empty(q.shape[:3], dtype=torch.float32) if lse else None)
+    if q.device.type == "cpu":
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        if lse:
+            return attention_lse_ref(q, k, v, **kw)
+        return attention_ref(q, k, v, **kw), None
+    return _launch(q, k, v, causal, window, softcap, lse=lse)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
@@ -161,10 +193,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the call."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, window, softcap)
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             softcap=softcap)
-    return _launch(q, k, v, causal, window, softcap)[0]
+    return _forward(q, k, v, causal, window, softcap, lse=False)[0]
 
 
 flash_attention.launches = 0
@@ -176,6 +205,10 @@ def _head_dim(D: int) -> int:
     return 64 if D <= 64 else 128 if D <= 128 else 256
 
 
+@cost.charged(lambda q, **_: "flash_backward" + (
+                  "_bf16" if q.dtype == torch.bfloat16 else ""),
+              lambda q, k, causal, window, **_:
+              cost.flash_backward_cost(**_shapes(q, k, causal, window)))
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, lse: torch.Tensor, *,
@@ -187,7 +220,12 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     CPU tensors take :func:`~.ref.attention_bwd_ref`; CUDA tensors (bf16
     or float32) launch the kernels of their route (``BWD_ROUTES``), counted
     as one call in ``flash_attention_backward.launches`` and in its
-    route's ``route_launches``."""
+    route's ``route_launches``.  Fake tensors (a dry run) get empty
+    gradients; each call is charged as one launch under an op counter, as
+    ``flash_backward`` (float32) or ``flash_backward_bf16``."""
+    if is_fake(q):
+        return q.new_empty(q.shape), k.new_empty(k.shape), \
+            v.new_empty(v.shape)
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
                                  window=window, softcap=softcap)
@@ -234,15 +272,11 @@ flash_attention_backward.route_launches = {r: 0
 
 class FlashAttention(torch.autograd.Function):
     """K6 with its row LSE forward, K6b backward; plain versions of both
-    on the CPU."""
+    on the CPU, empty results on fake tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
-        if q.device.type == "cpu":
-            out, lse = attention_lse_ref(q, k, v, causal=causal,
-                                         window=window, softcap=softcap)
-        else:
-            out, lse = _launch(q, k, v, causal, window, softcap, lse=True)
+        out, lse = _forward(q, k, v, causal, window, softcap, lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, window, softcap)
         return out

@@ -22,6 +22,12 @@ launches, those of :func:`value_at` (also counted alone in
 counts K2's, those of :func:`view` (also counted alone in
 ``view.launches``) and of :func:`search_gather`.
 
+Fake tensors (a dry run, :mod:`repro_torch.launch.dryrun`) get empty
+results of the kernels' shapes, and each call is charged its kernel's
+analytic cost (:mod:`repro_torch.kernels.cost`; ``search_gather`` and
+``view`` with every query found) under an op counter
+(:mod:`repro_torch.launch.op_cost`).
+
 Slot ids follow JAX's gather rule: an id in ``[-S, 0)`` means ``id + S``,
 an id still out of range is clamped into ``[0, S)``.  ``t`` is a Python
 int, passed to the kernel by value (no fill is launched for it), or an
@@ -38,8 +44,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.version_search.ref import (search_gather_ref,
                                                      search_ref, value_at_ref,
                                                      view_ref)
@@ -80,11 +87,19 @@ def _search(ts, payload, slot_ids, t, with_found: bool):
     return out, found
 
 
+def _queries(ts, slot_ids) -> int:
+    return ts.shape[0] if slot_ids is None else slot_ids.shape[0]
+
+
+@cost.charged("value_at", lambda ts, slot_ids, **_: cost.value_at_cost(
+    _queries(ts, slot_ids), ts.shape[1], ids=slot_ids is not None))
 def value_at(ts: torch.Tensor, payload: torch.Tensor,
              slot_ids: Optional[torch.Tensor], t) -> torch.Tensor:
     """i32[B]: the payload of the latest version with ts <= t per queried
     slot, 0 where there is none (``slot_ids=None``: every slot).  The main
     path's snapshot read: one launch, one allocation, no host sync."""
+    if is_fake(ts):
+        return ts.new_empty((_queries(ts, slot_ids),))
     if ts.device.type == "cpu":
         return value_at_ref(ts, payload, slot_ids, t)
     out, _ = _search(ts, payload, slot_ids, t, with_found=False)
@@ -92,22 +107,35 @@ def value_at(ts: torch.Tensor, payload: torch.Tensor,
     return out
 
 
+@cost.charged("search", lambda ts, slot_ids, **_: cost.search_cost(
+    _queries(ts, slot_ids), ts.shape[1]))
 def search(ts: torch.Tensor, payload: torch.Tensor,
            slot_ids: Optional[torch.Tensor], t
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(payload[B], found[B])`` per query ``(slot_ids[b], t)``, EMPTY
     payloads where nothing was found (``slot_ids=None``: every slot)."""
+    if is_fake(ts):
+        B = _queries(ts, slot_ids)
+        buf = ts.new_empty((5 * B,), dtype=torch.uint8)
+        return buf[:4 * B].view(torch.int32), buf[4 * B:].view(torch.bool)
     if ts.device.type == "cpu":
         return search_ref(ts, payload, slot_ids, t)
     return _search(ts, payload, slot_ids, t, with_found=True)
 
 
+@cost.charged("search_gather", lambda ts, values, slot_ids, **_:
+              cost.search_gather_cost(slot_ids.shape[0], ts.shape[1],
+                                      values.shape[1], slot_ids.shape[0]))
 def search_gather(ts: torch.Tensor, payload: torch.Tensor,
                   values: torch.Tensor, slot_ids: torch.Tensor, t
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(rows[B, M], payload[B], found[B])``; rows of not-found queries are
     EMPTY-filled.  Found payloads are clamped into ``[0, T)`` to index
     ``values[T, M]``."""
+    if is_fake(ts):
+        B, M = slot_ids.shape[0], values.shape[1]
+        return (ts.new_empty((B, M)), ts.new_empty((B,)),
+                ts.new_empty((B,), dtype=torch.bool))
     if ts.device.type == "cpu":
         return search_gather_ref(ts, payload, values, slot_ids, t)
     _check_slab(ts, payload, slot_ids)
@@ -129,6 +157,8 @@ def search_gather(ts: torch.Tensor, payload: torch.Tensor,
     return rows, out_pay, found
 
 
+@cost.charged("view", lambda ts, tables, slot_ids, **_: cost.view_cost(
+    slot_ids.shape[0], ts.shape[1], tables.shape[1], slot_ids.shape[0]))
 def view(ts: torch.Tensor, payload: torch.Tensor, tables: torch.Tensor,
          lengths: torch.Tensor, slot_ids: torch.Tensor, t
          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -137,6 +167,10 @@ def view(ts: torch.Tensor, payload: torch.Tensor, tables: torch.Tensor,
     NO_PAGE (-1) rows and length 0 where nothing was found (see
     :func:`repro_torch.kernels.version_search.ref.view_ref`).  One launch,
     one allocation, no host sync."""
+    if is_fake(ts):
+        B, MP = slot_ids.shape[0], tables.shape[1]
+        out = ts.new_empty((B * MP + B,))
+        return out[:B * MP].view(B, MP), out[B * MP:]
     if ts.device.type == "cpu":
         return view_ref(ts, payload, tables, lengths, slot_ids, t)
     _check_slab(ts, payload, slot_ids)

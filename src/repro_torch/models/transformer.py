@@ -234,17 +234,25 @@ def _serve_pass(params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: List[Cache], cache_len: torch.Tensor, mode: str,
                 span: int, inplace: bool,
                 enc_out: Optional[torch.Tensor] = None,
-                frontend_embeds: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, List[Cache]]:
+                frontend_embeds: Optional[torch.Tensor] = None,
+                placement=None) -> Tuple[torch.Tensor, List[Cache]]:
     """Embed (a VLM's patch embeddings first), run every block, norm and
     unembed the **last** position only.
 
     Trap T3: the JAX pass unembeds every position and ``prefill`` keeps the
     last; at full width that is a [16, 2048, 256000] float32 tensor (33 GB).
     The norm is per position, so unembedding the last one alone gives the
-    same logits; a prefix changes nothing there."""
+    same logits; a prefix changes nothing there.
+
+    ``placement`` (a :class:`repro_torch.dist.sharding.ServePlacement`)
+    says that ``params`` and ``cache`` are this rank's shards and
+    ``tokens`` its rows: each parameter is gathered at use, each layer's
+    cache gathered before the layer and cut back to the shard after it,
+    and a mixture of experts reads the whole batch's statistics."""
+    gather = placement.param if placement is not None else _take
+    group = placement.group if placement is not None else None
     B, T = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = gather(params["embed"], "embed")[tokens.long()]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model, dtype=x.dtype).sqrt()
     if (cfg.frontend != "none" and not _is_encdec(cfg)
@@ -254,13 +262,19 @@ def _serve_pass(params, cfg: ModelConfig, tokens: torch.Tensor,
     positions = cache_len[:, None] + torch.arange(
         T, dtype=cache_len.dtype, device=x.device)[None]
     new_cache = []
-    for bp, kind, c in zip(params["layers"], _kinds(cfg), cache):
-        x, c = block_apply(bp, cfg, kind, x, positions, cache=c, span=span,
-                           cache_len=cache_len, enc_out=enc_out, mode=mode,
-                           inplace=inplace)
-        new_cache.append(c)
-    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    logits = x @ params.get("unembed", params["embed"]).T
+    for i, (bp, kind, c) in enumerate(zip(params["layers"], _kinds(cfg),
+                                          cache)):
+        full = placement.cache_in(c, i) if placement is not None else c
+        x, new = block_apply(gather(bp, "layers", i), cfg, kind, x,
+                             positions, cache=full, span=span,
+                             cache_len=cache_len, enc_out=enc_out, mode=mode,
+                             inplace=inplace, group=group)
+        new_cache.append(placement.cache_out(new, c, i)
+                         if placement is not None else new)
+    x = rms_norm(x[:, -1:], gather(params["final_norm"], "final_norm"),
+                 cfg.norm_eps)
+    name = "unembed" if "unembed" in params else "embed"
+    logits = x @ gather(params[name], name).T
     if cfg.final_softcap > 0:
         logits = softcap(logits.float(), cfg.final_softcap)
     return logits, new_cache
@@ -269,32 +283,38 @@ def _serve_pass(params, cfg: ModelConfig, tokens: torch.Tensor,
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: List[Cache], cache_len: torch.Tensor, *,
                 enc_out: Optional[torch.Tensor] = None,
-                inplace: bool = False, span: Optional[int] = None
-                ) -> Tuple[torch.Tensor, List[Cache]]:
+                inplace: bool = False, span: Optional[int] = None,
+                placement=None) -> Tuple[torch.Tensor, List[Cache]]:
     """One decode step (``tokens`` i32[B, T], T = 1 for greedy decode)
     over the caches, an encoder-decoder's cross-attention over ``enc_out``.
     Returns (logits of the last position [B, 1, V], cache').
     ``inplace=True`` appends to the given KV caches; otherwise they are
     left as they were.  A recurrent state is never written: the pass
     returns a new one.  ``span`` is ``cache_len.max() + T``; a caller that
-    knows it on the host passes it, else one host sync reads it."""
+    knows it on the host passes it, else one host sync reads it (trap
+    "host reads under FakeTensorMode": a dry run passes it).
+    ``placement``: :func:`_serve_pass`'s, with this rank's rows of
+    ``tokens``, ``cache_len`` and ``enc_out``."""
     if span is None:
         span = int(cache_len.max()) + tokens.shape[1]
     return _serve_pass(params, cfg, tokens, cache, cache_len, "decode",
-                       span, inplace, enc_out=enc_out)
+                       span, inplace, enc_out=enc_out, placement=placement)
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
             cache: List[Cache], *,
             frontend_embeds: Optional[torch.Tensor] = None,
-            inplace: bool = False):
+            inplace: bool = False, placement=None):
     """Fill empty caches with a prompt through K6.  Returns (last_logits
     [B, 1, V], cache', lengths i32[B]).  A VLM's ``frontend_embeds``
     [B, Nf, d] are a prefix of the prompt and the lengths are ``T + Nf``;
     an encoder-decoder's are its frames, which the encoder runs over (a
     caller that decodes runs :func:`_run_encoder` for ``enc_out``, as
     JAX's callers do).  An encoder-decoder with no frames raises (JAX
-    fails there too, on ``None``: trap C13)."""
+    fails there too, on ``None``: trap C13).  ``placement``:
+    :func:`_serve_pass`'s, with this rank's rows of ``tokens`` and
+    ``frontend_embeds``."""
+    gather = placement.param if placement is not None else _take
     B, T = tokens.shape
     enc_out, fe = None, frontend_embeds
     if _is_encdec(cfg):
@@ -303,10 +323,11 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
                 f"{cfg.name} is an encoder-decoder: prefill needs its frame "
                 "embeddings (frontend_embeds); the JAX package fails here "
                 "too (trap C13)")
-        enc_out, fe = _run_encoder(params, cfg, frontend_embeds), None
+        enc_out, fe = _run_encoder(params, cfg, frontend_embeds,
+                                   gather), None
     total = T + prefix_len(cfg, frontend_embeds)
     zeros = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
     logits, cache = _serve_pass(params, cfg, tokens, cache, zeros, "prefill",
                                 total, inplace, enc_out=enc_out,
-                                frontend_embeds=fe)
+                                frontend_embeds=fe, placement=placement)
     return logits, cache, zeros + total

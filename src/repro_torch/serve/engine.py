@@ -86,28 +86,63 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
 
 def prefill_step(state: ServeState, cfg: ModelConfig, run: RunConfig,
                  tokens: torch.Tensor,
-                 frontend_embeds: Optional[torch.Tensor] = None
-                 ) -> ServeState:
+                 frontend_embeds: Optional[torch.Tensor] = None,
+                 placement=None) -> ServeState:
     """Prefill through K6 into the state's cache (in place), then write one
     descriptor version per sequence.  ``frontend_embeds`` are a VLM's patch
     embeddings (a prefix: the lengths are ``T + Nf``) or an
     encoder-decoder's frames, as in :func:`repro_torch.models.transformer.
-    prefill`."""
-    logits, cache, lens = tf.prefill(state.params, cfg, tokens, state.cache,
-                                     frontend_embeds=frontend_embeds,
-                                     inplace=True)
+    prefill`.
+
+    ``placement`` (a :class:`repro_torch.dist.sharding.ServePlacement`)
+    says that ``state`` is this rank's placed state (see
+    :func:`decode_one`); every rank passes the whole batch's ``tokens``
+    and ``frontend_embeds`` and prefills its rows."""
+    pl = placement
+    rows = pl.rows if pl is not None else (lambda x: x)
+    logits, cache, lens = tf.prefill(state.params, cfg, rows(tokens),
+                                     state.cache,
+                                     frontend_embeds=rows(frontend_embeds),
+                                     inplace=True, placement=pl)
     B = tokens.shape[0]
+    whole = pl.whole(lens) if pl is not None else lens
     ids = torch.arange(B, dtype=I32, device=lens.device)
     mv, _, _ = vstore.write_step(
-        state.mv, ids, lens, torch.ones((B,), dtype=torch.bool,
-                                        device=lens.device),
+        state.mv, ids, whole, torch.ones((B,), dtype=torch.bool,
+                                         device=lens.device),
         policy=run.gc.policy)
     return ServeState(state.params, cache, lens, mv, _greedy(logits),
                       tokens.shape[1] + tf.prefix_len(cfg, frontend_embeds))
 
 
+def reclaim_pass(mv: vstore.MVState, ids: torch.Tensor, new_len: torch.Tensor,
+                 ovf: torch.Tensor, deficit: torch.Tensor, policy: str,
+                 retry: bool
+                 ) -> Tuple[vstore.MVState, torch.Tensor, torch.Tensor]:
+    """The gate's pressure branch: reclaim synchronously, hot slots first,
+    then, when ``retry`` (a lane's append overflowed its slab), write the
+    overflowed lanes again now that the reclaim made room.  Returns
+    (mv', lanes still overflowed, versions freed)."""
+    B = new_len.shape[0]
+    mv, _, n_freed = vstore.reclaim_on_pressure(
+        mv, vstore.hot_slots(mv, min(8, B)), deficit, policy=policy)
+    ovf_left = ovf
+    if retry:
+        mv, _, ovf_left = vstore.write_step(mv, ids, new_len, ovf,
+                                            policy=policy)
+    return mv, ovf_left, n_freed
+
+
+def cadence_pass(mv: vstore.MVState, policy: str
+                 ) -> Tuple[vstore.MVState, torch.Tensor]:
+    """The gate's other branch: the policy's cadence pass.  Returns (mv',
+    versions freed)."""
+    mv, freed_g = vstore.gc_step(mv, policy=policy)
+    return mv, (freed_g != EMPTY).sum(dtype=I32)
+
+
 def decode_one(state: ServeState, cfg: ModelConfig, run: RunConfig,
-               enc_out: Optional[torch.Tensor] = None
+               enc_out: Optional[torch.Tensor] = None, placement=None
                ) -> Tuple[ServeState, torch.Tensor, torch.Tensor,
                           Dict[str, torch.Tensor]]:
     """One greedy decode step for the whole batch, appending to the cache in
@@ -116,41 +151,53 @@ def decode_one(state: ServeState, cfg: ModelConfig, run: RunConfig,
 
     After the descriptor write the capacity gate decides: under pressure (a
     watermark crossed, or a lane's append overflowed its slab) the step
-    reclaims synchronously and retries the overflowed lanes; otherwise the
-    policy's cadence pass runs.  Trap T5: JAX takes both decisions with
-    ``lax.cond`` on the device; here they are read back in one host sync.
-    The pass is sized from ``state.longest``, with no sync.  ``stats`` are
-    int32 scalars, equal to the JAX engine's."""
+    runs :func:`reclaim_pass` (with the retry of the overflowed lanes);
+    otherwise :func:`cadence_pass`.  Trap T5: JAX takes both decisions
+    with ``lax.cond`` on the device; here they are read back in one host
+    sync (trap "host reads under FakeTensorMode": a dry run's op counter
+    explores both answers).  The pass is sized from ``state.longest``,
+    with no sync.  ``stats`` are int32 scalars, equal to the JAX
+    engine's.
+
+    ``placement`` (a :class:`repro_torch.dist.sharding.ServePlacement`)
+    says that ``state`` is this rank's placed state: the parameters and
+    cache its shards, ``cache_len``, ``last_tokens`` and ``enc_out`` its
+    rows, and the MV store whole.  The model runs on the rank's rows; the
+    store runs on every rank over the whole batch's lengths, gathered over
+    the batch axes, so every rank takes the same branch, and the step
+    returns on every rank the whole batch's tokens, the stats and the
+    ``MVState`` that the one-rank step returns.  Deviation from JAX's
+    cell (``mv_shardings``: slots split with the batch): the ring and the
+    board take the retirements of every row, and splitting the slots
+    would gather those at every write."""
+    pl = placement
     policy = run.gc.policy
     logits, cache = tf.decode_step(state.params, cfg, state.last_tokens,
                                    state.cache, state.cache_len,
-                                   enc_out=enc_out, inplace=True,
-                                   span=state.longest + 1)
+                                   enc_out=pl.rows(enc_out) if pl is not None
+                                   else enc_out, inplace=True,
+                                   span=state.longest + 1, placement=pl)
     new_len = state.cache_len + 1
-    B = new_len.shape[0]
-    ids = torch.arange(B, dtype=I32, device=new_len.device)
-    ones = torch.ones((B,), dtype=torch.bool, device=new_len.device)
-    mv, freed_w, ovf = vstore.write_step(state.mv, ids, new_len, ones,
+    lens = pl.whole(new_len) if pl is not None else new_len
+    B = lens.shape[0]
+    ids = torch.arange(B, dtype=I32, device=lens.device)
+    ones = torch.ones((B,), dtype=torch.bool, device=lens.device)
+    mv, freed_w, ovf = vstore.write_step(state.mv, ids, lens, ones,
                                          policy=policy)
     gate = vstore.capacity_gate(mv)
     trigger, any_ovf = torch.stack(
         [gate.under_pressure.reshape(()), ovf.any()]).tolist()
     if trigger or any_ovf:
-        mv, _, n_freed = vstore.reclaim_on_pressure(
-            mv, vstore.hot_slots(mv, min(8, B)), gate.deficit, policy=policy)
+        mv, ovf_left, n_freed = reclaim_pass(mv, ids, lens, ovf,
+                                             gate.deficit, policy, any_ovf)
         reclaimed = 1
     else:
-        mv, freed_g = vstore.gc_step(mv, policy=policy)
-        n_freed = (freed_g != EMPTY).sum(dtype=I32)
-        reclaimed = 0
-    ovf_left = ovf
-    if any_ovf:   # retry the overflowed lanes now that the reclaim made room
-        mv, _, ovf_left = vstore.write_step(mv, ids, new_len, ovf,
-                                            policy=policy)
+        mv, n_freed = cadence_pass(mv, policy)
+        ovf_left, reclaimed = ovf, 0
     stats = {
         "overflow_lanes": ovf.sum(dtype=I32),
         "retry_failed": ovf_left.sum(dtype=I32),
-        "reclaims_triggered": i32(reclaimed, new_len.device),
+        "reclaims_triggered": i32(reclaimed, lens.device),
         "versions_reclaimed": n_freed.to(I32),
         "deficit": gate.deficit,
         "live_versions": vstore.live_versions(mv),
@@ -159,7 +206,9 @@ def decode_one(state: ServeState, cfg: ModelConfig, run: RunConfig,
     }
     nxt = _greedy(logits)
     return (ServeState(state.params, cache, new_len, mv, nxt,
-                       state.longest + 1), nxt, freed_w.reshape(-1), stats)
+                       state.longest + 1),
+            pl.whole(nxt) if pl is not None else nxt, freed_w.reshape(-1),
+            stats)
 
 
 # ---------------------------------------------------------------------------

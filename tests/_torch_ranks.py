@@ -12,6 +12,7 @@ writes its results under the io directory as ``<name>_<rank>.npz``.
 
     python tests/_torch_ranks.py RANK WORLD IO DEVICE PROGRAM...
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -643,8 +644,124 @@ def one_rank(state, case, device) -> dict:
             "nu": host(state.opt.nu)}
 
 
+# ---------------------------------------------------------------------------
+# the placed serve step: one rank's share of JAX's decode and prefill cells
+# ---------------------------------------------------------------------------
+#: (arch, batch, cache length, prompt, decode steps): reduced gemma2-2b (2
+#: KV heads: heads on ``model``; a local ring whose ``pos`` is split over
+#: ``model``) and reduced recurrentgemma-9b (1 KV head: the sequence on
+#: ``model``; the RG-LRU ``h`` and ``conv`` split by width)
+SERVE_CASES = {"gemma2": ("gemma2-2b", 4, 32, 8, 4),
+               "recurrentgemma": ("recurrentgemma-9b", 4, 32, 8, 4)}
+
+
+def serve_run(case, device, placement=None) -> dict:
+    """Prefill and ``steps`` decode steps of ``case`` in float32 from one
+    seed: the one-rank step (``placement`` None) or this rank's placed
+    step.  Returns the tokens and stats of every step, the store and the
+    whole cache after the last, as numpy."""
+    from repro_torch.ckpt.manager import tree_flatten
+    from repro_torch.configs import SHAPES, reduced_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import engine as eng
+    arch, B, L, T, steps = SERVE_CASES[case]
+    cfg = reduced_config(arch)
+    run = RunConfig(model=cfg, shape=SHAPES["decode_32k"])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # erfinv's CPU paths: the same bits on
+    params = tf.init_params(     # every rank and in the reference
+        cfg, torch.Generator(device=device).manual_seed(5))
+    torch.set_num_threads(threads)
+    state = eng.make_serve_state(cfg, run, params, B, L, torch.float32,
+                                 device)
+    pl = placement(cfg, params, state.cache) if placement else None
+    if pl is not None:
+        state = state._replace(
+            params=pl.params.shard_tree(params),
+            cache=pl.shard_cache(state.cache),
+            cache_len=pl.rows(state.cache_len).clone(),
+            last_tokens=pl.rows(state.last_tokens).clone())
+    g = torch.Generator().manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
+                           dtype=torch.int32).to(device)
+    state = eng.prefill_step(state, cfg, run, tokens, placement=pl)
+    out = {}
+    for i in range(steps):
+        state, toks, _, stats = eng.decode_one(state, cfg, run,
+                                               placement=pl)
+        out[f"toks_{i}"] = toks.cpu().numpy()
+        out[f"stats_{i}"] = np.stack([v.cpu().numpy()
+                                      for v in stats.values()])
+    for j, x in enumerate(tree_flatten(state.mv)):
+        out[f"mv_{j}"] = x.cpu().numpy()
+    cache = pl.gather_cache(state.cache) if pl is not None else state.cache
+    for j, x in enumerate(tree_flatten(cache)):
+        out[f"cache_{j}"] = x.cpu().numpy()
+    return out
+
+
+class _WrongShard:
+    """Planted fault: a rank writes its new cache pieces into the wrong
+    shard (the piece of the next index along the first split dim)."""
+
+    def __enter__(self):
+        from repro_torch.dist import sharding
+        self._cut = cut = sharding.ServePlacement._cut_leaf
+
+        def wrong(pl, x, spec, first):
+            dims = pl._dims(spec, first)
+            if first == 1 and dims:
+                d, axes = dims[0]
+                idx, k = pl.params._index(axes)
+                x = x.chunk(k, dim=d)[(idx + 1) % k]
+                spec = tuple(None if i == d else e
+                             for i, e in enumerate(spec))
+            return cut(pl, x, spec, first)
+        sharding.ServePlacement._cut_leaf = wrong
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.dist import sharding
+        sharding.ServePlacement._cut_leaf = self._cut
+
+
+def program_serve(rank, world, io, device) -> None:
+    """Each serve case on a 2 x 2 (data, model) mesh: the placed step
+    (parameters by ``param_shardings(fsdp=False)``, the cache by
+    ``cache_shardings``), and the gemma2 case with the planted fault on
+    rank 1; rank 0 also runs the one-rank step."""
+    from repro_torch.dist.sharding import ServePlacement, param_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import cache_shardings
+    mesh = make_host_mesh(2, 2, device=device)
+
+    def placement(cfg, params, cache):
+        return ServePlacement(
+            mesh, param_shardings(params, mesh, fsdp=False),
+            cache_shardings(cache, mesh, cfg, cache[0][0].shape[0]))
+
+    for case in SERVE_CASES:
+        save(io, f"serve_{case}", rank,
+             **serve_run(case, device, placement))
+        if rank == 0:
+            save(io, f"serve_ref_{case}", 0, **serve_run(case, device))
+    with _WrongShard() if rank == 1 else contextlib.nullcontext():
+        save(io, "serve_fault", rank,
+             **serve_run("gemma2", device, placement))
+
+
+def check_serve(got: dict, want: dict) -> None:
+    """The placed step's record against the one-rank step's: tokens,
+    stats, the store and the gathered cache, bit for bit."""
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 PROGRAMS = {"engine": program_engine, "pipeline": program_pipeline,
-            "train": program_train}
+            "train": program_train, "serve": program_serve}
 
 
 def main(argv) -> int:

@@ -1679,3 +1679,45 @@ def test_rank_train_on_the_card_matches_one_rank(card_ranks, cuda, case):
         with pytest.raises(AssertionError):
             R.check_run(R.placed(io, fault), ref, ref["p0"],
                         rtol=R.JAX_RTOL)
+
+
+def test_dry_run_census_equals_the_card_launches(cuda):
+    """``launch/dryrun.py``'s trace of a two-layer gemma2-2b training step
+    in bf16 (B 1 x T 512, fake CUDA tensors: nothing built, nothing
+    launched) against the same step run for real on the card: the dry
+    run's kernel census equals the launches the wrappers count, K6 twice
+    per layer (forward and the checkpoint's recompute) on its wgmma route
+    and K6b once on its bf16 route."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.train.step import init_state, train_step
+    cfg = dataclasses.replace(get_config("gemma2-2b"), num_layers=2)
+    run = RunConfig(model=cfg, shape=SHAPES["train_4k"])
+    B, T = 1, 512
+
+    def step(state, batch):
+        return train_step(state, batch, cfg, run)
+
+    def counts():
+        return {"flash_prefill": flash_ops.flash_attention.launches,
+                "flash_backward_bf16":
+                    flash_ops.flash_attention_backward.route_launches[
+                        flash_ops.BWD_ROUTES[torch.bfloat16]]}
+
+    shapes = (specs.shapes_of(lambda dev: init_state(
+        cfg, torch.Generator(device=dev), dtype=torch.bfloat16)),
+        {"tokens": specs.Shaped((B, T), torch.int32)})
+    before = counts()
+    dry, _ = dryrun.trace(step, shapes, cuda)
+    assert counts() == before              # the dry run launched nothing
+    census = {k: v["launches"] for k, v in dry.result()["kernels"].items()}
+    state = init_state(cfg, torch.Generator(device=cuda).manual_seed(0),
+                       dtype=torch.bfloat16)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, T),
+                                     dtype=torch.int32, device=cuda)}
+    step(state, batch)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in counts().items()}
+    assert census == launched == {"flash_prefill": 4,
+                                  "flash_backward_bf16": 2}

@@ -31,6 +31,13 @@ one-process port and the JAX package.
 * Planted faults, run by the ranks beside the real runs: the shards'
   update skipped, both data rows on the batch's first half, and both
   data-parallel ranks on the first half.  Each must fail its check.
+* The placed serve step (``ServePlacement``: JAX's decode and prefill
+  cells on a 2 x 2 mesh): reduced gemma2-2b (heads on ``model``, a local
+  ring's ``pos`` split over it) and reduced recurrentgemma-9b (the
+  sequence on ``model``, the RG-LRU state by width), prefill and 4 decode
+  steps in float32: every rank's tokens, stats and ``MVState``, and the
+  cache gathered back, bit-equal to the one-rank step; a rank writing its
+  new K/V into the wrong shard must fail that check.
 """
 import dataclasses
 import importlib.util
@@ -163,8 +170,8 @@ def ranks(tmp_path_factory):
         [sys.executable, "-c", _JAX_SUB, str(io), json.dumps(cases)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     try:
-        R.spawn(WORLD, str(io), "cpu", ["engine", "pipeline", "train"],
-                timeout=400)
+        R.spawn(WORLD, str(io), "cpu",
+                ["engine", "pipeline", "train", "serve"], timeout=400)
         out, _ = jax_proc.communicate(timeout=300)
         assert jax_proc.returncode == 0, out.decode()
     finally:
@@ -414,3 +421,20 @@ def test_planted_fault_fails_its_check(ranks, one_rank, fault):
                 R.check_run(rec, ref, ref["p0"])
         else:
             R.check_run(R.placed(ranks["io"], fault), ref, ref["p0"])
+
+
+# ---------------------------------------------------------------------------
+# the placed serve step
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("case", list(R.SERVE_CASES))
+def test_placed_serve_step_equals_one_rank(ranks, case):
+    want = R.load(ranks["io"], f"serve_ref_{case}", 0)
+    for rank in range(WORLD):
+        R.check_serve(R.load(ranks["io"], f"serve_{case}", rank), want)
+
+
+def test_placed_serve_wrong_shard_fails(ranks):
+    want = R.load(ranks["io"], "serve_ref_gemma2", 0)
+    for rank in range(WORLD):
+        with pytest.raises(AssertionError):
+            R.check_serve(R.load(ranks["io"], "serve_fault", rank), want)
