@@ -34,10 +34,12 @@ Phases, each printing one JSON line:
    frames, bidirectional; its cross-attention over 1500 columns at 64 rows
    and at one decode row; a recurrentgemma-9b local layer, 16 query heads
    over one KV head at D 256, window 2048), with SDPA's time where it
-   computes the same function, and in float32 (its CUDA-core route; bf16
-   takes the wgmma+TMA kernel); K6b, the gradient kernels, against
-   attention_bwd_ref from K6's own output and row LSE at gemma2-2b's
-   training layers (T 4096, D 256, softcap 50, window 4096 and 512),
+   computes the same function, and in float32 (its split-TF32 route, at
+   gemma2-2b's training layer too, each float32 row bounded in its unit
+   and on the CUDA cores; bf16 takes the wgmma+TMA kernel); K6b, the
+   gradient kernels, against attention_bwd_ref from K6's own output and
+   row LSE at gemma2-2b's training layers (T 4096, D 256, softcap 50,
+   window 4096 and 512),
    minitron-4b's heads and whisper-tiny's cross-attention, in both of its
    routes (float32 by split-TF32, and bf16, each bounded in its unit),
    with the backward of SDPA (torch.autograd.grad) in the same dtype as
@@ -146,8 +148,9 @@ Phases, each printing one JSON line:
    unchanged by step 0 (lr 0) and moved by step 1; K6 twice per attention
    layer and step (forward and the checkpoint's recompute) and K6b once,
    both counted from zero over the 8 steps; step seconds, tokens/s, peak
-   memory and a profiled step's idle share; K6 on its float32 route and
-   K6b on its float32 (split-TF32) route; then the launcher's
+   memory beside the peak before K6's float32 workspace, and a profiled
+   step's idle share and K6's device ms a step; K6 and K6b on their
+   float32 (split-TF32) routes; then the launcher's
    crash/resume at reduced gemma2-2b on the card (exit 42, resume from
    step 5, the losses against the uninterrupted run's, a TrainState saved
    and restored bit-equal) and reduced minitron-4b's 30 steps with and
@@ -324,9 +327,14 @@ FLASH = {
     "gemma2_capped": dict(B=4, Hq=8, Hkv=4, T=2048, D=256, window=0,
                           softcap=50.0, dtype="bf16", p_rounding=True,
                           q_scale=12.0),
-    # phase 6b's local layer: float32 (the CUDA-core route) at D 256
+    # phase 6b's local layer: float32 (the split-TF32 route) at D 256
     "gemma2_ring_f32": dict(B=1, Hq=8, Hkv=4, T=6144, D=256, window=4096,
                             softcap=50.0, dtype="f32"),
+    # phase 10b's training layer (its local layers' window 4096 covers the
+    # sequence, so its global layers compute the same function): the
+    # kernel table's float32 row
+    "gemma2_train_f32": dict(B=1, Hq=8, Hkv=4, T=4096, D=256, window=4096,
+                             softcap=50.0, dtype="f32"),
     "f32": dict(B=4, Hq=24, Hkv=8, T=2048, D=128, window=0, softcap=0.0,
                 dtype="f32"),
 }
@@ -384,6 +392,10 @@ FLASH_BWD_TOL = dict(atol=1e-4, rtol=1e-4)
 # gradient compression (JAX's test_compression_path_trains)
 TRAIN = dict(arch="gemma2-2b", batch=1, seq_len=4096, steps=8, lr=3e-3,
              seed=0)
+# phase 10b's peak GiB before K6's float32 route took its workspace (the
+# split copies of k and v, 48 MiB a call at this shape), recorded in an
+# earlier run (PERF.md section 5), reported beside this run's
+TRAIN_PEAK_GIB_BEFORE = 52.44
 # phase 3b: calls a round and rounds of the cost hook's host timing
 CHARGE_CALLS = 5000
 CHARGE_ROUNDS = 5
@@ -532,9 +544,10 @@ FRONTEND = {
 # layers (one local, one global), float32, against the CPU
 RING = dict(layers=2, batch=1, prompt=6144, max_len=8192, steps=16, seed=0)
 # its tolerances, card against CPU, both float32, which sum in other
-# orders (cuBLAS against the CPU's GEMMs, K6's float32 kernel against its
-# plain version).  Each atol is about four times the largest difference
-# an H100 run measured (the phase's max_logit_err and max_ring_err): the
+# orders (cuBLAS against the CPU's GEMMs, K6's float32 (split-TF32)
+# kernel against its plain version).  Each atol is about four times the
+# largest difference an H100 run measured (the phase's max_logit_err and
+# max_ring_err): the
 # last-position logits (final softcap 30) 1.03e-4; the rings' K/V
 # 1.55e-3, larger: RoPE turns a key by the angle p * f, which at
 # positions p near 6000 carries p times any last-bit difference between
@@ -642,6 +655,9 @@ KERNELS = {
                      "src/repro/kernels/decode_attention/kernel.py:114"),
     "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                       "src/repro/kernels/flash_prefill/kernel.py:125"),
+    # K6's float32 route (split-TF32) at phase 10b's training layer
+    "flash_prefill_f32": ("src/repro_torch/csrc/flash_prefill.cu",
+                          "src/repro/kernels/flash_prefill/kernel.py:125"),
     # K6b has no pallas_call: JAX differentiates _xla_flash by autodiff;
     # a row per route (float32 split-TF32, bf16)
     "flash_backward": ("src/repro_torch/csrc/flash_backward.cu",
@@ -654,6 +670,16 @@ KERNELS = {
 # here; phase 3's rows carry them as ms_before_recorded
 MS_BEFORE_RECORDED = {"paged_decode": 4.358086, "flash_prefill": 19.320105,
                       "flash_prefill_gemma2_local": 5.816902,
+                      # K6's float32 route: the CUDA-core kernel it
+                      # replaced (gemma2_train_f32: the parent's, timed by
+                      # tools/time_flash_prefill.py)
+                      "flash_prefill_f32": 4.995904,
+                      "flash_prefill_gemma2_train_f32": 3.426191,
+                      "flash_prefill_gemma2_ring_f32": 5.748169,
+                      "flash_prefill_whisper_encoder_f32": 2.421734,
+                      "flash_prefill_whisper_cross_prefill_f32": 0.204077,
+                      "flash_prefill_whisper_cross_decode_f32": 0.200925,
+                      "flash_prefill_recurrentgemma_local_f32": 21.287012,
                       # K6b: the CUDA-core pair it replaced
                       "flash_backward": 14.693428,
                       "flash_backward_minitron": 17.038807,
@@ -697,10 +723,13 @@ def zero_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """Launches since zero_counts, by kernel-table row: K6b's float32
-    route as ``flash_backward`` and its bf16 route as
+    """Launches since zero_counts, by kernel-table row: K6's float32
+    route also as ``flash_prefill_f32`` (``flash_prefill`` counts both),
+    K6b's float32 route as ``flash_backward`` and its bf16 route as
     ``flash_backward_bf16``."""
     out = {name: w.launches for name, w in WRAPPERS.items()}
+    out["flash_prefill_f32"] = flash_ops.flash_attention.route_launches[
+        flash_ops.ROUTES[torch.float32]]
     routes = flash_ops.flash_attention_backward.route_launches
     out["flash_backward"] = routes[flash_ops.BWD_ROUTES[torch.float32]]
     out["flash_backward_bf16"] = routes[flash_ops.BWD_ROUTES[torch.bfloat16]]
@@ -1260,8 +1289,12 @@ def view_case(ts, pay, tables, lengths, ids, t: int) -> dict:
 
 
 def flash_cases(dev) -> dict:
-    """K6 against its plain version at phase 3's FLASH shapes; the
-    "serve" case is the kernel table's row."""
+    """K6 against its plain version at phase 3's FLASH shapes, each on its
+    dtype's route; the "serve" case is the kernel table's bf16 row and
+    "gemma2_train_f32" its float32 row.  A float32 row's bound is in its
+    route's unit (split-TF32: three tf32 products for each of the
+    forward's two), beside the CUDA-core bound of the kernel that route
+    replaced (bound_cuda_core_ms)."""
     gd = torch.Generator(device=dev).manual_seed(6)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
@@ -1275,9 +1308,13 @@ def flash_cases(dev) -> dict:
             q = q * c["q_scale"]
         k = torch.randn((B, Hkv, S, D), generator=gd, device=dev, dtype=dtype)
         v = torch.randn((B, Hkv, S, D), generator=gd, device=dev, dtype=dtype)
+        route = flash_ops.ROUTES[dtype]
+        before = flash_ops.flash_attention.route_launches[route]
         got = flash_ops.flash_attention(q, k, v, **kw)
         want = attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
+        check(flash_ops.flash_attention.route_launches[route] == before + 1,
+              f"flash_prefill {case}: not route {route}")
         err = max_err([got], [want])
         check(bool(torch.isfinite(got.float()).all()), f"flash {case} not "
               "finite")
@@ -1285,10 +1322,10 @@ def flash_cases(dev) -> dict:
         # order, and the bf16 route rounds P to bf16 for the tensor cores.
         # Its largest differences on an H100 were 0.015625 at both bf16
         # shapes, above the bf16 atol: one bf16 rounding step of an output
-        # in [2, 4), which rtol = 2**-7 allows.  The float32 case runs the
-        # other kernel (the CUDA-core route), so the wgmma kernel is held
-        # here only at the bf16 limits; tests/test_torch_gpu.py's marker
-        # tests pin its causal, window and S masks exactly.
+        # in [2, 4), which rtol = 2**-7 allows.  The float32 cases run the
+        # split-TF32 kernel, held at float32's limits;
+        # tests/test_torch_gpu.py's marker tests pin both kernels' causal,
+        # window and S masks exactly.
         tol = DECODE_TOL[kind]
         limit = tol["atol"] + tol["rtol"] * want.float().abs()
         if c.get("p_rounding"):
@@ -1319,8 +1356,9 @@ def flash_cases(dev) -> dict:
         check(torch.equal(got, flash_ops.flash_attention(q, k, v, **kw)),
               f"flash_prefill {case} not deterministic")
         del want
-        b_ms, b_by = bound(*roofline.flash_prefill_cost(
-            B, Hq, Hkv, T, S, D, q.element_size(), c["window"], causal))
+        cost = roofline.flash_prefill_cost(
+            B, Hq, Hkv, T, S, D, q.element_size(), c["window"], causal)
+        b_ms, b_by = roofline.flash_prefill_bound(cost)
         # yardstick: SDPA (GQA) where it computes the same function: it has
         # no logit softcap or window flag (a window as long as the prompt
         # changes nothing)
@@ -1332,16 +1370,19 @@ def flash_cases(dev) -> dict:
         row = dict(shape=f"B={B} Hq={Hq} Hkv={Hkv} T={T} S={S} D={D} "
                          f"causal={causal} window={c['window']} "
                          f"softcap={c['softcap']} {kind}",
-                   route=flash_ops.ROUTES[dtype], max_abs_err=err,
+                   route=route, max_abs_err=err,
                    **({} if uncapped_err is None else dict(
                        q_scale=c["q_scale"],
                        uncapped_max_abs_err=uncapped_err)),
                    **DECODE_TOL[kind], bound_ms=b_ms, bound_by=b_by,
+                   **({} if kind == "bf16" else dict(
+                       bound_unit="tf32 x 3",
+                       bound_cuda_core_ms=bound(*cost)[0])),
                    **timed(lambda: flash_ops.flash_attention(q, k, v, **kw),
                            lambda: attention_ref(q, k, v, **kw), library))
         rows[name] = dict(row, share_of_bound=b_ms / row["ms"],
                           ms_before_recorded=MS_BEFORE_RECORDED.get(name))
-        del q, k, v, got
+        del q, k, v, got, cost
         torch.cuda.empty_cache()
     return rows
 
@@ -2468,7 +2509,7 @@ def profile_window(decode_step, steps: int = 16, name: str = "serve") -> dict:
                                     "needed_kernel", "search_kernel",
                                     "search_gather_kernel",
                                     "view_kernel", "paged_decode_kernel",
-                                    "flash_prefill_kernel", "flash_bwd_"))}
+                                    "flash_prefill_", "flash_bwd_"))}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", f"{name}_profile.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cpu_time_total",
@@ -2884,7 +2925,7 @@ def phase_gemma2_ring(dev) -> dict:
               "gemma2_ring: the ring's K/V differ from the CPU's")
     check(launches["flash_prefill"] == cfg.num_layers
           and flash_routes[flash_ops.ROUTES[torch.float32]] == cfg.num_layers,
-          f"the float32 prefill did not run K6's CUDA-core route once per "
+          f"the float32 prefill did not run K6's split-TF32 route once per "
           f"layer: {flash_routes}")
     return launches
 
@@ -2969,6 +3010,10 @@ def train_full_width(dev, dtype=torch.float32) -> dict:
     prof = profile_window(lambda: train_step(state, _batch(data, dev), cfg,
                                              run), steps=1,
                           name="train_bf16" if bf16 else "train")
+    # K6's kernels in the profiled step: its main kernel and, on the
+    # float32 route, the pre-pass that writes the split copies of k and v
+    k6_kernels = {k: v for k, v in prof["port_kernels_ms"].items()
+                  if "flash_prefill_" in k}
     med = sorted(step_s[1:])[len(step_s[1:]) // 2]
     res = {"phase": "train_bf16" if bf16 else "train", "arch": cfg.name,
            "dtype": str(dtype), "params": n_params,
@@ -2977,7 +3022,12 @@ def train_full_width(dev, dtype=torch.float32) -> dict:
            "step_s": step_s, "median_step_s": med,
            "tokens_per_s": p["batch"] * p["seq_len"] / med,
            "losses": losses, "grad_norms": gnorms,
-           "peak_gib": peak, "device_idle_share": prof["device_idle_share"],
+           "peak_gib": peak,
+           "peak_gib_before": None if bf16 else TRAIN_PEAK_GIB_BEFORE,
+           "device_idle_share": prof["device_idle_share"],
+           "k6_route": k6_route,
+           "k6_device_ms_per_step": sum(t for _, t in k6_kernels.values()),
+           "k6_kernels_profiled": k6_kernels,
            "k6_routes": k6, "k6b_routes": k6b,
            "launches_per_step": {k: v / steps for k, v in launches.items()},
            "launches": launches}
@@ -3701,7 +3751,9 @@ def main() -> int:
     emit({"phase": "timeline", "seconds_at_end_of": seconds})
     table = []
     for name, (source, replaces) in KERNELS.items():
-        row = kernels[MAIN_OPS.get(name, name)]
+        row = kernels["flash_prefill_gemma2_train_f32"
+                      if name == "flash_prefill_f32"
+                      else MAIN_OPS.get(name, name)]
         # the count from the main path that runs the kernel: phase 5 for
         # K1, K2 and K4 (paged serving), phase 6 for K3 (the model
         # engine's snapshot lengths) and flash prefill; no serving path
@@ -3709,6 +3761,7 @@ def main() -> int:
         # phase 3's
         launches_from, count = {
             "flash_prefill": ("model", model_launches[name]),
+            "flash_prefill_f32": ("train", train_launches[name]),
             "flash_backward": ("train", train_launches[name]),
             "flash_backward_bf16": ("train_bf16", bf16_launches[name]),
             "search": ("model", model_launches[name]),
@@ -3719,6 +3772,8 @@ def main() -> int:
         # (flash prefill counts each route's launches; the rest have one)
         kernel_route = (", ".join(r for r, n in flash_routes.items() if n)
                         if name == "flash_prefill" else
+                        flash_ops.ROUTES[torch.float32]
+                        if name == "flash_prefill_f32" else
                         flash_ops.BWD_ROUTES[torch.float32]
                         if name == "flash_backward" else
                         flash_ops.BWD_ROUTES[torch.bfloat16]
@@ -3739,7 +3794,7 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             share_of_bound=row["bound_ms"] / row["ms"],
             **({"bound_unit": row["bound_unit"]}
-               if name.startswith("flash_backward") else {})))
+               if "bound_unit" in row else {})))
         if name in MAIN_OPS:
             # K1-K3: the main path's one-launch op, beside the chain of
             # ops it replaced and the parity op that stays

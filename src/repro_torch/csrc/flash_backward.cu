@@ -63,6 +63,8 @@
 // dK/dV kernel already spills at 255, tools/k6b_ptxas.py); each 64-row
 // block streams every column tile its rows see from L2.
 //
+// The split operands, the transpose pre-pass's tile, the unit ring and its
+// cp.async loaders are flash_tf32.cuh's, shared with K6's float32 route.
 // Both main kernels run one code path, templated on the element type:
 //   bf16: the operands bf16, products accumulated in float32; P and dX
 //     rounded to bf16 for their products (as K6's forward rounds P); dK, dV
@@ -117,19 +119,11 @@
 #include <cmath>
 #include <cstdint>
 
-#include "wgmma.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;        // a warpgroup
-constexpr int kWG = 2;               // warpgroups of a block
-constexpr int kBM = 64;              // rows of a block (wgmma's M)
-constexpr int kUnit = 16384;         // bytes of a unit
-constexpr int kMaxStages = 12;       // units in flight, at most
-constexpr int kRow = 128;            // bytes of a swizzled tile row
 constexpr int kStat = 512;           // a step's lse and delta, 2 x 64 floats
-constexpr int kSmemBlock = 232448;   // the most a block may use
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct Bf16 {
   using T = __nv_bfloat16;
@@ -154,8 +148,7 @@ struct Cfg {
   // each warpgroup's ring as deep as the rest of the block's shared
   // memory allows
   static constexpr int FIXED = 1024 + ROWSIDE;
-  static constexpr int FIT = (kSmemBlock - FIXED) / (kWG * (kUnit + kStat));
-  static constexpr int STAGES = FIT < kMaxStages ? FIT : kMaxStages;
+  static constexpr int STAGES = ring_stages(FIXED, kUnit + kStat);
   static constexpr int SMEM = FIXED + kWG * STAGES * (kUnit + kStat);
   static_assert(BN * kRow * E::kCopies * 2 <= kUnit, "score unit too big");
   static_assert(kBM * kRow * E::kCopies <= kUnit, "acc unit too big");
@@ -200,69 +193,6 @@ __device__ __forceinline__ void kv_tile_cols(int j, int nk, int nq,
                                                         : nq;
   t_lo = c_lo / BN;
   n_t = c_hi > c_lo ? (c_hi + BN - 1) / BN - t_lo : 0;
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// A [nrows][128 B] tile, 128-byte swizzled (16-byte chunk c of row r at
-// chunk c ^ (r % 8)), from rows row0.. of a row-major source whose rows are
-// `stride` bytes apart, bytes col.. col + 127 of each; rows at or past
-// `valid` load as zeros.
-template <int NROWS, int NTHR>
-__device__ __forceinline__ void load_tile(uint32_t dst, const char* src,
-                                          long long stride, int row0,
-                                          int valid, int col, int tid) {
-#pragma unroll
-  for (int i = tid; i < NROWS * 8; i += NTHR) {
-    const int r = i / 8, c = i % 8;
-    const bool ok = row0 + r < valid;
-    const char* s = ok ? src + (row0 + r) * stride + col + c * 16 : src;
-    cp_async16(dst + r * kRow + ((c ^ (r & 7)) << 4), s, ok);
-  }
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t tf32_hi(float x) {
-  return __float_as_uint(x) & 0xffffe000u;
-}
-
-// hi and lo of a tf32 fragment of four floats.  hi could be x itself (the
-// tensor cores read its top 19 bits), but then ptxas serializes the wgmma
-// "due to insufficient register resources" (C7511 in tools/k6b_ptxas.py's
-// report), which slowed the float32 route, so hi is a register of its own
-__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    hi[i] = tf32_hi(x[i]);
-    lo[i] = __float_as_uint(x[i] - __uint_as_float(hi[i]));
-  }
 }
 
 template <typename E, int DP, bool KV_ROWS>
@@ -424,12 +354,7 @@ flash_bwd_kernel(const BwdArgs a) {
   int u = 0;   // units consumed
   // waits for unit u, then refills the slot unit u - 1 used
   auto begin_unit = [&]() -> uint32_t {
-    cp_async_wait<STAGES - 2>();
-    fence_async_smem();
-    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kThreads)
-                 : "memory");
-    issue(u + STAGES - 1);
-    return sRing + (u % STAGES) * kUnit;
+    return ring_begin<STAGES>(sRing, u, 1 + wg, issue);
   };
 
   for (int s = 0; s < my_steps; ++s) {
@@ -688,8 +613,7 @@ __global__ void bwd_split(const float* __restrict__ x, float* __restrict__ lo,
                           long long n) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
-    const float v = x[i];
-    lo[i] = v - __uint_as_float(tf32_hi(v));
+    lo[i] = tf32_lo(x[i]);
   }
 }
 
@@ -700,30 +624,8 @@ template <typename T, bool SPLIT>
 __global__ void bwd_transpose(const T* __restrict__ x, T* __restrict__ out0,
                               T* __restrict__ out1, int rows, int rows_p,
                               int DP) {
-  __shared__ float tile[32][33];
-  const int r0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
-  const long long head = blockIdx.z;
-  const T* src = x + head * rows * (long long)DP;
-  for (int i = threadIdx.y; i < 32; i += 8) {
-    const int r = r0 + i;
-    tile[i][threadIdx.x] =
-        r < rows ? float(src[(long long)r * DP + c0 + threadIdx.x]) : 0.f;
-  }
-  __syncthreads();
-  const long long obase = head * DP * (long long)rows_p;
-  for (int i = threadIdx.y; i < 32; i += 8) {
-    const int d = c0 + i, oc = threadIdx.x;
-    const int src_r = SPLIT ? (oc & ~7) + ((oc & 4) ? 2 * (oc & 3) + 1
-                                                    : 2 * (oc & 3))
-                            : oc;
-    const float v = tile[src_r][i];
-    const long long dst = obase + (long long)d * rows_p + r0 + oc;
-    out0[dst] = T(v);
-    if (SPLIT) out1[dst] = v - __uint_as_float(tf32_hi(v));
-  }
+  transpose_tile<T, SPLIT>(x, out0, out1, rows, rows_p, DP);
 }
-
-int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // Byte offsets of the workspace's parts, each 256-byte aligned.
 struct Work {
@@ -858,8 +760,6 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   args.out2 = dq;
   return launch_main<E, DP, false>(args, B, stream);
 }
-
-int pad_dim(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
 
 }  // namespace
 

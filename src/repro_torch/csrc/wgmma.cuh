@@ -6,11 +6,11 @@
 // (four .b32 of bf16 pairs, the m64n16 accumulator layout) and B MN-major
 // (transpose bit set) and always accumulates.  Wgmma<64>::ss_k and ::rs_k
 // (K6b's bf16 route) are the same two forms at N 64 with B K-major and
-// scale_d as an argument.  WgmmaTf32<N>::rs (N in {32, 64}, K6b's float32
-// route) is a 64 x N x 8 tf32 product, A from registers (the tf32 fragment:
-// rows g, g + 8 of the warp's 16 at columns t, t + 4 of the k8 step), B
-// K-major (tf32 has no transpose bit).  All accumulate in float32 registers,
-// N / 2 per thread of the warpgroup.  sm_90a only.
+// scale_d as an argument.  WgmmaTf32<N>::rs (N in {32, 64}, K6's and
+// K6b's float32 routes) is a 64 x N x 8 tf32 product, A from registers
+// (the tf32 fragment: rows g, g + 8 of the warp's 16 at columns t, t + 4
+// of the k8 step), B K-major (tf32 has no transpose bit).  All accumulate
+// in float32 registers, N / 2 per thread of the warpgroup.  sm_90a only.
 #pragma once
 
 #include <cuda_bf16.h>

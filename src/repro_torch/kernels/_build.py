@@ -10,8 +10,9 @@ and loads.
 
 Each C entry point takes device pointers, int sizes and the CUDA stream, and
 returns ``cudaGetLastError()`` after its launch; :func:`check` turns a
-nonzero return into an exception.  ``mvgc_flash_backward_workspace`` returns
-the bytes of scratch K6b needs (``RESTYPES``).
+nonzero return into an exception.  ``mvgc_flash_prefill_workspace`` and
+``mvgc_flash_backward_workspace`` return the bytes of scratch K6 and K6b
+need (``RESTYPES``).
 """
 from __future__ import annotations
 
@@ -54,10 +55,12 @@ SIGNATURES = {
     # q, k_pages, v_pages, page_table, lengths, out, part_o, part_ml, B, N,
     # Hq, Hkv, D, PS, MP, n_split, is_bf16, stream
     "mvgc_paged_decode": [_P] * 8 + [_I] * 9 + [_P],
-    # q, k, v, out, lse, B, Hq, Hkv, T, S, D, causal, window, softcap,
-    # scale, is_bf16, stream
-    "mvgc_flash_prefill": [_P] * 5 + [_I] * 8 + [ctypes.c_float] * 2
+    # q, k, v, out, lse, work, B, Hq, Hkv, T, S, D, causal, window,
+    # softcap, scale, is_bf16, stream
+    "mvgc_flash_prefill": [_P] * 6 + [_I] * 8 + [ctypes.c_float] * 2
     + [_I, _P],
+    # B, Hkv, S, D, is_bf16 -> bytes of mvgc_flash_prefill's work
+    "mvgc_flash_prefill_workspace": [_I] * 5,
     # q, k, v, o, dout, lse, work, dq, dk, dv, B, Hq, Hkv, T, S, D,
     # causal, window, softcap, scale, is_bf16, stream
     "mvgc_flash_backward": [_P] * 10 + [_I] * 8 + [ctypes.c_float] * 2
@@ -66,7 +69,8 @@ SIGNATURES = {
     "mvgc_flash_backward_workspace": [_I] * 7,
 }
 #: return types other than the C error code
-RESTYPES = {"mvgc_flash_backward_workspace": ctypes.c_longlong}
+RESTYPES = {"mvgc_flash_prefill_workspace": ctypes.c_longlong,
+            "mvgc_flash_backward_workspace": ctypes.c_longlong}
 
 _lib: Optional[ctypes.CDLL] = None
 #: seconds the last build in this process took (0.0 before any build)

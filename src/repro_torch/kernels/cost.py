@@ -161,7 +161,11 @@ def flash_prefill_cost(B: int, Hq: int, Hkv: int, T: int, S: int, D: int,
                        elt: int, window: int = 0, causal: bool = True
                        ) -> Cost:
     """K6: q and the output, k and v read once; two products of a head dim
-    over each visible pair and query head."""
+    over each visible pair and query head, in the inputs' type: for
+    float32, ``bound(*cost)`` is the CUDA-core bound of the float32 design
+    that the split-TF32 route replaced, and the route's own bound (three
+    tf32 products for each of the two) is
+    :func:`repro_torch.launch.roofline.flash_prefill_bound` of the cost."""
     nbytes = 2 * (B * Hq * T * D + B * Hkv * S * D) * elt
     ops = 4.0 * B * Hq * D * visible_pairs(T, window, S, causal)
     return nbytes, ops, _kind(elt)

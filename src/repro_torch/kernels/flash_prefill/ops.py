@@ -20,8 +20,31 @@ kernel:
   needs rows of a multiple of 16 bytes, so a head dim that is not a
   multiple of 8 is padded with zero dims here and the output sliced back;
   the scale stays ``1/sqrt(D)`` of the real ``D``.
-* ``"cuda-core-f32"`` (float32): the first version, in float32 on the CUDA
-  cores (the tensor cores would round float32 to TF32).
+* ``"wgmma-tf32x3"`` (float32): split-TF32 on the tf32 tensor cores, as
+  K6b's float32 route (``csrc/flash_tf32.cuh`` holds what the two share):
+  ``x = hi + lo`` with ``hi = tf32(x)`` and each product ``hi hi + hi lo +
+  lo hi``, about float32's accuracy.  It replaced the first float32
+  kernel, on the CUDA cores, which reached 11-36 % of its bound and took
+  1.40x float32 SDPA at whisper-tiny's encoder.  A block of two
+  warpgroups owns 64 query rows of one head; the warpgroups take
+  alternate 32-column KV steps, each with its own ``(m, l, O)`` and its
+  own ring of cp.async units, and warpgroup 0 merges the two at the end
+  in a fixed order.  ``S = Q K^T`` reads Q's rows from shared memory into
+  split registers and K and its ``lo`` copy as they lie; ``P V`` reads
+  ``V^T`` and its ``lo`` (tf32 has no transpose bit), its columns in the
+  order that makes P's accumulator registers the product's A operand.
+  The tensor cores truncate a product's terms to the largest one's
+  exponent, so no long sum stays in them: each KV step's ``P V`` starts
+  from zero and is added to ``O alpha`` in float32 (K6b's dV left its
+  tolerance without this), ``S``'s ``hi hi`` starts from zero in each
+  unit of the head dim, and its two correction products sum apart.  This
+  wrapper allocates the pre-pass's copies, ``lo(k)``, ``V^T`` and
+  ``lo(V^T)`` (48 MiB at gemma2-2b's training layer), and pads a head dim
+  that is not 64, 128 or 256 with zero dims (the kernel loads 128-byte
+  slices of it); the scale stays ``1/sqrt(D)`` of the real ``D``.
+  Bound: its two products three times over at the tf32 rate (495
+  TFLOP/s), ``12 B Hq D pairs`` operations
+  (:func:`repro_torch.launch.roofline.flash_prefill_bound`).
 
 ``flash_attention.launches`` counts kernel launches and
 ``flash_attention.route_launches`` the launches of each route.  Fake
@@ -89,7 +112,7 @@ from repro_torch.kernels.flash_prefill.ref import (attention_bwd_ref,
                                                    attention_ref)
 
 #: the kernel of each input dtype
-ROUTES = {torch.bfloat16: "wgmma+tma", torch.float32: "cuda-core-f32"}
+ROUTES = {torch.bfloat16: "wgmma+tma", torch.float32: "wgmma-tf32x3"}
 #: K6b's route of each input dtype
 BWD_ROUTES = {torch.bfloat16: "wgmma-bf16", torch.float32: "wgmma-tf32x3"}
 #: the kernel's largest head dim (its widest shared-memory tile)
@@ -98,7 +121,8 @@ MAX_HEAD_DIM = 256
 
 def _tma_ready(t: torch.Tensor, dp: int) -> torch.Tensor:
     """``t`` with its head dim padded with zeros to ``dp`` and its base
-    16-byte aligned, as the TMA tensor maps require."""
+    16-byte aligned, as the TMA tensor maps and the cp.async loads
+    require."""
     if t.shape[-1] != dp:
         t = F.pad(t, (0, dp - t.shape[-1]))
     if t.data_ptr() % 16:
@@ -136,20 +160,25 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     B, Hq, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     route = ROUTES[q.dtype]
-    dp = D
-    if route == "wgmma+tma":
-        dp = -(-D // 8) * 8
-        q, k, v = (_tma_ready(t, dp) for t in (q, k, v))
+    is_bf16 = q.dtype == torch.bfloat16
+    dp = -(-D // 8) * 8 if is_bf16 else _head_dim(D)
+    q, k, v = (_tma_ready(t, dp) for t in (q, k, v))
     out = torch.empty((B, Hq, T, dp), dtype=q.dtype, device=q.device)
     row_lse = (torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
                if lse else None)
     if out.numel() == 0:
         return out[..., :D], row_lse
-    err = _build.lib().mvgc_flash_prefill(
+    lib = _build.lib()
+    # the float32 route's split copies of k and v (bf16 needs none)
+    work = None if is_bf16 else torch.empty(
+        lib.mvgc_flash_prefill_workspace(B, Hkv, S, dp, 0),
+        dtype=torch.uint8, device=q.device)
+    err = lib.mvgc_flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         row_lse.data_ptr() if lse else None,
+        None if work is None else work.data_ptr(),
         B, Hq, Hkv, T, S, dp, int(causal), int(window), float(softcap),
-        1.0 / math.sqrt(D), int(route == "wgmma+tma"), _build.stream())
+        1.0 / math.sqrt(D), int(is_bf16), _build.stream())
     _build.check("mvgc_flash_prefill", err)
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1

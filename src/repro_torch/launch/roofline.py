@@ -99,13 +99,21 @@ def bound(nbytes: float, ops: float, kind: str) -> Tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_backward_bound(cost: Cost) -> Tuple[float, str]:
-    """K6b's bound in its route's unit: bf16 at the bf16 rate; float32 as
-    three tf32 products for each of the backward's (split-TF32)."""
+def flash_prefill_bound(cost: Cost) -> Tuple[float, str]:
+    """K6's bound in its route's unit: bf16 at the bf16 rate; float32 as
+    three tf32 products for each of the forward's two (split-TF32).
+    ``bound(*cost)`` of a float32 cost is the CUDA-core bound of the
+    design that route replaced."""
     nbytes, ops, kind = cost
     if kind == "f32":
         return bound(nbytes, 3 * ops, "tf32")
     return bound(nbytes, ops, kind)
+
+
+def flash_backward_bound(cost: Cost) -> Tuple[float, str]:
+    """K6b's bound in its route's unit, by K6's rule: bf16 at the bf16
+    rate; float32 as three tf32 products for each of the backward's."""
+    return flash_prefill_bound(cost)
 
 
 # ---------------------------------------------------------------------------

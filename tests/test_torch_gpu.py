@@ -776,8 +776,8 @@ def test_bf16_engine_checkpoint_restores_bit_equal(cuda, tmp_path):
 # and sum in other orders.  A bf16 output may round to the neighbouring
 # bf16 value, which rtol = 2**-7 allows (K6's largest bf16 differences on
 # an H100 are one such step, above the atol).  The float32 cases, at 1e-5,
-# run the CUDA-core route; the bf16 (wgmma) route's masks are pinned
-# exactly by the marker tests below them
+# run the split-TF32 route; both routes' masks are pinned exactly by the
+# marker tests below them
 FLASH_CASES = [
     # B, Hq, Hkv, T, S, D, causal, window, softcap
     (2, 24, 8, 256, 256, 128, True, 0, 0.0),     # minitron-4b heads
@@ -797,6 +797,15 @@ FLASH_CASES = [
     (1, 2, 1, 100, 300, 64, True, 0, 0.0),       # S > T, causal
     (1, 4, 2, 150, 150, 20, True, 0, 0.0),       # bf16 D padded to 24
     (4, 8, 2, 640, 640, 128, True, 0, 0.0),      # 160 blocks > 132 SMs
+    # edges of the float32 kernel's 64-row query tiles, its 32-column KV
+    # steps (taken in turn by two warpgroups) and its head dim padded to
+    # 64, 128 or 256 (D not a multiple of 32)
+    (1, 2, 1, 64, 64, 128, True, 0, 0.0),        # one query tile
+    (1, 2, 1, 65, 65, 256, True, 0, 50.0),       # a tile and one row
+    (1, 2, 1, 64, 33, 64, False, 0, 0.0),        # S a column past a step
+    (1, 2, 1, 64, 32, 64, False, 0, 0.0),        # one step: warpgroup 1 idle
+    (1, 4, 2, 96, 96, 96, True, 32, 0.0),        # D 96, a window of a step
+    (2, 3, 3, 200, 200, 20, True, 33, 30.0),     # D 20, window past a step
 ]
 
 
@@ -868,38 +877,34 @@ def marked_values(cuda, Hkv, S, D):
     return v.bfloat16()
 
 
-def wgmma_call(q, k, v, **kw):
-    before = flash_ops.flash_attention.route_launches["wgmma+tma"]
+def routed_call(q, k, v, **kw):
+    """K6 on q's dtype's route, which must launch once."""
+    route = flash_ops.ROUTES[q.dtype]
+    before = flash_ops.flash_attention.route_launches[route]
     got = flash_ops.flash_attention(q, k, v, **kw)
-    assert flash_ops.flash_attention.route_launches["wgmma+tma"] == before + 1
+    assert flash_ops.flash_attention.route_launches[route] == before + 1
     return got.float()
 
 
-@pytest.mark.parametrize("Hq,Hkv,T,D,window,cap", [
-    (4, 2, 300, 128, 0, 0.0),      # causal edge across 96-column tiles
-    (4, 2, 300, 64, 100, 0.0),     # window edge across 128-column tiles
-    (4, 2, 300, 256, 70, 50.0),    # window edge across 32-column tiles
-])
-def test_flash_prefill_wgmma_mask_edges_exactly(cuda, Hq, Hkv, T, D, window,
-                                                cap):
-    """The bf16 (wgmma) route's causal and window edges, column for column.
-    The logits are small (|q| = 0.25), so each seen key carries about 1/n
-    of its marker: a column too many or too few at an edge moves its dim by
-    about 30/n, far past the bf16 tolerance.  Each mask moved by one column
-    must be rejected, which shows the check has that power."""
+def mask_edges_exactly(cuda, dtype, Hq, Hkv, T, D, window, cap):
+    """A route's causal and window edges, column for column.  The logits
+    are small (|q| = 0.25), so each seen key carries about 1/n of its
+    marker: a column too many or too few at an edge moves its dim by about
+    30/n, far past the tolerance.  Each mask moved by one column must be
+    rejected, which shows the check has that power."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     q = (0.25 * torch.randn((1, Hq, T, D), generator=gen,
-                            device=cuda)).bfloat16()
-    k = torch.randn((1, Hkv, T, D), generator=gen, device=cuda).bfloat16()
-    v = marked_values(cuda, Hkv, T, D)
-    got = wgmma_call(q, k, v, causal=True, window=window, softcap=cap)
+                            device=cuda)).to(dtype)
+    k = torch.randn((1, Hkv, T, D), generator=gen, device=cuda).to(dtype)
+    v = marked_values(cuda, Hkv, T, D).to(dtype)
+    got = routed_call(q, k, v, causal=True, window=window, softcap=cap)
     i = torch.arange(T, device=cuda)[:, None]
     j = torch.arange(T, device=cuda)[None, :]
 
     def mask(hi, w):
         return (j <= i + hi) & ((j > i - w) if w > 0 else True)
 
-    tol = DECODE_TOL[torch.bfloat16]
+    tol = DECODE_TOL[dtype]
     want = masked_attention(q, k, v, mask(0, window), cap)
     assert torch.allclose(want, attention_ref(
         q, k, v, causal=True, window=window, softcap=cap).float(), **tol)
@@ -910,6 +915,31 @@ def test_flash_prefill_wgmma_mask_edges_exactly(cuda, Hq, Hkv, T, D, window,
     for m in moved:
         assert not torch.allclose(got, masked_attention(q, k, v, m, cap),
                                   **tol)
+
+
+@pytest.mark.parametrize("Hq,Hkv,T,D,window,cap", [
+    (4, 2, 300, 128, 0, 0.0),      # causal edge across 96-column tiles
+    (4, 2, 300, 64, 100, 0.0),     # window edge across 128-column tiles
+    (4, 2, 300, 256, 70, 50.0),    # window edge across 32-column tiles
+])
+def test_flash_prefill_wgmma_mask_edges_exactly(cuda, Hq, Hkv, T, D, window,
+                                                cap):
+    """The bf16 (wgmma) route's causal and window edges, column for column
+    (:func:`mask_edges_exactly`)."""
+    mask_edges_exactly(cuda, torch.bfloat16, Hq, Hkv, T, D, window, cap)
+
+
+@pytest.mark.parametrize("Hq,Hkv,T,D,window,cap", [
+    (4, 2, 300, 128, 0, 0.0),      # causal edge across 32-column steps
+    (4, 2, 300, 64, 100, 0.0),     # window edge, 64-row query tiles
+    (4, 2, 300, 256, 70, 50.0),    # D 256 with a softcap
+    (2, 1, 200, 96, 33, 0.0),      # D 96 padded to 128, window past a step
+])
+def test_flash_prefill_tf32_mask_edges_exactly(cuda, Hq, Hkv, T, D, window,
+                                               cap):
+    """The float32 (split-TF32) route's causal and window edges, column
+    for column (:func:`mask_edges_exactly`), at float32's limit."""
+    mask_edges_exactly(cuda, torch.float32, Hq, Hkv, T, D, window, cap)
 
 
 @pytest.mark.parametrize("T,S,D", [(64, 130, 64), (50, 97, 128),
@@ -925,7 +955,7 @@ def test_flash_prefill_wgmma_ignores_columns_past_s(cuda, T, S, D):
     k = (-2.0 + 0.25 * torch.randn((1, 1, S, D), generator=gen,
                                    device=cuda)).bfloat16()
     v = marked_values(cuda, 1, S, D)
-    got = wgmma_call(q, k, v, causal=False)
+    got = routed_call(q, k, v, causal=False)
     tol = DECODE_TOL[torch.bfloat16]
     assert torch.allclose(got, attention_ref(q, k, v, causal=False).float(),
                           **tol)
@@ -937,9 +967,9 @@ def test_flash_prefill_wgmma_ignores_columns_past_s(cuda, T, S, D):
 
 
 def test_flash_prefill_routes_by_dtype(cuda):
-    """bf16 launches the wgmma+TMA kernel, float32 the CUDA-core one."""
+    """bf16 launches the wgmma+TMA kernel, float32 the split-TF32 one."""
     for dtype, route in ((torch.bfloat16, "wgmma+tma"),
-                         (torch.float32, "cuda-core-f32")):
+                         (torch.float32, "wgmma-tf32x3")):
         q, k, v = flash_inputs(cuda, dtype, 1, 2, 1, 130, 130, 64)
         before = dict(flash_ops.flash_attention.route_launches)
         flash_ops.flash_attention(q, k, v)
@@ -1101,6 +1131,31 @@ def test_flash_prefill_wgmma_lse(cuda, Hq, Hkv, T, D, window, cap):
     _, want = attention_lse_ref(q, k, v, **kw)
     assert lse.dtype == torch.float32 and lse.shape == want.shape
     assert torch.allclose(lse, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(out, flash_ops.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("Hq,Hkv,T,D,window,cap", [
+    (4, 2, 300, 128, 0, 0.0),
+    (4, 2, 300, 64, 100, 0.0),
+    (8, 4, 300, 256, 70, 50.0),
+    (2, 1, 1000, 20, 0, 0.0),      # D padded to 64
+    (2, 1, 130, 96, 40, 0.0),      # D padded to 128
+])
+def test_flash_prefill_tf32_lse(cuda, Hq, Hkv, T, D, window, cap):
+    """K6's float32 (split-TF32) route writes each row's log-sum-exp of
+    the logits: against attention_lse_ref on the same inputs within 1e-5,
+    and the output is the one the call without an LSE gives, bit for
+    bit."""
+    q, k, v = flash_inputs(cuda, torch.float32, 1, Hq, Hkv, T, T, D, seed=5)
+    kw = dict(causal=True, window=window, softcap=cap)
+    before = flash_ops.flash_attention.route_launches["wgmma-tf32x3"]
+    out, lse = flash_ops._launch(q, k, v, True, window, cap, lse=True)
+    assert flash_ops.flash_attention.route_launches["wgmma-tf32x3"] == \
+        before + 1
+    want_out, want = attention_lse_ref(q, k, v, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    assert torch.allclose(lse, want, atol=1e-5, rtol=1e-5)
+    assert torch.allclose(out, want_out, **DECODE_TOL[torch.float32])
     assert torch.equal(out, flash_ops.flash_attention(q, k, v, **kw))
 
 

@@ -150,6 +150,8 @@ FLASH_ROWS = [("serve", "0.417106", "operations"),
               ("gemma2_w4096", "0.278071", None),
               ("gemma2_global", "0.278071", None),
               ("gemma2_ring_f32", "2.051578", None),
+              ("gemma2_train_f32", "1.025914", "operations"),
+              ("f32", "1.539247", "operations"),
               ("moe", "0.139035", None),
               ("whisper_encoder", "0.055911", "operations"),
               ("whisper_cross_prefill", "0.011474", "bytes"),
@@ -159,6 +161,15 @@ FLASH_ROWS = [("serve", "0.417106", "operations"),
               ("whisper_cross_prefill_f32", "0.035213", None),
               ("whisper_cross_decode_f32", "0.022023", None),
               ("recurrentgemma_local_f32", "7.704373", None)]
+# K6's float32 rows in their route's unit (split-TF32: three tf32
+# products for each of the forward's two): (case, printed bound, by)
+FLASH_TF32_ROWS = [("f32", "0.625028", "operations"),
+                   ("gemma2_train_f32", "0.416583", "operations"),
+                   ("gemma2_ring_f32", "0.833065", "operations"),
+                   ("whisper_encoder_f32", "0.335127", "operations"),
+                   ("whisper_cross_prefill_f32", "0.022947", "bytes"),
+                   ("whisper_cross_decode_f32", "0.022023", "bytes"),
+                   ("recurrentgemma_local_f32", "3.128442", "operations")]
 # K6b's rows: (case, tf32 x 3 bound, CUDA-core bound, bf16 bound)
 BWD_ROWS = [("gemma2_train", "1.041458", "2.564786", "0.173752"),
             ("gemma2_window512", "0.244064", "0.601053", "0.040718"),
@@ -200,6 +211,28 @@ def test_shape_bounds_equal_perf_md():
         _held(roof.bound(*f32)[0], core)
         _held(roof.flash_backward_bound(
             roof.flash_backward_cost(*args, 2, **kw))[0], bf16)
+
+
+@pytest.mark.parametrize("case,printed,by", FLASH_TF32_ROWS)
+def test_flash_prefill_bound_tf32_equals_perf_md(case, printed, by):
+    """flash_prefill_bound of a float32 row is its split-TF32 bound, three
+    tf32 products for each of the function's two, as PERF.md prints it;
+    of the same row in bf16 it is ``bound`` of the bf16 cost, unchanged."""
+    cs = _chip_smoke()
+    c = cs.FLASH[case]
+    ms, got_by = roof.flash_prefill_bound(_flash(c, 4))
+    _held(ms, printed)
+    assert got_by == by
+    assert ms <= roof.bound(*_flash(c, 4))[0]
+    bf16 = _flash(c, 2)
+    assert roof.flash_prefill_bound(bf16) == roof.bound(*bf16)
+
+
+def test_every_float32_flash_row_has_a_tf32_bound():
+    """Every float32 K6 row of phase 3 is in FLASH_TF32_ROWS."""
+    cs = _chip_smoke()
+    assert {case for case, c in cs.FLASH.items() if c["dtype"] == "f32"} \
+        == {case for case, _, _ in FLASH_TF32_ROWS}
 
 
 def test_data_bounds_equal_perf_md():
