@@ -153,8 +153,10 @@ Phases, each printing one JSON line:
    float32 (split-TF32) routes; then the launcher's
    crash/resume at reduced gemma2-2b on the card (exit 42, resume from
    step 5, the losses against the uninterrupted run's, a TrainState saved
-   and restored bit-equal) and reduced minitron-4b's 30 steps with and
-   without gradient compression (the loss must fall by 0.1 and 0.2);
+   and restored bit-equal; the uninterrupted and the crashing run side
+   by side) and reduced minitron-4b's 30 steps with and without gradient
+   compression (the loss must fall by 0.1 and 0.2), while phase 10e's
+   one-rank reference runs in a process of its own;
 10c. train_bf16 — the same gemma2-2b run in bf16 (init_state(dtype=
    bfloat16), AdamW's moments float32, as in JAX), 4 steps: the same
    checks, with K6 on its wgmma route and K6b on its bf16 route, counted
@@ -162,17 +164,18 @@ Phases, each printing one JSON line:
 10d-10f. four rank processes of this script (``--rank``), each on the
    card (cuda:0), joined by gloo through a file store (NCCL refuses two
    ranks of one group on one GPU); only the collectives cross gloo,
-   through host memory.  First phase 10e's one-rank reference runs in a
-   process of its own, so that its memory is the card's again.  Then
-   each rank runs 10e and 10f, then 10d (10e needs the card's memory
-   most):
+   through host memory.  Phase 10e's one-rank reference has run in a
+   process of its own beside 10b's launcher checks (none of them timed),
+   so that its memory was the card's again before 10c.  Each rank runs
+   10e and 10f, then 10d (10e needs the card's memory most):
    10d dist_ranks — phase 10's traffic loop unchanged, its engine spread over
    the 4 ranks by the default mesh (one host each, the LWM over the min
    ring), to phase 10's step count: every counter, the LWM after every
    step, the pages reclaimed and the peak per host and a digest of every
    view and K4 output must equal phase 10's run; then phase 9's smoke
    and stall rows at 4 ranks;
-   10e train_sharded — gemma2-2b at full widths and depth in float32 on
+   10e train_sharded — gemma2-2b at full widths in float32, cut to 4 of
+   its 26 layers (TRAIN_SHARDED: two local/global pairs), on
    a 2 x 2 (data, model) mesh with fsdp=True, each leaf gathered at use,
    B 2 x T 2048, 2 steps: the losses and gradient norms within rtol 1e-4
    of the one-rank step, SHARDED_LEAVES' shards (mu, nu) within their
@@ -262,7 +265,8 @@ from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import paged_decode_ref  # noqa: E402
 from repro_torch.kernels.flash_prefill import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_prefill.ref import (  # noqa: E402
-    attention_bwd_ref, attention_lse_ref, attention_ref, bwd_bf16_margin)
+    attention_bwd_ref, attention_lse_ref, attention_ref, bwd_bf16_margin,
+    fwd_f32_rounding)
 from repro_torch.kernels.version_search import ops as search_ops  # noqa: E402
 from repro_torch.kernels.version_search.ref import (  # noqa: E402
     search_gather_ref, search_ref, value_at_ref, view_ref)
@@ -327,6 +331,14 @@ FLASH = {
     "gemma2_capped": dict(B=4, Hq=8, Hkv=4, T=2048, D=256, window=0,
                           softcap=50.0, dtype="bf16", p_rounding=True,
                           q_scale=12.0),
+    # the same in float32 (the split-TF32 route): at these logits the
+    # float32 plain version is itself about twice float32's DECODE_TOL
+    # from the exact answer, so the row is held to the exact answer (the
+    # plain version on float64 copies) within ref.fwd_f32_rounding, the
+    # limit derived from float32's rounding (flash_cases)
+    "gemma2_capped_f32": dict(B=4, Hq=8, Hkv=4, T=2048, D=256, window=0,
+                              softcap=50.0, dtype="f32", q_scale=12.0,
+                              f64_limit=True),
     # phase 6b's local layer: float32 (the split-TF32 route) at D 256
     "gemma2_ring_f32": dict(B=1, Hq=8, Hkv=4, T=6144, D=256, window=4096,
                             softcap=50.0, dtype="f32"),
@@ -450,16 +462,23 @@ RANKS_TIMEOUT_S = 900          # each rank's own limit: a deadlock fails
 # add no host count or stall the other two lack, are left to phase 9 and
 # the CPU tests
 RANK_TIERS = ("smoke", "stall")
-# 10e: gemma2-2b at its full widths and depth in float32 on a 2 x 2 (data,
-# model) mesh with fsdp=True: B 2 (one sequence per data row), 2 steps at
-# phase 10b's schedule, against the one-rank train_step on the same
-# batches from the same state (run first in a process of its own, so that
-# its memory is the card's again before the ranks start)
-TRAIN_SHARDED = dict(TRAIN, batch=2, seq_len=2048, steps=2, mesh=(2, 2))
+# 10e: gemma2-2b at its full widths in float32 on a 2 x 2 (data, model)
+# mesh with fsdp=True: B 2 (one sequence per data row), 2 steps at phase
+# 10b's schedule, against the one-rank train_step on the same batches from
+# the same state (run first in a process of its own, so that its memory is
+# the card's again before the ranks start).  Its depth is cut to 4 of the
+# 26 layers (two local/global pairs: both layer kinds and the softcap
+# stay): each rank gathers every leaf through host memory twice a step,
+# and at full depth (10.46 GB of float32) its two steps took 46-83 s each
+# and pushed the script past its time limit; 10b trains the full depth
+TRAIN_SHARDED = dict(TRAIN, batch=2, seq_len=2048, steps=2, mesh=(2, 2),
+                     layers=4)
 # the leaves held against the one-rank step (replicated norms, attention
-# and MLP matrices split over model and data), with their AdamW moments
+# and MLP matrices split over model and data, the last layer's MLP), with
+# their AdamW moments
 SHARDED_LEAVES = ("final_norm", "layers/0/ln1", "layers/0/mixer/wq",
-                  "layers/0/mixer/wo", "layers/25/ffn/wd")
+                  "layers/0/mixer/wo",
+                  f"layers/{TRAIN_SHARDED['layers'] - 1}/ffn/wd")
 # loss and gradient norm: JAX's limit for the sharded step's loss
 # (tests/launch/test_distributed.py:98); mu and nu within this share of
 # each leaf's largest entry (float32 sums in another order).  Step 0's
@@ -1323,11 +1342,24 @@ def flash_cases(dev) -> dict:
         # Its largest differences on an H100 were 0.015625 at both bf16
         # shapes, above the bf16 atol: one bf16 rounding step of an output
         # in [2, 4), which rtol = 2**-7 allows.  The float32 cases run the
-        # split-TF32 kernel, held at float32's limits;
+        # split-TF32 kernel, held at float32's limits (at capped logits,
+        # the limit derived from float32's rounding against float64);
         # tests/test_torch_gpu.py's marker tests pin both kernels' causal,
         # window and S masks exactly.
-        tol = DECODE_TOL[kind]
-        limit = tol["atol"] + tol["rtol"] * want.float().abs()
+        limit_ratio = None
+        if c.get("f64_limit"):
+            # against the exact answer within the limit derived from
+            # float32's rounding at these inputs; its largest share,
+            # limit_ratio, must be at most 1
+            want = attention_ref(q.double(), k.double(), v.double(), **kw)
+            limit = fwd_f32_rounding(q, k, v, **kw)
+            limit_ratio = float(((got.double() - want).abs() / limit).max())
+            err_f64 = float((got.double() - want).abs().max())
+            check(limit_ratio <= 1.0, f"flash_prefill {case}: {limit_ratio} "
+                  "of the limit fwd_f32_rounding from the exact answer")
+        else:
+            tol = DECODE_TOL[kind]
+            limit = tol["atol"] + tol["rtol"] * want.float().abs()
         if c.get("p_rounding"):
             # plus what rounding P to bf16 can move an output by: up to
             # 2**-8 of each term p_j |v_j|, so 2**-8 * sum_j p_j |v_j|,
@@ -1338,7 +1370,7 @@ def flash_cases(dev) -> dict:
             # with P rounded to bf16 reproduces to 5e-6
             limit = limit + 2**-8 * attention_ref(q, k, v.abs(),
                                                     **kw).float()
-        check(bool(((got.float() - want.float()).abs() <= limit).all()),
+        check(bool(((got.double() - want.double()).abs() <= limit).all()),
               f"flash_prefill {case} differs from plain version (max {err})")
         uncapped_err = None
         if "q_scale" in c:
@@ -1346,7 +1378,7 @@ def flash_cases(dev) -> dict:
             # limit, so a kernel that ignored the softcap would fail here
             uncapped = attention_ref(q, k, v, **dict(kw, softcap=0.0))
             uncapped_err = max_err([uncapped], [want])
-            check(not bool(((uncapped.float() - want.float()).abs()
+            check(not bool(((uncapped.double() - want.double()).abs()
                             <= limit).all()),
                   f"flash_prefill {case}: the uncapped plain version is "
                   f"within the limit (max {uncapped_err}), so the check "
@@ -1374,7 +1406,11 @@ def flash_cases(dev) -> dict:
                    **({} if uncapped_err is None else dict(
                        q_scale=c["q_scale"],
                        uncapped_max_abs_err=uncapped_err)),
-                   **DECODE_TOL[kind], bound_ms=b_ms, bound_by=b_by,
+                   **(dict(**DECODE_TOL[kind]) if limit_ratio is None
+                      else dict(max_abs_err_vs_f64=err_f64,
+                                limit="ref.fwd_f32_rounding vs float64",
+                                limit_ratio=limit_ratio)),
+                   bound_ms=b_ms, bound_by=b_by,
                    **({} if kind == "bf16" else dict(
                        bound_unit="tf32 x 3",
                        bound_cuda_core_ms=bound(*cost)[0])),
@@ -3037,12 +3073,34 @@ def train_full_width(dev, dtype=torch.float32) -> dict:
     return res
 
 
-def _launch_train(ckpt: str, *flags: str) -> subprocess.CompletedProcess:
+def _launch_train(*runs: tuple) -> list:
+    """The train launcher once for each ``(ckpt dir, *flags)`` of
+    ``runs``, all started together (they share only the card); their
+    CompletedProcesses, in order."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    return subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_RESUME,
-         "--ckpt-dir", ckpt, *flags], capture_output=True, text=True,
-        env=env, timeout=600, cwd=ROOT)
+    procs = []
+    try:
+        for ckpt, *flags in runs:
+            logs = [open(f"{ckpt}.{len(procs)}.{k}", "w+")
+                    for k in ("out", "err")]
+            procs.append((logs, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.train",
+                 *TRAIN_RESUME, "--ckpt-dir", ckpt, *flags], stdout=logs[0],
+                stderr=logs[1], text=True, env=env, cwd=ROOT)))
+        done = []
+        for logs, p in procs:
+            p.wait(timeout=600)
+            out, err = (f.seek(0) or f.read() for f in logs)
+            done.append(subprocess.CompletedProcess(p.args, p.returncode,
+                                                    out, err))
+        return done
+    finally:
+        for logs, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            for f in logs:
+                f.close()
 
 
 def train_resume(dev) -> dict:
@@ -3054,13 +3112,13 @@ def train_resume(dev) -> dict:
     bit-equal to the one saved."""
     out = {}
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-        full = _launch_train(os.path.join(tmp, "full"))
+        full, crash = _launch_train((os.path.join(tmp, "full"),),
+                                    (os.path.join(tmp, "ft"),
+                                     "--simulate-crash-at", "7"))
         check(full.returncode == 0, f"train launcher failed: {full.stderr}")
-        crash = _launch_train(os.path.join(tmp, "ft"),
-                              "--simulate-crash-at", "7")
         check(crash.returncode == 42, f"crash run exited {crash.returncode}"
               f", not 42: {crash.stderr[-2000:]}")
-        resume = _launch_train(os.path.join(tmp, "ft"))
+        resume, = _launch_train((os.path.join(tmp, "ft"),))
         check(resume.returncode == 0, f"resume failed: {resume.stderr}")
         check("[restore] resumed from step 5" in resume.stdout,
               "the rerun did not resume from step 5")
@@ -3121,17 +3179,25 @@ def train_compression(dev) -> dict:
     return out
 
 
-def phase_train(dev) -> tuple[dict, dict]:
+def phase_train(dev, io: str) -> tuple[dict, dict, float]:
     """Phase 10b: full-width training in float32, then the launcher's
-    crash/resume and gradient compression at reduced widths; phase 10c:
-    full-width training in bf16.  Returns the two full-width runs' lines
-    (their launch counts and peaks)."""
+    crash/resume and gradient compression at reduced widths, while phase
+    10e's one-rank reference runs in a process of its own (``io``: none of
+    them is timed, and the reference's memory is the card's again when it
+    exits); phase 10c: full-width training in bf16, once the reference
+    is done.  Returns the two full-width runs' lines (their launch counts
+    and peaks) and the reference's wall seconds."""
     f32 = train_full_width(dev)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reference = _start(io, [["--train-reference", io]])
     res = {"phase": "train_resume", **train_resume(dev)}
     res["compression"] = train_compression(dev)
     emit(res)
+    _wait(reference)
+    ref_wall = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    return f32, train_full_width(dev, torch.bfloat16)
+    return f32, train_full_width(dev, torch.bfloat16), ref_wall
 
 
 # ---------------------------------------------------------------------------
@@ -3212,6 +3278,13 @@ def phase_dryrun(bf16: dict) -> dict:
 # ---------------------------------------------------------------------------
 # phases 10d-10f: placement over four rank processes on the card
 # ---------------------------------------------------------------------------
+def _sharded_config():
+    """Phase 10e's model: its arch at full widths, TRAIN_SHARDED's
+    depth."""
+    return dataclasses.replace(get_config(TRAIN_SHARDED["arch"]),
+                               num_layers=TRAIN_SHARDED["layers"])
+
+
 def _sharded_run(cfg) -> RunConfig:
     return RunConfig(model=cfg, shape=SHAPES["train_4k"],
                      lr=TRAIN_SHARDED["lr"])
@@ -3225,14 +3298,14 @@ def _mesh_stand_in() -> object:
 
 def train_sharded_reference(dev, io: str) -> int:
     """Phase 10e's one-rank run, in a process of its own (``chip_smoke.py
-    --train-reference IO``), so that its 52 GiB are the card's again when
+    --train-reference IO``), so that its memory is the card's again when
     it exits: TRAIN_SHARDED's steps of the plain ``train_step`` from the
     seed's state on the same batches.  Writes the losses, gradient norms,
     step seconds, peak memory and each SHARDED_LEAVES' spec on the 2 x 2
     mesh to ``IO/reference.json`` and the leaves (params, mu, nu, and the
     initial params as p0) as ``.npy`` beside it."""
     p = TRAIN_SHARDED
-    cfg = get_config(p["arch"])
+    cfg = _sharded_config()
     run = _sharded_run(cfg)
     torch.cuda.reset_peak_memory_stats()
     state = init_state(cfg, torch.Generator(device=dev).manual_seed(
@@ -3295,10 +3368,10 @@ def rank_dist(dev, rank: int, steps: int) -> dict:
 def rank_train_sharded(dev, rank: int, world: int, io: str) -> dict:
     """Phase 10e on one rank: the seed's state placed over the 2 x 2 mesh
     (each rank builds it whole in turn, keeps its shards and frees it: a
-    float32 state is 31 GiB), then the sharded train_step; this rank's
-    shards of SHARDED_LEAVES go to ``io``."""
+    float32 state at full depth is 31 GiB), then the sharded train_step;
+    this rank's shards of SHARDED_LEAVES go to ``io``."""
     p = TRAIN_SHARDED
-    cfg = get_config(p["arch"])
+    cfg = _sharded_config()
     run = _sharded_run(cfg)
     mesh = make_host_mesh(*p["mesh"], device=dev)
     torch.cuda.reset_peak_memory_stats()
@@ -3463,17 +3536,30 @@ def rank_main(rank: int, world: int, io: str) -> int:
 
 def _spawn(io: str, argvs: list) -> None:
     """Start a process of this script for each argument list and wait for
-    them; the first that fails or outlives RANKS_TIMEOUT_S fails the
-    phase, and every process is stopped before this returns."""
+    them (:func:`_start`, :func:`_wait`)."""
+    _wait(_start(io, argvs))
+
+
+def _start(io: str, argvs: list) -> tuple:
+    """A process of this script for each argument list, started; each
+    writes its output to ``io/<its first argument>.<index>.log``."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    logs = [open(os.path.join(io, f"proc{r}.log"), "w")
-            for r in range(len(argvs))]
+    names = [os.path.join(io, f"{argv[0].lstrip('-')}.{r}.log")
+             for r, argv in enumerate(argvs)]
+    logs = [open(name, "w") for name in names]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), *argv], env=env,
         cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
         for r, argv in enumerate(argvs)]
-    t0 = time.monotonic()
+    return argvs, names, logs, procs, time.monotonic()
+
+
+def _wait(started: tuple) -> None:
+    """Wait for :func:`_start`'s processes: the first that fails or
+    outlives RANKS_TIMEOUT_S fails the phase, and every process is stopped
+    before this returns."""
+    argvs, names, logs, procs, t0 = started
     try:
         while any(p.poll() is None for p in procs):
             bad = [r for r, p in enumerate(procs)
@@ -3490,7 +3576,7 @@ def _spawn(io: str, argvs: list) -> None:
             f.close()
     for r, p in enumerate(procs):
         if p.returncode != 0:
-            with open(os.path.join(io, f"proc{r}.log")) as f:
+            with open(names[r]) as f:
                 tail = f.read()[-12000:]
             check(False, f"{' '.join(argvs[r])} exited {p.returncode}:\n"
                   f"{tail}")
@@ -3574,110 +3660,106 @@ def check_train_sharded(io: str, ref: dict, trains: list) -> tuple:
     return worst, update
 
 
-def phase_ranks(dev, dist_ref: dict) -> dict:
-    """Phases 10d-10f over RANKS rank processes on the card: the one-rank
-    reference of 10e first (freed before the ranks start), then the ranks,
-    then each phase's checks against phase 10's run and the reference.
+def phase_ranks(dev, dist_ref: dict, io: str, ref_wall: float) -> dict:
+    """Phases 10d-10f over RANKS rank processes on the card, then each
+    phase's checks against phase 10's run and 10e's one-rank reference
+    (which :func:`phase_train` ran into ``io``, ``ref_wall`` seconds).
     Returns each phase's launches, summed over the ranks."""
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as io:
-        with open(os.path.join(io, "ref.json"), "w") as f:
-            json.dump({"dist_steps": dist_ref["steps"]}, f)
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        _spawn(io, [["--train-reference", io]])
-        with open(os.path.join(io, "reference.json")) as f:
-            ref = json.load(f)
-        ref_wall = time.perf_counter() - t0
-        parent_gib = torch.cuda.memory_reserved() / 2**30
-        free_gib = torch.cuda.mem_get_info()[0] / 2**30
-        t0 = time.perf_counter()
-        _spawn(io, [["--rank", str(r), str(RANKS), io]
-                    for r in range(RANKS)])
-        wall = time.perf_counter() - t0
-        outs = []
-        for r in range(RANKS):
-            with open(os.path.join(io, f"rank{r}.json")) as f:
-                outs.append(json.load(f))
-        # 10d: every rank ran phase 10's traffic to phase 10's result
-        dist_runs = [o["dist"] for o in outs]
-        for r, res in enumerate(dist_runs):
-            diff = [k for k in DIST_RANK_FIELDS if res[k] != dist_ref[k]]
-            check(not diff, f"dist_ranks: rank {r} differs from phase 10 "
-                  f"in {diff}")
-            for name in ("sweep", "view", "paged_decode"):
-                check(res["launches"][name] > 0,
-                      f"dist_ranks: rank {r} never launched {name}")
-        summed = {k: sum(res["launches"][k] for res in dist_runs)
-                  for k in dist_runs[0]["launches"]}
-        emit({"phase": "dist_ranks", "ranks": RANKS,
-              "hosts_per_rank": DIST_SERVE["hosts"] // RANKS,
-              "steps": dist_ref["steps"], "matches_phase_10": True,
-              "lwm_trace_len": len(dist_ref["lwm_trace"]),
-              "digests": len(dist_ref["digests"]),
-              "seconds_by_rank": [x["seconds"] for x in dist_runs],
-              "ms_per_step_by_rank": [x["ms_per_step"] for x in dist_runs],
-              "tokens_per_s_by_rank": [x["tokens_per_s"] for x in dist_runs],
-              "wire_copies_per_step_by_rank": [
-                  x["wire_copies"] / x["steps"] for x in dist_runs],
-              "idle_share_by_rank": [x["profile"]["device_idle_share"]
-                                     for x in dist_runs],
-              "peak_memory_gib_by_rank": [x["peak_memory_gib"]
-                                          for x in dist_runs],
-              "tiers_seconds_by_rank": [x["tiers_seconds"]
-                                        for x in dist_runs],
-              "one_process_ms_per_step": dist_ref["ms_per_step"],
-              "launches_by_rank": [x["launches"] for x in dist_runs],
-              "launches": summed})
-        # 10e: the sharded step against the one-rank step
-        trains = [o["train"] for o in outs]
-        worst, update = check_train_sharded(io, ref, trains)
-        emit({"phase": "train_sharded", "arch": TRAIN_SHARDED["arch"],
-              "mesh": TRAIN_SHARDED["mesh"], "fsdp": True,
-              "batch": TRAIN_SHARDED["batch"],
-              "seq_len": TRAIN_SHARDED["seq_len"],
-              "steps": TRAIN_SHARDED["steps"],
-              "losses": trains[0]["losses"], "ref_losses": ref["losses"],
-              "grad_norms": trains[0]["grad_norms"],
-              "ref_grad_norms": ref["grad_norms"],
-              "max_abs_err": worst, "rates": ref["rates"],
-              "update_max_rel_err": update["rel"],
-              "update_max_abs_err": update["abs"],
-              "update_share_held_relative": update["big"] / update["n"],
-              "update_rtol": SHARDED_UPDATE_RTOL,
-              "step_s_by_rank": [x["step_s"] for x in trains],
-              "ref_step_s": ref["step_s"], "ref_peak_gib": ref["peak_gib"],
-              "ref_wall_s": ref_wall, "parent_reserved_gib": parent_gib,
-              "free_gib_at_spawn": free_gib,
-              "init_peak_gib_by_rank": [x["init_peak_gib"] for x in trains],
-              "peak_gib_by_rank": [x["peak_gib"] for x in trains],
-              "peak_gib_sum": sum(x["peak_gib"] for x in trains),
-              "local_params_by_rank": [x["local_params"] for x in trains],
-              "wire_copies_by_rank": [x["wire_copies"] for x in trains],
-              "launches_by_rank": [x["launches"] for x in trains]})
-        # 10f: the stages' output against the sequential forward
-        pipes = [o["pipeline"] for o in outs]
-        first = next(x for x in pipes if x["stage"] == 0)
-        check(all(x["finite"] for x in pipes), "pipeline: output not finite")
-        check(first["bit_equal"], "pipeline: the stages' output differs "
-              f"from the sequential forward by {first['max_abs_err']}")
-        for r, x in enumerate(pipes):
-            check(x["launches"]["flash_prefill"] == (
-                PIPELINE["microbatches"] * attention_layers(get_config(
-                    PIPELINE["arch"])) // RANKS),
-                  f"pipeline: rank {r} K6 launches "
-                  f"{x['launches']['flash_prefill']}")
-        emit({"phase": "pipeline", "arch": PIPELINE["arch"],
-              "stages": RANKS, **{k: PIPELINE[k] for k in (
-                  "microbatches", "batch", "seq_len")},
-              "bit_equal": first["bit_equal"],
-              "max_abs_err": first["max_abs_err"],
-              "seconds_by_rank": [x["seconds"] for x in pipes],
-              "sequential_seconds": first["sequential_seconds"],
-              "peak_gib_by_rank": [x["peak_gib"] for x in pipes],
-              "wire_copies_by_rank": [x["wire_copies"] for x in pipes],
-              "launches_by_rank": [x["launches"] for x in pipes],
-              "ranks_wall_s": wall})
+    with open(os.path.join(io, "ref.json"), "w") as f:
+        json.dump({"dist_steps": dist_ref["steps"]}, f)
+    torch.cuda.empty_cache()
+    with open(os.path.join(io, "reference.json")) as f:
+        ref = json.load(f)
+    parent_gib = torch.cuda.memory_reserved() / 2**30
+    free_gib = torch.cuda.mem_get_info()[0] / 2**30
+    t0 = time.perf_counter()
+    _spawn(io, [["--rank", str(r), str(RANKS), io]
+                for r in range(RANKS)])
+    wall = time.perf_counter() - t0
+    outs = []
+    for r in range(RANKS):
+        with open(os.path.join(io, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    # 10d: every rank ran phase 10's traffic to phase 10's result
+    dist_runs = [o["dist"] for o in outs]
+    for r, res in enumerate(dist_runs):
+        diff = [k for k in DIST_RANK_FIELDS if res[k] != dist_ref[k]]
+        check(not diff, f"dist_ranks: rank {r} differs from phase 10 "
+              f"in {diff}")
+        for name in ("sweep", "view", "paged_decode"):
+            check(res["launches"][name] > 0,
+                  f"dist_ranks: rank {r} never launched {name}")
+    summed = {k: sum(res["launches"][k] for res in dist_runs)
+              for k in dist_runs[0]["launches"]}
+    emit({"phase": "dist_ranks", "ranks": RANKS,
+          "hosts_per_rank": DIST_SERVE["hosts"] // RANKS,
+          "steps": dist_ref["steps"], "matches_phase_10": True,
+          "lwm_trace_len": len(dist_ref["lwm_trace"]),
+          "digests": len(dist_ref["digests"]),
+          "seconds_by_rank": [x["seconds"] for x in dist_runs],
+          "ms_per_step_by_rank": [x["ms_per_step"] for x in dist_runs],
+          "tokens_per_s_by_rank": [x["tokens_per_s"] for x in dist_runs],
+          "wire_copies_per_step_by_rank": [
+              x["wire_copies"] / x["steps"] for x in dist_runs],
+          "idle_share_by_rank": [x["profile"]["device_idle_share"]
+                                 for x in dist_runs],
+          "peak_memory_gib_by_rank": [x["peak_memory_gib"]
+                                      for x in dist_runs],
+          "tiers_seconds_by_rank": [x["tiers_seconds"]
+                                    for x in dist_runs],
+          "one_process_ms_per_step": dist_ref["ms_per_step"],
+          "launches_by_rank": [x["launches"] for x in dist_runs],
+          "launches": summed})
+    # 10e: the sharded step against the one-rank step
+    trains = [o["train"] for o in outs]
+    worst, update = check_train_sharded(io, ref, trains)
+    emit({"phase": "train_sharded", "arch": TRAIN_SHARDED["arch"],
+          "layers": TRAIN_SHARDED["layers"],
+          "mesh": TRAIN_SHARDED["mesh"], "fsdp": True,
+          "batch": TRAIN_SHARDED["batch"],
+          "seq_len": TRAIN_SHARDED["seq_len"],
+          "steps": TRAIN_SHARDED["steps"],
+          "losses": trains[0]["losses"], "ref_losses": ref["losses"],
+          "grad_norms": trains[0]["grad_norms"],
+          "ref_grad_norms": ref["grad_norms"],
+          "max_abs_err": worst, "rates": ref["rates"],
+          "update_max_rel_err": update["rel"],
+          "update_max_abs_err": update["abs"],
+          "update_share_held_relative": update["big"] / update["n"],
+          "update_rtol": SHARDED_UPDATE_RTOL,
+          "step_s_by_rank": [x["step_s"] for x in trains],
+          "ref_step_s": ref["step_s"], "ref_peak_gib": ref["peak_gib"],
+          "ref_wall_s": ref_wall, "parent_reserved_gib": parent_gib,
+          "free_gib_at_spawn": free_gib,
+          "init_peak_gib_by_rank": [x["init_peak_gib"] for x in trains],
+          "peak_gib_by_rank": [x["peak_gib"] for x in trains],
+          "peak_gib_sum": sum(x["peak_gib"] for x in trains),
+          "local_params_by_rank": [x["local_params"] for x in trains],
+          "wire_copies_by_rank": [x["wire_copies"] for x in trains],
+          "launches_by_rank": [x["launches"] for x in trains]})
+    # 10f: the stages' output against the sequential forward
+    pipes = [o["pipeline"] for o in outs]
+    first = next(x for x in pipes if x["stage"] == 0)
+    check(all(x["finite"] for x in pipes), "pipeline: output not finite")
+    check(first["bit_equal"], "pipeline: the stages' output differs "
+          f"from the sequential forward by {first['max_abs_err']}")
+    for r, x in enumerate(pipes):
+        check(x["launches"]["flash_prefill"] == (
+            PIPELINE["microbatches"] * attention_layers(get_config(
+                PIPELINE["arch"])) // RANKS),
+              f"pipeline: rank {r} K6 launches "
+              f"{x['launches']['flash_prefill']}")
+    emit({"phase": "pipeline", "arch": PIPELINE["arch"],
+          "stages": RANKS, **{k: PIPELINE[k] for k in (
+              "microbatches", "batch", "seq_len")},
+          "bit_equal": first["bit_equal"],
+          "max_abs_err": first["max_abs_err"],
+          "seconds_by_rank": [x["seconds"] for x in pipes],
+          "sequential_seconds": first["sequential_seconds"],
+          "peak_gib_by_rank": [x["peak_gib"] for x in pipes],
+          "wire_copies_by_rank": [x["wire_copies"] for x in pipes],
+          "launches_by_rank": [x["launches"] for x in pipes],
+          "ranks_wall_s": wall})
 
     def total(key):
         return {k: sum(o[key]["launches"][k] for o in outs)
@@ -3740,10 +3822,12 @@ def main() -> int:
     dist_launches = dist_ref["launches"]
     torch.cuda.empty_cache()
     lap("dist")
-    f32_run, bf16_run = phase_train(dev)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as io:
+        f32_run, bf16_run, ref_wall = phase_train(dev, io)
+        lap("train")
+        rank_launches = phase_ranks(dev, dist_ref, io, ref_wall)
     train_launches, bf16_launches = f32_run["launches"], bf16_run["launches"]
-    lap("train")
-    rank_launches = phase_ranks(dev, dist_ref)
     del dist_ref
     lap("ranks")
     phase_dryrun(bf16_run)

@@ -3,7 +3,8 @@
 
 Dense attention with GQA (query head ``h`` reads kv head ``h // G``), a
 causal mask, a sliding window and a tanh logit softcap, computed in float32
-and cast to ``q``'s dtype.  Trap T6: the logits are scaled in float32
+(float64 for float64 inputs: the exact answer the float32 routes are held
+to) and cast to ``q``'s dtype.  Trap T6: the logits are scaled in float32
 after the product, as in the Pallas kernel and ``attention_ref`` (not in
 ``q``'s dtype before it, as ``_xla_flash`` does).  Query row ``i`` sees key
 column ``j`` when ``j <= i`` (causal) and ``j > i - window`` (window > 0); a row
@@ -16,6 +17,9 @@ the two halves of the autograd function in ``ops.py`` (K6 with its LSE,
 and K6b, ``csrc/flash_backward.cu``).  :func:`bwd_bf16_rounding` bounds
 what K6b's bf16 route may differ from :func:`attention_bwd_ref` by, and
 :func:`bwd_bf16_margin` holds the route to that limit.
+:func:`fwd_f32_rounding` bounds what any float32 evaluation of K6 (the
+plain version, or K6's split-TF32 route) may differ from the exact,
+float64 answer by, and :func:`fwd_f32_margin` holds an output to it.
 """
 from __future__ import annotations
 
@@ -24,14 +28,20 @@ import math
 import torch
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the dtype the plain versions compute in: float64 stays,
+    anything else is float32."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _logits(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int,
             softcap: float):
-    """(scaled and capped float32 logits [B, Hq, T, S], ``tanh(x / cap)``
-    or None, the visibility mask [T, S])."""
+    """(scaled and capped logits [B, Hq, T, S] in :func:`_wide`'s dtype,
+    ``tanh(x / cap)`` or None, the visibility mask [T, S])."""
     D, T, S = q.shape[3], q.shape[2], k.shape[2]
     G = q.shape[1] // k.shape[1]
-    kf = k.float().repeat_interleave(G, dim=1)
-    logits = torch.einsum("bhtd,bhsd->bhts", q.float(), kf) \
+    kf = _wide(k).repeat_interleave(G, dim=1)
+    logits = torch.einsum("bhtd,bhsd->bhts", _wide(q), kf) \
         * (1.0 / math.sqrt(D))
     t = None
     if softcap > 0:
@@ -55,7 +65,7 @@ def _masked_logits(q, k, causal, window, softcap):
 def _attend(logits, v, G, dtype):
     """Softmax over the masked logits, then the product with ``v``."""
     p = torch.softmax(logits, dim=-1).nan_to_num(nan=0.0)   # unseen rows
-    vf = v.float().repeat_interleave(G, dim=1)
+    vf = _wide(v).repeat_interleave(G, dim=1)
     return torch.einsum("bhts,bhsd->bhtd", p, vf).to(dtype)
 
 
@@ -71,8 +81,9 @@ def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = 0,
                       softcap: float = 0.0):
     """:func:`attention_ref` and each row's log-sum-exp of its visible
-    logits, float32 [B, Hq, T] (``+inf`` for a row that sees no column),
-    the forward half of the gradient's plain version."""
+    logits, float32 [B, Hq, T] (float64 for float64 inputs; ``+inf`` for
+    a row that sees no column), the forward half of the gradient's plain
+    version."""
     logits = _masked_logits(q, k, causal, window, softcap)
     lse = torch.logsumexp(logits, dim=-1)
     lse = torch.where(torch.isneginf(lse), math.inf, lse)
@@ -83,7 +94,7 @@ def _p_dx(q, k, v, o, do, lse, causal, window, softcap):
     """``P = exp(s - lse)`` on the visible columns (0 elsewhere) and ``dX =
     P (dO V^T - rowsum(dO o)) (1 - tanh^2)``, float32 [B, Hq, T, S]."""
     G = q.shape[1] // k.shape[1]
-    s, t, mask = _logits(q, k, causal, window, softcap)
+    s, t, mask = _logits(q.float(), k.float(), causal, window, softcap)
     p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
     dof = do.float()
     dp = torch.einsum("bhtd,bhsd->bhts", dof,
@@ -173,3 +184,100 @@ def bwd_bf16_margin(got, want, q: torch.Tensor, k: torch.Tensor,
                       / (tol["atol"] + tol["rtol"] * w.float().abs() + e)
                       ).max())
                for g, w, e in zip(got, want, bound))
+
+
+#: float32's unit roundoff: a rounding to nearest moves a value by at most
+#: this share of it
+F32_EPS = 2.0**-24
+#: the most the split-TF32 route leaves out of one product ``a b``: with
+#: ``a = hi + lo`` (``hi`` a's first 11 significant bits, so ``|lo| <
+#: 2**-10 |a|``) it forms ``hi.hi + hi.tf32(lo) + tf32(lo).hi``; the
+#: tensor core's truncation of ``lo`` to tf32 drops bits below 2**-21 of
+#: ``|a|``, so the error is under ``2**-21 + 2**-21 + 2**-20`` (``lo.lo``)
+#: of ``|a b|``, always toward zero (a float32 product: 2**-24)
+F32_SPLIT_MAX = 2.0**-19
+#: the unit of a logit's products and their sum: the larger of float32's
+#: 2**-24 and what the split leaves out of a product on average (about
+#: 2**-23 for ``lo.lo`` and 0.6 * 2**-23 for each truncated ``lo``:
+#: 2**-21.8)
+F32_UNIT = 2.0**-22
+#: standard deviations of a sum of independent errors that
+#: :func:`fwd_f32_rounding` allows, as :data:`BF16_ROUNDING_SIGMAS`
+F32_ROUNDING_SIGMAS = 4.0
+
+
+def fwd_f32_rounding(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool = True, window: int = 0,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """What a float32 evaluation of :func:`attention_ref` (the float32
+    plain version, or K6's split-TF32 route) may differ from the exact
+    answer by at these inputs: float64 ``[B, Hq, T, D]``, derived from
+    float32's rounding, not read off any measured error.
+
+    Let ``x_j = q.k_j / sqrt(D)``, ``s_j = cap tanh(x_j / cap)``, ``p_j``
+    the softmax of the visible ``s`` and ``o = sum_j p_j v_j``.  A logit
+    error ``ds_j`` moves ``p_j`` by ``p_j (ds_j - sum_i p_i ds_i)``, so
+    ``o`` by ``sum_j p_j ds_j (v_j - o)``; an error in a term ``p_j v_j``
+    moves ``o`` by itself.
+
+    * The logit: ``|ds_j| <= e_j = F32_UNIT A_j + 8 F32_EPS |x_j| +
+      F32_UNIT`` with ``A_j = sum_d |q_d k_jd| / sqrt(D)``.  The first term
+      is the products and their sum: the split shrinks each product by
+      about F32_UNIT of it (at most ``F32_UNIT |x_j|`` in all), its
+      truncations' spread and float32's roundings of the partial sums
+      (at most 2**-24 of each, and the tensor cores' truncation 2**-23,
+      adding as a random walk) stay well inside ``F32_UNIT A_j``.  The
+      second is the logit's own roundings after the sum, each at most
+      F32_EPS of ``|x_j| >= |s_j|``: the scale, ``x / cap``, tanh (2 ulps,
+      4), ``* cap`` and the exponent's argument ``s log2(e) - m``; tanh's
+      slope is at most 1.  The third is the exponential's own error (2
+      ulps of the base-2 exp).
+    * The terms of P V: each ``p_j v_j`` is off by at most F32_SPLIT_MAX
+      of itself.
+    * What all terms share, ``COMMON = 4 F32_UNIT`` of ``sum_j p_j
+      |v_j|``, added whole: the split's average shrink of every P V
+      product (F32_UNIT), the tensor cores' truncating sums (at most
+      2**-23 at each of a KV step's four chained products: 2 F32_UNIT),
+      and the rescales of O and the division by l (F32_UNIT).
+
+    As :func:`bwd_bf16_rounding` does, the terms' own errors are taken as
+    independent, about as often up as down, so they add as a random walk:
+    ``F32_ROUNDING_SIGMAS * sqrt(sum_j p_j**2 (e_j**2 (v_j - o)**2 +
+    (F32_SPLIT_MAX v_j)**2)) + 4 F32_UNIT sum_j p_j |v_j|``.  At logits
+    of about N(0, 12**2) this is about 1.3x float32's 1e-5 limit (atol
+    and rtol) in the median entry; where a row's weight sits on one
+    column it is far below it, since only the P V term is left there.
+    """
+    D = q.shape[3]
+    G = q.shape[1] // k.shape[1]
+    qd, kd = q.double(), k.double()
+    vd = v.double().repeat_interleave(G, dim=1)
+    x, _, mask = _logits(qd, kd, causal, window, 0.0)
+    a = torch.einsum("bhtd,bhsd->bhts", qd.abs(),
+                     kd.abs().repeat_interleave(G, dim=1)) / math.sqrt(D)
+    s = torch.tanh(x / softcap) * softcap if softcap > 0 else x
+    p = torch.softmax(s.masked_fill(~mask, -math.inf), dim=-1
+                      ).nan_to_num(nan=0.0)
+    o = torch.einsum("bhts,bhsd->bhtd", p, vd)
+    w = (p * (F32_UNIT * a + 8 * F32_EPS * x.abs() + F32_UNIT)).square()
+    # sum_j w_j (v_j - o)**2, expanded into three products
+    spread = (torch.einsum("bhts,bhsd->bhtd", w, vd.square())
+              - 2 * o * torch.einsum("bhts,bhsd->bhtd", w, vd)
+              + o.square() * w.sum(-1, keepdim=True)).clamp(min=0)
+    terms = F32_SPLIT_MAX**2 * torch.einsum("bhts,bhsd->bhtd", p.square(),
+                                            vd.square())
+    return (F32_ROUNDING_SIGMAS * (spread + terms).sqrt()
+            + 4 * F32_UNIT * torch.einsum("bhts,bhsd->bhtd", p, vd.abs()))
+
+
+def fwd_f32_margin(got: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, *, causal: bool = True, window: int = 0,
+                   softcap: float = 0.0) -> float:
+    """The largest ``|got - exact|`` over :func:`fwd_f32_rounding`, where
+    ``exact`` is :func:`attention_ref` on float64 copies of the inputs:
+    ``got``, a float32 evaluation of K6 on ``q``, ``k``, ``v``, is within
+    float32's rounding of the exact answer where this is at most 1."""
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    exact = attention_ref(q.double(), k.double(), v.double(), **kw)
+    bound = fwd_f32_rounding(q, k, v, **kw)
+    return float(((got.double() - exact).abs() / bound).max())

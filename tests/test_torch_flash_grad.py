@@ -140,7 +140,7 @@ def test_plain_backward_equals_autograd_through_attention_ref(
     out, lse = attention_lse_ref(q, k, v, **kw)
     got = attention_bwd_ref(q, k, v, out, do, lse, **kw)
     for g, w in zip(got, want):
-        # the plain versions compute in float32 whatever the input dtype
+        # attention_bwd_ref computes in float32 whatever the input dtype
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=1e-5)
 
 

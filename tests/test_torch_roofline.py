@@ -169,7 +169,8 @@ FLASH_TF32_ROWS = [("f32", "0.625028", "operations"),
                    ("whisper_encoder_f32", "0.335127", "operations"),
                    ("whisper_cross_prefill_f32", "0.022947", "bytes"),
                    ("whisper_cross_decode_f32", "0.022023", "bytes"),
-                   ("recurrentgemma_local_f32", "3.128442", "operations")]
+                   ("recurrentgemma_local_f32", "3.128442", "operations"),
+                   ("gemma2_capped_f32", "0.416685", "operations")]
 # K6b's rows: (case, tf32 x 3 bound, CUDA-core bound, bf16 bound)
 BWD_ROWS = [("gemma2_train", "1.041458", "2.564786", "0.173752"),
             ("gemma2_window512", "0.244064", "0.601053", "0.040718"),

@@ -17,16 +17,23 @@ version (``attention_ref``) within float32's ``DECODE_TOL`` (atol and rtol
 
 Then one JSON line per :data:`ACCURACY` case with three ratios, each the
 largest ``|a - b| / (atol + rtol |b|)`` at that tolerance (at most 1 is
-within it): ``kernel_vs_plain`` (what ``tests/test_torch_gpu.py``
-checks), ``kernel_vs_f64`` and ``plain_vs_f64`` (b the float64
-evaluation).  The cases: ``test_flash_prefill_softcap_bends_the_logits``'s
-inputs (gemma2-2b's layer at T 512 with q scaled by 12, so that the
-logits, about N(0, 12^2), reach the softcap of 50; windows 0 and 200) and
-``gemma2_train_f32`` as timed here.
+within it): ``kernel_vs_plain``, ``kernel_vs_f64`` and ``plain_vs_f64``
+(b the float64 evaluation); and beside the last two, the largest ``|a -
+b|`` over the limit derived from float32's rounding
+(``ref.fwd_f32_rounding`` of this script's checkout, whichever checkout
+is timed): ``kernel_vs_f64_limit_ratio`` (what
+``tests/test_torch_gpu.py``'s
+``test_flash_prefill_softcap_bends_the_logits`` checks in float32) and
+``plain_vs_f64_limit_ratio``.  The cases: that test's inputs (gemma2-2b's
+layer at T 512 with q scaled by 12, so that the logits, about N(0,
+12^2), reach the softcap of 50; windows 0 and 200) and
+``gemma2_train_f32`` as timed here.  ``--cases`` with no names times
+nothing and prints only these lines.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import math
 import os
@@ -88,6 +95,19 @@ def ratio(a, b) -> float:
                   / (ATOL + RTOL * b.double().abs())).max())
 
 
+def derived_limit():
+    """``fwd_f32_rounding`` of the checkout that holds this script, loaded
+    from its file (it imports only ``math`` and ``torch``), so that every
+    checkout timed is held to the same limit."""
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "_f32_limit", os.path.join(here, "src", "repro_torch", "kernels",
+                                   "flash_prefill", "ref.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.fwd_f32_rounding
+
+
 def main() -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -103,6 +123,7 @@ def main() -> int:
     from repro_torch.kernels.flash_prefill import ops as flash_ops
     from repro_torch.kernels.flash_prefill.ref import attention_ref
     _build.build()   # or reuse a library newer than every source
+    fwd_f32_rounding = derived_limit()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -139,12 +160,18 @@ def main() -> int:
         got = flash_ops.flash_attention(q, k, v, **kw)
         plain = attention_ref(q, k, v, **kw)
         exact = attention_f64(q, k, v, window, cap)
+        limit = fwd_f32_rounding(q, k, v, **kw)
         print(json.dumps(dict(
             head, case=case, accuracy=True,
             kernel_vs_plain=ratio(got, plain),
             kernel_vs_f64=ratio(got, exact),
-            plain_vs_f64=ratio(plain, exact))), flush=True)
-        del q, k, v, got, plain, exact
+            plain_vs_f64=ratio(plain, exact),
+            kernel_vs_f64_limit_ratio=float(
+                ((got.double() - exact).abs() / limit).max()),
+            plain_vs_f64_limit_ratio=float(
+                ((plain.double() - exact).abs() / limit).max()))),
+            flush=True)
+        del q, k, v, got, plain, exact, limit
         torch.cuda.empty_cache()
     return 0
 
