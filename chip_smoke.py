@@ -704,6 +704,12 @@ MS_BEFORE_RECORDED = {"paged_decode": 4.358086, "flash_prefill": 19.320105,
                       "flash_backward_minitron": 17.038807,
                       "flash_backward_gemma2_window512": 3.776279,
                       "flash_backward_whisper_cross": 0.573878,
+                      # K6b's bf16 route: the first tensor-core pair
+                      # (run 22F), before its Hopper redesign
+                      "flash_backward_bf16": 1.869906,
+                      "flash_backward_bf16_gemma2_window512": 0.584440,
+                      "flash_backward_bf16_minitron": 2.357319,
+                      "flash_backward_bf16_whisper_cross": 0.186488,
                       "search": 0.001632, "needed": 0.001632,
                       "needed_65536x8x256": 0.004736,
                       "needed_32768x16x1024": 0.007776}

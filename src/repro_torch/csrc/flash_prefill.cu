@@ -28,7 +28,8 @@
 //   thread issues TMA loads (cp.async.bulk.tensor) of the Q tile and of a
 //   ring of K and V tiles (3 stages, 4 at D 256) into 128-byte-swizzled
 //   shared memory, each stage's arrival reported to an mbarrier; the
-//   consumers free a stage after using it.  Warpgroups 1 and 2 are
+//   consumers free a stage after using it (the TMA and mbarrier helpers
+//   are tma.cuh's, shared with K6b's bf16 route).  Warpgroups 1 and 2 are
 //   consumers of 64 rows each (wgmma's M): S = Q K^T by wgmma with both
 //   operands in shared memory, the masked online softmax in float32
 //   registers (the statistics of a row are reduced across the four threads
@@ -104,6 +105,7 @@
 #include <type_traits>
 
 #include "flash_tf32.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -130,59 +132,6 @@ struct Tc {
   static constexpr int SMEM = 1024 + BAR_OFF + 8 * (2 * STAGES + 1);
   static_assert(SMEM <= 232448, "shared memory of a block on the H100");
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Waits for the phase of the given parity to complete.  A wait that lasts
-// about 10 s at the H100's clock can only be a fault: it traps, so the
-// launch fails and the wrapper raises instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > (1LL << 34)) __trap();
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -436,49 +385,6 @@ flash_prefill_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
       *reinterpret_cast<__nv_bfloat162*>(out + (head + r1) * Dp + col) =
           __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// link against libcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault,
-                                         &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 3-d map (Dp, rows, heads) of a contiguous bf16 [heads, rows, Dp]
-// tensor, read in boxes of 64 dims x box_rows rows, 128-byte swizzled;
-// out-of-range elements load as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int Dp, int rows, int heads,
-              int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)Dp, (cuuint64_t)rows,
-                              (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)Dp * 2,
-                                 (cuuint64_t)Dp * 2 * (cuuint64_t)rows};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DP>
@@ -859,7 +765,7 @@ __global__ void flash_prefill_split(const float* __restrict__ k,
                                     float* __restrict__ vt,
                                     float* __restrict__ vt_lo, int rows,
                                     int rows_p, int DP) {
-  transpose_tile<float, true>(v, vt, vt_lo, rows, rows_p, DP);
+  transpose_tile(v, vt, vt_lo, rows, rows_p, DP);
   const long long head = (long long)blockIdx.z * rows * DP;
   const int d = blockIdx.y * 32 + threadIdx.x;
   for (int i = threadIdx.y; i < 32; i += 8) {

@@ -128,34 +128,32 @@ __device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&hi)[4],
 
 // One 32 x 32 tile of a transpose pre-pass, for a (32, 8) thread block over
 // the grid (rows_p / 32, DP / 32, heads): out0 [heads][DP][rows_p] = x
-// [heads][rows][DP] transposed, zeros past `rows`; with SPLIT, out1 the
-// tf32 lo copy (out0 is then tf32's hi) and the rows of each group of 8
-// stored in the order (0, 2, 4, 6, 1, 3, 5, 7)
-template <typename T, bool SPLIT>
-__device__ __forceinline__ void transpose_tile(const T* __restrict__ x,
-                                               T* __restrict__ out0,
-                                               T* __restrict__ out1, int rows,
-                                               int rows_p, int DP) {
+// [heads][rows][DP] transposed (tf32's hi), zeros past `rows`, and out1 the
+// tf32 lo copy, the rows of each group of 8 stored in the order (0, 2, 4,
+// 6, 1, 3, 5, 7)
+__device__ __forceinline__ void transpose_tile(const float* __restrict__ x,
+                                               float* __restrict__ out0,
+                                               float* __restrict__ out1,
+                                               int rows, int rows_p, int DP) {
   __shared__ float tile[32][33];
   const int r0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
   const long long head = blockIdx.z;
-  const T* src = x + head * rows * (long long)DP;
+  const float* src = x + head * rows * (long long)DP;
   for (int i = threadIdx.y; i < 32; i += 8) {
     const int r = r0 + i;
     tile[i][threadIdx.x] =
-        r < rows ? float(src[(long long)r * DP + c0 + threadIdx.x]) : 0.f;
+        r < rows ? src[(long long)r * DP + c0 + threadIdx.x] : 0.f;
   }
   __syncthreads();
   const long long obase = head * DP * (long long)rows_p;
   for (int i = threadIdx.y; i < 32; i += 8) {
     const int d = c0 + i, oc = threadIdx.x;
-    const int src_r = SPLIT ? (oc & ~7) + ((oc & 4) ? 2 * (oc & 3) + 1
-                                                    : 2 * (oc & 3))
-                            : oc;
+    const int src_r =
+        (oc & ~7) + ((oc & 4) ? 2 * (oc & 3) + 1 : 2 * (oc & 3));
     const float v = tile[src_r][i];
     const long long dst = obase + (long long)d * rows_p + r0 + oc;
-    out0[dst] = T(v);
-    if (SPLIT) out1[dst] = tf32_lo(v);
+    out0[dst] = v;
+    out1[dst] = tf32_lo(v);
   }
 }
 

@@ -1,12 +1,11 @@
 // wgmma.mma_async wrappers for flash_prefill.cu and flash_backward.cu, one
 // struct per N, each holding only the products the kernels instantiate.
-// Wgmma<N>::ss (N = BK in {32, 96, 128}, K6's logits) is a 64 x N x 16 bf16
-// product with both operands in shared memory, K-major (no transpose);
-// Wgmma<N>::rs (N = DP in {64, 128, 256}, K6's P.V) takes A from registers
-// (four .b32 of bf16 pairs, the m64n16 accumulator layout) and B MN-major
-// (transpose bit set) and always accumulates.  Wgmma<64>::ss_k and ::rs_k
-// (K6b's bf16 route) are the same two forms at N 64 with B K-major and
-// scale_d as an argument.  WgmmaTf32<N>::rs (N in {32, 64}, K6's and
+// Wgmma<N>::ss (N in {32, 64, 96, 128}: K6's logits, K6b's bf16 S and dP)
+// is a 64 x N x 16 bf16 product with both operands in shared memory,
+// K-major (no transpose); Wgmma<N>::rs (N in {64, 128, 256}: K6's P.V,
+// K6b's bf16 dV, dK and dQ) takes A from registers (four .b32 of bf16
+// pairs, the m64n16 accumulator layout) and B MN-major (transpose bit set)
+// and always accumulates.  WgmmaTf32<N>::rs (N in {32, 64}, K6's and
 // K6b's float32 routes) is a 64 x N x 8 tf32 product, A from registers
 // (the tf32 fragment: rows g, g + 8 of the warp's 16 at columns t, t + 4
 // of the k8 step), B K-major (tf32 has no transpose bit).  All accumulate
@@ -40,6 +39,11 @@ static __device__ __forceinline__ void wgmma_commit() {
 }
 static __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// waits until at most N of the latest commit groups are pending
+template <int N>
+static __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // Pins registers at this point of the program: after a wait, so no read
 // of an accumulator moves above it; before wgmma.fence, so no instruction
@@ -120,8 +124,7 @@ struct Wgmma<64> {
   }
 
   // D[64 x 64] (+)= A[64 x 16] B[16 x 64]; A and B K-major in shared memory
-  // (flash_backward.cu's logits)
-  __device__ __forceinline__ static void ss_k(float (&d)[32], uint64_t a,
+  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t a,
                                               uint64_t b, int scale_d) {
     asm volatile(
         "{\n"
@@ -144,33 +147,6 @@ struct Wgmma<64> {
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(a), "l"(b), "r"(scale_d));
-  }
-  // D[64 x 64] (+)= A[64 x 16] B[16 x 64]; A (bf16 pairs) in registers,
-  // B K-major in shared memory (no transpose: flash_backward.cu's gradients)
-  __device__ __forceinline__ static void rs_k(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 

@@ -65,26 +65,32 @@ halves take their plain versions (:func:`~.ref.attention_lse_ref`,
 :func:`~.ref.attention_bwd_ref`).  Without grad the call is K6 as before,
 with no LSE stored.
 
-K6b runs on the tensor cores by dtype (``BWD_ROUTES``), in one design
-for both routes, the split: after a pass for ``delta = rowsum(dO o)`` and
-a copy pass (``Q^T``, ``dO^T``, ``K^T``; in float32 also the tf32
-``lo`` halves), one kernel sums dK and dV a KV tile per block over the query
-heads and tiles that see it, and a second sums dQ a query tile per block
-over the KV tiles it sees, recomputing the logits (7 products where the
-backward needs 5, and 9 at D 256, where dK's and dV's kernel splits the
-head dim).  A design that saved the two products by writing each KV
-tile's share of dQ to float32 partials did not beat it on an H100
+K6b runs on the tensor cores by dtype (``BWD_ROUTES``), each route a pair
+of hand-written kernels in ``csrc/flash_backward.cu``: one sums dK and dV
+over the query heads and tiles that see a KV tile, the other dQ over the
+KV tiles a query tile sees, both recomputing the logits (7 products where
+the backward needs 5).  A design that saved the two products by writing
+each KV tile's share of dQ to float32 partials did not beat it on an H100
 (``csrc/flash_backward.cu``'s header, ``PERF.md``).  Each element is
 summed in a fixed order with no atomics, so two calls give the same bits.
 
-* ``"wgmma-bf16"``: bf16 operands, float32 accumulation; P and dX rounded
-  to bf16 for their products, dK, dV and dQ rounded once.  Bound: ``10 B
-  Hq D pairs`` operations at the bf16 rate (989 TFLOP/s).
-* ``"wgmma-tf32x3"`` (float32): split-TF32, ``x = hi + lo`` with ``hi =
-  tf32(x)`` and ``hi hi + hi lo + lo hi`` per product on the tf32 tensor
-  cores, about float32's accuracy (``hi`` is ``x`` itself, whose top 19
-  bits the tensor cores read; ``lo`` a copy).  Bound: three times those operations at
-  the tf32 rate (495 TFLOP/s).
+* ``"wgmma-bf16"``: two launches, the dQ kernel (which also writes each
+  query row's ``delta = rowsum(dO o)`` and LSE for the other) and then
+  the dK/dV kernel, each a block of two consumer warpgroups over 128 rows
+  (at D 256 the dK/dV kernel's two share 64 KV rows and split the head
+  dim), the other side streamed by TMA through an mbarrier ring, dO, Q and
+  K read transposed by wgmma's descriptor (no transposed copies); bf16
+  operands, float32 accumulation; P and dX rounded to bf16 for their
+  products, dK, dV and dQ rounded once.  Its workspace is delta and the
+  LSE over query rows padded to a multiple of 128.  Bound: ``10 B Hq D
+  pairs`` operations at the bf16 rate (989 TFLOP/s).
+* ``"wgmma-tf32x3"`` (float32): after a pass for delta and a copy pass
+  (``Q^T``, ``dO^T``, ``K^T`` and the tf32 ``lo`` halves), the two kernels
+  in split-TF32, ``x = hi + lo`` with ``hi = tf32(x)`` and ``hi hi + hi lo
+  + lo hi`` per product on the tf32 tensor cores, about float32's accuracy
+  (``hi`` is ``x`` itself, whose top 19 bits the tensor cores read; ``lo``
+  a copy); at D 256 dK's and dV's kernel splits the head dim, 9 products.
+  Bound: three times those operations at the tf32 rate (495 TFLOP/s).
 
 A head dim that is not 64, 128 or 256 is padded with zero dims to the
 next of them here (the kernel loads 128-byte slices of it) and the

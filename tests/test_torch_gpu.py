@@ -1044,10 +1044,22 @@ def test_flash_attention_gradient_matches_autograd_through_ref(
 # more K6b edges: one query tile's dQ summed over 64 KV tiles (S 4096,
 # bidirectional), and a window of 1 (each query tile sees only the KV tile
 # on its diagonal, each row only itself: P = 1 there, so dv = do summed
-# over the group and dq = dk = 0)
+# over the group and dq = dk = 0); the bf16 route's tiles of 128 rows, 64
+# a consumer warpgroup (64 KV rows shared by both at D 256): S and T that
+# end 64 rows into a tile (192), a tile whose second consumer holds one
+# row (S 65), T 1, a window of 100 across the 128-row boundary, and
+# recurrentgemma-9b's local layer (16 query heads over one KV head, D 256,
+# window 2048) at T 300
 FLASH_GRAD_EDGES = [
     (1, 4, 2, 64, 4096, 128, False, 0, 0.0),
     (1, 4, 2, 256, 256, 64, True, 1, 0.0),
+    (1, 4, 2, 192, 192, 128, True, 0, 0.0),
+    (2, 4, 2, 100, 65, 256, False, 0, 0.0),
+    (1, 4, 2, 65, 65, 128, True, 0, 50.0),
+    (2, 4, 2, 1, 1, 64, True, 0, 0.0),
+    (1, 6, 3, 1, 200, 128, False, 0, 0.0),
+    (1, 4, 2, 300, 300, 128, True, 100, 0.0),
+    (1, 16, 1, 300, 300, 256, True, 2048, 0.0),
 ]
 
 

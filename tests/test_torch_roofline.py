@@ -236,6 +236,21 @@ def test_every_float32_flash_row_has_a_tf32_bound():
         == {case for case, _, _ in FLASH_TF32_ROWS}
 
 
+def test_k6b_ab_script_times_phase_3s_cases():
+    """tools/time_flash_backward.py, the A/B script of K6b, times
+    chip_smoke.py's FLASH_BWD shapes under their names and holds the
+    float32 route to phase 3's FLASH_BWD_TOL, so that its rows stand for
+    phase 3's."""
+    spec = importlib.util.spec_from_file_location(
+        "time_flash_backward",
+        os.path.join(ROOT, "tools", "time_flash_backward.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    cs = _chip_smoke()
+    assert tool.CASES == cs.FLASH_BWD
+    assert tool.TOL_F32 == cs.FLASH_BWD_TOL
+
+
 def test_data_bounds_equal_perf_md():
     """K2's ``view`` (0.000145 ms: the rows found at t 2000) and K4 at 256
     sequences (0.625611: the visible tokens and pages in use), from phase

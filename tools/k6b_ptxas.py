@@ -3,15 +3,18 @@
 
     python3 tools/k6b_ptxas.py [--source PATH]
 
-Compiles ``src/repro_torch/csrc/flash_backward.cu`` (or ``--source``) for
-``sm_90a`` with the flags of ``repro_torch.kernels._build`` plus
+Compiles ``src/repro_torch/csrc/flash_backward.cu`` (or ``--source``)
+for ``sm_90a`` with the flags of ``repro_torch.kernels._build`` plus
 ``-Xptxas -v`` into a temporary object, and prints one JSON line per
-kernel: its demangled template arguments (element type, padded head dim,
-``KV_ROWS``), registers, spill stores and loads in bytes, shared memory
-of the static kind, and the count of each coded ``ptxas`` message that
-names it (``warnings``; for example C7519, a ``warpgroup.arrive`` injected
-to let registers feed ``wgmma``, or C7510, ``wgmma`` serialized) with the
-first text of each.  Needs ``nvcc``; runs no kernel.
+kernel: its demangled name and template arguments (the float32 route's
+``flash_bwd_kernel<DP, KV_ROWS>``, the bf16 route's
+``flash_bwd_dq_bf16<DP>`` and ``flash_bwd_dkv_bf16<DP>``), registers,
+spill stores and loads in bytes, shared memory of the static kind, and
+the count of each coded ``ptxas`` message that names it (``warnings``;
+for example C7519, a ``warpgroup.arrive`` injected to let registers feed
+``wgmma``, C7517, a ``warpgroup.wait`` injected before registers a
+``wgmma`` defines are read, or C7510-C7515, ``wgmma`` serialized) with
+the first text of each.  Needs ``nvcc``; runs no kernel.
 """
 from __future__ import annotations
 
