@@ -183,8 +183,16 @@ Phases, each printing one JSON line:
    one-rank step's (step 0's rate is 0: the update shows only there), K6
    and K6b counted on every rank, each rank's peak memory;
    10f pipeline — minitron-4b's 32 layers in bf16 over 4 stage ranks
-   (GPipe, M 8 microbatches of B 2 x T 2048): the output bit-equal to the
-   same 32 layers in sequence on the card.
+   (GPipe, M 8 microbatches of B 2 x T 2048): the output under no_grad
+   bit-equal to the same 32 layers in sequence on the card; then the
+   pipeline trains: the backward of sum(y * c) (c a seeded bf16
+   cotangent) through GPipe's reverse schedule, every layer leaf's
+   gradient and x.grad on every rank bit-equal to stage 0's reference (the
+   layers in sequence, each layer's input kept, differentiated layer by
+   layer by recompute, microbatches summed last first), each rank with
+   exactly 2 M A / 4 K6 launches (forward and recompute, A attention
+   layers) and M A / 4 on K6b's bf16 route; each rank's forward and
+   backward seconds, peak memory and host copies;
    A rank that fails, or outlives RANKS_TIMEOUT_S, fails the phase; every
    rank is stopped before the script goes on;
 10g. dryrun — the dry run (``repro_torch/launch/dryrun.py``: rank 0's
@@ -2183,8 +2191,7 @@ def _digest(*tensors) -> str:
     decode's output)."""
     h = hashlib.sha1()
     for t in tensors:
-        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy()
-                 .tobytes())
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy())
     return h.hexdigest()[:16]
 
 
@@ -3457,8 +3464,14 @@ def rank_train_sharded(dev, rank: int, world: int, io: str) -> dict:
 def rank_pipeline(dev, rank: int, world: int) -> dict:
     """Phase 10f on one rank: its stage's 8 of minitron-4b's 32 layers
     (each layer's weights from its own seed), ``pipeline_forward`` over
-    the 4 stage ranks; then stage 0 runs the same 32 layers in sequence
-    on each microbatch, and the two must give the same bits."""
+    the 4 stage ranks under no_grad; then, the stage's leaves and ``x``
+    requiring grad, the recorded call and the backward of ``sum(y * c)``
+    (``c`` a seeded bf16 cotangent, the same on every rank): a digest of
+    each leaf's gradient a layer, and of ``x.grad``.  Stage 0 then runs
+    the same 32 layers in sequence on each microbatch (the output must
+    have the pipeline's bits), keeping each layer's input, and
+    differentiates them layer by layer by recompute, last layer first, each
+    leaf's gradient summed last microbatch first: the reference digests."""
     p = PIPELINE
     cfg = get_config(p["arch"])
     kinds = tf._kinds(cfg)
@@ -3478,9 +3491,15 @@ def rank_pipeline(dev, rank: int, world: int) -> dict:
             h, _ = block_apply(bp, cfg, kind, h, positions, mode="train")
         return h
 
+    def tensors(tree):
+        return [t for t in tree_flatten(tree) if torch.is_tensor(t)]
+
+    def seeded(seed):
+        return torch.randn((M, B, T, cfg.d_model), generator=torch.Generator(
+            device=dev).manual_seed(seed), device=dev, dtype=torch.bfloat16)
+
     stage = [layer(i) for i in range(sid * per, (sid + 1) * per)]
-    x = torch.randn((M, B, T, cfg.d_model), generator=torch.Generator(
-        device=dev).manual_seed(p["seed"]), device=dev, dtype=torch.bfloat16)
+    x = seeded(p["seed"])
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -3493,12 +3512,42 @@ def rank_pipeline(dev, rank: int, world: int) -> dict:
            "launches": launch_counts(), "wire_copies": wire.copies,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "finite": bool(torch.isfinite(y.float()).all())}
+    # the backward: every rank records the call and backpropagates
+    t_grad = time.perf_counter()
+    for t in tensors(stage):
+        t.requires_grad_()
+    xg = x.detach().clone().requires_grad_()
+    c = seeded(p["seed"] + 1 + L)      # past the layers' seeds
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    yg = pipeline_forward(apply, stage, xg, mesh=mesh, axis="stage")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (yg.float() * c.float()).sum().backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    grads = [[t.grad for t in tensors(bp)] for bp, _ in stage]
+    out.update(
+        grad_launches=launch_counts(), grad_wire_copies=wire.copies,
+        grad_forward_seconds=t1 - t0, backward_seconds=t2 - t1,
+        grad_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        grad_output_equal=torch.equal(yg.detach(), y),
+        grads_finite=all(bool(torch.isfinite(g.float()).all())
+                         for gs in grads for g in gs),
+        grad_digests=[[_digest(g) for g in gs] for gs in grads],
+        dx_digest=_digest(xg.grad))
+    del stage, yg, xg
+    torch.cuda.empty_cache()
     if sid == 0:
-        del stage
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
+        inputs = []                    # each layer's input, [M, B, T, d]
         with torch.no_grad():
             h = x.clone()
             for i in range(L):
+                inputs.append(h.clone())
                 one = [layer(i)]
                 for m in range(M):
                     h[m] = apply(one, h[m])
@@ -3507,7 +3556,39 @@ def rank_pipeline(dev, rank: int, world: int) -> dict:
         out.update(sequential_seconds=time.perf_counter() - t0,
                    bit_equal=torch.equal(y, h),
                    max_abs_err=float((y.float() - h.float()).abs().max()))
+        # d sum(y * c) / dy is c (bf16 -> float32 -> bf16 is exact)
+        t0 = time.perf_counter()
+        g, ref, err = c.clone(), [None] * L, 0.0
+        for i in range(L - 1, -1, -1):
+            one = [layer(i)]
+            leaves = [t.requires_grad_() for t in tensors(one)]
+            acc = [None] * len(leaves)
+            for m in range(M - 1, -1, -1):
+                with torch.enable_grad():
+                    hm = inputs[i][m].detach().requires_grad_()
+                    d = torch.autograd.grad(apply(one, hm), [hm, *leaves],
+                                            g[m])
+                g[m] = d[0]
+                acc = [a if b is None else b + a for a, b in zip(d[1:], acc)]
+            inputs[i] = None
+            ref[i] = [_digest(a) for a in acc]
+            if i < per:                # this stage's own layers
+                err = max(err, *(float((a.float() - b.float()).abs().max())
+                                 for a, b in zip(acc, grads[i])))
+            del one, leaves, acc
+        torch.cuda.synchronize()
+        out.update(reference_backward_seconds=time.perf_counter() - t0,
+                   reference_peak_gib=torch.cuda.max_memory_allocated()
+                   / 2**30, ref_grad_digests=ref, ref_dx_digest=_digest(g),
+                   stage0_grad_max_abs_err=err)
+        del inputs, g, h
+    del grads, x, y, c
+    torch.cuda.empty_cache()
     dist.barrier()
+    # what the gradients add to the phase: all but stage 0's sequential
+    # forward, which the output check ran before this PR's backward
+    out["added_seconds"] = (time.perf_counter() - t_grad
+                            - out.get("sequential_seconds", 0.0))
     return out
 
 
@@ -3743,35 +3824,79 @@ def phase_ranks(dev, dist_ref: dict, io: str, ref_wall: float) -> dict:
           "local_params_by_rank": [x["local_params"] for x in trains],
           "wire_copies_by_rank": [x["wire_copies"] for x in trains],
           "launches_by_rank": [x["launches"] for x in trains]})
-    # 10f: the stages' output against the sequential forward
+    # 10f: the stages' output against the sequential forward, their
+    # gradients against stage 0's sequential reference
     pipes = [o["pipeline"] for o in outs]
     first = next(x for x in pipes if x["stage"] == 0)
     check(all(x["finite"] for x in pipes), "pipeline: output not finite")
     check(first["bit_equal"], "pipeline: the stages' output differs "
           f"from the sequential forward by {first['max_abs_err']}")
+    n_attn = attention_layers(get_config(PIPELINE["arch"]))
+    per_rank = PIPELINE["microbatches"] * n_attn // RANKS
     for r, x in enumerate(pipes):
-        check(x["launches"]["flash_prefill"] == (
-            PIPELINE["microbatches"] * attention_layers(get_config(
-                PIPELINE["arch"])) // RANKS),
+        check(x["launches"]["flash_prefill"] == per_rank,
               f"pipeline: rank {r} K6 launches "
               f"{x['launches']['flash_prefill']}")
+        # K6 in the recorded forward and in the backward's recompute
+        # (which writes the row LSE), K6b on its bf16 route
+        k = x["grad_launches"]
+        check(k["flash_prefill"] == 2 * per_rank
+              and k["flash_prefill_f32"] == 0
+              and k["flash_backward_bf16"] == per_rank
+              and k["flash_backward"] == 0,
+              f"pipeline: rank {r} K6 / K6b launches with grad {k}")
+        check(x["grad_output_equal"], f"pipeline: rank {r}'s recorded "
+              "output differs from its output under no_grad")
+        check(x["grads_finite"], f"pipeline: rank {r} gradient not finite")
+        lo, hi = x["layers"]
+        bad = [(i, j) for i in range(lo, hi)
+               for j, (a, b) in enumerate(zip(
+                   x["grad_digests"][i - lo], first["ref_grad_digests"][i]))
+               if a != b]
+        check(not bad, f"pipeline: rank {r}'s gradients differ from the "
+              f"sequential layers' at (layer, leaf) {bad[:8]} (stage 0's "
+              f"own layers by {first['stage0_grad_max_abs_err']})")
+        check(x["dx_digest"] == first["ref_dx_digest"],
+              f"pipeline: rank {r}'s x.grad differs from the sequential "
+              "layers'")
     emit({"phase": "pipeline", "arch": PIPELINE["arch"],
           "stages": RANKS, **{k: PIPELINE[k] for k in (
               "microbatches", "batch", "seq_len")},
+          "holds": "each rank its stage's 8 layers, their gradients and "
+                   "its M saved stage inputs; rank 0 (stage 0) then also "
+                   "the sequential reference (every layer's input, one "
+                   "layer's parameters and gradients at a time)",
           "bit_equal": first["bit_equal"],
           "max_abs_err": first["max_abs_err"],
+          "grads_bit_equal": True, "dx_bit_equal": True,
+          "stage0_grad_max_abs_err": first["stage0_grad_max_abs_err"],
           "seconds_by_rank": [x["seconds"] for x in pipes],
           "sequential_seconds": first["sequential_seconds"],
+          "grad_forward_seconds_by_rank": [x["grad_forward_seconds"]
+                                           for x in pipes],
+          "backward_seconds_by_rank": [x["backward_seconds"]
+                                       for x in pipes],
+          "reference_backward_seconds":
+              first["reference_backward_seconds"],
+          "added_seconds_by_rank": [x["added_seconds"] for x in pipes],
           "peak_gib_by_rank": [x["peak_gib"] for x in pipes],
+          "grad_peak_gib_by_rank": [x["grad_peak_gib"] for x in pipes],
+          "grad_peak_gib_sum": sum(x["grad_peak_gib"] for x in pipes),
+          "reference_peak_gib": first["reference_peak_gib"],
           "wire_copies_by_rank": [x["wire_copies"] for x in pipes],
+          "grad_wire_copies_by_rank": [x["grad_wire_copies"]
+                                       for x in pipes],
           "launches_by_rank": [x["launches"] for x in pipes],
+          "grad_launches_by_rank": [x["grad_launches"] for x in pipes],
           "ranks_wall_s": wall})
 
-    def total(key):
-        return {k: sum(o[key]["launches"][k] for o in outs)
-                for k in outs[0][key]["launches"]}
+    def total(key, field="launches"):
+        return {k: sum(o[key][field][k] for o in outs)
+                for k in outs[0][key][field]}
+    grad = total("pipeline", "grad_launches")
     return {"dist_ranks": summed, "train_sharded": total("train"),
-            "pipeline": total("pipeline")}
+            "pipeline": {k: n + grad[k]
+                         for k, n in total("pipeline").items()}}
 
 
 def _to(x, dev):

@@ -47,8 +47,18 @@ TRAIN_CASES = {
     "dense": ("minitron-4b", TRAIN_CFG, TRAIN_BATCH),
     "moe": ("deepseek-moe-16b", dict(moe_capacity_factor=1.0), (8, 128)),
 }
-# the pipeline of tests/launch/test_distributed.py:42
+# the pipeline of tests/launch/test_distributed.py:42 (S 4, M 6, mb 2, d
+# 16), and its gradient at that M, at M 2 < S (the bubble dominates) and at
+# M 1; a pytree stage {"w": [w1, w2], "b": b} with b frozen; reduced
+# minitron-4b's blocks (8 layers, 2 a stage) in float32 through
+# block_apply(mode="train")
 PIPE = dict(S=4, M=6, mb=2, d=16)
+PIPE_CASES = {"m6": 6, "m2": 2, "m1": 1}
+PIPE_TREE = dict(M=4)
+PIPE_MODEL = dict(arch="minitron-4b", num_layers=8, M=3, mb=2, T=16, seed=0)
+# the forward's limit (tests/test_torch_ranks.py), held also by the
+# gradients against JAX's and the sequential port's
+PIPE_ATOL = 1e-5
 
 
 def spawn(world: int, io: str, device: str, programs, timeout: float = 600
@@ -319,19 +329,287 @@ def program_engine(rank, world, io, device) -> None:
 # ---------------------------------------------------------------------------
 # the pipeline and the sharded step
 # ---------------------------------------------------------------------------
+def parent_pipeline_forward(apply_fn, stage_params, x, mesh,
+                            axis="stage"):
+    """The forward-only ``pipeline_forward`` as it stood before it became
+    differentiable: the oracle for the new one's bits under no_grad."""
+    from repro_torch.dist.overlap import broadcast_, exchange
+    group = mesh.get_group(axis)
+    S, sid = dist.get_world_size(group), dist.get_rank(group)
+    M = x.shape[0]
+    buf = torch.zeros_like(x)
+    carry = torch.zeros_like(x[0])
+    for t in range(M + S - 1):
+        m = t - sid
+        inp = x[min(max(t, 0), M - 1)] if sid == 0 else carry
+        active = 0 <= m < M
+        out = apply_fn(stage_params, inp) if active else inp
+        if sid == S - 1 and active:
+            buf[m] = out
+        carry = exchange(out, (sid + 1) % S, (sid - 1) % S, group) \
+            if S > 1 else out
+    return broadcast_(buf, S - 1, group)
+
+
+def _sum_dy(gy, group):
+    from repro_torch.dist.overlap import all_reduce_
+    return all_reduce_(gy.clone(), group)
+
+
+def _drop_first(acc, g):
+    # the first microbatch the backward sums (the last one) is lost
+    return torch.zeros_like(g) if acc is None else acc + g
+
+
+def _hop_to_next(g, sid, S, group):
+    from repro_torch.dist.overlap import exchange
+    return exchange(g, (sid + 1) % S, (sid - 1) % S, group)
+
+
+#: planted faults of the pipeline's backward: (the helper of
+#: repro_torch.train.pipeline_parallel replaced, its faulty version)
+PIPE_FAULTS = {
+    "dy_summed": ("_stage_dy", _sum_dy),
+    "microbatch_dropped": ("_accumulate", _drop_first),
+    "hop_to_next": ("_reverse_hop", _hop_to_next),
+}
+
+
+@contextlib.contextmanager
+def pipe_fault(name):
+    from repro_torch.train import pipeline_parallel as pp
+    attr, fn = PIPE_FAULTS[name]
+    old = getattr(pp, attr)
+    setattr(pp, attr, fn)
+    try:
+        yield
+    finally:
+        setattr(pp, attr, old)
+
+
+def _tanh(p, h):
+    return torch.tanh(h @ p)
+
+
+def _tree_apply(p, h):
+    w1, w2 = p["w"]
+    return torch.tanh(torch.tanh(h @ w1) @ w2 + p["b"])
+
+
+def pipe_model(device):
+    """Reduced minitron-4b at PIPE_MODEL's depth: (config, layer ``i``
+    built from its own seed, a stage's apply over its layers)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.blocks import block_apply, init_block
+    p = PIPE_MODEL
+    cfg = reduced_config(p["arch"], num_layers=p["num_layers"])
+    kinds = tf._kinds(cfg)
+    positions = torch.arange(p["T"], dtype=torch.int32, device=device)[
+        None].expand(p["mb"], p["T"])
+
+    def layer(i):
+        gen = torch.Generator(device=device).manual_seed(p["seed"] + 1 + i)
+        return init_block(gen, cfg, kinds[i], torch.float32), kinds[i]
+
+    def apply(stage, h):
+        for bp, kind in stage:
+            h, _ = block_apply(bp, cfg, kind, h, positions, mode="train")
+        return h
+    return cfg, layer, apply
+
+
+def _saves(fn) -> tuple:
+    """``fn()`` and the number of tensors autograd saved while it ran."""
+    n = [0]
+
+    def pack(t):
+        n[0] += 1
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, n[0]
+
+
+def _pipe_grads(apply_fn, stage, x, c, mesh) -> tuple:
+    """``sum(pipeline_forward(apply_fn, stage, x) * c)`` backpropagated on
+    this rank: (y, the tensors autograd saved in the call, x.grad)."""
+    from repro_torch.train.pipeline_parallel import pipeline_forward
+    x = x.detach().clone().requires_grad_()
+    y, saved = _saves(lambda: pipeline_forward(apply_fn, stage, x,
+                                               mesh=mesh, axis="stage"))
+    (y * c).sum().backward()
+    return y.detach(), saved, x.grad
+
+
 def program_pipeline(rank, world, io, device) -> None:
     """``pipeline_forward`` over ``world`` stage ranks, each with its own
-    stage's weight, ``tanh(h @ w)``, on the inputs the test wrote."""
+    stage: ``tanh(h @ w)`` at each of PIPE_CASES (the forward under
+    no_grad, beside the parent's loop; then the gradient of ``sum(y *
+    c)``, and at M 6 again under each planted fault), the pytree stage,
+    and reduced minitron-4b's blocks (one thread: the CPU BLAS splits its
+    sums by the threads it finds free, and the test holds these bits to
+    the sequential layers' in another process)."""
+    from repro_torch.ckpt.manager import tree_flatten
     from repro_torch.launch.mesh import make_gc_mesh
     from repro_torch.train.pipeline_parallel import pipeline_forward
-    inp = load(io, "pipeline_in", 0)
     mesh = make_gc_mesh(world, axis="stage", device=device)
     sid = mesh.get_local_rank("stage")
-    w = torch.from_numpy(inp["ws"][sid]).to(device)
-    x = torch.from_numpy(inp["x"]).to(device)
-    y = pipeline_forward(lambda p, h: torch.tanh(h @ p), w, x, mesh=mesh,
-                         axis="stage")
-    save(io, "pipeline", rank, y=y.cpu().numpy())
+    out = {"stage": np.asarray(sid)}
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    for case in PIPE_CASES:
+        inp = load(io, f"pipeline_in_{case}", 0)
+        x, c = dev(inp["x"]), dev(inp["c"])
+        w = dev(inp["ws"][sid])
+        with torch.no_grad():
+            y, out[f"{case}_saved_nograd"] = _saves(
+                lambda: pipeline_forward(_tanh, w, x, mesh=mesh,
+                                         axis="stage"))
+            out[f"{case}_y"] = y.cpu().numpy()
+            out[f"{case}_y_parent"] = parent_pipeline_forward(
+                _tanh, w, x, mesh).cpu().numpy()
+        runs = [(case, None)] + [(f"{case}_{f}", f) for f in PIPE_FAULTS
+                                 if case == "m6"]
+        for name, fault in runs:
+            w = dev(inp["ws"][sid]).requires_grad_()
+            with pipe_fault(fault) if fault else contextlib.nullcontext():
+                y, saved, gx = _pipe_grads(_tanh, w, x, c, mesh)
+            out.update({f"{name}_y_grad": y.cpu().numpy(),
+                        f"{name}_saved": np.asarray(saved),
+                        f"{name}_gw": w.grad.cpu().numpy(),
+                        f"{name}_gx": gx.cpu().numpy()})
+    inp = load(io, "pipeline_tree_in", 0)
+    stage = {"w": [dev(inp["w1s"][sid]).requires_grad_(),
+                   dev(inp["w2s"][sid]).requires_grad_()],
+             "b": dev(inp["bs"][sid])}
+    _, out["tree_saved"], gx = _pipe_grads(_tree_apply, stage, dev(inp["x"]),
+                                           dev(inp["c"]), mesh)
+    out.update(tree_gw1=stage["w"][0].grad.cpu().numpy(),
+               tree_gw2=stage["w"][1].grad.cpu().numpy(),
+               tree_b_grad_none=np.asarray(stage["b"].grad is None),
+               tree_gx=gx.cpu().numpy())
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cfg, layer, apply = pipe_model(device)
+        per = cfg.num_layers // world
+        stage = [layer(i) for i in range(sid * per, (sid + 1) * per)]
+        leaves = [t for t in tree_flatten(stage) if torch.is_tensor(t)]
+        for t in leaves:
+            t.requires_grad_()
+        inp = load(io, "pipeline_model_in", 0)
+        y, _, gx = _pipe_grads(apply, stage, dev(inp["x"]), dev(inp["c"]),
+                               mesh)
+    finally:
+        torch.set_num_threads(threads)
+    out.update(model_y=y.cpu().numpy(), model_gx=gx.cpu().numpy(),
+               **{f"model_g{i}": t.grad.cpu().numpy()
+                  for i, t in enumerate(leaves)})
+    save(io, "pipeline", rank, **out)
+
+
+def pipeline_inputs(io: str) -> None:
+    """The pipeline program's numpy inputs: one set of stage weights, and
+    each of PIPE_CASES' x and seeded cotangent c; the pytree stage's; the
+    model's x and c (its layers are built from seeds)."""
+    from repro_torch.configs import reduced_config
+    rng = np.random.default_rng(0)
+    S, mb, d = (PIPE[k] for k in ("S", "mb", "d"))
+
+    def normal(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+    ws = normal(S, d, d, scale=0.3)
+    for case, M in PIPE_CASES.items():
+        save(io, f"pipeline_in_{case}", 0, ws=ws, x=normal(M, mb, d),
+             c=normal(M, mb, d))
+    M = PIPE_TREE["M"]
+    save(io, "pipeline_tree_in", 0, w1s=normal(S, d, d, scale=0.3),
+         w2s=normal(S, d, d, scale=0.3), bs=normal(S, d, scale=0.3),
+         x=normal(M, mb, d), c=normal(M, mb, d))
+    p = PIPE_MODEL
+    cfg = reduced_config(p["arch"], num_layers=p["num_layers"])
+    shape = (p["M"], p["mb"], p["T"], cfg.d_model)
+    save(io, "pipeline_model_in", 0, x=normal(*shape), c=normal(*shape))
+
+
+def sequential(fn, stages, x: np.ndarray, c: np.ndarray) -> tuple:
+    """``sum(y * c)`` through ``stages`` (pytrees of CPU tensors that
+    require grad) in sequence, each ``fn(stage, h)``: (y, x's
+    gradient)."""
+    x = torch.from_numpy(x).requires_grad_()
+    y = x
+    for st in stages:
+        y = fn(st, y)
+    (y * torch.from_numpy(c)).sum().backward()
+    return y.detach().numpy(), x.grad.numpy()
+
+
+def tanh_reference(io: str, case: str) -> dict:
+    """``case``'s y and gradients through the ``tanh(h @ w)`` stages in
+    sequence on the CPU."""
+    inp = load(io, f"pipeline_in_{case}", 0)
+    ws = [torch.from_numpy(w).requires_grad_() for w in inp["ws"]]
+    y, gx = sequential(_tanh, ws, inp["x"], inp["c"])
+    return {"y": y, "gws": np.stack([w.grad.numpy() for w in ws]),
+            "gx": gx}
+
+
+def check_pipe_grads(io: str, run: str, wants, world: int = 4) -> None:
+    """Every rank's gradient of its stage's weight and its ``x.grad``
+    (those of the run named ``run``) within PIPE_ATOL of each of
+    ``wants``."""
+    for rank in range(world):
+        got = load(io, "pipeline", rank)
+        sid = int(got["stage"])
+        for want in wants:
+            np.testing.assert_allclose(got[f"{run}_gw"], want["gws"][sid],
+                                       atol=PIPE_ATOL, rtol=0)
+            np.testing.assert_allclose(got[f"{run}_gx"], want["gx"],
+                                       atol=PIPE_ATOL, rtol=0)
+
+
+def pipe_model_reference(x: np.ndarray, c: np.ndarray) -> dict:
+    """The gradients of ``sum(y * c)`` through PIPE_MODEL's layers in
+    sequence, in one thread: per microbatch a forward that keeps each
+    layer's input, then each layer (last first) recomputed and
+    differentiated, each leaf's gradient summed last microbatch first.
+    Returns each layer's leaf gradients (``layer{i}``: a list) and
+    ``gx``."""
+    from repro_torch.ckpt.manager import tree_flatten
+    cpu = torch.device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cfg, layer, apply = pipe_model(cpu)
+        L, M = cfg.num_layers, x.shape[0]
+        hs = [[torch.from_numpy(x[m])] for m in range(M)]
+        with torch.no_grad():
+            for i in range(L):
+                one = [layer(i)]
+                for m in range(M):
+                    hs[m].append(apply(one, hs[m][-1]))
+        g = [torch.from_numpy(c[m]) for m in range(M)]
+        out = {}
+        for i in range(L - 1, -1, -1):
+            one = [layer(i)]
+            leaves = [t.requires_grad_() for t in tree_flatten(one)
+                      if torch.is_tensor(t)]
+            acc = [None] * len(leaves)
+            for m in range(M - 1, -1, -1):
+                h = hs[m][i].clone().requires_grad_()
+                grads = torch.autograd.grad(apply(one, h), [h, *leaves],
+                                            g[m])
+                g[m] = grads[0]
+                acc = [a if b is None else b + a
+                       for a, b in zip(grads[1:], acc)]
+            out[f"layer{i}"] = [a.numpy() for a in acc]
+    finally:
+        torch.set_num_threads(threads)
+    out["gx"] = torch.stack(g).numpy()
+    return out
 
 
 def train_batches(case: str, steps: int = TRAIN_STEPS) -> list:

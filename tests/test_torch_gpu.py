@@ -1655,11 +1655,7 @@ def card_ranks(tmp_path_factory):
     from repro_torch.train.step import init_state
     _build.lib()                       # built once, before the ranks load it
     io = tmp_path_factory.mktemp("card_ranks")
-    rng = np.random.default_rng(0)
-    S, M, mb, d = (R.PIPE[k] for k in ("S", "M", "mb", "d"))
-    np.savez(io / "pipeline_in_0.npz",
-             ws=(rng.standard_normal((S, d, d)) * 0.3).astype(np.float32),
-             x=rng.standard_normal((M, mb, d)).astype(np.float32))
+    R.pipeline_inputs(str(io))
     for case, (arch, over, _) in R.TRAIN_CASES.items():
         CheckpointManager(str(io / f"train_state_{case}")).save(
             0, init_state(reduced_config(arch, **over),
@@ -1721,15 +1717,19 @@ def test_rank_engine_matches_one_process_on_the_card(card_ranks):
 
 
 def test_rank_pipeline_on_the_card_matches_sequential(card_ranks):
+    """``tanh(h @ w)`` over 4 stage ranks on the card: the output, and the
+    gradient of ``sum(y * c)`` at each of PIPE_CASES (each rank's stage
+    weight, every rank's ``x.grad``), within atol 1e-5 of the stages in
+    sequence on the CPU."""
     import _torch_ranks as R
     io, _ = card_ranks
-    inp = R.load(io, "pipeline_in", 0)
-    want = torch.from_numpy(inp["x"])
-    for w in inp["ws"]:
-        want = torch.tanh(want @ torch.from_numpy(w))
-    for rank in range(RANKS):
-        y = R.load(io, "pipeline", rank)["y"]
-        np.testing.assert_allclose(y, want.numpy(), atol=1e-5, rtol=0)
+    for case in R.PIPE_CASES:
+        want = R.tanh_reference(io, case)
+        for rank in range(RANKS):
+            y = R.load(io, "pipeline", rank)[f"{case}_y"]
+            np.testing.assert_allclose(y, want["y"], atol=R.PIPE_ATOL,
+                                       rtol=0)
+        R.check_pipe_grads(io, case, [want], RANKS)
 
 
 @pytest.mark.parametrize("case", ["dense", "moe"])

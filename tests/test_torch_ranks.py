@@ -13,7 +13,16 @@ one-process port and the JAX package.
 * ``pipeline_forward`` over 4 stage ranks at S 4, M 6, mb 2, d 16 with
   ``tanh(h @ w)`` (``tests/launch/test_distributed.py:42``): within atol
   1e-5 of the sequential forward and of JAX's ``pipeline_forward`` on the
-  same numpy inputs (one JAX subprocess with 4 fake CPU devices).
+  same numpy inputs (one JAX subprocess with 4 fake CPU devices).  Its
+  gradient (GPipe's reverse schedule): ``sum(y * c)`` at M 6, 2 and 1,
+  each rank's stage weight and every rank's ``x.grad`` within atol 1e-5
+  of ``jax.grad`` through JAX's ``pipeline_forward`` and of the port's
+  layers in sequence; a pytree stage with a frozen leaf; reduced
+  minitron-4b's blocks (float32, plain K6 and K6b) bit-equal to the
+  layers in sequence; under no_grad nothing saved and the forward-only
+  loop's bits.  Three planted faults of the backward (the ranks'
+  cotangents summed, a microbatch dropped, the reverse hop sent the wrong
+  way) must fail the gradient check.
 * The sharded step on a 2 x 2 (data, model) mesh with ``fsdp=True``: at
   JAX's test's reduced minitron-4b (``:64``; d_model 64, 4 heads, 4 KV
   heads, d_ff 128, vocab 256, B 8 x T 16, lr 1e-3) on its all-ones batch,
@@ -84,16 +93,25 @@ from repro.configs.base import RunConfig
 from repro.dist.sharding import batch_sharding, param_shardings
 from repro.train.pipeline_parallel import pipeline_forward
 from repro.train.step import init_state, train_step
-io, cases = sys.argv[1], json.loads(sys.argv[2])
-inp = np.load(io + "/pipeline_in_0.npz")
-S = inp["ws"].shape[0]
-mesh = jax.make_mesh((S,), ("stage",),
-                     axis_types=(jax.sharding.AxisType.Auto,))
-with jax.set_mesh(mesh):
-    y = pipeline_forward(lambda w, h: jnp.tanh(h @ w),
-                         jnp.asarray(inp["ws"]), jnp.asarray(inp["x"]),
-                         mesh=mesh, axis="stage")
-np.save(io + "/pipeline_jax.npy", np.asarray(y))
+io, cases, pipes = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3:]
+# the pipeline of tests/launch/test_distributed.py:42 and jax.grad of
+# sum(pipeline_forward(tanh(h @ w)) * c) with respect to ws and x
+for case in pipes:
+    inp = np.load(io + f"/pipeline_in_{case}_0.npz")
+    S = inp["ws"].shape[0]
+    mesh = jax.make_mesh((S,), ("stage",),
+                         axis_types=(jax.sharding.AxisType.Auto,))
+    ws, x, c = (jnp.asarray(inp[k]) for k in ("ws", "x", "c"))
+
+    def run(ws, x):
+        return pipeline_forward(lambda w, h: jnp.tanh(h @ w), ws, x,
+                                mesh=mesh, axis="stage")
+    with jax.set_mesh(mesh):
+        y = run(ws, x)
+        gws, gx = jax.grad(lambda ws, x: jnp.sum(run(ws, x) * c),
+                           argnums=(0, 1))(ws, x)
+    np.savez(io + f"/pipeline_jax_{case}.npz", y=np.asarray(y),
+             gws=np.asarray(gws), gx=np.asarray(gx))
 # the sharded step of tests/launch/test_distributed.py:64 on each case's
 # batches, the batch placed by batch_sharding
 mesh = jax.make_mesh((2, 2), ("data", "model"),
@@ -142,11 +160,7 @@ def ranks(tmp_path_factory):
     the io directory, the JAX engine that saved ``ckpt_jax`` and each
     case's JAX initial state."""
     io = tmp_path_factory.mktemp("ranks")
-    rng = np.random.default_rng(0)
-    S, M, mb, d = (R.PIPE[k] for k in ("S", "M", "mb", "d"))
-    np.savez(io / "pipeline_in_0.npz",
-             ws=(rng.standard_normal((S, d, d)) * 0.3).astype(np.float32),
-             x=rng.standard_normal((M, mb, d)).astype(np.float32))
+    R.pipeline_inputs(str(io))
     jstates = {}
     for case in R.TRAIN_CASES:
         jcfg, cfg = _cfgs(case)
@@ -164,10 +178,12 @@ def ranks(tmp_path_factory):
 
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                JAX_PLATFORMS="cpu",
-               XLA_FLAGS=f"--xla_force_host_platform_device_count={S}")
+               XLA_FLAGS="--xla_force_host_platform_device_count="
+               f"{R.PIPE['S']}")
     cases = {c: [a, o, R.TRAIN_LR] for c, (a, o, _) in R.TRAIN_CASES.items()}
     jax_proc = subprocess.Popen(
-        [sys.executable, "-c", _JAX_SUB, str(io), json.dumps(cases)],
+        [sys.executable, "-c", _JAX_SUB, str(io), json.dumps(cases),
+         *R.PIPE_CASES],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     try:
         R.spawn(WORLD, str(io), "cpu",
@@ -307,16 +323,104 @@ def test_checkpoint_from_jax_restores_at_four_ranks(ranks):
 # ---------------------------------------------------------------------------
 # the pipeline
 # ---------------------------------------------------------------------------
+def _pipe(ranks, rank):
+    return R.load(ranks["io"], "pipeline", rank)
+
+
+def _tanh_want(ranks, case):
+    """The sequential port's and JAX's y and gradients of ``case``."""
+    jax = dict(np.load(os.path.join(ranks["io"],
+                                    f"pipeline_jax_{case}.npz")))
+    return [R.tanh_reference(ranks["io"], case), jax]
+
+
 def test_pipeline_matches_sequential_and_jax(ranks):
-    inp = R.load(ranks["io"], "pipeline_in", 0)
-    want = torch.from_numpy(inp["x"])
-    for w in inp["ws"]:
-        want = torch.tanh(want @ torch.from_numpy(w))
-    jax_y = np.load(os.path.join(ranks["io"], "pipeline_jax.npy"))
+    seq, jax_ = _tanh_want(ranks, "m6")
     for rank in range(WORLD):
-        y = R.load(ranks["io"], "pipeline", rank)["y"]
-        np.testing.assert_allclose(y, want.numpy(), atol=1e-5, rtol=0)
-        np.testing.assert_allclose(y, jax_y, atol=1e-5, rtol=0)
+        y = _pipe(ranks, rank)["m6_y"]
+        np.testing.assert_allclose(y, seq["y"], atol=R.PIPE_ATOL, rtol=0)
+        np.testing.assert_allclose(y, jax_["y"], atol=R.PIPE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", list(R.PIPE_CASES))
+def test_pipeline_gradient_matches_sequential_and_jax(ranks, case):
+    """jax.grad of ``sum(pipeline_forward(tanh(h @ w)) * c)`` on 4 fake
+    devices, and the same layers in sequence in the port: each rank's
+    stage gradient and every rank's ``x.grad`` (stage 0's, broadcast)
+    within atol 1e-5 of both, at M 6, at M 2 < S and at M 1."""
+    wants = _tanh_want(ranks, case)
+    R.check_pipe_grads(ranks["io"], case, wants)
+    for rank in range(WORLD):
+        np.testing.assert_allclose(_pipe(ranks, rank)[f"{case}_y_grad"],
+                                   wants[1]["y"], atol=R.PIPE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("fault", list(R.PIPE_FAULTS))
+def test_pipeline_planted_fault_fails_its_check(ranks, fault):
+    """The gradient check above sees each planted fault of the backward:
+    the ranks' output cotangents summed (every gradient 4x), the first
+    microbatch summed dropped, the reverse hop sent to ``sid + 1``."""
+    wants = _tanh_want(ranks, "m6")
+    with pytest.raises(AssertionError):
+        R.check_pipe_grads(ranks["io"], f"m6_{fault}", wants)
+
+
+def test_pipeline_no_grad_saves_nothing_and_gives_the_parents_output(ranks):
+    """Under no_grad the call saves no tensor and its output has the
+    forward-only loop's bits; recorded, it saves the M stage inputs and
+    the stage's weight, and gives the same bits."""
+    for rank in range(WORLD):
+        got = _pipe(ranks, rank)
+        for case, M in R.PIPE_CASES.items():
+            assert int(got[f"{case}_saved_nograd"]) == 0
+            assert int(got[f"{case}_saved"]) == M + 1
+            np.testing.assert_array_equal(got[f"{case}_y"],
+                                          got[f"{case}_y_parent"])
+            np.testing.assert_array_equal(got[f"{case}_y_grad"],
+                                          got[f"{case}_y"])
+
+
+def test_pipeline_pytree_stage_with_a_frozen_leaf(ranks):
+    """A ``{"w": [w1, w2], "b": b}`` stage, ``b`` frozen: ``b`` gets no
+    gradient; ``w1``, ``w2`` and ``x`` match the sequential port."""
+    inp = R.load(ranks["io"], "pipeline_tree_in", 0)
+    stages = [{"w": [torch.from_numpy(w).requires_grad_() for w in ws],
+               "b": torch.from_numpy(b)}
+              for *ws, b in zip(inp["w1s"], inp["w2s"], inp["bs"])]
+    _, gx = R.sequential(R._tree_apply, stages, inp["x"], inp["c"])
+    gws = [[w.grad.numpy() for w in st["w"]] for st in stages]
+    for rank in range(WORLD):
+        got = _pipe(ranks, rank)
+        sid = int(got["stage"])
+        assert bool(got["tree_b_grad_none"])
+        assert int(got["tree_saved"]) == R.PIPE_TREE["M"] + 3
+        for k in (0, 1):
+            np.testing.assert_allclose(got[f"tree_gw{k + 1}"], gws[sid][k],
+                                       atol=R.PIPE_ATOL, rtol=0)
+        np.testing.assert_allclose(got["tree_gx"], gx, atol=R.PIPE_ATOL,
+                                   rtol=0)
+
+
+def test_pipeline_model_blocks_gradient_equals_sequential_layers(ranks):
+    """Reduced minitron-4b, 8 layers over the 4 stages, float32, M 3, mb
+    2, T 16, through block_apply(mode="train") on the plain K6 and K6b:
+    every layer leaf's gradient and ``x.grad`` bit-equal to the port's
+    layers in sequence (:func:`_torch_ranks.pipe_model_reference`)."""
+    inp = R.load(ranks["io"], "pipeline_model_in", 0)
+    want = R.pipe_model_reference(inp["x"], inp["c"])
+    per = R.PIPE_MODEL["num_layers"] // WORLD
+    for rank in range(WORLD):
+        got = _pipe(ranks, rank)
+        sid = int(got["stage"])
+        np.testing.assert_array_equal(got["model_gx"], want["gx"])
+        grads = [want[f"layer{i}"] for i in range(sid * per,
+                                                  (sid + 1) * per)]
+        flat = [g for layer in grads for g in layer]
+        assert len([k for k in got if k.startswith("model_g")
+                    and k != "model_gx"]) == len(flat)
+        for i, g in enumerate(flat):
+            np.testing.assert_array_equal(got[f"model_g{i}"], g,
+                                          err_msg=f"rank {rank} leaf {i}")
 
 
 # ---------------------------------------------------------------------------

@@ -210,18 +210,3 @@ def test_placement_of_a_state_in_a_group_of_one(group_of_one):
                                    rtol=1e-6, atol=0)
     for a, b in zip(ts._paths(ref.params), ts._paths(placed.params)):
         torch.testing.assert_close(b[1], a[1], rtol=1e-6, atol=1e-9)
-
-
-def test_pipeline_forward_refuses_a_recorded_forward():
-    """``pipeline_forward`` is forward only (its hops cross host memory
-    outside autograd): with grad enabled it refuses an input or a stage
-    parameter that requires grad, before it reaches the mesh."""
-    from repro_torch.train.pipeline_parallel import pipeline_forward
-    w = torch.ones((4, 4))
-    x = torch.ones((2, 1, 4))
-    with pytest.raises(RuntimeError, match="forward only"):
-        pipeline_forward(lambda p, h: h @ p, w, x.requires_grad_(),
-                         mesh=None)
-    with pytest.raises(RuntimeError, match="forward only"):
-        pipeline_forward(lambda p, h: h @ p, {"w": [w.requires_grad_()]},
-                         x.detach(), mesh=None)
