@@ -176,12 +176,18 @@ Phases, each printing one JSON line:
    and stall rows at 4 ranks;
    10e train_sharded — gemma2-2b at full widths in float32, cut to 4 of
    its 26 layers (TRAIN_SHARDED: two local/global pairs), on
-   a 2 x 2 (data, model) mesh with fsdp=True, each leaf gathered at use,
+   a 2 x 2 (data, model) mesh with fsdp=True, computed on its shards over
+   model as JAX's GSPMD step does (local heads, the MLP split on its
+   hidden dim, the vocab-parallel embedding and loss; every leaf gathered
+   at use over data only where the layer computes locally, else whole),
    B 2 x T 2048, 2 steps: the losses and gradient norms within rtol 1e-4
    of the one-rank step, SHARDED_LEAVES' shards (mu, nu) within their
    stated limits and each parameter's change over the run against the
    one-rank step's (step 0's rate is 0: the update shows only there), K6
-   and K6b counted on every rank, each rank's peak memory;
+   and K6b counted on every rank by their head counts (4 query and 2 KV
+   heads of gemma2-2b's 8 and 4), each rank's peak memory, step seconds
+   and bytes across host memory a step, beside the parent's
+   (TRAIN_SHARDED_PARENT);
    10f pipeline — minitron-4b's 32 layers in bf16 over 4 stage ranks
    (GPipe, M 8 microbatches of B 2 x T 2048): the output under no_grad
    bit-equal to the same 32 layers in sequence on the card; then the
@@ -438,6 +444,13 @@ DRYRUN_CLI = (("--smoke",), ("--smoke", "--mesh", "host2"),
                "pod", "--force"),
               ("--arch", "minitron-4b", "--shape", "train_4k", "--mesh",
                "pod", "--force"))
+# minitron-4b x train_4k x pod before the placed step computed over model
+# (`python -m repro_torch.launch.dryrun --arch minitron-4b --shape
+# train_4k --mesh pod` on a checkout of that code; the dry run's tensors
+# are fake, so its counts do not depend on the machine): every model rank
+# charged a layer's whole compute
+DRYRUN_POD_PARENT = {"flops_per_device": 2275760190905488.0,
+                     "collective_bytes_per_device": 22409392216.0}
 DRYRUN_TRAIN = """
 import json, sys
 from repro_torch.configs.base import ShapeConfig
@@ -476,14 +489,24 @@ RANK_TIERS = ("smoke", "stall")
 # the same state (run first in a process of its own, so that its memory is
 # the card's again before the ranks start).  Its depth is cut to 4 of the
 # 26 layers (two local/global pairs: both layer kinds and the softcap
-# stay): each rank gathers every leaf through host memory twice a step,
-# and at full depth (10.46 GB of float32) its two steps took 46-83 s each
-# and pushed the script past its time limit; 10b trains the full depth
+# stay): when each rank gathered every leaf whole through host memory
+# twice a step, at full depth (10.46 GB of float32) its two steps took
+# 46-83 s each and pushed the script past its time limit; 10b trains the
+# full depth.  The step now computes over model (a gather of a split leaf
+# brings a quarter of it; activations cross the model ranks)
 TRAIN_SHARDED = dict(TRAIN, batch=2, seq_len=2048, steps=2, mesh=(2, 2),
                      layers=4)
 # the leaves held against the one-rank step (replicated norms, attention
 # and MLP matrices split over model and data, the last layer's MLP), with
 # their AdamW moments
+# 10e before its step computed over model (PERF.md section 5, runs
+# 26A-26C, "NVIDIA H100 80GB HBM3, 700.00 W"): every leaf gathered whole
+# on every rank, K6 and K6b on all 8 query and 4 KV heads; the host bytes
+# were not counted then (3.6 GB of leaves gathered a step, twice)
+TRAIN_SHARDED_PARENT = {"step_s": [[36.3, 38.9], [22.1, 24.8]],
+                        "peak_gib": 10.06, "host_bytes_per_step": None,
+                        "leaf_bytes_gathered_per_step": 3.6e9,
+                        "k6_heads": {"8x4": 16}, "k6b_heads": {"8x4": 8}}
 SHARDED_LEAVES = ("final_norm", "layers/0/ln1", "layers/0/mixer/wq",
                   "layers/0/mixer/wo",
                   f"layers/{TRAIN_SHARDED['layers'] - 1}/ffn/wd")
@@ -669,6 +692,10 @@ DIST_FIELDS = ("tokens_appended", "pressure_events", "reclaims_triggered",
 # at step 1024 and never unpins
 DIST_SERVE = dict(SERVE, hosts=4, stall_host=1, stall_after=1024,
                   max_seconds=240.0)
+# phase 3's largest board for K1's sweep and K5 (S, V, P): 2^20
+# announcements, searched in global memory; a slab small enough that the
+# plain versions' broadcast over the board fits the card
+BIG_BOARD = (256, 8, 1 << 20)
 KERNELS = {
     "compact": ("src/repro_torch/csrc/compact.cu",
                 "src/repro/kernels/compact/kernel.py:144"),
@@ -748,7 +775,7 @@ def zero_counts() -> None:
     0."""
     for w in WRAPPERS.values():
         w.launches = 0
-    wire.copies = 0
+    wire.copies = wire.bytes = 0
     for routes in (flash_ops.flash_attention.route_launches,
                    flash_ops.flash_attention_backward.route_launches):
         for r in routes:
@@ -1047,6 +1074,53 @@ def needed_cases(dev) -> dict:
         rows[name] = dict(row, share_of_bound=b_ms / row["ms"],
                           ms_before_recorded=MS_BEFORE_RECORDED.get(name))
     rows["needed"]["launches_phase3"] = compact_ops.needed.launches
+    rows.update(big_board_cases(dev))
+    return rows
+
+
+def big_board_cases(dev) -> dict:
+    """K5's ``needed`` and K1's every-slot ``sweep`` on BIG_BOARD's board
+    of 2^20 announcements (past the opt-in shared memory the kernels
+    search the board in global memory), held exactly to their plain
+    versions, with their times and bounds."""
+    S, V, P = BIG_BOARD
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+    ts = ints(0, 4000, (S, V))
+    succ = ts + ints(1, 2000, (S, V))
+    succ[torch.rand((S, V), generator=g, device=dev) < 0.3] = TS_MAX
+    pay = ints(0, 1 << 20, (S, V))
+    ann = torch.sort(ints(3000, 5000, (P,))).values
+    ann[P - P // 4:] = TS_MAX
+    now = torch.tensor(4000, dtype=torch.int32, device=dev)
+    rows = {}
+    got, want = compact_ops.needed(ts, succ, ann, now), needed_ref(
+        ts, succ, ann, now)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want) and bool(got.any())
+          and not bool(got.all()),
+          f"needed kernel != plain version at the board of {P}")
+    b_ms, b_by = bound(*roofline.needed_cost(S, V, P))
+    row = dict(shape=f"S={S} V={V} P={P}", max_abs_err=0.0, bound_ms=b_ms,
+               bound_by=b_by, **timed(
+                   lambda: compact_ops.needed(ts, succ, ann, now),
+                   lambda: needed_ref(ts, succ, ann, now)))
+    rows["needed_board_1m"] = dict(row, share_of_bound=b_ms / row["ms"])
+    args = (ts, succ, pay, None, None, ann, now)
+    got, want = compact_ops.sweep(*args), sweep_ref(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+          and bool((got[3] != EMPTY).any()),
+          f"sweep kernel != plain version at the board of {P}")
+    b_ms, b_by = bound(*roofline.sweep_cost(S, V, S, P, lanes=False))
+    row = dict(shape=f"S={S} V={V} every slot P={P}", max_abs_err=0.0,
+               bound_ms=b_ms, bound_by=b_by,
+               **timed(lambda: compact_ops.sweep(*args),
+                       lambda: sweep_ref(*args)))
+    rows["sweep_board_1m"] = dict(row, share_of_bound=b_ms / row["ms"])
     return rows
 
 
@@ -3278,7 +3352,14 @@ def phase_dryrun(bf16: dict) -> dict:
     check(gap <= DRYRUN_PEAK_RTOL, f"dry run peak {predicted:.2f} GiB, "
           f"phase 10c {measured:.2f} GiB: {gap:.1%} apart, limit "
           f"{DRYRUN_PEAK_RTOL:.0%}")
+    pod = next(r for r in records if (r["arch"], r["shape"], r["mesh"])
+               == ("minitron-4b", "train_4k", "pod"))
     res = {"phase": "dryrun", "cells": cells, "records": records,
+           "minitron_pod": {
+               "flops_per_device": pod["flops_per_device"],
+               "collective_bytes_per_device":
+                   pod["collective_bytes_per_device"],
+               "parent": DRYRUN_POD_PARENT},
            "device": rec["device"],
            "census_per_step": census, "train_bf16_launches_per_step": want,
            "predicted_peak_gib": predicted, "measured_peak_gib": measured,
@@ -3378,11 +3459,53 @@ def rank_dist(dev, rank: int, steps: int) -> dict:
     return res
 
 
+class HeadCounts:
+    """Counts K6's and K6b's launches by their (query heads, KV heads)
+    while it is entered: the heads each rank's attention ran on."""
+
+    def __init__(self):
+        from collections import Counter
+        self.k6, self.k6b = Counter(), Counter()
+
+    def __enter__(self):
+        self.real = check = flash_ops._check
+
+        def counted(name, q, k, *args, **kw):
+            (self.k6 if name == "flash_attention" else self.k6b)[
+                f"{q.shape[1]}x{k.shape[1]}"] += 1
+            return check(name, q, k, *args, **kw)
+        # both wrappers check their CUDA operands just before a launch
+        flash_ops._check = counted
+        return self
+
+    def __exit__(self, *exc):
+        flash_ops._check = self.real
+
+
+def record_made(pl) -> dict:
+    """Wraps ``pl``'s gather of one leaf (where the placement makes every
+    tensor of a leaf) and returns the dict in which it keeps the largest
+    shape made of each leaf, by path."""
+    made, real = {}, pl._gather
+
+    def gather(shard, path, local=False):
+        x = real(shard, path, local)
+        if x.numel() > math.prod(made.get(path, (0,))):
+            made[path] = tuple(x.shape)
+        return x
+    pl._gather = gather
+    return made
+
+
 def rank_train_sharded(dev, rank: int, world: int, io: str) -> dict:
     """Phase 10e on one rank: the seed's state placed over the 2 x 2 mesh
     (each rank builds it whole in turn, keeps its shards and frees it: a
     float32 state at full depth is 31 GiB), then the sharded train_step;
-    this rank's shards of SHARDED_LEAVES go to ``io``."""
+    this rank's shards of SHARDED_LEAVES go to ``io``.  The step
+    computes on its shards over ``model`` (local heads, the MLP's
+    slice of its hidden dim, the vocabulary's rows): this rank's K6 and
+    K6b run on its heads, counted by head counts, and the bytes that
+    cross between the card and host memory are counted a step."""
     p = TRAIN_SHARDED
     cfg = _sharded_config()
     run = _sharded_run(cfg)
@@ -3393,6 +3516,7 @@ def rank_train_sharded(dev, rank: int, world: int, io: str) -> dict:
             full = init_state(cfg, torch.Generator(device=dev).manual_seed(
                 p["seed"]))
             state, pl = place_train_state(full, mesh, fsdp=True)
+            made = record_made(pl)
             del full
             torch.cuda.empty_cache()
         dist.barrier()
@@ -3412,18 +3536,22 @@ def rank_train_sharded(dev, rank: int, world: int, io: str) -> dict:
     n_attn = attention_layers(cfg)
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
-    losses, norms, step_s = [], [], []
+    losses, norms, step_s, step_bytes = [], [], [], []
+    heads = HeadCounts()
     for i in range(p["steps"]):
         batch = _batch(data, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        before = wire.bytes
         try:
-            state, m = train_step(state, batch, cfg, run, placement=pl)
+            with heads:
+                state, m = train_step(state, batch, cfg, run, placement=pl)
         except torch.OutOfMemoryError:
             print(torch.cuda.memory_summary(abbreviated=True), flush=True)
             raise
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
+        step_bytes.append(wire.bytes - before)
         emit({"phase": "train_sharded_rank", "rank": rank, "step": i,
               "seconds": step_s[-1],
               "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
@@ -3433,6 +3561,13 @@ def rank_train_sharded(dev, rank: int, world: int, io: str) -> dict:
               f"rank {rank} step {i}: loss or grad norm not finite")
     launches = launch_counts()
     copies = wire.copies
+    # local heads: gemma2-2b's 8 query heads and 4 KV heads over model 2
+    local = f"{cfg.num_heads // p['mesh'][1]}x" \
+        f"{cfg.num_kv_heads // p['mesh'][1]}"
+    check(dict(heads.k6) == {local: 2 * n_attn * p["steps"]}
+          and dict(heads.k6b) == {local: n_attn * p["steps"]},
+          f"rank {rank}: K6 / K6b heads {dict(heads.k6)} / "
+          f"{dict(heads.k6b)}, not {local}")
     k6 = dict(flash_ops.flash_attention.route_launches)
     k6_route = flash_ops.ROUTES[torch.float32]
     check(k6 == {r: 2 * n_attn * p["steps"] if r == k6_route else 0
@@ -3453,6 +3588,11 @@ def rank_train_sharded(dev, rank: int, world: int, io: str) -> dict:
            "state_gib": state_gib,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "launches": launches, "wire_copies": copies,
+           "host_bytes_per_step": step_bytes,
+           "k6_heads": dict(heads.k6), "k6b_heads": dict(heads.k6b),
+           "largest_made": {"/".join(k): list(v) for k, v in made.items()
+                            if k[0] in ("embed", "unembed")
+                            or k[-1] in ("wq", "wo", "wu", "wd")},
            "local_params": sum(x.numel() for x in tree_flatten(
                state.params))}
     del state, data
@@ -3823,6 +3963,12 @@ def phase_ranks(dev, dist_ref: dict, io: str, ref_wall: float) -> dict:
           "peak_gib_sum": sum(x["peak_gib"] for x in trains),
           "local_params_by_rank": [x["local_params"] for x in trains],
           "wire_copies_by_rank": [x["wire_copies"] for x in trains],
+          "host_bytes_per_step_by_rank": [x["host_bytes_per_step"]
+                                          for x in trains],
+          "k6_heads_by_rank": [x["k6_heads"] for x in trains],
+          "k6b_heads_by_rank": [x["k6b_heads"] for x in trains],
+          "largest_made_rank0": trains[0]["largest_made"],
+          "parent": TRAIN_SHARDED_PARENT,
           "launches_by_rank": [x["launches"] for x in trains]})
     # 10f: the stages' output against the sequential forward, their
     # gradients against stage 0's sequential reference

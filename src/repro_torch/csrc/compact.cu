@@ -10,8 +10,15 @@
 //     need = ts != EMPTY && (succ > now || exists a in A: ts <= a < succ)
 // as a lower-bound search for ts in A.  The TPU kernel's broadcast compare
 // over all of A needs no order; the search needs A sorted (TS_MAX-padded),
-// which is what the ops' contract (sort_announcements) already gives.  A
-// board above kMaxAnn entries is refused.
+// which is what the ops' contract (sort_announcements) already gives.
+//
+// Any board size runs.  A board that fits the block's shared memory (up to
+// the device's opt-in limit, cudaDevAttrMaxSharedMemoryPerBlockOptin: 227 KB
+// on the H100, so about 58000 entries sorted, or an Eytzinger tree of 2^15
+// nodes) is staged there, as above.  A larger one is searched where it
+// lies, sorted in global memory, through the read-only path (__ldg): the
+// same lower bound, its first probes shared by every thread and kept in L1
+// and L2.  Each kernel takes the route as a template flag (kGlobal).
 //
 // K1's kernels run one thread per entry and search the board as it is
 // sorted; each thread issues its entry's loads and the load of `now` before
@@ -73,7 +80,6 @@ namespace {
 constexpr int kEmpty = -1;
 constexpr int kTsMax = 2147483647;
 constexpr int kThreads = 256;
-constexpr int kMaxAnn = 12 * 1024;  // 48 KB: the default dynamic limit
 // the sweep's per-slot flags: a slab block of kThreads entries spans at
 // most kThreads + 1 slots; kept in ints ahead of the board
 constexpr int kFlagWords = (kThreads + 1 + 3) / 4;
@@ -93,25 +99,36 @@ __device__ __forceinline__ int wrap(int sid, int S) {
   return sid < 0 ? sid + S : sid;
 }
 
-// Copies the board into shared memory; every thread of the block calls it.
+// Copies the board into shared memory (nothing when it stays in global
+// memory: P = 0); every thread of the block calls it, for its barrier.
 __device__ __forceinline__ void stage_board(int* sA, const int* ann, int P) {
   for (int i = threadIdx.x; i < P; i += blockDim.x) sA[i] = ann[i];
   __syncthreads();
 }
 
-// needed(A, now) of one entry [t, s) against the staged sorted board.
-__device__ __forceinline__ bool needed_entry(int t, int s, const int* sA,
+// Entry i of the board: staged in shared memory, or read-only from global.
+template <bool kGlobal>
+__device__ __forceinline__ int board_at(const int* b, int i) {
+  if constexpr (kGlobal) return __ldg(b + i);
+  return b[i];
+}
+
+// needed(A, now) of one entry [t, s) against the sorted board b (staged,
+// or in global memory with kGlobal).
+template <bool kGlobal>
+__device__ __forceinline__ bool needed_entry(int t, int s, const int* b,
                                              int P, int now) {
   // first index with A[idx] >= t
   int lo = 0, hi = P;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (sA[mid] < t) lo = mid + 1; else hi = mid;
+    if (board_at<kGlobal>(b, mid) < t) lo = mid + 1; else hi = mid;
   }
-  const bool pinned = lo < P && sA[lo] < s;
+  const bool pinned = lo < P && board_at<kGlobal>(b, lo) < s;
   return t != kEmpty && (pinned || s > now);
 }
 
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 sweep_kernel(const int* __restrict__ ts, const int* __restrict__ succ,
              const int* __restrict__ pay, const int* __restrict__ slot_ids,
@@ -123,6 +140,8 @@ sweep_kernel(const int* __restrict__ ts, const int* __restrict__ succ,
   extern __shared__ int smem[];
   uint8_t* flag = reinterpret_cast<uint8_t*>(smem);
   int* sA = smem + kFlagWords;
+  const int* board = kGlobal ? ann : sA;
+  const int Ps = kGlobal ? 0 : P;  // entries staged
   const int now = now_p != nullptr ? *now_p : now_val;
   int t = kEmpty, s = kTsMax, p = kEmpty;
 
@@ -151,7 +170,7 @@ sweep_kernel(const int* __restrict__ ts, const int* __restrict__ succ,
       }
       for (int i = threadIdx.x; i < s1 - s0; i += kThreads) flag[i] = 0;
     }
-    stage_board(sA, ann, P);
+    stage_board(sA, ann, Ps);
     if (lanes) {
       // every writer stores the same 1: no order can change the flags
 #pragma unroll
@@ -169,7 +188,7 @@ sweep_kernel(const int* __restrict__ ts, const int* __restrict__ succ,
     if (e < n) {
       const bool swept = !lanes || flag[(int)(e / V) - s0];
       const bool kill = swept && t != kEmpty &&
-                        !needed_entry(t, s, sA, P, now);
+                        !needed_entry<kGlobal>(t, s, board, P, now);
       out_ts[e] = kill ? kEmpty : t;
       out_succ[e] = kill ? kTsMax : s;
       out_pay[e] = kill ? kEmpty : p;
@@ -195,13 +214,15 @@ sweep_kernel(const int* __restrict__ ts, const int* __restrict__ succ,
       p = pay[src];
     }
   }
-  stage_board(sA, ann, P);
+  stage_board(sA, ann, Ps);
   if (e < n) {
-    const bool kill = live && t != kEmpty && !needed_entry(t, s, sA, P, now);
+    const bool kill = live && t != kEmpty &&
+                      !needed_entry<kGlobal>(t, s, board, P, now);
     out_freed[e] = kill ? p : kEmpty;
   }
 }
 
+template <bool kGlobal>
 __global__ void compact_kernel(const int* __restrict__ ts,
                                const int* __restrict__ succ,
                                const int* __restrict__ pay,
@@ -213,7 +234,8 @@ __global__ void compact_kernel(const int* __restrict__ ts,
                                int* __restrict__ out_pay,
                                int* __restrict__ out_freed,
                                int* __restrict__ count, int R, int V, int P) {
-  extern __shared__ int sA[];  // P ints
+  extern __shared__ int sA[];  // P ints, none with kGlobal
+  const int* board = kGlobal ? ann : sA;
   const long long n = (long long)R * V;
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int now = *now_p;
@@ -225,11 +247,11 @@ __global__ void compact_kernel(const int* __restrict__ ts,
     p = pay[e];
     masked = mask[e / V] != 0;
   }
-  stage_board(sA, ann, P);
+  stage_board(sA, ann, kGlobal ? 0 : P);
   int kill = 0;
   if (e < n) {
-    kill = (masked && t != kEmpty && !needed_entry(t, s, sA, P, now)) ? 1
-                                                                       : 0;
+    kill = (masked && t != kEmpty &&
+            !needed_entry<kGlobal>(t, s, board, P, now)) ? 1 : 0;
     out_ts[e] = kill ? kEmpty : t;
     out_succ[e] = kill ? kTsMax : s;
     out_pay[e] = kill ? kEmpty : p;
@@ -288,9 +310,11 @@ __device__ __forceinline__ void load_run(const int* __restrict__ ts,
 // needed(A, now) of a run.  kWide: runs of kRun entries, the board staged
 // in Eytzinger order (stage_eytzinger) and each search L branch-free
 // levels; otherwise one entry per thread, the board staged sorted and
-// searched by needed_entry.  One byte per entry, little-endian in 32-bit
+// searched by needed_entry.  kGlobal: the board too large for shared
+// memory, searched sorted where it lies (needed_entry<true>), in runs of
+// kRun entries with kWide.  One byte per entry, little-endian in 32-bit
 // words, then one store of RUN bytes (4 entries or 1).
-template <bool kWide>
+template <bool kWide, bool kGlobal>
 __global__ void __launch_bounds__(kMaxThreads)
 needed_kernel(const int* __restrict__ ts, const int* __restrict__ succ,
               const int* __restrict__ ann, const int* __restrict__ now_p,
@@ -303,7 +327,9 @@ needed_kernel(const int* __restrict__ ts, const int* __restrict__ succ,
   int t[RUN], s[RUN];
   if (e0 < n) load_run<RUN>(ts, succ, e0, n, vec, t, s);
   const int now = now_p != nullptr ? *now_p : now_val;
-  if (kWide) {
+  if constexpr (kGlobal) {
+    // nothing to stage
+  } else if (kWide) {
     stage_eytzinger(b, ann, P, L);
   } else {
     for (int i = threadIdx.x; i < P; i += blockDim.x) b[i] = ann[i];
@@ -311,7 +337,12 @@ needed_kernel(const int* __restrict__ ts, const int* __restrict__ succ,
   __syncthreads();
   for (; e0 < n; e0 += stride) {
     uint32_t word = 0;
-    if constexpr (kWide) {
+    if constexpr (kGlobal) {
+#pragma unroll
+      for (int j = 0; j < RUN; ++j)
+        word |= (uint32_t)needed_entry<true>(t[j], s[j], ann, P, now)
+                << (8 * j);
+    } else if constexpr (kWide) {
       // lower bound of t[j] in the board: k walks down the tree
       int k[RUN];
 #pragma unroll
@@ -329,7 +360,8 @@ needed_kernel(const int* __restrict__ ts, const int* __restrict__ succ,
     } else {
 #pragma unroll
       for (int j = 0; j < RUN; ++j)
-        word |= (uint32_t)needed_entry(t[j], s[j], b, P, now) << (8 * j);
+        word |= (uint32_t)needed_entry<false>(t[j], s[j], b, P, now)
+                << (8 * j);
     }
     if (RUN == 1) {
       out[e0] = (uint8_t)word;
@@ -341,6 +373,30 @@ needed_kernel(const int* __restrict__ ts, const int* __restrict__ succ,
     }
     if (e0 + stride < n) load_run<RUN>(ts, succ, e0 + stride, n, vec, t, s);
   }
+}
+
+// The most dynamic shared memory a block may opt in to (227 KB on the
+// H100); 48 KB, the default, if the device will not say.
+size_t smem_optin() {
+  static int bytes = 0;
+  if (bytes == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&bytes,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev) != cudaSuccess)
+      bytes = kDefaultSmem;
+  }
+  return (size_t)bytes;
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory (past the
+// default 48 KB).
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 int sm_count() {
@@ -355,19 +411,16 @@ int sm_count() {
   return sms;
 }
 
-template <bool kWide>
+template <bool kWide, bool kGlobal>
 cudaError_t launch_needed(const int* ts, const int* succ, const int* ann,
                           const int* now_p, int now_val, uint8_t* out,
                           long long n, int P, int L, int vec,
                           cudaStream_t stream) {
   constexpr int RUN = kWide ? kRun : 1;
-  const size_t smem = (kWide ? ((size_t)1 << L) : (size_t)P) * sizeof(int);
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        needed_kernel<kWide>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  const size_t smem =
+      kGlobal ? 0 : (kWide ? ((size_t)1 << L) : (size_t)P) * sizeof(int);
+  const cudaError_t err = allow_smem(needed_kernel<kWide, kGlobal>, smem);
+  if (err != cudaSuccess) return err;
   // as many threads per block (a power of two, kMinThreads to
   // kMaxThreads) as spread the runs over the SMs, then as many blocks as
   // the runs need, at most kBlocksPerSm per SM (blocks walk any further
@@ -379,9 +432,34 @@ cudaError_t launch_needed(const int* ts, const int* succ, const int* ann,
   while (threads < kMaxThreads && threads < per_sm) threads *= 2;
   const long long want = (runs + threads - 1) / threads;
   const long long cap = (long long)sms * kBlocksPerSm;
-  needed_kernel<kWide><<<(int)(want < cap ? want : cap), threads, smem,
-                              stream>>>(ts, succ, ann, now_p, now_val, out,
-                                        n, P, L, vec);
+  needed_kernel<kWide, kGlobal><<<(int)(want < cap ? want : cap), threads,
+                                   smem, stream>>>(ts, succ, ann, now_p,
+                                                   now_val, out, n, P, L,
+                                                   vec);
+  return cudaSuccess;
+}
+
+// The needed-sweep's launch on one board route.
+template <bool kGlobal>
+cudaError_t launch_sweep(const int* ts, const int* succ, const int* pay,
+                         const int* slot_ids, const uint8_t* mask,
+                         const int* ann, const int* now_p, int now_val,
+                         int* out_ts, int* out_succ, int* out_pay,
+                         int* out_freed, int S, int V, int R, int P,
+                         int every_slot, cudaStream_t stream) {
+  const size_t smem = (size_t)(kFlagWords + (kGlobal ? 0 : P)) * sizeof(int);
+  const cudaError_t err = allow_smem(sweep_kernel<kGlobal>, smem);
+  if (err != cudaSuccess) return err;
+  const long long n_slab = (long long)S * V;
+  const long long n_lane = every_slot ? 0 : (long long)R * V;
+  const int slab_blocks = (int)((n_slab + kThreads - 1) / kThreads);
+  const int lane_blocks = (int)((n_lane + kThreads - 1) / kThreads);
+  if (slab_blocks + lane_blocks > 0) {
+    sweep_kernel<kGlobal><<<slab_blocks + lane_blocks, kThreads, smem,
+                            stream>>>(
+        ts, succ, pay, slot_ids, mask, ann, now_p, now_val, out_ts, out_succ,
+        out_pay, out_freed, S, V, R, P, every_slot == 0, slab_blocks);
+  }
   return cudaSuccess;
 }
 
@@ -397,24 +475,17 @@ extern "C" int mvgc_sweep(const int* ts, const int* succ, const int* pay,
                           int* out_ts, int* out_succ, int* out_pay,
                           int* out_freed, int S, int V, int R, int P,
                           int every_slot, cudaStream_t stream) {
-  if (P > kMaxAnn || (!every_slot && R > 0 && S <= 0))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(kFlagWords + P) * sizeof(int);
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long n_slab = (long long)S * V;
-  const long long n_lane = every_slot ? 0 : (long long)R * V;
-  const int slab_blocks = (int)((n_slab + kThreads - 1) / kThreads);
-  const int lane_blocks = (int)((n_lane + kThreads - 1) / kThreads);
-  if (slab_blocks + lane_blocks > 0) {
-    sweep_kernel<<<slab_blocks + lane_blocks, kThreads, smem, stream>>>(
-        ts, succ, pay, slot_ids, mask, ann, now_p, now_val, out_ts, out_succ,
-        out_pay, out_freed, S, V, R, P, every_slot == 0, slab_blocks);
-  }
+  if (!every_slot && R > 0 && S <= 0) return (int)cudaErrorInvalidValue;
+  const bool shared =
+      (size_t)(kFlagWords + P) * sizeof(int) <= smem_optin();
+  const cudaError_t err =
+      shared ? launch_sweep<false>(ts, succ, pay, slot_ids, mask, ann, now_p,
+                                   now_val, out_ts, out_succ, out_pay,
+                                   out_freed, S, V, R, P, every_slot, stream)
+             : launch_sweep<true>(ts, succ, pay, slot_ids, mask, ann, now_p,
+                                  now_val, out_ts, out_succ, out_pay,
+                                  out_freed, S, V, R, P, every_slot, stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -424,12 +495,20 @@ extern "C" int mvgc_compact(const int* ts, const int* succ, const int* pay,
                             int* out_pay, int* out_freed, int* count, int R,
                             int V, int P, cudaStream_t stream) {
   const long long n = (long long)R * V;
-  if (P > kMaxAnn) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int blocks = (int)((n + kThreads - 1) / kThreads);
-    compact_kernel<<<blocks, kThreads, P * sizeof(int), stream>>>(
-        ts, succ, pay, mask, ann, now, out_ts, out_succ, out_pay, out_freed,
-        count, R, V, P);
+    const size_t smem = (size_t)P * sizeof(int);
+    if (smem <= smem_optin()) {
+      const cudaError_t err = allow_smem(compact_kernel<false>, smem);
+      if (err != cudaSuccess) return (int)err;
+      compact_kernel<false><<<blocks, kThreads, smem, stream>>>(
+          ts, succ, pay, mask, ann, now, out_ts, out_succ, out_pay,
+          out_freed, count, R, V, P);
+    } else {
+      compact_kernel<true><<<blocks, kThreads, 0, stream>>>(
+          ts, succ, pay, mask, ann, now, out_ts, out_succ, out_pay,
+          out_freed, count, R, V, P);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -440,19 +519,30 @@ extern "C" int mvgc_needed(const int* ts, const int* succ, const int* ann,
                            const int* now_p, int now_val, uint8_t* out, int S,
                            int V, int P, int vec, cudaStream_t stream) {
   const long long n = (long long)S * V;
-  if (P > kMaxAnn) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     int L = 0;  // the smallest perfect tree that holds the board
-    while ((1 << L) - 1 < P) ++L;
+    while ((1LL << L) - 1 < P) ++L;
     // the wide layout once its runs still give every SM a full block of
     // 256 threads; one entry per thread below that, where more threads
-    // beat fewer wider ones
-    const cudaError_t err =
-        n >= (long long)kRun * sm_count() * 256
-            ? launch_needed<true>(ts, succ, ann, now_p, now_val, out, n, P,
-                                  L, vec, stream)
-            : launch_needed<false>(ts, succ, ann, now_p, now_val, out, n, P,
-                                   L, vec, stream);
+    // beat fewer wider ones.  Each keeps the board in global memory when
+    // its staged copy would not fit the opt-in shared memory.
+    const bool wide = n >= (long long)kRun * sm_count() * 256;
+    const size_t staged =
+        (wide ? ((size_t)1 << L) : (size_t)P) * sizeof(int);
+    const bool global = staged > smem_optin();
+    cudaError_t err;
+    if (wide && global)
+      err = launch_needed<true, true>(ts, succ, ann, now_p, now_val, out, n,
+                                      P, L, vec, stream);
+    else if (wide)
+      err = launch_needed<true, false>(ts, succ, ann, now_p, now_val, out,
+                                       n, P, L, vec, stream);
+    else if (global)
+      err = launch_needed<false, true>(ts, succ, ann, now_p, now_val, out,
+                                       n, P, L, vec, stream);
+    else
+      err = launch_needed<false, false>(ts, succ, ann, now_p, now_val, out,
+                                        n, P, L, vec, stream);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();

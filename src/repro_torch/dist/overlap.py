@@ -25,8 +25,9 @@ point-to-point and ``reduce_scatter`` do not take CUDA tensors, and its
 collectives that do stage them through host memory themselves.  So every
 collective of the port goes through :func:`wire`: a CUDA tensor is copied
 to host memory in plain sight (one host sync, counted in
-``wire.copies``), crosses gloo there, and the result is copied back to the
-caller's device.  State stays on the card; only the collectives' operands
+``wire.copies``), crosses gloo there, and the result is copied back to
+the caller's device (:func:`unwire`; the bytes of both copies in
+``wire.bytes``).  State stays on the card; only the collectives' operands
 cross.  The helpers below (:func:`exchange`, :func:`all_gather_cat`,
 :func:`all_reduce_`, :func:`broadcast_`, :func:`broadcast_tree`) are the
 port's collectives built on it; each is a per-rank function that every
@@ -54,11 +55,22 @@ def wire(x: torch.Tensor) -> torch.Tensor:
     counted in ``wire.copies``."""
     if x.is_cuda:
         wire.copies += 1
+        wire.bytes += _nbytes(x)
         return x.detach().to("cpu").contiguous()
     return x.detach().contiguous()
 
 
 wire.copies = 0
+wire.bytes = 0
+
+
+def unwire(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor that crossed gloo, on ``device``: a copy back to the
+    card is counted in ``wire.bytes`` (the bytes that cross between the
+    card and host memory, both ways)."""
+    if torch.device(device).type == "cuda":
+        wire.bytes += _nbytes(x)
+    return x.to(device)
 
 
 def _nbytes(x: torch.Tensor) -> int:
@@ -69,6 +81,8 @@ def _write_back(x: torch.Tensor, buf: torch.Tensor) -> None:
     """``buf``'s values into ``x`` where :func:`wire` made ``buf`` a copy
     (a CUDA tensor or a strided one; else they share memory)."""
     if x.is_cuda or not x.is_contiguous():
+        if x.is_cuda:
+            wire.bytes += _nbytes(buf)
         with torch.no_grad():
             x.copy_(buf)
 
@@ -103,7 +117,7 @@ def exchange(send: torch.Tensor, dst: int, src: int,
                           group)]
         for work in dist.batch_isend_irecv(ops):
             work.wait()
-        return recv.to(send.device)
+        return unwire(recv, send.device)
 
 
 def all_gather_cat(x: torch.Tensor, group: Optional[dist.ProcessGroup],
@@ -125,7 +139,7 @@ def all_gather_cat(x: torch.Tensor, group: Optional[dist.ProcessGroup],
                  for r in range(n)]
         for w in works:
             w.wait()
-        return torch.cat(parts, dim=dim).to(x.device)
+        return unwire(torch.cat(parts, dim=dim), x.device)
 
 
 def all_reduce_(x: torch.Tensor, group: Optional[dist.ProcessGroup],
@@ -139,6 +153,19 @@ def all_reduce_(x: torch.Tensor, group: Optional[dist.ProcessGroup],
         dist.all_reduce(buf, op=op, group=group)
         _write_back(x, buf)
     return x
+
+
+def all_reduce(x: torch.Tensor, group: Optional[dist.ProcessGroup],
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """gloo's all-reduce of ``x`` over ``group`` as a new tensor on ``x``'s
+    device (every rank gets the same bits); ``x`` is left as it is."""
+    if world(group) == 1:
+        return x
+    with collective("all-reduce", _nbytes(x)):
+        buf = wire(x) if x.is_cuda else x.detach().clone(
+            memory_format=torch.contiguous_format)
+        dist.all_reduce(buf, op=op, group=group)
+        return unwire(buf, x.device)
 
 
 def broadcast_(x: torch.Tensor, src: int,
@@ -178,7 +205,7 @@ def broadcast_tree(tree: Any, src: int, group: Optional[dist.ProcessGroup],
         return tree
     box = [_map(tree, wire) if dist.get_rank(group) == src else None]
     dist.broadcast_object_list(box, src=_global(group, src), group=group)
-    return _map(box[0], lambda x: x.to(device))
+    return _map(box[0], lambda x: unwire(x, device))
 
 
 def ring_all_reduce(x: torch.Tensor, reduce: str = "sum",
@@ -220,4 +247,4 @@ def _ring(x: torch.Tensor, reduce: str, group, n: int) -> torch.Tensor:
     for s in range(n - 1):
         buf[(r - s) % n] = hop((r + 1 - s) % n)
     out = buf.reshape(-1)[:flat.numel()].reshape(x.shape)
-    return (out / n if reduce == "mean" else out).to(x.device)
+    return unwire(out / n if reduce == "mean" else out, x.device)

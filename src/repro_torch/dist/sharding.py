@@ -46,6 +46,7 @@ global ones.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -54,7 +55,8 @@ import torch.distributed as dist
 from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.ckpt.manager import tree_flatten, tree_unflatten
-from repro_torch.dist.overlap import all_gather_cat, all_reduce_, wire
+from repro_torch.dist.overlap import (all_gather_cat, all_reduce,
+                                     all_reduce_, unwire, wire)
 
 
 class Spec(tuple):
@@ -249,18 +251,107 @@ def _axes_of(entry) -> Tuple[str, ...]:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
+def _local_dim(parts: Sequence[str], ndim: int) -> Optional[int]:
+    """The dim of a leaf that a layer computing over ``model`` keeps
+    split (the same names and ranks as :func:`_tp_axes`' rules): the
+    heads of ``wq``/``wk``/``wv``/``wo`` and their biases, the hidden dim
+    of a dense MLP's ``wg``/``wu``/``wd``, the vocab rows of ``embed`` and
+    ``unembed``; None for any other leaf."""
+    name = parts[-1]
+    if name in ("embed", "unembed") and ndim == 2:
+        return 0
+    if name in ("wq", "wk", "wv") and ndim == 3:
+        return 1
+    if (name == "wo" and ndim == 3) or (name in ("bq", "bk", "bv")
+                                        and ndim == 2):
+        return 0
+    if name in ("wg", "wu") and ndim == 2:
+        return 1
+    if name == "wd" and ndim == 2:
+        return 0
+    return None
+
+
 class _Gather(torch.autograd.Function):
-    """Forward: the full leaf from this rank's shard.  Backward: the full
-    leaf's gradient on this rank back to the shard's placement."""
+    """Forward: the leaf from this rank's shard (whole, or this rank's
+    piece over ``model`` when ``local``).  Backward: that tensor's
+    gradient on this rank back to the shard's placement."""
 
     @staticmethod
-    def forward(ctx, local, placement, path):
-        ctx.placement, ctx.path = placement, path
-        return placement._gather(local, path)
+    def forward(ctx, shard, placement, path, local):
+        ctx.placement, ctx.path, ctx.local = placement, path, local
+        return placement._gather(shard, path, local)
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.placement._reduce_grad(grad, ctx.path), None, None
+        return (ctx.placement._reduce_grad(grad, ctx.path, ctx.local), None,
+                None, None)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron-LM's ``f``: the identity forward; backward, the gradient
+    summed over the ``model`` ranks (each rank's column-split product saw
+    only its slice)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron-LM's ``g``: forward, the ``model`` ranks' partial sums of
+    a row-split product summed; the identity backward (every rank's
+    cotangent of the sum is the same)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class ModelAxis:
+    """The ``model`` ranks of one data row, as a layer that computes on
+    its shards sees them: ``n`` ranks, this one at ``index``; rank ``r``
+    holds the ``r``-th of ``n`` equal blocks of each split dim.  ``local``
+    names the leaves of the layer that came as this rank's pieces
+    (:meth:`Placement.gather_local`); the layer reads it, not the
+    leaves' shapes."""
+
+    def __init__(self, placement: "Placement",
+                 local: frozenset = frozenset()):
+        self.group = placement._group("model")
+        self.n, self.index = placement.sizes["model"], placement.coord["model"]
+        self.local = local
+
+    def holding(self, local: frozenset) -> "ModelAxis":
+        """This axis for a layer whose leaves ``local`` came as pieces."""
+        out = copy.copy(self)
+        out.local = local
+        return out
+
+    def f(self, x: torch.Tensor) -> torch.Tensor:
+        """Where a replicated activation enters a column-split product:
+        the identity forward, its gradient summed over the ranks."""
+        return _CopyToModel.apply(x, self.group)
+
+    def g(self, x: torch.Tensor) -> torch.Tensor:
+        """After a row-split product: the partial sums summed over the
+        ranks; the identity backward."""
+        return _ReduceFromModel.apply(x, self.group)
+
+    def reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM
+               ) -> torch.Tensor:
+        """A statistic (no gradient) reduced over the ranks, as a new
+        tensor."""
+        return all_reduce(x.detach(), self.group, op)
 
 
 class Placement:
@@ -268,8 +359,9 @@ class Placement:
     ``DeviceMesh`` whose axes name the spec's axes): each leaf's spec
     (``specs``, :func:`param_shardings`' tree, at most one axis per dim).
     Batch rows split over :func:`batch_axes`; ranks that differ only on
-    the other axes (``model``) hold the same rows and compute the same
-    full gradients."""
+    the other axes (``model``) hold the same rows: a leaf gathered whole
+    gets the same full gradient on each of them, a leaf gathered as its
+    piece (:meth:`gather_local`) that piece's."""
 
     def __init__(self, mesh, specs):
         coord = mesh.get_coordinate()
@@ -282,6 +374,10 @@ class Placement:
         if any(isinstance(e, tuple) for s in self.specs.values() for e in s):
             raise ValueError("a parameter dim sharded over several axes")
         self.batch_axes = batch_axes(mesh)
+        #: the model axis of a layer computing on its shards (None when
+        #: the mesh has no ``model`` axis larger than 1)
+        self.tp = ModelAxis(self) if self.sizes.get("model", 1) > 1 \
+            else None
 
     def _index(self, axes: Tuple[str, ...]) -> Tuple[int, int]:
         """(this rank's index, count) over ``axes``, major first."""
@@ -314,29 +410,47 @@ class Placement:
     def _split(self, path) -> bool:
         return any(a and self.sizes[a] > 1 for a in self.specs[path])
 
-    def _gather(self, local: torch.Tensor, path) -> torch.Tensor:
-        """The full leaf from this rank's shard.  The pieces meet in host
-        memory, where gloo moves them, and only the full leaf goes to the
-        shard's device."""
-        if not self._split(path):
-            return local.clone()
-        x = wire(local)
-        for d, a in enumerate(self.specs[path]):
-            if a:
-                x = all_gather_cat(x, self._group(a), dim=d)
-        return x.to(local.device)
+    def is_local(self, path) -> bool:
+        """Whether a layer that gathers ``path`` by :meth:`gather_local`
+        gets this rank's piece over ``model``: the specs split the leaf
+        over ``model`` on its :func:`_local_dim`."""
+        spec = self.specs[path]
+        d = _local_dim(path, len(spec))
+        return self.tp is not None and d is not None and spec[d] == "model"
 
-    def _reduce_grad(self, grad: torch.Tensor, path) -> torch.Tensor:
-        """The full leaf's gradient on this rank -> the gradient of this
-        rank's shard: averaged over the batch axes (each row of them took
-        its own rows of the batch), taken once over the other axes (whose
-        ranks computed the same thing).  This rank's slice crosses to host
-        memory once, is reduced and cut there, and only the shard's
-        gradient comes back."""
+    def _gather(self, shard: torch.Tensor, path, local: bool = False
+                ) -> torch.Tensor:
+        """The leaf from this rank's shard: whole, or with ``local`` (a
+        leaf :meth:`is_local`) gathered over every axis but ``model``.
+        The pieces meet in host memory, where gloo moves them, and only
+        the result goes to the shard's device.  Every tensor the
+        placement makes of a leaf is made here."""
+        axes = [a for a in self.specs[path] if a and self.sizes[a] > 1
+                and not (local and a == "model")]
+        if not axes:
+            x = shard.clone()
+        else:
+            x = wire(shard)
+            for d, a in enumerate(self.specs[path]):
+                if a in axes:
+                    x = all_gather_cat(x, self._group(a), dim=d)
+            x = unwire(x, shard.device)
+        return x
+
+    def _reduce_grad(self, grad: torch.Tensor, path, local: bool = False
+                     ) -> torch.Tensor:
+        """The gathered leaf's gradient on this rank -> the gradient of
+        this rank's shard: averaged over the batch axes (each row of them
+        took its own rows of the batch), taken once over the other axes
+        (whose ranks computed the same thing; a ``local`` leaf's gradient
+        is already this rank's piece over ``model``).  This rank's slice
+        crosses to host memory once, is reduced and cut there, and only
+        the shard's gradient comes back."""
         batch = [a for a in self.batch_axes if self.sizes.get(a, 1) > 1]
         if not batch and not self._split(path):
             return grad
-        others = [a for a in self.sizes if a not in self.batch_axes]
+        others = [a for a in self.sizes if a not in self.batch_axes
+                  and not (local and a == "model")]
         g = self._cut(grad, path, others)
         g = wire(g) if g.is_cuda else g.clone(
             memory_format=torch.contiguous_format)
@@ -345,22 +459,51 @@ class Placement:
         n_batch = math.prod(self.sizes[a] for a in batch)
         if n_batch > 1:
             g /= n_batch
-        return self._cut(g, path, batch).contiguous().to(grad.device)
+        return unwire(self._cut(g, path, batch).contiguous(), grad.device)
 
     def gather(self, tree, *path: str):
-        """The full leaves of ``tree`` (this rank's shards of the subtree
-        at ``path``), each gathered over the axes that shard it just
-        now; autograd sends each full leaf's gradient back to its shard
+        """The whole leaves of ``tree`` (this rank's shards of the subtree
+        at ``path``), each gathered just now over the axes that shard it;
+        autograd sends each whole leaf's gradient back to its shard
         (:meth:`_reduce_grad`).  Called inside a checkpointed layer, the
         recompute gathers again.  With grad disabled (serving) a leaf
         that no axis splits is the shard itself, not a copy."""
+        return self._gather_tree(tree, tuple(str(p) for p in path), False)
+
+    def gather_local(self, tree, *path: str):
+        """For a layer that computes on its shards over ``model``: the
+        leaves of ``tree`` as :meth:`gather` gives them, except that a
+        leaf :meth:`is_local` is gathered over every axis but ``model``
+        (this rank's piece of it), and its gradient stays that piece's.
+        Returns ``(leaves, tp)``: ``tp`` is :attr:`tp` holding the names
+        of the leaves that came as pieces, or None when none did (no
+        ``model`` axis, or no leaf split over it)."""
         prefix = tuple(str(p) for p in path)
+        out = self._gather_tree(tree, prefix, True)
+        local = frozenset((prefix + p)[-1] for p, _ in _paths(tree)
+                          if self.is_local(prefix + p))
+        return out, self.tp.holding(local) if local else None
+
+    def _gather_tree(self, tree, prefix, local: bool):
+        paths = _paths(tree)
+        flags = [local and self.is_local(prefix + p) for p, _ in paths]
         if not torch.is_grad_enabled():
             return tree_unflatten(tree, [
-                self._gather(x, prefix + p) if self._split(prefix + p)
-                else x for p, x in _paths(tree)])
+                self._gather(x, prefix + p, loc)
+                if self._split(prefix + p) else x
+                for (p, x), loc in zip(paths, flags)])
         return tree_unflatten(tree, [
-            _Gather.apply(x, self, prefix + p) for p, x in _paths(tree)])
+            _Gather.apply(x, self, prefix + p, loc)
+            for (p, x), loc in zip(paths, flags)])
+
+    def leaf_max(self, x: torch.Tensor, path) -> torch.Tensor:
+        """The max of a per-shard statistic of leaf ``path`` over the
+        ranks that hold its distinct shards (every axis that splits it),
+        written into ``x`` and returned."""
+        for a in self.specs[path]:
+            if a and self.sizes[a] > 1:
+                all_reduce_(x, self._group(a), op=dist.ReduceOp.MAX)
+        return x
 
     # -- batch, loss and norm -------------------------------------------
     def split(self, batch: Dict[str, torch.Tensor]
@@ -524,17 +667,23 @@ class ServePlacement:
 
 def place_train_state(state, mesh, *, fsdp: bool = False,
                       attn_hd_shard: bool = False,
-                      moe_replicate: bool = False):
+                      moe_replicate: bool = False,
+                      grad_compression: bool = False):
     """Place a ``TrainState`` over ``mesh`` on this rank, the counterpart of
     ``jax.device_put(state, shardings)`` in JAX's test: the params, and
     AdamW's ``mu`` and ``nu`` by the same specs, cut to this rank's
-    shards; ``err`` and ``step`` replicated.  Every rank passes the same
-    full state (built from one seed).  Returns ``(state of shards,
-    Placement)``; the full state can be freed."""
+    shards; ``step`` replicated; ``err`` by the same specs with
+    ``grad_compression`` (the run's: its carry is a leaf like each
+    parameter, as :func:`repro_torch.launch.specs.train_state_specs`
+    and JAX's ``launch/specs.py`` place it), else replicated.  Every rank passes the same full state (built from one
+    seed).  Returns ``(state of shards, Placement)``; the full state can
+    be freed."""
     specs = param_shardings(state.params, mesh, fsdp=fsdp,
                             attn_hd_shard=attn_hd_shard,
                             moe_replicate=moe_replicate)
     pl = Placement(mesh, specs)
     opt = state.opt._replace(mu=pl.shard_tree(state.opt.mu),
                              nu=pl.shard_tree(state.opt.nu))
-    return state._replace(params=pl.shard_tree(state.params), opt=opt), pl
+    err = pl.shard_tree(state.err) if grad_compression else state.err
+    return state._replace(params=pl.shard_tree(state.params), opt=opt,
+                          err=err), pl

@@ -28,9 +28,10 @@ before the board barrier and, on a large slab, streams runs of 4 entries
 per thread (16-byte loads, one 4-byte store of bools) over about one
 block per SM, with the board in Eytzinger order; a smaller slab takes
 one entry per thread and the board as it is sorted (see
-``csrc/compact.cu``).  A board larger than the
-kernels' shared-memory copy of it (``kMaxAnn`` in ``csrc/compact.cu``,
-12288 entries) raises.
+``csrc/compact.cu``).  Every board size runs: a board that fits the
+block's opt-in shared memory (227 KB on the H100) is staged there, a
+larger one searched sorted where it lies in global memory, through the
+read-only path.
 """
 from __future__ import annotations
 

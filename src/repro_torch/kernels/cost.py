@@ -81,26 +81,39 @@ def collective(kind: str, result_bytes: float, operand_bytes: float = 0.0):
 # ---------------------------------------------------------------------------
 # the kernels' costs
 # ---------------------------------------------------------------------------
+def board_bytes(P: int, searches: int) -> int:
+    """The bytes of a sorted board of ``P`` entries that ``searches``
+    lower-bound searches must read: every entry, or, on a board larger
+    than the searches can reach, the ``ceil(log2(P + 1))`` probes of
+    each."""
+    return 4 * min(P, searches * math.ceil(math.log2(P + 1)))
+
+
 def sweep_cost(S: int, V: int, R: int, P: int, lanes: bool = True) -> Cost:
     """K1's ``sweep``: the [S, V] slab read and written (ts, succ,
     payload), ``R`` lane ids and masks (``lanes``; every slot without
-    them, ``R = S``), freed handles, the board of ``P`` and ``now``;
-    ``log2(P)`` compares per entry swept."""
-    nbytes = S * V * 12 * 2 + (R * 5 if lanes else 0) + R * V * 4 + P * 4 + 4
-    ops = (S + (R if lanes else 0)) * V * math.log2(max(P, 1))
-    return nbytes, ops, "int32"
+    them, ``R = S``), freed handles, the board of ``P`` as far as the
+    searches reach it (:func:`board_bytes`) and ``now``; ``log2(P)``
+    compares per entry swept."""
+    swept = (S + (R if lanes else 0)) * V
+    nbytes = (S * V * 12 * 2 + (R * 5 if lanes else 0) + R * V * 4
+              + board_bytes(P, swept) + 4)
+    return nbytes, swept * math.log2(max(P, 1)), "int32"
 
 
 def compact_cost(R: int, V: int, P: int) -> Cost:
     """K1's parity op ``compact`` over ``R`` rows: 12 bytes an entry read,
-    16 written, the mask, board, ``now`` and count."""
-    nbytes = R * V * 4 * 3 + R + P * 4 + 4 + R * V * 4 * 4 + 4
+    16 written, the mask, the board as far as the searches reach it,
+    ``now`` and count."""
+    nbytes = (R * V * 4 * 3 + R + board_bytes(P, R * V) + 4
+              + R * V * 4 * 4 + 4)
     return nbytes, R * V * (math.log2(max(P, 1)) + 8), "int32"
 
 
 def needed_cost(S: int, V: int, P: int) -> Cost:
-    """K5: ts and succ read, one bool written per entry."""
-    return (S * V * (4 * 2 + 1) + P * 4 + 4,
+    """K5: ts and succ read, one bool written per entry, the board as far
+    as the searches reach it."""
+    return (S * V * (4 * 2 + 1) + board_bytes(P, S * V) + 4,
             S * V * math.log2(max(P, 2)), "int32")
 
 

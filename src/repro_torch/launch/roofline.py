@@ -42,7 +42,7 @@ import os
 from typing import Dict, List, Optional, Tuple
 
 from repro_torch.kernels.cost import (  # noqa: F401  (read from here)
-    Cost, compact_cost, flash_backward_cost, flash_prefill_cost,
+    Cost, board_bytes, compact_cost, flash_backward_cost, flash_prefill_cost,
     needed_cost, paged_decode_cost, search_cost, search_gather_cost,
     sweep_cost, value_at_cost, view_cost, visible_pairs)
 

@@ -256,15 +256,33 @@ def _placed(shapes, specs, mesh):
         shard_shape(x.shape, s, mesh), x.dtype))
 
 
+def train_state_specs(state, mesh, run: RunConfig, *,
+                      attn_hd_shard: bool = False,
+                      moe_replicate: bool = False):
+    """The spec tree of a ``TrainState`` (JAX's ``build_train_cell``'s
+    ``state_shard``): the params by :func:`param_shardings`, AdamW's
+    moments by the same specs, its step and the state's step replicated,
+    and ``err`` by the params' specs under ``run.grad_compression`` (its
+    carry is a leaf like each parameter), else replicated."""
+    from repro_torch.train import step as train_mod
+    pspecs = param_shardings(state.params, mesh, fsdp=run.fsdp,
+                             attn_hd_shard=attn_hd_shard,
+                             moe_replicate=moe_replicate)
+    return train_mod.TrainState(
+        params=pspecs, opt=state.opt._replace(step=Spec(), mu=pspecs,
+                                              nu=pspecs),
+        err=pspecs if run.grad_compression else replicate(state.err),
+        step=Spec())
+
+
 def build_train_cell(arch: str, mesh, shape: ShapeLike = "train_4k",
                      fsdp: Optional[bool] = None, microbatches: int = 1,
                      attn_hd_shard: bool = False,
                      moe_dispatch: Optional[str] = None,
                      moe_replicate: bool = False, pad_heads: bool = False):
     """One rank's training step: ``train_step(state, batch, placement=)``
-    on its shards of the state (params, AdamW's moments by the same
-    specs, ``err`` and ``step`` replicated) and the global batch, of
-    which it takes its rows."""
+    on its shards of the state (:func:`train_state_specs`) and the global
+    batch, of which it takes its rows."""
     from repro_torch.train import step as train_mod
     from repro_torch.dist.sharding import Placement
     cfg = _cell_cfg(arch, mesh, pad_heads, moe_dispatch)
@@ -274,16 +292,13 @@ def build_train_cell(arch: str, mesh, shape: ShapeLike = "train_4k",
     if microbatches != 1:
         run = dataclasses.replace(run, microbatches=microbatches)
     state = shapes_of(lambda dev: train_mod.init_state(
-        cfg, torch.Generator(device=dev), dtype=COMPUTE_DTYPE))
-    pspecs = param_shardings(state.params, mesh, fsdp=run.fsdp,
-                             attn_hd_shard=attn_hd_shard,
-                             moe_replicate=moe_replicate)
-    specs = train_mod.TrainState(
-        params=pspecs, opt=state.opt._replace(step=Spec(), mu=pspecs,
-                                              nu=pspecs),
-        err=replicate(state.err), step=Spec())
+        cfg, torch.Generator(device=dev), dtype=COMPUTE_DTYPE,
+        compression=run.grad_compression))
+    specs = train_state_specs(state, mesh, run,
+                              attn_hd_shard=attn_hd_shard,
+                              moe_replicate=moe_replicate)
     batch = input_specs(arch, shape)
-    placement = Placement(mesh, pspecs)
+    placement = Placement(mesh, specs.params)
 
     def step(state, batch):
         return train_mod.train_step(state, batch, cfg, run,
@@ -351,5 +366,6 @@ def build_serve_cell(arch: str, mesh, shape: ShapeLike,
 
 __all__ = ["COMPUTE_DTYPE", "Shaped", "batch_shardings",
            "build_serve_cell", "build_train_cell", "cache_shardings",
+           "train_state_specs",
            "input_specs", "mv_shardings", "replicate", "run_config",
            "map_leaves", "shard_shape", "shapes_of", "zip_map"]

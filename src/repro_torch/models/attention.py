@@ -20,6 +20,19 @@ local ring of ``repro.models.blocks``).
 The public functions keep the JAX layout ``[B, T, H, D]``; the call to K6
 transposes to its ``[B, H, T, D]``.
 
+**Local heads** (train mode on a placed state, ``tp``: the
+:class:`repro_torch.dist.sharding.ModelAxis` of the step, as JAX's GSPMD
+step computes a layer split on heads).  When ``wq`` comes split on its
+heads (``Hq / n`` of them on each of the ``n`` ``model`` ranks), this rank
+projects its query heads, runs K6 (and K6b in the backward) over them
+and the KV heads they read, and multiplies by its rows of ``wo``: a
+partial ``[B, T, d]`` that ``tp.g`` sums over the ranks.  Global query
+head ``h`` reads KV head ``h // (Hq / Hkv)``; where ``wk``/``wv`` come
+whole (``Hkv`` does not divide over ``model``), this rank takes the KV
+heads its query heads read, and their gradient is summed over the ranks
+(``tp.f`` on the weights).  With ``attn_hd_shard`` (the head dim split)
+the placement gathers the layer whole and it runs as on one rank.
+
 ``span`` (a host int) is one more than the largest position of the pass:
 no row can see a cache column at or past it.  Decode reads only the first
 ``span`` columns, which changes nothing (the others are masked), and when
@@ -110,6 +123,43 @@ def _flash(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         softcap=cfg.attn_softcap).transpose(1, 2)
 
 
+def _local_kv(params: dict, cfg: ModelConfig, h0: int, hq: int, tp):
+    """``params`` with ``wk``/``wv``/``bk``/``bv`` cut to the KV heads that
+    query heads ``[h0, h0 + hq)`` read, when they came whole: their KV
+    heads in order when each is read by as many consecutive query heads
+    (GQA kept), else one KV head per query head.  The whole weights pass
+    ``tp.f``: each rank's gradient of them is its heads' share."""
+    G = cfg.num_heads // cfg.num_kv_heads
+    if "wk" in tp.local:
+        return params                   # split with the query heads
+    want = [(h0 + j) // G for j in range(hq)]
+    lo, n = want[0], want[-1] - want[0] + 1
+    if hq % n == 0 and want == [lo + j // (hq // n) for j in range(hq)]:
+        idx = list(range(lo, lo + n))
+    else:
+        idx = want
+    sel = torch.tensor(idx, device=params["wk"].device)
+    out = dict(params)
+    for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+        if name in params:
+            out[name] = tp.f(params[name]).index_select(dim, sel)
+    return out
+
+
+def _attention_local(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                     positions: torch.Tensor, window: int, causal: bool,
+                     use_rope: Optional[bool], tp) -> torch.Tensor:
+    """Train-mode self-attention over this rank's query heads (see the
+    module docstring): the whole ``[B, T, d]`` output, summed over the
+    ``model`` ranks by ``tp.g``."""
+    hq = params["wq"].shape[1]
+    params = _local_kv(params, cfg, tp.index * hq, hq, tp)
+    q, k, v = _project_qkv(params, cfg, tp.f(x), positions,
+                           use_rope=use_rope)
+    out = _flash(cfg, q, k, v, window=window, causal=causal)
+    return tp.g(_out_proj(params, out))
+
+
 def _out_proj(params: dict, out: torch.Tensor) -> torch.Tensor:
     """``out`` [B, T, Hq, D] times ``wo`` [Hq, D, d] -> [B, T, d]."""
     B, T, Hq, D = out.shape
@@ -190,6 +240,7 @@ def attention(
     x_kv: Optional[torch.Tensor] = None,         # cross-attention source
     use_rope: Optional[bool] = None,
     window: int = 0,
+    tp=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Global attention (block kind ``attn``).  Returns (out [B, T, d],
     updated cache).  Modes, as in JAX:
@@ -201,8 +252,13 @@ def attention(
       None) with ``window`` (a ``local`` layer's ``cfg.local_window``, as
       JAX's ``attention(kind="local")``), causal only when ``causal`` and
       no ``x_kv``, no cache (None is returned for it).  A decode step's
-      cross-attention is a K6 call with T = 1."""
+      cross-attention is a K6 call with T = 1.  With ``tp`` and ``wq``
+      split on its heads (``"wq" in tp.local``), over this rank's
+      heads (the module docstring)."""
     if fill_cache is None and cache is None:
+        if tp is not None and x_kv is None and "wq" in tp.local:
+            return _attention_local(params, cfg, x, positions, window,
+                                    causal, use_rope, tp), None
         q, k, v = _project_qkv(params, cfg, x, positions, x_kv, use_rope)
         out = _flash(cfg, q, k, v, window=window,
                      causal=causal and x_kv is None)

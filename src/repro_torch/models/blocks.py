@@ -104,7 +104,7 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
 def _mixer(params: dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
            positions: torch.Tensor, cache: Optional[Cache], span: Optional[int],
            cache_len: Optional[torch.Tensor], mode: str, causal: bool,
-           inplace: bool) -> Tuple[torch.Tensor, Optional[Cache]]:
+           inplace: bool, tp=None) -> Tuple[torch.Tensor, Optional[Cache]]:
     if kind == "rglru":
         fn = rglru_decode if mode == "decode" else rglru
         return fn(params, cfg, h, cache)
@@ -116,7 +116,7 @@ def _mixer(params: dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
     if mode == "train":
         window = cfg.local_window if kind == "local" else 0
         return attention(params, cfg, h, positions, causal=causal,
-                         window=window)
+                         window=window, tp=tp)
     if kind == "local" and mode == "prefill":
         return _prefill_local_ring(params, cfg, h, positions, cache, inplace)
     if kind == "local":
@@ -135,7 +135,7 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                 cache_len: Optional[torch.Tensor] = None,
                 enc_out: Optional[torch.Tensor] = None,
                 mode: str = "prefill", causal: bool = True,
-                inplace: bool = False, group=None
+                inplace: bool = False, group=None, tp=None
                 ) -> Tuple[torch.Tensor, Any]:
     """One block in ``mode`` prefill, decode or train.  Returns (x',
     cache') when serving, where a mixture of experts' auxiliary loss is
@@ -145,12 +145,19 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     cross-attention sublayer attends over ``enc_out``; with none it falls
     back to ``x`` itself, as JAX's does (trap C13).  ``group``: the ranks
     that split a training batch's rows, for a mixture of experts'
-    statistics of the whole batch (:func:`repro_torch.models.moe.moe`)."""
+    statistics of the whole batch (:func:`repro_torch.models.moe.moe`).
+    ``tp``: in train mode on a placed state, the
+    :class:`repro_torch.dist.sharding.ModelAxis` of each part (``mixer``,
+    ``ffn``) whose leaves came split over ``model``, which then computes
+    on its shards (the attention mixer and a dense MLP); a mixture of
+    experts, the recurrent mixers and cross-attention come whole."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
+    tp = tp or {}
     h, new_cache = _mixer(params["mixer"], cfg, kind, h, positions, cache,
-                          span, cache_len, mode, causal, inplace)
+                          span, cache_len, mode, causal, inplace,
+                          tp.get("mixer"))
     if cfg.post_norms:
         h = rms_norm(h, params["ln1_post"], cfg.norm_eps)
     x = x + h
@@ -165,7 +172,7 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
         if cfg.num_experts > 0:
             h, aux = moe(params["ffn"], cfg, h, group)
         else:
-            h = mlp(params["ffn"], cfg, h)
+            h = mlp(params["ffn"], cfg, h, tp.get("ffn"))
         if cfg.post_norms:
             h = rms_norm(h, params["ln2_post"], cfg.norm_eps)
         x = x + h

@@ -13,6 +13,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -85,51 +86,82 @@ class _RowCrossEntropy(torch.autograd.Function):
     the cap (``cap tanh(x / cap)``) applied first when ``cap > 0``.
     Chunks of rows bound every temporary; only the logits and the row
     LSE are saved, and the backward writes the logits' gradient chunk by
-    chunk into one tensor."""
+    chunk into one tensor.
+
+    With ``tp`` (a :class:`repro_torch.dist.sharding.ModelAxis`) the
+    logits are this rank's ``V`` columns of a vocabulary split over the
+    ``model`` ranks, the first at ``tp.index * V``: each row's max and its
+    sum of exponentials, and the label's logit (which only the rank
+    holding the label contributes), are reduced over the ranks, so every
+    rank gets the whole rows' loss.  The backward needs no collective:
+    each rank writes its own columns' gradient."""
 
     @staticmethod
-    def forward(ctx, logits, labels, z_loss, cap):
+    def forward(ctx, logits, labels, z_loss, cap, tp):
         N, V = logits.shape
         rows = max(1, CE_CHUNK_ELEMS // max(V, 1))
+        local, here = labels, None
+        if tp is not None:
+            local = labels - tp.index * V
+            here = (local >= 0) & (local < V)
+            local = local.clamp(0, V - 1)
         lse = torch.empty((N,), dtype=torch.float32, device=logits.device)
         ll = torch.empty_like(lse)
-        for i in range(0, N, rows):
-            c = softcap(logits[i:i + rows], cap)
-            lse[i:i + rows] = torch.logsumexp(c, dim=-1)
-            ll[i:i + rows] = c.gather(1, labels[i:i + rows, None])[:, 0]
-        ctx.save_for_backward(logits, labels, lse)
+        if tp is None:
+            for i in range(0, N, rows):
+                c = softcap(logits[i:i + rows], cap)
+                lse[i:i + rows] = torch.logsumexp(c, dim=-1)
+                ll[i:i + rows] = c.gather(1, local[i:i + rows, None])[:, 0]
+        else:
+            for i in range(0, N, rows):
+                lse[i:i + rows] = softcap(logits[i:i + rows], cap).amax(-1)
+            top = tp.reduce(lse, dist.ReduceOp.MAX)
+            sums = torch.empty((2, N), dtype=torch.float32,
+                               device=logits.device)
+            for i in range(0, N, rows):
+                c = softcap(logits[i:i + rows], cap)
+                sums[0, i:i + rows] = torch.exp(
+                    c - top[i:i + rows, None]).sum(-1)
+                sums[1, i:i + rows] = torch.where(
+                    here[i:i + rows],
+                    c.gather(1, local[i:i + rows, None])[:, 0], 0.0)
+            sums = tp.reduce(sums)
+            lse, ll = top + torch.log(sums[0]), sums[1]
+        ctx.save_for_backward(logits, local, here, lse)
         ctx.z_loss, ctx.cap = z_loss, cap
         loss = lse - ll
         return loss + z_loss * lse ** 2 if z_loss > 0 else loss
 
     @staticmethod
     def backward(ctx, grad_rows):
-        logits, labels, lse = ctx.saved_tensors
+        logits, labels, here, lse = ctx.saved_tensors
         z_loss, cap = ctx.z_loss, ctx.cap
         N, V = logits.shape
         rows = max(1, CE_CHUNK_ELEMS // max(V, 1))
         # d loss_row / d s_j = p_j (1 + 2 z lse) - [j == label]
         gp = grad_rows * (1.0 + 2.0 * z_loss * lse) if z_loss > 0 \
             else grad_rows
+        hit = -grad_rows if here is None else torch.where(here, -grad_rows,
+                                                          0.0)
         out = torch.empty_like(logits)
         for i in range(0, N, rows):
             x = logits[i:i + rows]
             t = torch.tanh(x / cap) if cap > 0 else None
             s = t * cap if cap > 0 else x
             d = torch.exp(s - lse[i:i + rows, None]) * gp[i:i + rows, None]
-            d.scatter_add_(1, labels[i:i + rows, None],
-                           -grad_rows[i:i + rows, None])
+            d.scatter_add_(1, labels[i:i + rows, None], hit[i:i + rows, None])
             if t is not None:
                 d = d * (1.0 - t * t)
             out[i:i + rows] = d
-        return out, None, None, None
+        return out, None, None, None, None
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None,
                        z_loss: float = 1e-4,
                        cap: float = 0.0,
-                       count: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       count: Optional[torch.Tensor] = None,
+                       tp=None) -> torch.Tensor:
     """Token cross-entropy with a z-loss ``z_loss * lse^2`` (PaLM), in
     float32: ``logits`` [..., V], ``labels`` int [...]; with ``mask`` the
     weighted sum over ``max(count, 1)``, where ``count`` is the mask's sum
@@ -141,11 +173,16 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     caps in ``forward`` and passes the capped logits; the numbers are the
     same).  The LSE is taken in chunks of rows: at gemma2-2b's vocabulary
     a [4096, 256000] float32 logit tensor is 4.2 GB, and neither the
-    forward nor the backward makes a second one besides the gradient."""
+    forward nor the backward makes a second one besides the gradient.
+
+    ``tp`` (a :class:`repro_torch.dist.sharding.ModelAxis`) says that
+    ``logits`` are this rank's slice of the vocabulary over the ``model``
+    ranks: the vocab-parallel form, which gives every rank the same loss
+    (:class:`_RowCrossEntropy`)."""
     V = logits.shape[-1]
     flat = logits.reshape(-1, V).float()
     loss = _RowCrossEntropy.apply(flat, labels.reshape(-1).long(), z_loss,
-                                  cap)
+                                  cap, tp)
     if mask is not None:
         m = mask.reshape(-1).to(loss.dtype)
         count = m.sum() if count is None else count.to(loss.dtype)

@@ -1,6 +1,12 @@
 """Gated MLP (SwiGLU / GeGLU) and the classic two-matrix FFN (port of
 ``repro.models.mlp``).  ``jax.nn.gelu`` is the tanh form, so ``gelu`` here
-is ``approximate="tanh"``."""
+is ``approximate="tanh"``.
+
+On a placed state whose ``wu``/``wg`` come split on the hidden dim
+(column-split) and ``wd`` on its rows (row-split), as ``tp`` (a
+:class:`repro_torch.dist.sharding.ModelAxis`) says, this rank computes its
+slice of the hidden activations, and ``tp.g`` sums the partial outputs over the ``model``
+ranks (Megatron-LM's MLP, as JAX's GSPMD step computes it)."""
 from __future__ import annotations
 
 import torch
@@ -27,11 +33,18 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
-def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """``x`` [B, T, d] -> [B, T, d]."""
+def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor, tp=None
+        ) -> torch.Tensor:
+    """``x`` [B, T, d] -> [B, T, d]; with ``tp``, over this rank's slice
+    of the hidden dim when the weights come split (see the module
+    docstring)."""
+    split = tp is not None and "wu" in tp.local
+    if split:
+        x = tp.f(x)
     u = x @ params["wu"]
     if cfg.gated_mlp:
         h = _act(cfg.act, x @ params["wg"]) * u
     else:
         h = _act(cfg.act, u)
-    return h @ params["wd"]
+    out = h @ params["wd"]
+    return tp.g(out) if split else out

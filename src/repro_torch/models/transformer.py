@@ -92,9 +92,58 @@ def param_count(params) -> int:
 
 
 def _take(tree, *path):
-    """The parameters at ``path`` as they are: :func:`loss_fn`'s default
-    ``gather``."""
+    """The parameters at ``path`` as they are: the gather of a state that
+    is not placed."""
     return tree
+
+
+def _take_local(tree, *path):
+    """:func:`_take` for a layer that computes on its shards: the whole
+    parameters, no model axis."""
+    return tree, None
+
+
+def _block_params(placement, bp: dict, i: int, kind: str,
+                  cfg: ModelConfig) -> Tuple[dict, dict]:
+    """Layer ``i``'s parameters from this rank's shards, and the model
+    axes of its parts that compute on their shards: the attention mixer
+    and a dense MLP, gathered by
+    :meth:`~repro_torch.dist.sharding.Placement.gather_local` (split over
+    ``model`` where the specs split them), every other part whole (a
+    mixture of experts, the recurrent mixers, cross-attention and the
+    norms)."""
+    local = {"mixer"} if kind in ("attn", "local") else set()
+    if cfg.num_experts == 0:
+        local.add("ffn")
+    params, tp = {}, {}
+    for k in sorted(bp):
+        if k in local:
+            params[k], tp[k] = placement.gather_local(bp[k], "layers", i, k)
+        else:
+            params[k] = placement.gather(bp[k], "layers", i, k)
+    return params, tp
+
+
+def _embed(emb: torch.Tensor, cfg: ModelConfig, tokens: torch.Tensor,
+           tp=None) -> torch.Tensor:
+    """The token embeddings from the table ``emb``, times ``sqrt(d)`` with
+    ``embed_scale``.  With ``tp`` the table is this rank's ``V / n``
+    vocabulary rows of one split over ``model``: each rank looks up the
+    tokens in its rows and writes zeros for the others, and ``tp.g`` sums
+    the ranks' lookups (each row comes from one rank: the sum is
+    exact)."""
+    if tp is not None:
+        V = emb.shape[0]
+        ids = tokens.long() - tp.index * V
+        here = (ids >= 0) & (ids < V)
+        x = tp.g(torch.where(here[..., None], emb[ids.clamp(0, V - 1)],
+                             torch.zeros((), dtype=emb.dtype,
+                                         device=emb.device)))
+    else:
+        x = emb[tokens.long()]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model, dtype=x.dtype).sqrt()
+    return x
 
 
 def _run_encoder(params, cfg: ModelConfig, enc_x: torch.Tensor,
@@ -123,7 +172,8 @@ def _run_encoder(params, cfg: ModelConfig, enc_x: torch.Tensor,
 
 def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor], remat: bool,
-            gather=_take, group=None) -> Tuple[torch.Tensor, Any]:
+            embed: torch.Tensor, placement=None, group=None,
+            embed_tp=None) -> Tuple[torch.Tensor, Any]:
     """The training forward up to the final norm: (x [B, T_total, d], the
     summed auxiliary loss of every layer).
 
@@ -134,17 +184,22 @@ def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
     the recompute, so a training step launches K6 twice per attention
     layer and K6b once.
 
-    ``gather(subtree, *path)`` gives the parameters at ``path`` just
-    before their use (a layer's inside its checkpoint, so the recompute
-    calls it again): :meth:`repro_torch.dist.sharding.Placement.gather`
-    on a sharded state, the subtree itself by default.  ``group`` (a
-    :class:`repro_torch.dist.sharding.BatchGroup`) says that ``tokens``
-    are this rank's rows of a batch split over ranks: a mixture of
-    experts reads the whole batch's statistics over it."""
+    ``embed`` is the embedding table as the caller holds it (on a placed
+    state, gathered by :func:`loss_fn`, once for a tied table's two
+    uses), and ``embed_tp`` the model axis when it came as this rank's
+    vocabulary rows.  ``placement`` (a :class:`repro_torch.dist.sharding.Placement`)
+    says that ``params`` are this rank's shards: each part of a layer is
+    gathered just before its use (inside the layer's checkpoint, so the
+    recompute gathers again), the attention mixers and the dense MLPs,
+    like the embedding, over every axis but ``model``, computing on their
+    shards over it (:func:`_block_params`, :func:`_embed`), the rest
+    whole.  ``group`` (a :class:`repro_torch.dist.sharding.BatchGroup`)
+    says that ``tokens`` are this rank's rows of a batch split over
+    ranks: a mixture of experts reads the whole batch's statistics over
+    it."""
     B = tokens.shape[0]
-    x = gather(params["embed"], "embed")[tokens.long()]
-    if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model, dtype=x.dtype).sqrt()
+    gather = placement.gather if placement is not None else _take
+    x = _embed(embed, cfg, tokens, embed_tp)
     enc_out = None
     if _is_encdec(cfg):
         if frontend_embeds is None:
@@ -159,9 +214,10 @@ def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
     aux = 0.0
     for i, (bp, kind) in enumerate(zip(params["layers"], _kinds(cfg))):
         def layer(h, bp=bp, kind=kind, i=i):
-            return block_apply(gather(bp, "layers", i), cfg, kind, h,
-                               positions, enc_out=enc_out, mode="train",
-                               group=group)
+            p, tp = (_block_params(placement, bp, i, kind, cfg)
+                     if placement is not None else (bp, None))
+            return block_apply(p, cfg, kind, h, positions, enc_out=enc_out,
+                               mode="train", group=group, tp=tp)
         if remat:
             x, a = checkpoint(layer, x, use_reentrant=False,
                               preserve_rng_state=False)
@@ -180,7 +236,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     prefix, an encoder-decoder's frames through the encoder, every layer
     in train mode, the final norm, the tied or untied unembed and the
     final softcap (float32)."""
-    x, aux = _hidden(params, cfg, tokens, frontend_embeds, remat)
+    x, aux = _hidden(params, cfg, tokens, frontend_embeds, remat,
+                     params["embed"])
     logits = x @ params.get("unembed", params["embed"]).T
     if cfg.final_softcap > 0:
         logits = softcap(logits.float(), cfg.final_softcap)
@@ -188,7 +245,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            remat: bool = True, gather=_take, group=None
+            remat: bool = True, placement=None, group=None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Next-token cross-entropy over the text region (a VLM's prefix
     masked) plus ``0.01 * aux``: (loss, {"ce", "aux"}).
@@ -197,18 +254,32 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     per position, so their logits are :func:`forward`'s), and the final
     softcap is applied inside :func:`~repro_torch.models.common.
     cross_entropy_loss`, which keeps no capped copy of the logits.
-    ``gather`` and ``group`` are :func:`_hidden`'s.  Over a ``group`` of
+    ``placement`` and ``group`` are :func:`_hidden`'s; where the placement
+    splits the (un)embedding over ``model`` by vocabulary, each rank
+    unembeds into its slice of the vocabulary and the loss is the
+    vocab-parallel one (the same on every ``model`` rank).  Over a
+    ``group`` of
     ``n`` ranks that split the batch's rows, the loss is ``n`` times this
     rank's share of the whole batch's (the mask's sum is the whole
     batch's), so that its mean over the ranks is the whole batch's loss,
     as JAX's GSPMD step computes it."""
     tokens = batch["tokens"]
     fe = batch.get("frontend")
-    x, aux = _hidden(params, cfg, tokens, fe, remat, gather, group)
+    gather = (placement.gather_local if placement is not None
+              else _take_local)
+    # a tied table is gathered once, for the lookup and the unembedding
+    # (one gradient for it, reduced once)
+    emb, emb_tp = gather(params["embed"], "embed")
+    x, aux = _hidden(params, cfg, tokens, fe, remat, emb, placement, group,
+                     emb_tp)
     nf = prefix_len(cfg, fe)
     x = x[:, nf:nf + tokens.shape[1] - 1]
-    name = "unembed" if "unembed" in params else "embed"
-    logits = x @ gather(params[name], name).T
+    w, tp = emb, emb_tp
+    if "unembed" in params:
+        w, tp = gather(params["unembed"], "unembed")
+    if tp is not None:
+        x = tp.f(x)
+    logits = x @ w.T
     mask = batch.get("loss_mask")
     mask = mask[:, 1:] if mask is not None else None
     count = None
@@ -217,7 +288,7 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             tokens[:, 1:], dtype=torch.float32)
         count = group.rows(mask.float().sum()).sum()
     ce = cross_entropy_loss(logits, tokens[:, 1:], mask,
-                            cap=cfg.final_softcap, count=count)
+                            cap=cfg.final_softcap, count=count, tp=tp)
     if group is not None:
         ce = ce * group.n
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}

@@ -7,6 +7,12 @@ back into the next step's gradient (error feedback keeps convergence;
 Karimireddy et al.).  ``torch.round`` rounds half to even, as
 ``jnp.round`` does, so the int8 values and the scales equal JAX's bit for
 bit on the same float32 input.
+
+On a placed state (a :class:`repro_torch.dist.sharding.Placement`) each
+rank holds shards of the gradients and of the error carry, and a leaf's
+scale is still that of the whole leaf: the max of ``|g + e|`` over the
+ranks that hold its distinct shards (one float32 all-reduce a leaf), as
+JAX's GSPMD step computes it on a sharded state.
 """
 from __future__ import annotations
 
@@ -17,11 +23,16 @@ import torch
 from repro_torch.ckpt.manager import tree_flatten, tree_unflatten
 
 
-def quantize(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize(g: torch.Tensor, top=None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(int8 values, float32 scale ``max|g| / 127``, the max floored at
-    1e-12)."""
+    1e-12).  ``top(max|g|)`` gives the whole leaf's max where ``g`` is a
+    shard of it."""
     gf = g.float()
-    scale = torch.clamp(torch.max(torch.abs(gf)), min=1e-12) / 127.0
+    amax = torch.max(torch.abs(gf))
+    if top is not None:
+        amax = top(amax)
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -30,13 +41,22 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def compress_tree(grads: Any, error: Any) -> Tuple[Any, Any, Any]:
+def compress_tree(grads: Any, error: Any, placement=None
+                  ) -> Tuple[Any, Any, Any]:
     """(quantized, scales, new_error) of ``grads + error``, each a tree like
-    ``grads``; ``error`` is the carried state (zeros at first)."""
+    ``grads``; ``error`` is the carried state (zeros at first).  With a
+    ``placement`` both are this rank's shards, and each scale is the
+    whole leaf's (see the module docstring)."""
+    from repro_torch.dist.sharding import _paths
     qs, scales, errs = [], [], []
-    for g, e in zip(tree_flatten(grads), tree_flatten(error)):
+    paths = [p for p, _ in _paths(grads)]
+    for path, g, e in zip(paths, tree_flatten(grads), tree_flatten(error)):
         corrected = g.float() + e
-        q, s = quantize(corrected)
+        top = None
+        if placement is not None:
+            def top(x, path=path):
+                return placement.leaf_max(x.reshape(1), path).reshape(())
+        q, s = quantize(corrected, top)
         qs.append(q)
         scales.append(s)
         errs.append(corrected - dequantize(q, s))

@@ -7,8 +7,10 @@ tree, one dict per layer), the AdamW state, the error-feedback carry and
 the step.  A state placed over a ``(data, model)`` mesh
 (:func:`repro_torch.dist.sharding.place_train_state`) holds this rank's
 shards, and :func:`train_step` takes its ``Placement``: one design, each
-leaf gathered at use, layer by layer, its gradient sent back to its
-placement, AdamW on the local shards.  :func:`train_step` updates the
+leaf gathered at use, layer by layer (over ``data`` only where the layer
+computes on its shards over ``model``: attention heads, the MLP's hidden
+dim, the vocabulary), its gradient sent back to its placement, AdamW on
+the local shards.  :func:`train_step` updates the
 parameters and the moments in place and returns them (see
 :mod:`repro_torch.optim.adamw`), as the JAX step's donated buffers would
 be reused; a caller that needs the state before the step keeps a copy.
@@ -79,19 +81,20 @@ def _value_and_grad(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                     placement=None) -> Tuple[torch.Tensor, list]:
     """(loss, float32 gradient of every parameter leaf, in
     ``tree_flatten`` order), each layer checkpointed.  With a
-    ``placement`` the leaves are this rank's shards, gathered at use,
-    ``batch`` is the global batch, of which this rank takes its rows, and
-    the gradients are the shards' (averaged over the batch axes)."""
+    ``placement`` the leaves are this rank's shards, which the model
+    gathers at use and computes on over ``model`` (:func:`repro_torch.
+    models.transformer.loss_fn`), ``batch`` is the global batch, of which
+    this rank takes its rows, and the gradients are the shards'
+    (averaged over the batch axes)."""
     leaves = tree_flatten(params)
     for p in leaves:
         p.requires_grad_(True)
-    gather, group = tf._take, None
+    group = None
     if placement is not None:
-        gather = placement.gather
         batch, group = placement.split(batch)
     with torch.enable_grad():
-        loss, _ = tf.loss_fn(params, cfg, batch, remat=True, gather=gather,
-                             group=group)
+        loss, _ = tf.loss_fn(params, cfg, batch, remat=True,
+                             placement=placement, group=group)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
@@ -116,22 +119,29 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     that ``state`` holds this rank's shards: every rank passes the same
     global batch and takes its rows of each microbatch by ``batch_spec``;
     each leaf is gathered just before its layer runs (and again in the
-    checkpoint's recompute) and freed after; its gradient goes back to
-    its placement, averaged over ``data`` and taken once over ``model``
+    checkpoint's recompute) and freed after, over ``data`` only where the
+    layer computes on its shards over ``model`` (attention heads, the
+    MLP's hidden dim, the vocabulary: the activations cross the ``model``
+    ranks instead); its gradient goes back to its placement, averaged
+    over ``data``, and a leaf gathered whole taken once over ``model``
     (whose ranks compute the same thing); the loss is the mean over
     ``data`` and the clip's norm is taken over the distinct shards of
     every rank.  The statistics of the whole batch cross the ranks that
     split it (the loss mask's sum, an MoE layer's expert counts: see
     :func:`repro_torch.models.transformer.loss_fn`), so the result is the
-    one-rank step's, as JAX's GSPMD step's is.  The int8 round trip and
-    ``grad_reduce`` are refused there: the one scales each whole leaf, the
-    other is what the placement already does."""
+    one-rank step's, as JAX's GSPMD step's is.  With
+    ``run.grad_compression`` each leaf's int8 scale is that of the whole
+    leaf (the max of ``|g + e|`` over the ranks that hold its distinct
+    shards), and ``state.err`` holds this rank's shards, placed by the
+    parameters' specs (as JAX's ``launch/specs.py`` places it).
+    ``grad_reduce`` is refused there: the placement already reduces the
+    gradients over the batch axes, and a second reduction would be the
+    data-parallel loop's, not this one's."""
     mb = run.microbatches
     params = state.params
-    if placement is not None:
-        if run.grad_compression or grad_reduce is not None:
-            raise ValueError("a placed state takes neither gradient "
-                             "compression nor grad_reduce")
+    if placement is not None and grad_reduce is not None:
+        raise ValueError("a placed state takes no grad_reduce: the "
+                         "placement reduces its gradients")
     if mb > 1:
         B = batch["tokens"].shape[0]
         grads, loss = None, torch.zeros((), dtype=torch.float32,
@@ -147,17 +157,17 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     else:
         loss, grads = _value_and_grad(params, cfg, batch, placement)
     grads = tree_unflatten(params, grads)
+
+    err = state.err
+    if run.grad_compression:
+        q, scales, err = compress_tree(grads, state.err, placement)
+        grads = decompress_tree(q, scales)
+    if grad_reduce is not None:
+        grads = grad_reduce(grads)
     gnorm = None
     if placement is not None:
         loss = placement.batch_mean(loss)
         gnorm = placement.global_norm(grads)
-
-    err = state.err
-    if run.grad_compression:
-        q, scales, err = compress_tree(grads, state.err)
-        grads = decompress_tree(q, scales)
-    if grad_reduce is not None:
-        grads = grad_reduce(grads)
 
     lr = adamw.cosine_schedule(state.opt.step, base_lr=run.lr)
     params, opt, om = adamw.apply(params, grads, state.opt, lr=lr,

@@ -674,6 +674,100 @@ class _SkipUpdate:
         adamw.apply = self.real
 
 
+class _SkipG:
+    """A planted fault: attention over local heads returns this rank's
+    partial output, ``g`` (the sum over the ``model`` ranks) skipped
+    after ``wo``."""
+
+    def __enter__(self):
+        from repro_torch.models import attention as att
+        self.real = att._attention_local
+
+        def local(params, cfg, x, positions, window, causal, use_rope, tp):
+            hq = params["wq"].shape[1]
+            params = att._local_kv(params, cfg, tp.index * hq, hq, tp)
+            q, k, v = att._project_qkv(params, cfg, tp.f(x), positions,
+                                       use_rope=use_rope)
+            return att._out_proj(params, att._flash(cfg, q, k, v, window,
+                                                    causal))
+        att._attention_local = local
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as att
+        att._attention_local = self.real
+
+
+class _LocalLse:
+    """A planted fault: the vocab-parallel cross-entropy's row statistics
+    (max, sum of exponentials, the label's logit) taken over this rank's
+    slice of the vocabulary only."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tf
+        self.real = real = tf.cross_entropy_loss
+
+        class Alone:
+            def __init__(self, tp):
+                self.index, self.n = tp.index, tp.n
+
+            def reduce(self, x, op=None):
+                return x.detach()
+
+        def ce(*args, tp=None, **kw):
+            return real(*args, tp=Alone(tp) if tp is not None else None,
+                        **kw)
+        tf.cross_entropy_loss = ce
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as tf
+        tf.cross_entropy_loss = self.real
+
+
+class _SkipFBackward:
+    """A planted fault: ``f`` (where a replicated activation enters a
+    column-split product) without its backward all-reduce, so each
+    ``model`` rank keeps its own slice's share of the activation's
+    gradient (the replicated norms' gradients come out wrong)."""
+
+    def __enter__(self):
+        from repro_torch.dist.sharding import ModelAxis
+        self.real = ModelAxis.f
+        ModelAxis.f = lambda tp, x: x
+
+    def __exit__(self, *exc):
+        from repro_torch.dist.sharding import ModelAxis
+        ModelAxis.f = self.real
+
+
+#: planted faults of the compute over ``model``, each run as the dense
+#: case's placed run; each must fail check_run
+TP_FAULTS = {"fault_skip_g": _SkipG, "fault_local_lse": _LocalLse,
+             "fault_skip_f_backward": _SkipFBackward}
+
+
+class _QuantRecord:
+    """Records every call of ``optim.compress.quantize`` (a leaf of the
+    int8 round trip): its int8 values, its scale and the values it
+    rounded (``(g + e) / scale``), in call order."""
+
+    def __enter__(self):
+        from repro_torch.optim import compress
+        self.real = real = compress.quantize
+        self.calls = []
+
+        def quantize(g, top=None):
+            q, scale = real(g, top)
+            self.calls.append((q.cpu().numpy(), float(scale),
+                               (g.float() / scale).cpu().numpy()))
+            return q, scale
+        compress.quantize = quantize
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.optim import compress
+        compress.quantize = self.real
+
+
 def _record(out: dict, prefix: str, state, losses, norms) -> None:
     from repro_torch.ckpt.manager import tree_flatten
     out[prefix + ".losses"] = np.asarray(losses)
@@ -684,14 +778,46 @@ def _record(out: dict, prefix: str, state, losses, norms) -> None:
             out[f"{prefix}.{name}_{i}"] = x.detach().float().cpu().numpy()
 
 
-def placed_run(io, case, mesh, device, wrong_half=False) -> tuple:
+def compressed(cfg, run, state):
+    """``run`` with int8 gradient compression and ``state`` with its error
+    carry (zeros like the parameters)."""
+    import dataclasses
+    from repro_torch.optim.compress import init_error
+    return (dataclasses.replace(run, grad_compression=True),
+            state._replace(err=init_error(state.params)))
+
+
+def record_made(pl, made: dict) -> None:
+    """Wraps ``pl``'s gather of one leaf (where every tensor the
+    placement makes of a leaf is made) so that ``made`` keeps the shape
+    of the largest one made of each leaf, under its "/"-joined path."""
+    real = pl._gather
+
+    def gather(shard, path, local=False):
+        x = real(shard, path, local)
+        key = "/".join(path)
+        if x.numel() > int(np.prod(made.get(key, [0]))):
+            made[key] = list(x.shape)
+        return x
+    pl._gather = gather
+
+
+def placed_run(io, case, mesh, device, wrong_half=False, made=None,
+               compression=False) -> tuple:
     """TRAIN_STEPS sharded steps of ``case`` on the 2 x 2 mesh with
     ``fsdp=True``: (state of shards, losses, grad norms).  ``wrong_half``
-    plants a fault: both data rows take the batch's first half."""
+    plants a fault: both data rows take the batch's first half.  ``made``
+    (a dict) receives the largest tensor the placement made of each leaf;
+    ``compression`` runs the int8 round trip."""
     from repro_torch.dist.sharding import place_train_state
     from repro_torch.train.step import train_step
     cfg, run, state = train_setup(io, case, device)
-    state, pl = place_train_state(state, mesh, fsdp=True)
+    if compression:
+        run, state = compressed(cfg, run, state)
+    state, pl = place_train_state(state, mesh, fsdp=True,
+                                  grad_compression=compression)
+    if made is not None:
+        record_made(pl, made)
     if wrong_half:
         real = pl._index
         pl._index = lambda axes: (0, real(axes)[1])
@@ -726,7 +852,9 @@ def program_train(rank, world, io, device) -> None:
     dense and MoE cases on distinct rows; the dense case with two planted
     faults (the update skipped, both data rows on the first half); then
     data parallelism through ``make_grad_reduce`` over the data groups,
-    as it is and with both ranks on the first half."""
+    as it is and with both ranks on the first half; the dense case with
+    each of TP_FAULTS; the dense case with int8 compression, every
+    quantized leaf recorded."""
     from repro_torch.ckpt.manager import tree_flatten
     from repro_torch.dist.sharding import _paths, place_train_state
     from repro_torch.launch.mesh import make_host_mesh
@@ -742,8 +870,21 @@ def program_train(rank, world, io, device) -> None:
                                  device=device)}
     _, m = train_step(state, ones, cfg, run, placement=pl)
     out["ones_loss"] = float(m["loss"])
+    made = {}
     for case in TRAIN_CASES:
-        _record(out, case, *placed_run(io, case, mesh, device))
+        _record(out, case, *placed_run(io, case, mesh, device,
+                                       made=made if case == "dense"
+                                       else None))
+    out["made"] = record(made)
+    for name, fault in TP_FAULTS.items():
+        with fault():
+            _record(out, name, *placed_run(io, "dense", mesh, device))
+    with _QuantRecord() as rec:
+        _record(out, "compressed", *placed_run(io, "dense", mesh, device,
+                                               compression=True))
+    for i, (q, scale, v) in enumerate(rec.calls):
+        out[f"compressed.q_{i}"], out[f"compressed.scale_{i}"] = q, scale
+        out[f"compressed.v_{i}"] = v
     with _SkipUpdate():
         _record(out, "fault_skip", *placed_run(io, "dense", mesh, device))
     _record(out, "fault_half",
@@ -792,18 +933,24 @@ def held(dw, nu, rates) -> np.ndarray:
     return (np.abs(dw) >= 0.5 * rates) & (scale >= GRAD_SHARE * scale.max())
 
 
-def check_update(got, want, p0, nu) -> float:
+def check_update(got, want, p0, nu, other_grads=None) -> float:
     """Every leaf's change over the run against the reference's (the
     limits above; ``nu``: the reference's second moments); returns the
-    share of entries held to UPDATE_RTOL."""
+    share of entries held to UPDATE_RTOL.  ``other_grads`` (a mask a
+    leaf) marks entries whose gradient legitimately differs from the
+    reference's (an int8 step apart, vouched for by
+    :func:`check_compressed`): they are held to twice the rates' sum
+    only."""
     rates = rate_sum()
     big_n = total = 0
-    for g, w, p, v in zip(got, want, p0, nu):
+    for i, (g, w, p, v) in enumerate(zip(got, want, p0, nu)):
         assert g.shape == w.shape == p.shape == v.shape
         dg, dw = g - p, w - p
         spacing = 4 * np.finfo(np.float32).eps * np.abs(p)
         err = np.abs(dg - dw)
         big = held(dw, v, rates)
+        if other_grads is not None:
+            big &= ~other_grads[i]
         assert np.all(err[big] <= UPDATE_RTOL * np.abs(dw[big])
                       + spacing[big]), float(
             (err[big] / np.abs(dw[big])).max())
@@ -814,16 +961,16 @@ def check_update(got, want, p0, nu) -> float:
 
 
 def check_run(got: dict, want: dict, p0, moments: bool = True,
-              rtol: float = PORT_RTOL, nu=None) -> None:
+              rtol: float = PORT_RTOL, nu=None, other_grads=None) -> None:
     """``got`` against ``want`` (losses, grad_norms, params and, with
     ``moments``, mu and nu, leaves in one order); ``nu``, the second
     moments that pick the entries held to UPDATE_RTOL, is ``want``'s
-    unless given."""
+    unless given; ``other_grads`` is :func:`check_update`'s."""
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=rtol)
     np.testing.assert_allclose(got["grad_norms"], want["grad_norms"],
                                rtol=rtol)
     check_update(got["params"], want["params"], p0,
-                 want["nu"] if nu is None else nu)
+                 want["nu"] if nu is None else nu, other_grads)
     for key in ("mu", "nu") if moments else ():
         scale = max(float(np.abs(x).max()) for x in want[key])
         for a, b in zip(got[key], want[key]):
@@ -840,9 +987,10 @@ def like_params(case):
                           torch.Generator().manual_seed(0))
 
 
-def _full(outs, key, like):
+def _full(outs, key, like, offset=0):
     """Every leaf of ``key`` reassembled from the ranks' shards by the
-    placement's specs (the shards of one leaf tile it)."""
+    placement's specs (the shards of one leaf tile it); leaf ``i`` is the
+    record ``{key}_{offset + i}``."""
     from repro_torch.ckpt.manager import tree_flatten
     from repro_torch.dist.sharding import _paths, param_shardings
     stand_in = type("StandIn", (), {"shape": {"data": 2, "model": 2}})()
@@ -850,7 +998,8 @@ def _full(outs, key, like):
                                                   fsdp=True))]
     full = []
     for i, leaf in enumerate(tree_flatten(like)):
-        x = np.zeros(tuple(leaf.shape), np.float32)
+        x = np.zeros(tuple(leaf.shape),
+                     outs[0][f"{key}_{offset + i}"].dtype)
         for out in outs:
             coord = {"data": int(out["coord"][0]),
                      "model": int(out["coord"][1])}
@@ -859,7 +1008,7 @@ def _full(outs, key, like):
                 size = x.shape[dim] // (2 if a else 1)
                 c = coord[a] if a else 0
                 idx.append(slice(c * size, (c + 1) * size))
-            x[tuple(idx)] = out[f"{key}_{i}"]
+            x[tuple(idx)] = out[f"{key}_{offset + i}"]
         full.append(x)
     return full
 
@@ -896,10 +1045,12 @@ def data_parallel(io, prefix, world=4) -> list:
                                   ("nu", "nu"))}} for o in outs]
 
 
-def one_rank(state, case, device) -> dict:
+def one_rank(state, case, device, compression=False) -> dict:
     """``case``'s reference: the port's one-rank step from ``state`` on the
     same whole batches, TRAIN_STEPS times, as numpy, with p0, the initial
-    parameters."""
+    parameters.  ``compression``: with the int8 round trip, each
+    quantized leaf recorded (``quant``: its int8 values, scale and the
+    values it rounded, step by step)."""
     from repro_torch.ckpt.manager import tree_flatten
     from repro_torch.configs import SHAPES, reduced_config
     from repro_torch.configs.base import RunConfig
@@ -907,19 +1058,100 @@ def one_rank(state, case, device) -> dict:
     arch, over, _ = TRAIN_CASES[case]
     cfg = reduced_config(arch, **over)
     run = RunConfig(model=cfg, shape=SHAPES["train_4k"], lr=TRAIN_LR)
+    if compression:
+        run, state = compressed(cfg, run, state)
 
     def host(tree):
         return [x.detach().float().cpu().numpy().copy()
                 for x in tree_flatten(tree)]
     p0 = host(state.params)
     losses, norms = [], []
-    for b in train_batches(case):
-        state, m = train_step(state, _on(b, device), cfg, run)
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
+    with _QuantRecord() as rec:
+        for b in train_batches(case):
+            state, m = train_step(state, _on(b, device), cfg, run)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
     return {"losses": np.asarray(losses), "grad_norms": np.asarray(norms),
             "p0": p0, "params": host(state.params), "mu": host(state.opt.mu),
-            "nu": host(state.opt.nu)}
+            "nu": host(state.opt.nu), "quant": rec.calls}
+
+
+def compressed_quant(io, world=4) -> list:
+    """The placed compressed run's int8 round trip from the ranks, one
+    entry per quantized leaf in call order: (the whole leaf's int8
+    values and the values they rounded, ``(g + e) / scale``, each
+    reassembled from the shards by the specs, and the scales of every
+    rank)."""
+    from repro_torch.ckpt.manager import tree_flatten
+    outs = [load(io, "train", r) for r in range(world)]
+    like = like_params("dense")
+    n = len(tree_flatten(like))
+    calls = len([k for k in outs[0] if k.startswith("compressed.scale_")])
+    out = []
+    for t in range(0, calls, n):
+        q = _full(outs, "compressed.q", like, offset=t)
+        v = _full(outs, "compressed.v", like, offset=t)
+        for j in range(n):
+            out.append((q[j], v[j], [float(o[f"compressed.scale_{t + j}"])
+                                     for o in outs]))
+    return out
+
+
+def edge_band(scale_gap: float) -> float:
+    """How far (in steps) float32 rounding can move a value between two
+    runs whose scales differ by ``scale_gap`` (relative; the max entry's
+    own difference): that gap over the largest value, 127 steps, and
+    float32's rounding of it (half a unit in the last place, 2^-24
+    relative)."""
+    return 127 * (scale_gap + 2.0 ** -24)
+
+
+def check_compressed(got: list, want: list, n_leaves: int) -> tuple:
+    """The placed compressed step's int8 round trip (``got``:
+    :func:`compressed_quant`) against the one-rank step's (``want``:
+    :func:`one_rank`'s ``quant``), ``n_leaves`` quantized leaves a step:
+    every rank's scale within PORT_RTOL, and every int8 entry equal to
+    the one-rank step's, or one step off only where
+
+    * each run rounded its own value to nearest (so a bin edge lies
+      between the two values), and the placed value lies within
+      :func:`edge_band` of where the one-rank value predicts it: that
+      value plus the difference of the two runs' error-feedback carries
+      from the step before, which is a band's width unless that step
+      flipped the entry (a flip moves a step of the leaf into the carry);
+    * after such a flip (carried), the entry moves the way the carry
+      does.
+
+    Returns ``(at_edge, carried, flipped)``: the counts of entries off at
+    an edge with no carry and of entries off by a carry, and, for each
+    leaf, the mask of its entries that were off at some step."""
+    assert len(got) == len(want) > 0
+    at_edge = carried = 0
+    carry, flipped = {}, {}
+    for i, ((q, v, scales), (wq, wscale, wv)) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(scales, wscale, rtol=PORT_RTOL)
+        assert q.shape == wq.shape == v.shape == wv.shape
+        j, s = i % n_leaves, scales[0]
+        band = edge_band(max(abs(x - wscale) for x in scales) / wscale)
+        d = q.astype(np.int32) - wq.astype(np.int32)
+        # the carries' difference from the step before, in this step's
+        # steps of the one-rank value
+        c = carry.get(j, np.zeros(q.shape)) / s
+        rounded = ((q == np.clip(np.round(v), -127, 127))
+                   & (wq == np.clip(np.round(wv), -127, 127)))
+        predicted = np.abs(v - (wv * (wscale / s) + c)) <= band
+        was = flipped.get(j, np.zeros(q.shape, bool))
+        by_carry = np.abs(c) > band
+        ok = (np.abs(d) == 1) & rounded & predicted & (
+            ~by_carry | (np.sign(d) == np.sign(c)))
+        bad = (d != 0) & ~ok
+        assert not bad.any(), (i, int(bad.sum()), int(np.abs(d).max()))
+        at_edge += int(((d != 0) & ~by_carry).sum())
+        carried += int(((d != 0) & by_carry).sum())
+        flipped[j] = was | (d != 0)
+        carry[j] = ((v.astype(np.float64) - q) * s
+                    - (wv.astype(np.float64) - wq) * wscale)
+    return at_edge, carried, [flipped[j] for j in range(n_leaves)]
 
 
 # ---------------------------------------------------------------------------

@@ -113,19 +113,77 @@ def test_needed_kernel_on_an_empty_slab(cuda):
 
 
 def test_board_above_the_shared_memory_copy_raises(cuda):
-    """kMaxAnn (csrc/compact.cu) is 12288 announcements: K1 and K5 refuse
-    a larger board instead of launching."""
+    """A board of 12289 announcements, one past the 12288 that the kernels
+    once staged in 48 KB of shared memory and refused above (no board is
+    refused now): K5 and K1's parity op run on it, equal to their plain
+    versions, as does the board of 12288."""
     ts = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
     ann = torch.full((12 * 1024 + 1,), TS_MAX, dtype=torch.int32,
                      device=cuda)
     now = torch.tensor(1, dtype=torch.int32, device=cuda)
-    with pytest.raises(RuntimeError, match="mvgc_needed"):
-        compact_ops.needed(ts, ts, ann, now)
-    with pytest.raises(RuntimeError, match="mvgc_compact"):
-        compact_ops.compact(ts, ts, ts, torch.ones(4, dtype=torch.bool,
-                                                   device=cuda), ann, now)
-    assert torch.equal(compact_ops.needed(ts, ts, ann[:12 * 1024], now),
-                       needed_ref(ts, ts, ann[:12 * 1024], now))
+    mask = torch.ones(4, dtype=torch.bool, device=cuda)
+    for board in (ann, ann[:12 * 1024]):
+        assert torch.equal(compact_ops.needed(ts, ts, board, now),
+                           needed_ref(ts, ts, board, now))
+        for a, b in zip(compact_ops.compact(ts, ts, ts, mask, board, now),
+                        compact_ref(ts, ts, ts, mask, board, now)):
+            assert torch.equal(a, b)
+
+
+#: boards past the old 12288-entry limit: one past it (staged in opt-in
+#: shared memory), 60000 (past the H100's 227 KB opt-in: searched in
+#: global memory) and 2^20
+LARGE_BOARDS = [12 * 1024 + 1, 60000, 1 << 20]
+
+
+def _large_board(rng, P):
+    """A sorted board of P entries with duplicates and TS_MAX padding;
+    its live entries at or after now (40) and below the slabs' largest
+    ts, so that it pins some closed versions and leaves others free."""
+    ann = np.where(rng.random(P) < 0.3, TS_MAX, rng.integers(40, 70, P))
+    ann[: P // 3] = ann[P - 1]
+    return np.sort(ann).astype(np.int32)
+
+
+def _needed_chunked(ts, succ, ann, now):
+    """``needed_ref`` over row chunks (it broadcasts over the board)."""
+    rows = max(1, 2**26 // (ts.shape[1] * ann.shape[0]))
+    return torch.cat([needed_ref(ts[i:i + rows], succ[i:i + rows], ann, now)
+                      for i in range(0, ts.shape[0], rows)])
+
+
+@pytest.mark.parametrize("P", LARGE_BOARDS)
+def test_k1_k5_on_boards_past_the_old_limit(cuda, P):
+    """K1's sweep (lanes and every slot) and parity op, and K5 on both of
+    its layouts (one entry per thread, and runs of 4 at 135168 entries),
+    on boards of 12289, 60000 and 2^20 announcements: exactly their
+    plain versions, ``now`` on the card and by value."""
+    rng = np.random.default_rng(P)
+    ann = torch.from_numpy(_large_board(rng, P)).to(cuda)
+    now = torch.tensor(40, dtype=torch.int32, device=cuda)
+    # K5, both layouts (the wide one from kRun * SMs * 256 entries)
+    for S, V in ((333, 5), (16896, 8)):
+        ts, succ, _ = (torch.from_numpy(x).to(cuda) for x in slabs(rng, S,
+                                                                    V))
+        want = _needed_chunked(ts, succ, ann, 40)
+        for t in (40, now):
+            assert torch.equal(compact_ops.needed(ts, succ, ann, t), want)
+    # K1: the sweep over lanes and over every slot, and the parity op
+    S, V, R = 64, 8, 300
+    ts, succ, pay = (torch.from_numpy(x).to(cuda) for x in slabs(rng, S, V))
+    ids = torch.from_numpy(rng.integers(0, S, R).astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.random(R) < 0.8).to(cuda)
+    for lanes in ((ids, mask), (None, None)):
+        want = sweep_ref(ts, succ, pay, *lanes, ann, now)
+        for t in (now, 40):
+            got = compact_ops.sweep(ts, succ, pay, *lanes, ann, t)
+            for a, b in zip(got, want, strict=True):
+                assert torch.equal(a, b)
+        assert bool((want[3] != EMPTY).any()), "the sweep freed nothing"
+    rows = torch.from_numpy(rng.random(S) < 0.7).to(cuda)
+    for a, b in zip(compact_ops.compact(ts, succ, pay, rows, ann, now),
+                    compact_ref(ts, succ, pay, rows, ann, now)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("S,V,B,M", [(3, 1, 1, 1), (40, 8, 77, 33),
@@ -1739,7 +1797,8 @@ def test_rank_train_on_the_card_matches_one_rank(card_ranks, cuda, case):
     data parallelism over the data groups, against the one-rank step on
     the card from the same state, 3 steps: ``_torch_ranks.check_run``'s
     limits, the losses and gradient norms within JAX's rtol 1e-4; the
-    planted faults (the update skipped, a wrong half) fail them."""
+    planted faults (the update skipped, a wrong half, and the three of
+    the compute over ``model``: ``_torch_ranks.TP_FAULTS``) fail them."""
     import _torch_ranks as R
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.train.step import init_state
@@ -1754,7 +1813,7 @@ def test_rank_train_on_the_card_matches_one_rank(card_ranks, cuda, case):
         return
     for rec in R.data_parallel(io, "dp"):
         R.check_run(rec, ref, ref["p0"], rtol=R.JAX_RTOL)
-    for fault in ("fault_skip", "fault_half"):
+    for fault in ("fault_skip", "fault_half", *R.TP_FAULTS):
         with pytest.raises(AssertionError):
             R.check_run(R.placed(io, fault), ref, ref["p0"],
                         rtol=R.JAX_RTOL)

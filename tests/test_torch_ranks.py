@@ -34,6 +34,18 @@ one-process port and the JAX package.
   counts, buckets that overflow), each against the port's one-rank step
   and against JAX's sharded step on 4 fake devices (the limits at
   ``check_run``).
+* The step computes on its shards over ``model``, as JAX's GSPMD step
+  does: no rank ever holds an attention, MLP or embedding leaf that the
+  specs split over ``model`` whole (the largest tensor the placement
+  made of each is the leaf's shape over ``model``), and three planted
+  faults of that compute (``g`` skipped after ``wo``, the loss's
+  log-sum-exp over the local vocabulary only, ``f``'s backward
+  all-reduce skipped) each fail the check against the one-rank step.
+* Int8 gradient compression on the placed state (the error carry placed
+  by the parameters' specs, each scale the whole leaf's): losses and
+  gradient norms within PORT_RTOL of the one-rank compressed step, every
+  scale within PORT_RTOL, every int8 entry equal or one step off at a
+  bin edge.
 * Data parallelism through ``make_grad_reduce`` over the mesh's data
   groups of 2 (each rank half of each batch's rows): the same limits
   against the one-rank step on the whole batch.
@@ -504,6 +516,73 @@ def test_sharded_step_matches_jax_sharded(ranks, one_rank, case):
           jax.tree.leaves(ranks["jstates"][case].params)]
     R.check_run(got, want, p0, moments=False, rtol=R.JAX_RTOL,
                 nu=jax_layout(one_rank[case]["nu"]))
+
+
+def test_no_rank_holds_a_model_split_leaf_whole(ranks):
+    """The dense case's placed run: for every attention, MLP and
+    embedding leaf that the specs split over ``model`` (on the 2 x 2 mesh
+    with ``fsdp=True``), the largest tensor the placement made of it on
+    every rank is the leaf's shape with its ``model`` dim halved (its
+    ``data`` dim gathered): the layer computed on its shard.  Every other
+    leaf was gathered whole."""
+    from repro_torch.dist.sharding import _local_dim, _paths, param_shardings
+    like = R.like_params("dense")
+    stand_in = type("StandIn", (), {"shape": {"data": 2, "model": 2}})()
+    specs = dict(_paths(param_shardings(like, stand_in, fsdp=True)))
+    n_local = 0
+    for rank in range(WORLD):
+        made = json.loads(str(R.load(ranks["io"], "train", rank)["made"]))
+        for path, leaf in _paths(like):
+            name, spec = "/".join(path), specs[path]
+            d = _local_dim(path, leaf.ndim)
+            want = list(leaf.shape)
+            if d is not None and spec[d] == "model" and (
+                    path[0] in ("embed", "unembed")
+                    or path[2] in ("mixer", "ffn")):
+                want[d] //= 2
+                n_local += 1
+            assert made[name] == want, (rank, name)
+    # every attention and MLP matrix and the (un)embedding of the dense
+    # case (each divides over model)
+    matrices = [p for p, x in _paths(like) if x.ndim >= 2]
+    assert n_local == WORLD * len(matrices) > 0
+
+
+@pytest.mark.parametrize("fault", list(R.TP_FAULTS))
+def test_model_axis_planted_fault_fails_its_check(ranks, one_rank, fault):
+    """The check against the one-rank step sees each planted fault of the
+    compute over ``model``: ``g`` skipped after ``wo`` (each rank keeps
+    its heads' partial output), the loss's log-sum-exp and label logit
+    over this rank's vocabulary only, ``f``'s backward all-reduce skipped
+    (the replicated norms' gradients each rank's share)."""
+    ref = one_rank["dense"]
+    with pytest.raises(AssertionError):
+        R.check_run(R.placed(ranks["io"], fault), ref, ref["p0"])
+
+
+def test_compressed_placed_step_matches_one_rank(ranks):
+    """Int8 error-feedback compression on the placed 2 x 2 state, the
+    dense case, 3 steps, against the one-rank compressed step from the
+    same state: every leaf's scale (the whole leaf's, on every rank)
+    within PORT_RTOL; every int8 entry equal, or one step off only where
+    the one-rank value lies within float32 rounding of a bin edge
+    (``edge_band``) and each run rounded its own value, or at the step
+    right after such a flip, the way its error-feedback carry moves it;
+    then the run (losses, gradient norms, each parameter's change,
+    AdamW's moments) by ``check_run``, the entries that were one step off
+    (their gradient an int8 step apart) held to twice the rates' sum."""
+    _, cfg = _cfgs("dense")
+    ref = R.one_rank(train_state_from_numpy(
+        cfg, ranks["jstates"]["dense"], device=CPU), "dense", CPU,
+        compression=True)
+    n = len(tree_flatten(R.like_params("dense")))
+    at_edge, carried, flipped = R.check_compressed(
+        R.compressed_quant(ranks["io"]), ref["quant"], n)
+    print(f"int8 entries one step off: {at_edge} at a bin edge, {carried} "
+          "carried by the error feedback of the step before; "
+          f"{sum(int(m.sum()) for m in flipped)} entries in all")
+    R.check_run(R.placed(ranks["io"], "compressed"), ref, ref["p0"],
+                other_grads=flipped)
 
 
 def test_data_parallel_step_matches_one_rank(ranks, one_rank):

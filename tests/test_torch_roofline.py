@@ -178,6 +178,22 @@ BWD_ROWS = [("gemma2_train", "1.041458", "2.564786", "0.173752"),
             ("whisper_cross", "0.045902", "0.088033", "0.022955")]
 
 
+def test_board_bound_charges_the_probes_its_searches_reach():
+    """K1/K5's board costs every entry while the searches can reach them
+    all, and only their probes (``ceil(log2(P + 1))`` each) past that:
+    phase 3's every-slot rows at a board of 2^20 print PERF.md's bounds,
+    which the whole 4 MB board would raise about twentyfold."""
+    assert roof.board_bytes(16, 4096) == 16 * 4
+    assert roof.board_bytes(1 << 20, 2048) == 2048 * 21 * 4
+    S, V, P = _chip_smoke().BIG_BOARD
+    _held(roof.bound(*roof.needed_cost(S, V, P))[0], "0.0000569")
+    _held(roof.bound(*roof.sweep_cost(S, V, S, P, lanes=False))[0],
+          "0.0000685")
+    whole = S * V * 9 + P * 4 + 4
+    assert roof.bound(whole, 0, "int32")[0] > 20 * roof.bound(
+        *roof.needed_cost(S, V, P))[0]
+
+
 def test_shape_bounds_equal_perf_md():
     cs = _chip_smoke()
     p = cs.SERVE

@@ -14,6 +14,9 @@ package's ``repro.launch.specs``, in one process.
   ``[R]`` entry dropped (a tail layer's: as it is).
 * ``shard_shape`` and the cell builders' shard shapes on a 4-rank fake
   group (a subprocess: one fake default group a process).
+* The training cell's state specs (``train_state_specs``) against JAX's
+  ``build_train_cell``: params and the error-feedback carry, with and
+  without gradient compression.
 """
 import dataclasses
 import json
@@ -41,6 +44,7 @@ from repro_torch.configs import LONG_CONTEXT_ARCHS, get_config, runnable
 from repro_torch.configs.base import SHAPES
 from repro_torch.core.mvgc import vstore
 from repro_torch.dist.sharding import Spec
+from repro_torch.dist.sharding import _paths as ts_paths
 from repro_torch.launch import specs
 from repro_torch.models import transformer as tf
 
@@ -224,3 +228,44 @@ def test_shard_shape():
                              m) == (1, 2048)
     assert specs.shard_shape((7,), Spec(()), m) == (7,)
     assert dataclasses.is_dataclass(specs.Shaped((1,), torch.int32))
+
+
+@pytest.mark.parametrize("compression", [False, True])
+def test_train_state_specs_equal_jax(bare_specs, monkeypatch, compression):
+    """The training cell's state specs on the (16, 16) stand-in mesh for
+    every arch: params, both moments and, the error-feedback carry
+    ``err`` (by the params' specs under ``grad_compression``, as JAX's
+    ``launch/specs.py:215`` places it; replicated otherwise) equal to
+    JAX's ``build_train_cell``'s ``state_shard``.  Both packages' run
+    configs carry the flag (JAX's ``build_train_cell`` reads it from
+    ``run_config``)."""
+    m = StandIn(MESHES["16x16"])
+    real = jspecs.run_config
+    monkeypatch.setattr(js, "NamedSharding", lambda mesh, spec: spec)
+    monkeypatch.setattr(jspecs, "run_config", lambda *a, **k: dataclasses
+                        .replace(real(*a, **k),
+                                 grad_compression=compression))
+    from repro_torch.train.step import init_state
+    n_checked = 0
+    for arch in ARCHS:
+        if not jrunnable(arch, "train_4k"):
+            continue
+        _, _, (jshard, _), _ = jspecs.build_train_cell(arch, m, "train_4k")
+        cfg = get_config(arch)
+        run = dataclasses.replace(specs.run_config(arch, "train_4k"),
+                                  grad_compression=compression)
+        state = specs.shapes_of(lambda dev: init_state(
+            cfg, torch.Generator(device=dev), dtype=specs.COMPUTE_DTYPE,
+            compression=compression))
+        got = specs.train_state_specs(state, m, run)
+        for field in ("params", "err"):
+            want = _jax_specs(getattr(jshard, field))
+            for parts, spec in ts_paths(getattr(got, field)):
+                jparts, stacked = jax_path(cfg, parts)
+                jspec = want[jparts]
+                assert spec == (Spec(tuple(jspec)[1:]) if stacked
+                                else jspec), (arch, field, parts)
+                n_checked += 1
+        for name in ("mu", "nu"):
+            assert getattr(got.opt, name) == got.params
+    assert n_checked > 100
