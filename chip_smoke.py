@@ -161,13 +161,13 @@ Phases, each printing one JSON line:
    bfloat16), AdamW's moments float32, as in JAX), 4 steps: the same
    checks, with K6 on its wgmma route and K6b on its bf16 route, counted
    from zero over the 4 steps (C14: the port refused this before);
-10d-10f. four rank processes of this script (``--rank``), each on the
+10d-10f, 10h. four rank processes of this script (``--rank``), each on the
    card (cuda:0), joined by gloo through a file store (NCCL refuses two
    ranks of one group on one GPU); only the collectives cross gloo,
    through host memory.  Phase 10e's one-rank reference has run in a
    process of its own beside 10b's launcher checks (none of them timed),
    so that its memory was the card's again before 10c.  Each rank runs
-   10e and 10f, then 10d (10e needs the card's memory most):
+   10e, 10f and 10h, then 10d (10e needs the card's memory most):
    10d dist_ranks — phase 10's traffic loop unchanged, its engine spread over
    the 4 ranks by the default mesh (one host each, the LWM over the min
    ring), to phase 10's step count: every counter, the LWM after every
@@ -199,6 +199,27 @@ Phases, each printing one JSON line:
    exactly 2 M A / 4 K6 launches (forward and recompute, A attention
    layers) and M A / 4 on K6b's bf16 route; each rank's forward and
    backward seconds, peak memory and host copies;
+   10h serve_placed — MVServeEngine's prefill_step and decode_one with a
+   ServePlacement on a 2 x 2 (data, model) mesh, in bf16 at full widths,
+   computing on each rank's shards over model as JAX's decode and prefill
+   cells do (KV heads or the cache's positions, the MLP's hidden dim, the
+   RG-LRU's width, the vocabulary; ServePlacement): gemma2-2b at full
+   depth and recurrentgemma-9b at 3 of its 38 layers (SERVE_PLACED), B 16
+   (8 a data rank), a 512-token prompt, 16 greedy steps.  Rank 0 runs the
+   one-rank step in float32 and rank 1 in bf16 from the same weights,
+   side by side, first; then the placed step must give their lengths,
+   stats and store exactly, each logit row within SERVE_PLACED_K times
+   the bf16 step's distance from float32's (d16), the three runs' tokens
+   equal while a row's float32 top-2 margin exceeds twice that limit
+   (from the first step where it does not, the row is no longer
+   compared), the checked cache leaves (SERVE_PLACED_LEAVES) within the
+   same limit on the rows and positions still compared; K6 on 4 of 8
+   query and 2 of 4 KV heads (gemma2-2b) and on 8 of 16 query heads and
+   the one KV head (recurrentgemma-9b), counted by head counts; nothing
+   made larger than its shard but a heads-split ring's positions;
+   printed: prefill seconds, decode ms a step, bytes across host memory
+   a decode step and the prefill's, and peak memory, a rank, beside the
+   one-rank steps';
    A rank that fails, or outlives RANKS_TIMEOUT_S, fails the phase; every
    rank is stopped before the script goes on;
 10g. dryrun — the dry run (``repro_torch/launch/dryrun.py``: rank 0's
@@ -220,10 +241,10 @@ Phases, each printing one JSON line:
    (bound_ms computed from its inputs) and its launches in each phase
    that drives a path (launches_model, _gemma2, _gemma2_ring, _moe,
    _recurrentgemma, _xlstm, _vlm, _whisper, _durability, _dist, _train,
-   _train_bf16, and _dist_ranks, _train_sharded and _pipeline summed over
-   the ranks; K6b has a row per route, whose main paths are phase 10b's
-   and phase 10c's training); K1's,
-   K2's and K3's rows carry
+   _train_bf16, and _dist_ranks, _train_sharded, _pipeline and
+   _serve_placed summed over the ranks; K6b has a row per route, whose
+   main paths are phase 10b's and phase 10c's training); K1's, K2's and
+   K3's rows carry
    their main-path op (sweep, view, value_at) beside the chain it
    replaced and the parity op (compact, search_gather, search), each at
    the shape of the phase its launches are counted in;
@@ -235,6 +256,7 @@ without the package beside the script, it exits nonzero before any result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import itertools
 import json
@@ -266,7 +288,7 @@ from repro_torch.core.telemetry import GCConfig  # noqa: E402
 from repro_torch.dist import ShardedPagedKVEngine  # noqa: E402
 from repro_torch.dist.overlap import wire  # noqa: E402
 from repro_torch.dist.sharding import (  # noqa: E402
-    _paths, param_shardings, place_train_state)
+    ServePlacement, _paths, param_shardings, place_train_state)
 from repro_torch.launch.mesh import make_gc_mesh, make_host_mesh  # noqa: E402
 from repro_torch.train.pipeline_parallel import pipeline_forward  # noqa: E402
 from repro_torch.models.blocks import block_apply, init_block  # noqa: E402
@@ -291,6 +313,8 @@ from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch.dryrun import (  # noqa: E402
     cell_path as dryrun_cell_path)
+from repro_torch.launch.specs import (  # noqa: E402
+    cache_shardings, map_leaves)
 from repro_torch.launch.roofline import bound  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train.step import init_state, train_step  # noqa: E402
@@ -338,6 +362,19 @@ FLASH = {
                          softcap=50.0, dtype="bf16", p_rounding=True),
     "gemma2_global": dict(B=16, Hq=8, Hkv=4, T=2048, D=256, window=0,
                           softcap=50.0, dtype="bf16", p_rounding=True),
+    # phase 10h's prefill on one rank of its 2 x 2 mesh (8 rows a data
+    # rank, a 512-token prompt): gemma2-2b's 4 query and 2 KV heads a
+    # model rank at its local (window 4096) and global layers, and
+    # recurrentgemma-9b's local layer on its sequence-split cache (8 query
+    # heads over its one KV head, window 2048)
+    "gemma2_placed_local": dict(B=8, Hq=4, Hkv=2, T=512, D=256, window=4096,
+                                softcap=50.0, dtype="bf16", p_rounding=True),
+    "gemma2_placed_global": dict(B=8, Hq=4, Hkv=2, T=512, D=256, window=0,
+                                 softcap=50.0, dtype="bf16",
+                                 p_rounding=True),
+    "recurrentgemma_placed_local": dict(B=8, Hq=8, Hkv=1, T=512, D=256,
+                                        window=2048, softcap=0.0,
+                                        dtype="bf16", p_rounding=True),
     # the same layer with q scaled by 12: logits q.k/sqrt(D) of about
     # N(0, 12^2), so the cap of 50 bends them (randn's N(0, 1) logits move
     # by under 0.006 under it); the same inputs with no softcap must fail
@@ -530,6 +567,43 @@ SHARDED_GRAD_SHARE = 1e-3
 # (8 layers each), M 8 microbatches of B 2 x T 2048 of seeded activations
 PIPELINE = dict(arch="minitron-4b", microbatches=8, batch=2, seq_len=2048,
                 seed=0)
+# 10h: the placed serve step (MVServeEngine's prefill_step and decode_one
+# with a ServePlacement) on a 2 x 2 (data, model) mesh, computing on each
+# rank's shards over model as JAX's decode and prefill cells do, in bf16 at
+# full widths: gemma2-2b at full depth (KV heads on model; each local
+# ring's pos gathered whole at use) and recurrentgemma-9b cut to one period
+# of its pattern, 3 of its 38 layers (the RG-LRU on its width shard, the
+# ring on its slot shard: sequence-split decode).  B 16 (8 a data rank), a
+# 512-token prompt, 16 greedy steps into a 1024-position cache (no ring
+# wraps: C10).  Rank 0 runs the one-rank step in float32 and rank 1 in bf16
+# from the same weights (the bf16 leaves, widened for float32), side by
+# side, before the placed run
+SERVE_PLACED = {"gemma2": dict(arch="gemma2-2b", layers=None),
+                "recurrentgemma": dict(arch="recurrentgemma-9b", layers=3)}
+SERVE_PLACED_RUN = dict(batch=16, prompt=512, max_len=1024, steps=16,
+                        mesh=(2, 2), seed=0)
+# the placed bf16 step lies within SERVE_PLACED_K times the bf16 one-rank
+# step's distance from the float32 one-rank step (d16), for each logit row
+# and each checked cache leaf: tests/_torch_ranks.py's check_serve, with
+# float32 in float64's place.  Derived from the roundings at a row-parallel
+# sum: the one-rank bf16 product accumulates in float32 and rounds once to
+# bf16, the placed step rounds each of its n = 2 partial products and then
+# their sum over gloo, 2n - 1 = 3 bf16 roundings; plus 1 for one run's
+# largest error over a row against another's (the CPU test's float32 k of
+# 2 is 1 + 1: there a split sum rounds no more often than the whole).
+# Stated before the first card run
+SERVE_PLACED_K = 4.0
+# what the one-rank step of 10h may leave allocated on the card once its
+# state is freed (a library's workspace made at its first call; the state
+# is 1.8-6.4 GiB)
+SERVE_REF_LEFT_BYTES = 64 * 2**20
+# the cache leaves held against the one-rank steps, (layer, field): a local
+# ring and the last global layer of gemma2-2b; an RG-LRU state and the
+# sequence-split ring of recurrentgemma-9b
+SERVE_PLACED_LEAVES = {
+    "gemma2": ((0, "k"), (0, "v"), (0, "pos"), (25, "k"), (25, "v")),
+    "recurrentgemma": ((0, "h"), (0, "conv"), (2, "k"), (2, "v"),
+                       (2, "pos"))}
 # phase 6: the launcher's flags (minitron-4b at full width, no --reduced)
 MODEL_ARGS = ["--arch", "minitron-4b", "--batch", "16", "--prompt-len",
               "2048", "--max-len", "4096", "--steps", "64", "--pin-every",
@@ -3732,10 +3806,395 @@ def rank_pipeline(dev, rank: int, world: int) -> dict:
     return out
 
 
+def _serve_cfg(name: str):
+    """Phase 10h's config of ``name``: the published one, its depth cut
+    where SERVE_PLACED says."""
+    p = SERVE_PLACED[name]
+    cfg = get_config(p["arch"])
+    return (dataclasses.replace(cfg, num_layers=p["layers"]) if p["layers"]
+            else cfg)
+
+
+class SeenLogits:
+    """Keeps, on the card, the last position's logits of every greedy pick
+    as this rank holds them (its rows, and on a placed step its vocabulary
+    columns), in float32."""
+
+    def __enter__(self):
+        self.real = real = serve_engine._greedy
+        self.rows = []
+
+        def greedy(logits, tp=None):
+            self.rows.append(logits[:, -1].float())
+            return real(logits, tp)
+        serve_engine._greedy = greedy
+        return self
+
+    def __exit__(self, *exc):
+        serve_engine._greedy = self.real
+
+
+def record_cache_made(pl, made: dict) -> None:
+    """Wraps ``pl.cache_in`` so that ``made`` keeps, under ("cache",
+    layer, field), the shape of each cache leaf a layer reads larger than
+    its shard."""
+    real = pl.cache_in
+
+    def cache_in(c, i, tp=None):
+        out = real(c, i, tp)
+        for f, x, y in zip(c._fields, c, out):
+            if y.numel() > max(x.numel(), math.prod(
+                    made.get(("cache", str(i), f), (0,)))):
+                made[("cache", str(i), f)] = tuple(y.shape)
+        return out
+    pl.cache_in = cache_in
+
+
+def serve_drive(cfg, dev, params, dtype, place=None) -> tuple:
+    """Phase 10h's run of one model: ``prefill_step`` of SERVE_PLACED_RUN's
+    prompt, then its greedy decode steps, the one-rank step or, with
+    ``place`` (``place(params, cache) -> ServePlacement``), this rank's
+    placed step (the whole parameters and cache cut to its shards and
+    freed).  Returns (record, the state after the last step): tokens of
+    every step (the whole batch's), the last lengths, the stats, a digest
+    of the store, the picks' logits as this rank holds them, the cache
+    leaves of SERVE_PLACED_LEAVES as it holds them, seconds, and on a
+    placed step its launches, K6's heads, the bytes across host memory a
+    decode step, its peak memory and what the placement made larger than
+    a shard."""
+    p = SERVE_PLACED_RUN
+    run = RunConfig(model=cfg, shape=SHAPES["decode_32k"])
+    state = serve_engine.make_serve_state(cfg, run, params, p["batch"],
+                                          p["max_len"], dtype, dev)
+    pl, rec = None, {}
+    if place is not None:
+        pl = place(params, state.cache)
+        made = record_made(pl.params)
+        record_cache_made(pl, made)
+        state = state._replace(
+            params=pl.params.shard_tree(params),
+            cache=pl.shard_cache(state.cache),
+            cache_len=pl.rows(state.cache_len).clone(),
+            last_tokens=pl.rows(state.last_tokens).clone())
+    del params
+    torch.cuda.empty_cache()
+    tokens = torch.randint(0, cfg.vocab_size, (p["batch"], p["prompt"]),
+                           generator=torch.Generator().manual_seed(
+                               p["seed"] + 1), dtype=torch.int32).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec["state_gib"] = torch.cuda.memory_allocated() / 2**30
+    zero_counts()
+    heads = HeadCounts()
+    with SeenLogits() as seen:
+        t0 = time.perf_counter()
+        with heads:
+            state = serve_engine.prefill_step(state, cfg, run, tokens,
+                                              placement=pl)
+        torch.cuda.synchronize()
+        rec["prefill_s"] = time.perf_counter() - t0
+        rec["prefill_wire_bytes"] = wire.bytes
+        toks = [pl.whole(state.last_tokens) if pl is not None
+                else state.last_tokens]
+        stats, step_s, step_bytes = [], [], []
+        for _ in range(p["steps"]):
+            b0, t0 = wire.bytes, time.perf_counter()
+            state, tk, _, st = serve_engine.decode_one(state, cfg, run,
+                                                       placement=pl)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            step_bytes.append(wire.bytes - b0)
+            toks.append(tk)
+            stats.append(torch.stack(list(st.values())))
+    rec["launches"] = launch_counts()
+    rec["k6_heads"] = dict(heads.k6)
+    rec["decode_ms"] = [1e3 * t for t in step_s]
+    rec["decode_wire_bytes"] = step_bytes
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["toks"] = torch.cat(toks, dim=1).T.cpu().numpy()        # [S+1, B]
+    rec["lens"] = (pl.whole(state.cache_len) if pl is not None
+                   else state.cache_len).cpu().numpy()
+    rec["stats"] = torch.stack(stats).cpu().numpy()
+    rec["mv"] = _digest(*(x.reshape(-1) for x in tree_flatten(state.mv)))
+    rec["logits"] = torch.stack(seen.rows).cpu().numpy()   # [S+1, b, v]
+    for layer, field in SERVE_PLACED_LEAVES[_serve_name(cfg)]:
+        x = getattr(state.cache[layer], field)
+        rec[f"leaf_{layer}_{field}"] = (x.float() if x.is_floating_point()
+                                        else x).cpu().numpy()
+    if pl is not None:
+        rec["made"] = {"/".join(k): list(v) for k, v in made.items()}
+        rec["coord"] = list(pl.params.mesh.get_coordinate())
+    return rec, (state, pl)
+
+
+def _serve_name(cfg) -> str:
+    return next(n for n, p in SERVE_PLACED.items() if p["arch"] == cfg.name)
+
+
+def _leaf_max(a: np.ndarray, b: np.ndarray, key: str) -> np.ndarray:
+    """The largest |a - b| (float; for an integer leaf 1.0 where it
+    differs) per row (dim 0), and for a K/V or ring ``pos`` leaf per row
+    and position (or slot, dim 1): [B] or [B, L]."""
+    if not np.issubdtype(a.dtype, np.floating):
+        d = (a != b).astype(np.float64)
+    else:
+        d = np.abs(a.astype(np.float64) - b.astype(np.float64))
+    keep = 2 if key.split("_")[-1] in ("k", "v", "pos") else 1
+    return d.reshape(*d.shape[:keep], -1).max(-1)
+
+
+def serve_placed_case(dev, rank: int, mesh, io: str, name: str) -> dict:
+    """Phase 10h's model ``name`` on one rank.  Ranks 0 and 1 first run
+    the one-rank step, in float32 and in bf16, side by side (rank 0 writes
+    its logits and leaves to ``io``; rank 1 then takes each row's and each
+    leaf's distance of bf16 from float32, d16, and the float32 rows' top-2
+    margins); then every rank runs the placed bf16 step and takes each of
+    its rows' distance from float32 over its vocabulary columns, and of
+    its cache shards' rows from float32's pieces.  Returns the rank's
+    JSON-able record; the checks are :func:`check_serve_placed`'s."""
+    p = SERVE_PLACED_RUN
+    cfg = _serve_cfg(name)
+    base = os.path.join(io, f"serve_{name}")
+
+    def params():
+        return tf.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            p["seed"]), dtype=torch.bfloat16)
+
+    ref, start = None, torch.cuda.memory_allocated()
+    if rank in (0, 1):
+        dtype = torch.float32 if rank == 0 else torch.bfloat16
+        t0 = time.perf_counter()
+        # the bf16 leaves widened for float32 (RG-LRU's float32 gates as
+        # they are)
+        ref, kept = serve_drive(cfg, dev, map_leaves(params(), lambda x: x.to(
+            dtype) if x.dtype == torch.bfloat16 else x), dtype)
+        ref["wall_s"] = time.perf_counter() - t0
+        # the one-rank state freed before the placed run, so that its
+        # memory figures are the placed step's alone
+        del kept
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref["left_bytes"] = torch.cuda.memory_allocated() - start
+        check(ref["left_bytes"] <= SERVE_REF_LEFT_BYTES,
+              f"serve_placed {name}: the one-rank step left "
+              f"{ref['left_bytes']} bytes on the card")
+        if rank == 0:
+            np.save(base + "_logits32.npy", ref.pop("logits"))
+            np.savez(base + "_ref32.npz", **{
+                k: v for k, v in ref.items() if isinstance(v, np.ndarray)})
+    dist.barrier()
+    out = {}
+    if rank == 1:
+        l32 = np.load(base + "_logits32.npy", mmap_mode="r")
+        r32 = np.load(base + "_ref32.npz")
+        top2 = np.partition(l32, -2, axis=-1)[..., -2:]
+        out["ref16"] = {
+            "d16": np.abs(ref["logits"] - l32).max(-1).tolist(),
+            "margin32": (top2[..., 1] - top2[..., 0]).tolist(),
+            "leaf_d16": {k: _leaf_max(ref[k], r32[k], k).tolist()
+                         for k in ref if k.startswith("leaf_")},
+            "equal_32": {k: bool(np.array_equal(ref[k], r32[k]))
+                         for k in ("lens", "stats")},
+            "toks": ref["toks"].tolist()}
+        del l32, r32, top2
+    if ref is not None:
+        out["ref"] = {k: ref[k] for k in ("prefill_s", "decode_ms",
+                                           "peak_gib", "state_gib", "mv",
+                                           "wall_s", "k6_heads",
+                                           "left_bytes")}
+        out["ref"]["dtype"] = "float32" if rank == 0 else "bfloat16"
+    del ref
+
+    def place(params, cache):
+        return ServePlacement(
+            mesh, param_shardings(params, mesh, fsdp=False),
+            cache_shardings(cache, mesh, cfg, p["batch"]))
+
+    t0 = time.perf_counter()
+    rec, (state, pl) = serve_drive(cfg, dev, params(), torch.bfloat16,
+                                   place)
+    wall = time.perf_counter() - t0
+    del state
+    torch.cuda.empty_cache()
+    # this rank's rows and vocabulary columns of the float32 logits
+    l32 = np.load(base + "_logits32.npy", mmap_mode="r")
+    r32 = np.load(base + "_ref32.npz")
+    data, model = rec["coord"]
+    b, v = rec["logits"].shape[1:]
+    rows, cols = slice(data * b, (data + 1) * b), slice(model * v,
+                                                        (model + 1) * v)
+    err = np.abs(rec["logits"] - l32[:, rows, cols]).max(-1)
+    leaf_err = {}
+    for layer, field in SERVE_PLACED_LEAVES[name]:
+        key = f"leaf_{layer}_{field}"
+        spec = getattr(pl.cache_specs[layer], field)
+        want = pl._cut_leaf(torch.from_numpy(r32[key]), spec, 0).numpy()
+        # the first position (slot) of this rank's piece along dim 1
+        lo = (model * rec[key].shape[1]
+              if len(spec) > 1 and spec[1] == "model" else 0)
+        leaf_err[key] = {"err": _leaf_max(rec[key], want, key).tolist(),
+                         "lo": lo}
+    del l32, r32
+    out["placed"] = {
+        "coord": rec["coord"], "err": err.tolist(), "leaf_err": leaf_err,
+        "toks": rec["toks"].tolist(), "lens": rec["lens"].tolist(),
+        "stats": rec["stats"].tolist(), "mv": rec["mv"],
+        "made": rec["made"], "k6_heads": rec["k6_heads"],
+        "launches": rec["launches"], "prefill_s": rec["prefill_s"],
+        "prefill_wire_bytes": rec["prefill_wire_bytes"],
+        "decode_ms": rec["decode_ms"],
+        "decode_wire_bytes": rec["decode_wire_bytes"],
+        "peak_gib": rec["peak_gib"], "state_gib": rec["state_gib"],
+        "wall_s": wall}
+    if rank == 0:
+        out["ref32"] = {k: rec_v.tolist() for k, rec_v in np.load(
+            base + "_ref32.npz").items() if k in ("toks", "lens", "stats")}
+    dist.barrier()
+    return out
+
+
+def rank_serve_placed(dev, rank: int, world: int, io: str) -> dict:
+    """Phase 10h on one rank: each model of SERVE_PLACED
+    (:func:`serve_placed_case`)."""
+    mesh = make_host_mesh(*SERVE_PLACED_RUN["mesh"], device=dev)
+    out = {}
+    for name in SERVE_PLACED:
+        out[name] = serve_placed_case(dev, rank, mesh, io, name)
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_serve_placed(outs: list) -> dict:
+    """Phase 10h's checks, each model: the placed step's lengths, stats and
+    store equal to both one-rank steps' on every rank (they depend on
+    lengths alone); each logit row within SERVE_PLACED_K times d16 of the
+    float32 step's, and the tokens of all three equal while a row's
+    float32 top-2 margin exceeds twice that limit (from the first step
+    where it does not, the row may take another token and is no longer
+    compared); on the rows still compared at the end, each checked cache
+    leaf within SERVE_PLACED_K times d16 (an integer leaf equal); K6 on
+    this rank's query and KV heads; nothing made larger than its shard
+    but a heads-split ring's positions.  Returns each model's line."""
+    K, res = SERVE_PLACED_K, {}
+    for name in SERVE_PLACED:
+        cfg = _serve_cfg(name)
+        r16 = outs[1][name]["ref16"]
+        r32 = outs[0][name]["ref32"]
+        placed = [o[name]["placed"] for o in outs]
+        check(all(r16["equal_32"][k] for k in ("lens", "stats")),
+              f"serve_placed {name}: bf16 one-rank lengths or stats differ "
+              "from float32's")
+        mvs = {outs[0][name]["ref"]["mv"], outs[1][name]["ref"]["mv"]}
+        for r, x in enumerate(placed):
+            check(x["lens"] == r32["lens"] and x["stats"] == r32["stats"],
+                  f"serve_placed {name}: rank {r}'s lengths or stats differ")
+            mvs.add(x["mv"])
+        check(len(mvs) == 1, f"serve_placed {name}: the stores differ {mvs}")
+        d16, margin = np.asarray(r16["d16"]), np.asarray(r16["margin32"])
+        S1, B = d16.shape
+        err = np.zeros((S1, B))
+        for x in placed:
+            e = np.asarray(x["err"])
+            i = x["coord"][0] * e.shape[1]
+            err[:, i:i + e.shape[1]] = np.maximum(err[:, i:i + e.shape[1]], e)
+        live = np.ones(B, dtype=bool)
+        closed, worst = {}, 0.0
+        t32, t16 = np.asarray(r32["toks"]), np.asarray(r16["toks"])
+        for s in range(S1):
+            limit = K * d16[s]
+            for b in np.flatnonzero(live):
+                check(err[s, b] <= limit[b], f"serve_placed {name} step {s} "
+                      f"row {b}: logits {err[s, b]} from float32's, limit "
+                      f"{limit[b]} ({K} x {d16[s, b]})")
+                worst = max(worst, err[s, b] / d16[s, b] if d16[s, b]
+                            else 0.0)
+                if margin[s, b] <= 2 * limit[b]:
+                    live[b] = False
+                    closed[int(b)] = s
+                    continue
+                check(t32[s, b] == t16[s, b] and all(
+                    x["toks"][s][b] == t32[s, b] for x in placed),
+                    f"serve_placed {name} step {s} row {b}: tokens differ "
+                    f"at margin {margin[s, b]}")
+        # the cache after the last step: a recurrent state on the rows
+        # still compared; K/V and ring positions on every row, up to the
+        # position its first token that may differ was written at (the
+        # prompt's and the picks' before it came from equal tokens)
+        leaves = {}
+        P = SERVE_PLACED_RUN["prompt"]
+        for key, d16_leaf in r16["leaf_d16"].items():
+            d16_leaf = np.asarray(d16_leaf)
+            e = np.zeros_like(d16_leaf)
+            for x in placed:
+                pe, lo = np.asarray(x["leaf_err"][key]["err"]), \
+                    x["leaf_err"][key]["lo"]
+                i = x["coord"][0] * len(pe)
+                part = e[i:i + len(pe)] if e.ndim == 1 else \
+                    e[i:i + len(pe), lo:lo + pe.shape[1]]
+                np.maximum(part, pe, out=part)
+            if e.ndim == 1:
+                mask = live
+            else:
+                cut = np.array([P + closed[b] if b in closed else e.shape[1]
+                                for b in range(B)])
+                mask = np.arange(e.shape[1])[None, :] < cut[:, None]
+            d = float(d16_leaf[mask].max()) if mask.any() else 0.0
+            got = float(e[mask].max()) if mask.any() else 0.0
+            check(got <= K * d, f"serve_placed {name} {key}: {got} from "
+                  f"float32's, limit {K} x {d}")
+            leaves[key] = {"err": got, "d16": d,
+                           "compared": int(mask.sum())}
+        n_attn = attention_layers(cfg)
+        hq = cfg.num_heads // SERVE_PLACED_RUN["mesh"][1]
+        hkv = (cfg.num_kv_heads // SERVE_PLACED_RUN["mesh"][1]
+               if cfg.num_kv_heads % SERVE_PLACED_RUN["mesh"][1] == 0
+               else cfg.num_kv_heads)
+        rings = {str(i) for i, k in enumerate(tf._kinds(cfg))
+                 if k == "local"}
+        for r, x in enumerate(placed):
+            check(x["k6_heads"] == {f"{hq}x{hkv}": n_attn},
+                  f"serve_placed {name}: rank {r} K6 heads {x['k6_heads']},"
+                  f" not {n_attn} x {hq}x{hkv}")
+            bad = [k for k in x["made"] if not (
+                cfg.num_kv_heads % SERVE_PLACED_RUN["mesh"][1] == 0
+                and k.startswith("cache/") and k.endswith("/pos")
+                and k.split("/")[1] in rings)]
+            check(not bad, f"serve_placed {name}: rank {r} made {bad} "
+                  "larger than a shard")
+        ref = {o[name]["ref"]["dtype"]: o[name]["ref"] for o in outs[:2]}
+        res[name] = {
+            "arch": cfg.name, "layers": cfg.num_layers,
+            "mesh": SERVE_PLACED_RUN["mesh"], **{k: SERVE_PLACED_RUN[k]
+                                                 for k in ("batch", "prompt",
+                                                           "max_len",
+                                                           "steps")},
+            "k": K, "worst_err_over_d16": worst,
+            "rows_stopped_at_step": closed,
+            "rows_compared_to_the_end": int(live.sum()),
+            "leaves": leaves, "k6_heads_by_rank": [x["k6_heads"]
+                                                   for x in placed],
+            "made_rank0": placed[0]["made"],
+            "prefill_s_by_rank": [x["prefill_s"] for x in placed],
+            "decode_ms_per_step_by_rank": [
+                statistics.mean(x["decode_ms"]) for x in placed],
+            "decode_wire_bytes_per_step_by_rank": [
+                statistics.mean(x["decode_wire_bytes"]) for x in placed],
+            "prefill_wire_bytes_by_rank": [x["prefill_wire_bytes"]
+                                           for x in placed],
+            "peak_gib_by_rank": [x["peak_gib"] for x in placed],
+            "state_gib_by_rank": [x["state_gib"] for x in placed],
+            "wall_s_by_rank": [x["wall_s"] for x in placed],
+            "one_rank": {d: {k: (statistics.mean(v) if k == "decode_ms"
+                                 else v) for k, v in r.items()
+                             if k != "mv"} for d, r in ref.items()},
+            "launches_by_rank": [x["launches"] for x in placed]}
+    return res
+
+
 def rank_main(rank: int, world: int, io: str) -> int:
-    """One rank of phases 10d-10f (``chip_smoke.py --rank R WORLD IO``):
-    joins the gloo group through ``IO/store``, runs the three phases
-    (10e, 10f, then 10d) and writes ``IO/rank{R}.json``."""
+    """One rank of phases 10d-10f and 10h (``chip_smoke.py --rank R WORLD
+    IO``): joins the gloo group through ``IO/store``, runs the four phases
+    (10e, 10f, 10h, then 10d) and writes ``IO/rank{R}.json``."""
     from datetime import timedelta
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3752,6 +4211,8 @@ def rank_main(rank: int, world: int, io: str) -> int:
         # memory most
         out = {"train": rank_train_sharded(dev, rank, world, io)}
         out["pipeline"] = rank_pipeline(dev, rank, world)
+        torch.cuda.empty_cache()
+        out["serve_placed"] = rank_serve_placed(dev, rank, world, io)
         torch.cuda.empty_cache()
         out["dist"] = rank_dist(dev, rank, ref["dist_steps"])
     finally:
@@ -3888,9 +4349,10 @@ def check_train_sharded(io: str, ref: dict, trains: list) -> tuple:
 
 
 def phase_ranks(dev, dist_ref: dict, io: str, ref_wall: float) -> dict:
-    """Phases 10d-10f over RANKS rank processes on the card, then each
-    phase's checks against phase 10's run and 10e's one-rank reference
-    (which :func:`phase_train` ran into ``io``, ``ref_wall`` seconds).
+    """Phases 10d-10f and 10h over RANKS rank processes on the card, then
+    each phase's checks against phase 10's run, 10e's one-rank reference
+    (which :func:`phase_train` ran into ``io``, ``ref_wall`` seconds) and
+    10h's one-rank steps (run by ranks 0 and 1).
     Returns each phase's launches, summed over the ranks."""
     with open(os.path.join(io, "ref.json"), "w") as f:
         json.dump({"dist_steps": dist_ref["steps"]}, f)
@@ -4036,13 +4498,22 @@ def phase_ranks(dev, dist_ref: dict, io: str, ref_wall: float) -> dict:
           "grad_launches_by_rank": [x["grad_launches"] for x in pipes],
           "ranks_wall_s": wall})
 
+    # 10h: the placed serve step against the one-rank steps
+    serve_lines = check_serve_placed([o["serve_placed"] for o in outs])
+    for name, line in serve_lines.items():
+        emit({"phase": "serve_placed", "model": name, **line})
+
     def total(key, field="launches"):
         return {k: sum(o[key][field][k] for o in outs)
                 for k in outs[0][key][field]}
     grad = total("pipeline", "grad_launches")
+    serve = {k: sum(o["serve_placed"][m]["placed"]["launches"][k]
+                    for o in outs for m in SERVE_PLACED)
+             for k in outs[0]["serve_placed"]["gemma2"]["placed"]["launches"]}
     return {"dist_ranks": summed, "train_sharded": total("train"),
             "pipeline": {k: n + grad[k]
-                         for k, n in total("pipeline").items()}}
+                         for k, n in total("pipeline").items()},
+            "serve_placed": serve}
 
 
 def _to(x, dev):

@@ -255,8 +255,9 @@ def _local_dim(parts: Sequence[str], ndim: int) -> Optional[int]:
     """The dim of a leaf that a layer computing over ``model`` keeps
     split (the same names and ranks as :func:`_tp_axes`' rules): the
     heads of ``wq``/``wk``/``wv``/``wo`` and their biases, the hidden dim
-    of a dense MLP's ``wg``/``wu``/``wd``, the vocab rows of ``embed`` and
-    ``unembed``; None for any other leaf."""
+    of a dense MLP's ``wg``/``wu``/``wd``, the width of an RG-LRU's
+    ``w_in``/``w_gate``/``w_out`` (split so at serve time), the vocab
+    rows of ``embed`` and ``unembed``; None for any other leaf."""
     name = parts[-1]
     if name in ("embed", "unembed") and ndim == 2:
         return 0
@@ -265,9 +266,9 @@ def _local_dim(parts: Sequence[str], ndim: int) -> Optional[int]:
     if (name == "wo" and ndim == 3) or (name in ("bq", "bk", "bv")
                                         and ndim == 2):
         return 0
-    if name in ("wg", "wu") and ndim == 2:
+    if name in ("wg", "wu", "w_in", "w_gate") and ndim == 2:
         return 1
-    if name == "wd" and ndim == 2:
+    if name in ("wd", "w_out") and ndim == 2:
         return 0
     return None
 
@@ -331,10 +332,13 @@ class ModelAxis:
         self.n, self.index = placement.sizes["model"], placement.coord["model"]
         self.local = local
 
-    def holding(self, local: frozenset) -> "ModelAxis":
-        """This axis for a layer whose leaves ``local`` came as pieces."""
+    def holding(self, local: frozenset, **attrs) -> "ModelAxis":
+        """This axis for a layer whose leaves ``local`` came as pieces
+        (and ``attrs`` set on it)."""
         out = copy.copy(self)
         out.local = local
+        for k, v in attrs.items():
+            setattr(out, k, v)
         return out
 
     def f(self, x: torch.Tensor) -> torch.Tensor:
@@ -353,6 +357,31 @@ class ModelAxis:
         tensor."""
         return all_reduce(x.detach(), self.group, op)
 
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's piece of an activation split over the ranks (no
+        gradient), joined along ``dim`` in rank order."""
+        return all_gather_cat(x.detach(), self.group, dim=dim)
+
+
+class ServeAxis(ModelAxis):
+    """:class:`ModelAxis` at serve time, where nothing is differentiated:
+    ``f`` is the identity and ``g`` a plain all-reduce.  A layer's mixer
+    that computes on its shards also learns how its cache is split
+    (:meth:`ServePlacement.gather_local` decides): ``kv`` is ``"heads"``
+    when the K/V cache holds this rank's KV heads, ``"seq"`` when it holds
+    this rank's block of positions (or ring slots) of every KV head, and
+    ``kept`` names the cache fields that the layer reads and writes on
+    their shards (the others come whole, :meth:`ServePlacement.cache_in`)."""
+
+    kv: Optional[str] = None
+    kept: frozenset = frozenset()
+
+    def f(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def g(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce(x, self.group)
+
 
 class Placement:
     """One rank's placement of a parameter-shaped tree over ``mesh`` (a
@@ -362,6 +391,10 @@ class Placement:
     the other axes (``model``) hold the same rows: a leaf gathered whole
     gets the same full gradient on each of them, a leaf gathered as its
     piece (:meth:`gather_local`) that piece's."""
+
+    #: the mixer kinds whose layers compute on their shards over ``model``
+    #: (``models.transformer._block_params``)
+    local_mixers = ("attn", "local")
 
     def __init__(self, mesh, specs):
         coord = mesh.get_coordinate()
@@ -568,23 +601,36 @@ class BatchGroup:
 class ServePlacement:
     """One rank's placement of a serve state over ``mesh``: what JAX's
     decode and prefill cells compile (``launch/specs.py``'s
-    ``build_serve_cell``), run by this rank.
+    ``build_serve_cell``), run by this rank on its shards over ``model``,
+    as GSPMD computes those cells.
 
     * The parameters by ``param_specs`` (:func:`param_shardings` with
-      ``fsdp=False``), each gathered at use, layer by layer
-      (:meth:`param`, the :class:`Placement` of a train state).
+      ``fsdp=False``: no leaf is split over the batch axes).  A part that
+      computes on its shards (:meth:`gather_local`: the attention and
+      RG-LRU mixers, a dense MLP, the (un)embedding) takes its leaves
+      split over ``model`` as they are; every other leaf is gathered
+      whole at use (:meth:`param`): a mixture of experts, the xLSTM
+      mixers, the encoder and cross-attention, and a mixer whose leaves
+      are split on a dim it does not compute on (``attn_hd_shard``).
     * The cache by ``cache_specs`` (``specs.cache_shardings``: per layer,
       the layer's cache type holding a spec per leaf).  Dim 0 of every
       leaf is the batch: when it is split, this rank computes its rows of
       the batch (:attr:`group`, :meth:`rows`) and its leaves hold those
-      rows.  Each layer's leaves are gathered at use over the axes of
-      their other dims (heads or sequence, a recurrent state's width;
-      :meth:`cache_in`), and after the layer its new leaves are cut back
-      to this rank's shard (:meth:`cache_out`): the in-place K/V write
-      (trap T1), a local ring's ``pos`` and a replaced recurrent state
-      alike.
+      rows.  A mixer that computes on its shards reads and writes the
+      leaves it keeps (``ServeAxis.kept``: K/V split on KV heads, or on
+      positions or ring slots, with a ring's ``pos``; an RG-LRU's ``h``
+      and ``conv`` split on width) in place (trap T1).  Any other leaf is
+      gathered before the layer over the axes of its dims but the batch's
+      (:meth:`cache_in`: a ring's ``pos`` where its K/V go on heads, and
+      every leaf of a layer computed whole), and after the layer cut back
+      to this rank's shard (:meth:`cache_out`).
     * What the whole batch reads (new lengths for the store, tokens) is
-      gathered over the batch axes (:meth:`whole`)."""
+      gathered over the batch axes (:meth:`whole`), and the greedy pick
+      reads the vocabulary's split (:attr:`vocab`)."""
+
+    #: the mixer kinds whose layers compute on their shards over ``model``
+    #: (``models.transformer._block_params``)
+    local_mixers = ("attn", "local", "rglru")
 
     def __init__(self, mesh, param_specs, cache_specs):
         self.params = Placement(mesh, param_specs)
@@ -592,9 +638,101 @@ class ServePlacement:
         lead = _axes_of(tuple(cache_specs[0])[0][0])
         self.group = (BatchGroup(self.params, lead)
                       if _axis_size(self.params.sizes, lead) > 1 else None)
+        #: the model axis of a part computing on its shards (None when the
+        #: mesh has no ``model`` axis larger than 1)
+        self.tp = (ServeAxis(self.params) if self.params.tp is not None
+                   else None)
+
+    def _leaf(self, x: torch.Tensor, path, local: bool) -> torch.Tensor:
+        """A leaf as its layer uses it: the shard itself where no axis the
+        layer needs gathered splits it (``model`` is not needed for a
+        ``local`` leaf), else gathered (:meth:`Placement._gather`, where
+        every tensor the placement makes of a leaf is made)."""
+        pl = self.params
+        if any(a and pl.sizes[a] > 1 and not (local and a == "model")
+               for a in pl.specs[path]):
+            return pl._gather(x, path, local)
+        return x
 
     def param(self, tree, *path):
-        return self.params.gather(tree, *path)
+        """The whole leaves of ``tree`` (this rank's shards of the subtree
+        at ``path``): a leaf no axis splits is the shard itself."""
+        prefix = tuple(str(p) for p in path)
+        return tree_unflatten(tree, [self._leaf(x, prefix + p, False)
+                                     for p, x in _paths(tree)])
+
+    gather = param
+
+    def gather_local(self, tree, *path):
+        """For a part that computes on its shards over ``model``: the
+        leaves of ``tree``, each split over ``model`` on the dim the part
+        computes on (:meth:`Placement.is_local`) as this rank's shard, the
+        others whole.  Returns ``(leaves, tp)``: ``tp`` is :attr:`tp`
+        holding the names of the leaves that came as pieces, and for a
+        layer's mixer how its cache is split (:meth:`_mixer_cache`); or
+        ``(whole leaves, None)`` when the part computes whole."""
+        prefix = tuple(str(p) for p in path)
+        paths = [(prefix + p, x) for p, x in _paths(tree)]
+        local = frozenset(p[-1] for p, _ in paths
+                          if self.params.is_local(p))
+        attrs = {}
+        if prefix[0] == "layers" and prefix[-1] == "mixer":
+            attrs = self._mixer_cache(int(prefix[1]), local, paths)
+        if not local or attrs is None:
+            return self.param(tree, *path), None
+        return (tree_unflatten(tree, [
+            self._leaf(x, p, self.params.is_local(p)) for p, x in paths]),
+            self.tp.holding(local, **attrs))
+
+    def _mixer_cache(self, i: int, local: frozenset, paths):
+        """How layer ``i``'s mixer computes on its shards, from the specs
+        of its leaves and of its cache: the :class:`ServeAxis` attributes
+        ``kv`` and ``kept``, or None when it computes whole (a leaf split
+        over ``model`` on a dim the mixer does not compute on, as with
+        ``attn_hd_shard``; a cache split otherwise than the mixer reads
+        it).
+
+        * RG-LRU: ``w_in``/``w_gate``/``w_out`` split on the width, and
+          ``h`` and ``conv`` split on it over ``model`` alone.
+        * Attention, ``kv = "heads"``: ``wq``/``wk``/``wv``/``wo`` split on
+          heads and the K/V cache on its KV heads (``cache_shardings``'
+          first branch); a ring's ``pos`` comes whole.
+        * Attention, ``kv = "seq"``: ``wq``/``wo`` split on heads,
+          ``wk``/``wv`` whole, and the K/V cache (with a ring's ``pos``)
+          split on positions or slots over ``model`` alone (the second
+          branch: sequence-parallel decode)."""
+        pl = self.params
+        if any("model" in pl.specs[p] and not pl.is_local(p)
+               for p, _ in paths):
+            return None
+        spec = self.cache_specs[i]._asdict()
+        names = {p[-1] for p, _ in paths}
+        if "w_in" in names:
+            if ({"w_in", "w_gate", "w_out"} <= local
+                    and tuple(spec["h"][1:]) == ("model",)
+                    and tuple(spec["conv"][1:]) == (None, "model")):
+                return {"kept": frozenset(("h", "conv"))}
+            return None
+        kv = tuple(spec["k"][1:])
+        if kv == (None, "model", None) and {"wq", "wk", "wv", "wo"} <= local:
+            return {"kv": "heads", "kept": frozenset(("k", "v"))}
+        ring = "pos" in spec
+        if (kv == ("model", None, None) and {"wq", "wo"} <= local
+                and "wk" not in local
+                and (not ring or tuple(spec["pos"][1:]) == ("model",))):
+            return {"kv": "seq",
+                    "kept": frozenset(("k", "v", "pos") if ring
+                                      else ("k", "v"))}
+        return None
+
+    @property
+    def vocab(self) -> Optional[ServeAxis]:
+        """The model axis of the unembedding when each rank holds its
+        block of the vocabulary (the logits are then this rank's
+        columns), else None."""
+        name = ("unembed",) if ("unembed",) in self.params.specs \
+            else ("embed",)
+        return self.tp if self.params.is_local(name) else None
 
     def rows(self, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """This rank's rows of a batch-major tensor."""
@@ -630,19 +768,26 @@ class ServePlacement:
             x = x.chunk(k, dim=d)[idx]
         return x
 
-    def cache_in(self, c, i: int):
-        """Layer ``i``'s cache leaves, each gathered over the axes of its
-        dims but the batch's (the shard itself when none splits it)."""
-        return type(c)(*(self._gather_leaf(x, s, 1)
-                         for x, s in zip(c, self.cache_specs[i])))
+    def cache_in(self, c, i: int, tp=None):
+        """Layer ``i``'s cache leaves as its mixer reads them: those it
+        keeps on their shards (``tp.kept``, ``tp`` the mixer's
+        :class:`ServeAxis`) as they are, every other leaf gathered over
+        the axes of its dims but the batch's (the shard itself when none
+        splits it)."""
+        kept = tp.kept if tp is not None else frozenset()
+        return type(c)(*(x if f in kept else self._gather_leaf(x, s, 1)
+                         for f, x, s in zip(c._fields, c,
+                                            self.cache_specs[i])))
 
-    def cache_out(self, new, old, i: int):
-        """Layer ``i``'s new cache cut back to this rank's shard: a split
-        leaf's piece is written into the old shard, in place; a leaf no
-        axis splits is the layer's own."""
+    def cache_out(self, new, old, i: int, tp=None):
+        """Layer ``i``'s new cache on this rank's shard: a kept leaf is the
+        layer's own (written in place, or a new recurrent state); any
+        other split leaf's piece is cut and written into the old shard,
+        in place; a leaf no axis splits is the layer's own."""
+        kept = tp.kept if tp is not None else frozenset()
         out = []
-        for n, o, spec in zip(new, old, self.cache_specs[i]):
-            if self._dims(spec, 1):
+        for f, n, o, spec in zip(new._fields, new, old, self.cache_specs[i]):
+            if f not in kept and self._dims(spec, 1):
                 with torch.no_grad():
                     o.copy_(self._cut_leaf(n, spec, 1))
                 n = o

@@ -19,8 +19,8 @@ what one rank runs, ``args`` the rank's arguments (:class:`Shaped` leaves
 of its shards, built by the dry run) and ``placement`` its placement.  It
 takes a shape name, as JAX's does, or a :class:`ShapeConfig` for a shape
 that is not in ``SHAPES``.  JAX's ``attn_gather_qkv`` is a GSPMD sharding
-hint with no counterpart in the port, whose placed step gathers every
-leaf at use.
+hint with no counterpart in the port, whose placed steps gather at use
+only what does not compute on its shards over ``model``.
 """
 from __future__ import annotations
 
@@ -313,7 +313,10 @@ def build_serve_cell(arch: str, mesh, shape: ShapeLike,
                      moe_replicate: bool = False, pad_heads: bool = False):
     """One rank's prefill (``prefill``, the model's, as JAX's cell) or
     decode step (the placed ``decode_one``: model decode, descriptor
-    write and GC) on its shards, by :class:`ServePlacement`."""
+    write and GC) on its shards, by :class:`ServePlacement`: attention on
+    its KV heads or its block of positions, the MLP and the RG-LRU on
+    their slices, the vocabulary on its block, as GSPMD computes JAX's
+    cell."""
     from repro_torch.models import transformer as tf
     from repro_torch.serve import engine as eng
     cfg = _cell_cfg(arch, mesh, pad_heads, moe_dispatch)

@@ -107,7 +107,7 @@ def _mixer(params: dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
            inplace: bool, tp=None) -> Tuple[torch.Tensor, Optional[Cache]]:
     if kind == "rglru":
         fn = rglru_decode if mode == "decode" else rglru
-        return fn(params, cfg, h, cache)
+        return fn(params, cfg, h, cache, tp)
     if kind == "mlstm":
         fn = mlstm_decode if mode == "decode" else mlstm_chunkwise
         return fn(params, cfg, h, cache)
@@ -118,15 +118,16 @@ def _mixer(params: dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
         return attention(params, cfg, h, positions, causal=causal,
                          window=window, tp=tp)
     if kind == "local" and mode == "prefill":
-        return _prefill_local_ring(params, cfg, h, positions, cache, inplace)
+        return _prefill_local_ring(params, cfg, h, positions, cache, inplace,
+                                   tp)
     if kind == "local":
         return _local_ring_decode(params, cfg, h, positions, cache, span,
-                                  inplace)
+                                  inplace, tp)
     if mode == "prefill":
         return attention(params, cfg, h, positions, span=span,
-                         fill_cache=cache, inplace=inplace)
+                         fill_cache=cache, inplace=inplace, tp=tp)
     return attention(params, cfg, h, positions, span=span, cache=cache,
-                     cache_len=cache_len, inplace=inplace)
+                     cache_len=cache_len, inplace=inplace, tp=tp)
 
 
 def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
@@ -146,11 +147,13 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     back to ``x`` itself, as JAX's does (trap C13).  ``group``: the ranks
     that split a training batch's rows, for a mixture of experts'
     statistics of the whole batch (:func:`repro_torch.models.moe.moe`).
-    ``tp``: in train mode on a placed state, the
+    ``tp``: on a placed state, the
     :class:`repro_torch.dist.sharding.ModelAxis` of each part (``mixer``,
     ``ffn``) whose leaves came split over ``model``, which then computes
-    on its shards (the attention mixer and a dense MLP); a mixture of
-    experts, the recurrent mixers and cross-attention come whole."""
+    on its shards: in train mode the attention mixer and a dense MLP; at
+    serve time (a :class:`repro_torch.dist.sharding.ServeAxis`) those and
+    the RG-LRU mixer, each on its cache shard.  A mixture of experts, the
+    xLSTM mixers and cross-attention come whole."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
     h = rms_norm(x, params["ln1"], cfg.norm_eps)

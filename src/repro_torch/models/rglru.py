@@ -16,6 +16,17 @@ prefill pass (:func:`rglru`) scans the time axis in log depth, as JAX's
 Python loop over T.  Its float32 products run in another order than
 JAX's, so it agrees with JAX to rounding, not to the bit.  Decode
 (:func:`rglru_decode`) is one step carrying ``(h, conv window)``.
+
+**On the width shard** (a placed serve state, ``tp`` a
+:class:`repro_torch.dist.sharding.ServeAxis`, as JAX's decode and prefill
+cells split ``w_in``/``w_gate`` on columns, ``w_out`` on rows and ``h``
+and ``conv`` on the width): this rank computes ``u``, the gate, the
+depthwise conv and the recurrence on its ``w / n`` channels, with its
+slice of the replicated per-channel leaves.  The gates multiply by the
+replicated ``wa``/``wx`` [w, w], which read every channel of ``u``: ``u``
+is gathered over ``model``, and this rank keeps its columns of
+``wa``/``wx``.  ``w_out``'s rows give a partial output that ``tp.g``
+sums.
 """
 from __future__ import annotations
 
@@ -87,11 +98,16 @@ def _conv1d(params: dict, cfg: ModelConfig, u: torch.Tensor,
     return out, hist[:, -(W - 1):].to(torch.float32, copy=True)
 
 
-def _gates(params: dict, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(a, b) of the recurrence ``h_t = a_t h_{t-1} + b_t``, float32."""
+def _gates(params: dict, u: torch.Tensor, tp=None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(a, b) of the recurrence ``h_t = a_t h_{t-1} + b_t``, float32.
+    With ``tp``, ``u`` is this rank's channels and ``params`` its
+    channels' slices (:func:`_channels`): the gate products read ``u``
+    gathered over the ranks."""
     uf = u.float()
-    r = torch.sigmoid(uf @ params["wa"] + params["ba"])
-    i = torch.sigmoid(uf @ params["wx"] + params["bx"])
+    whole = tp.gather(u, -1).float() if tp is not None else uf
+    r = torch.sigmoid(whole @ params["wa"] + params["ba"])
+    i = torch.sigmoid(whole @ params["wx"] + params["bx"])
     log_a = -LRU_C * F.softplus(params["lambda"]) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=0.0)) \
@@ -118,34 +134,62 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")        # jax.nn.gelu's tanh form
 
 
+def _channels(params: dict, tp) -> dict:
+    """``params`` on this rank's channels when ``tp`` says that
+    ``w_in``/``w_gate``/``w_out`` came as its width shard: its slice of the
+    per-channel leaves and its columns of ``wa``/``wx`` (the replicated
+    leaves, views); ``params`` as they are otherwise."""
+    if tp is None:
+        return params
+    w = params["w_in"].shape[1]
+    cols = slice(tp.index * w, (tp.index + 1) * w)
+    out = dict(params)
+    out["conv_w"] = params["conv_w"][:, cols]
+    out["wa"], out["wx"] = params["wa"][:, cols], params["wx"][:, cols]
+    for name in ("conv_b", "ba", "bx", "lambda"):
+        out[name] = params[name][cols]
+    return out
+
+
+def _out(params: dict, y: torch.Tensor, tp) -> torch.Tensor:
+    """``y`` times ``w_out``; on the width shard, summed over the ranks."""
+    out = y @ params["w_out"]
+    return tp.g(out) if tp is not None else out
+
+
 def rglru(params: dict, cfg: ModelConfig, x: torch.Tensor,
-          state: Optional[RGLRUState] = None
+          state: Optional[RGLRUState] = None, tp=None
           ) -> Tuple[torch.Tensor, RGLRUState]:
     """[B, T, d] -> [B, T, d] and the state after the last step: the
-    log-depth scan, a carried state folded into step 0."""
+    log-depth scan, a carried state folded into step 0.  ``tp``: on the
+    width shard (the module docstring)."""
+    params = _channels(params, tp)
     u = x @ params["w_in"]
     gate = _gelu(x @ params["w_gate"])
     u, conv_new = _conv1d(params, cfg, u, None if state is None
                           else state.conv)
-    a, b = _gates(params, u)                                 # [B, T, w]
+    a, b = _gates(params, u, tp)                             # [B, T, w]
     if state is not None:
         b = torch.cat([(b[:, 0] + a[:, 0] * state.h)[:, None], b[:, 1:]],
                       dim=1)
     h = _scan(a, b)
-    out = (h * gate.float()).to(x.dtype) @ params["w_out"]
+    out = _out(params, (h * gate.float()).to(x.dtype), tp)
     # the last step copied: a view would keep all T steps alive in the
     # state (0.5 GiB a layer at recurrentgemma-9b's prefill)
     return out, RGLRUState(h=h[:, -1].clone(), conv=conv_new)
 
 
 def rglru_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                 state: RGLRUState) -> Tuple[torch.Tensor, RGLRUState]:
-    """One decode step ([B, 1, d]); the state is replaced, not written."""
+                 state: RGLRUState, tp=None
+                 ) -> Tuple[torch.Tensor, RGLRUState]:
+    """One decode step ([B, 1, d]); the state is replaced, not written.
+    ``tp``: on the width shard (the module docstring)."""
+    params = _channels(params, tp)
     u = x @ params["w_in"]
     gate = _gelu(x @ params["w_gate"])
     u, conv_new = _conv1d(params, cfg, u, state.conv)
-    a, b = _gates(params, u)                                 # [B, 1, w]
+    a, b = _gates(params, u, tp)                             # [B, 1, w]
     h = a[:, 0] * state.h + b[:, 0]
-    out = (h[:, None] * gate.float()).to(x.dtype) @ params["w_out"]
+    out = _out(params, (h[:, None] * gate.float()).to(x.dtype), tp)
     return out, RGLRUState(h=h, conv=conv_new)
 

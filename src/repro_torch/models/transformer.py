@@ -106,13 +106,13 @@ def _take_local(tree, *path):
 def _block_params(placement, bp: dict, i: int, kind: str,
                   cfg: ModelConfig) -> Tuple[dict, dict]:
     """Layer ``i``'s parameters from this rank's shards, and the model
-    axes of its parts that compute on their shards: the attention mixer
-    and a dense MLP, gathered by
-    :meth:`~repro_torch.dist.sharding.Placement.gather_local` (split over
-    ``model`` where the specs split them), every other part whole (a
-    mixture of experts, the recurrent mixers, cross-attention and the
+    axes of its parts that compute on their shards: the mixer of a kind
+    in ``placement.local_mixers`` (attention; at serve time RG-LRU too)
+    and a dense MLP, gathered by the placement's ``gather_local`` (split
+    over ``model`` where the specs split them), every other part whole (a
+    mixture of experts, the other mixers, cross-attention and the
     norms)."""
-    local = {"mixer"} if kind in ("attn", "local") else set()
+    local = {"mixer"} if kind in placement.local_mixers else set()
     if cfg.num_experts == 0:
         local.add("ffn")
     params, tp = {}, {}
@@ -317,15 +317,24 @@ def _serve_pass(params, cfg: ModelConfig, tokens: torch.Tensor,
 
     ``placement`` (a :class:`repro_torch.dist.sharding.ServePlacement`)
     says that ``params`` and ``cache`` are this rank's shards and
-    ``tokens`` its rows: each parameter is gathered at use, each layer's
-    cache gathered before the layer and cut back to the shard after it,
-    and a mixture of experts reads the whole batch's statistics."""
+    ``tokens`` its rows.  Each layer's parts that compute on their shards
+    over ``model`` (:func:`_block_params`: the attention and RG-LRU
+    mixers on their cache shards, a dense MLP) take their pieces, the
+    rest is gathered at use; a cache leaf the mixer does not keep is
+    gathered before the layer and cut back to the shard after it
+    (``cache_in``, ``cache_out``); a mixture of experts reads the whole
+    batch's statistics.  Where the (un)embedding is split on its
+    vocabulary, the lookup is vocab-parallel (:func:`_embed`) and the
+    logits are this rank's ``V / n`` columns ``[B, 1, V / n]`` (the
+    placement's ``vocab`` axis; the final softcap is elementwise)."""
     gather = placement.param if placement is not None else _take
+    take_local = (placement.gather_local if placement is not None
+                  else _take_local)
     group = placement.group if placement is not None else None
     B, T = tokens.shape
-    x = gather(params["embed"], "embed")[tokens.long()]
-    if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model, dtype=x.dtype).sqrt()
+    # a tied table is taken once, for the lookup and the unembedding
+    emb, emb_tp = take_local(params["embed"], "embed")
+    x = _embed(emb, cfg, tokens, emb_tp)
     if (cfg.frontend != "none" and not _is_encdec(cfg)
             and frontend_embeds is not None):
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
@@ -335,17 +344,22 @@ def _serve_pass(params, cfg: ModelConfig, tokens: torch.Tensor,
     new_cache = []
     for i, (bp, kind, c) in enumerate(zip(params["layers"], _kinds(cfg),
                                           cache)):
-        full = placement.cache_in(c, i) if placement is not None else c
-        x, new = block_apply(gather(bp, "layers", i), cfg, kind, x,
-                             positions, cache=full, span=span,
-                             cache_len=cache_len, enc_out=enc_out, mode=mode,
-                             inplace=inplace, group=group)
-        new_cache.append(placement.cache_out(new, c, i)
+        if placement is not None:
+            p, tp = _block_params(placement, bp, i, kind, cfg)
+            full = placement.cache_in(c, i, tp.get("mixer"))
+        else:
+            p, tp, full = bp, None, c
+        x, new = block_apply(p, cfg, kind, x, positions, cache=full,
+                             span=span, cache_len=cache_len, enc_out=enc_out,
+                             mode=mode, inplace=inplace, group=group, tp=tp)
+        new_cache.append(placement.cache_out(new, c, i, tp.get("mixer"))
                          if placement is not None else new)
     x = rms_norm(x[:, -1:], gather(params["final_norm"], "final_norm"),
                  cfg.norm_eps)
-    name = "unembed" if "unembed" in params else "embed"
-    logits = x @ gather(params[name], name).T
+    w, tp = emb, emb_tp
+    if "unembed" in params:
+        w, tp = take_local(params["unembed"], "unembed")
+    logits = x @ w.T
     if cfg.final_softcap > 0:
         logits = softcap(logits.float(), cfg.final_softcap)
     return logits, new_cache
@@ -358,7 +372,8 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 placement=None) -> Tuple[torch.Tensor, List[Cache]]:
     """One decode step (``tokens`` i32[B, T], T = 1 for greedy decode)
     over the caches, an encoder-decoder's cross-attention over ``enc_out``.
-    Returns (logits of the last position [B, 1, V], cache').
+    Returns (logits of the last position [B, 1, V], or this rank's
+    vocabulary columns on a placed state, cache').
     ``inplace=True`` appends to the given KV caches; otherwise they are
     left as they were.  A recurrent state is never written: the pass
     returns a new one.  ``span`` is ``cache_len.max() + T``; a caller that

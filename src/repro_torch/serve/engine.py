@@ -38,6 +38,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._tensor import I32, DeviceLike, i32, resolve_device
 from repro_torch.ckpt.manager import CheckpointManager
@@ -78,10 +79,30 @@ def make_serve_state(cfg: ModelConfig, run: RunConfig, params, batch: int,
         longest=0)
 
 
-def _greedy(logits: torch.Tensor) -> torch.Tensor:
+def _greedy(logits: torch.Tensor, tp=None) -> torch.Tensor:
     """Trap T4: ``torch.argmax`` takes the first index on ties, as
-    ``jnp.argmax`` does; tokens stay int32."""
-    return logits[:, -1].argmax(dim=-1).to(I32)[:, None]
+    ``jnp.argmax`` does; tokens stay int32.
+
+    With ``tp`` (a placement's ``vocab`` axis) ``logits`` are this rank's
+    block of ``V / n`` vocabulary columns, and no rank builds the whole
+    row: each takes its block's largest value and its first index there,
+    offset by the block's first row; over the ranks the largest value
+    wins (a ``MAX``), then among the ranks that hold it the smallest
+    global index (a ``MIN``), which is ``torch.argmax``'s first index of
+    the whole row, bit for bit (float32 and bf16 values compare exactly
+    as float32)."""
+    last = logits[:, -1]
+    idx = last.argmax(dim=-1)
+    if tp is None:
+        return idx.to(I32)[:, None]
+    V = last.shape[-1]
+    best = last.gather(-1, idx[:, None])[:, 0].float()
+    top = tp.reduce(best, dist.ReduceOp.MAX)
+    glob = idx + tp.index * V
+    pick = tp.reduce(torch.where(best == top, glob,
+                                 torch.full_like(glob, tp.n * V)),
+                     dist.ReduceOp.MIN)
+    return pick.to(I32)[:, None]
 
 
 def prefill_step(state: ServeState, cfg: ModelConfig, run: RunConfig,
@@ -97,7 +118,8 @@ def prefill_step(state: ServeState, cfg: ModelConfig, run: RunConfig,
     ``placement`` (a :class:`repro_torch.dist.sharding.ServePlacement`)
     says that ``state`` is this rank's placed state (see
     :func:`decode_one`); every rank passes the whole batch's ``tokens``
-    and ``frontend_embeds`` and prefills its rows."""
+    and ``frontend_embeds`` and prefills its rows on its shards over
+    ``model``."""
     pl = placement
     rows = pl.rows if pl is not None else (lambda x: x)
     logits, cache, lens = tf.prefill(state.params, cfg, rows(tokens),
@@ -111,7 +133,8 @@ def prefill_step(state: ServeState, cfg: ModelConfig, run: RunConfig,
         state.mv, ids, whole, torch.ones((B,), dtype=torch.bool,
                                          device=lens.device),
         policy=run.gc.policy)
-    return ServeState(state.params, cache, lens, mv, _greedy(logits),
+    return ServeState(state.params, cache, lens, mv,
+                      _greedy(logits, pl.vocab if pl is not None else None),
                       tokens.shape[1] + tf.prefix_len(cfg, frontend_embeds))
 
 
@@ -162,7 +185,9 @@ def decode_one(state: ServeState, cfg: ModelConfig, run: RunConfig,
     ``placement`` (a :class:`repro_torch.dist.sharding.ServePlacement`)
     says that ``state`` is this rank's placed state: the parameters and
     cache its shards, ``cache_len``, ``last_tokens`` and ``enc_out`` its
-    rows, and the MV store whole.  The model runs on the rank's rows; the
+    rows, and the MV store whole.  The model runs on the rank's rows and
+    on its shards over ``model`` (``ServePlacement``), its greedy pick
+    over the vocabulary's blocks (:func:`_greedy`); the
     store runs on every rank over the whole batch's lengths, gathered over
     the batch axes, so every rank takes the same branch, and the step
     returns on every rank the whole batch's tokens, the stats and the
@@ -204,7 +229,7 @@ def decode_one(state: ServeState, cfg: ModelConfig, run: RunConfig,
         "overflow_count": mv.overflow_count,
         "dropped_retires": mv.dropped_retires,
     }
-    nxt = _greedy(logits)
+    nxt = _greedy(logits, pl.vocab if pl is not None else None)
     return (ServeState(state.params, cache, new_len, mv, nxt,
                        state.longest + 1),
             pl.whole(nxt) if pl is not None else nxt, freed_w.reshape(-1),

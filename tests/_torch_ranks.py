@@ -1164,45 +1164,157 @@ def check_compressed(got: list, want: list, n_leaves: int) -> tuple:
 SERVE_CASES = {"gemma2": ("gemma2-2b", 4, 32, 8, 4),
                "recurrentgemma": ("recurrentgemma-9b", 4, 32, 8, 4)}
 
+#: the placed float32 step lies within SERVE_K times the float32 one-rank
+#: step's distance from the float64 one-rank step (``d32``), for each
+#: logit row and each cache leaf.  Derived from the sums the placed step
+#: reorders (row-parallel sums after ``wo``, ``wd`` and ``w_out``, the
+#: vocab-parallel lookup, the RG-LRU gates' products over the gathered
+#: ``u``, a sequence-split softmax's row sum and ``P V``): a sum of N
+#: float32 terms over n = 2 ranks rounds (N/n - 1) + (n - 1) times, at
+#: most the one-rank sum's N - 1, so the placed step's rounding error has
+#: the one-rank step's size; the factor 2 holds the largest of one run's
+#: errors over a row or a leaf against another run's.  Stated before the
+#: first run of the placed step on its shards, not fitted.
+SERVE_K = 2.0
 
-def serve_run(case, device, placement=None) -> dict:
-    """Prefill and ``steps`` decode steps of ``case`` in float32 from one
-    seed: the one-rank step (``placement`` None) or this rank's placed
-    step.  Returns the tokens and stats of every step, the store and the
-    whole cache after the last, as numpy."""
-    from repro_torch.ckpt.manager import tree_flatten
-    from repro_torch.configs import SHAPES, reduced_config
-    from repro_torch.configs.base import RunConfig
+
+class _Float64:
+    """The one-rank step in float64 throughout: ``Tensor.float`` and
+    ``Tensor.to(float32)`` leave a float64 tensor float64 (the model's
+    casts to float32 are where bf16 activations widen), so the float64
+    run rounds nowhere in float32 but in RoPE's angles, which every run
+    computes alike from integer positions."""
+
+    def __enter__(self):
+        self.real = real_float, real_to = torch.Tensor.float, torch.Tensor.to
+
+        def flt(t, *a, **kw):
+            return t if t.dtype == torch.float64 else real_float(t, *a, **kw)
+
+        def to(t, *a, **kw):
+            if t.dtype == torch.float64:
+                a = tuple(torch.float64 if x is torch.float32 else x
+                          for x in a)
+                if kw.get("dtype") is torch.float32:
+                    kw["dtype"] = torch.float64
+            return real_to(t, *a, **kw)
+        torch.Tensor.float, torch.Tensor.to = flt, to
+        return self
+
+    def __exit__(self, *exc):
+        torch.Tensor.float, torch.Tensor.to = self.real
+
+
+class _Logits:
+    """Records the logits of every greedy pick (a prefill's, then each
+    decode step's), as the rank holds them: its rows, and its vocabulary
+    columns on a placed step."""
+
+    def __enter__(self):
+        from repro_torch.serve import engine as eng
+        self.real = real = eng._greedy
+        self.rows = []
+
+        def greedy(logits, tp=None):
+            self.rows.append(logits[:, -1].double().cpu().numpy())
+            return real(logits, tp)
+        eng._greedy = greedy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serve import engine as eng
+        eng._greedy = self.real
+
+
+def serve_made(pl, made: dict) -> None:
+    """Wraps ``pl`` (a ServePlacement) so that ``made`` keeps, by
+    "/"-joined path, the largest tensor made of each parameter leaf
+    (``Placement._gather``, where every gathered leaf is made) and of each
+    cache leaf that a layer reads larger than its shard (``cache_in``,
+    under ``cache/<layer>/<field>``)."""
+    record_made(pl.params, made)
+    real = pl.cache_in
+
+    def cache_in(c, i, tp=None):
+        out = real(c, i, tp)
+        for f, x, y in zip(c._fields, c, out):
+            key = f"cache/{i}/{f}"
+            if y.numel() > x.numel() and y.numel() > int(
+                    np.prod(made.get(key, [0]))):
+                made[key] = list(y.shape)
+        return out
+    pl.cache_in = cache_in
+
+
+def serve_inputs(case, device) -> tuple:
+    """``case``'s config, its float32 parameters and its prompt [B, T]
+    (int32), each from its seed."""
+    from repro_torch.configs import reduced_config
     from repro_torch.models import transformer as tf
-    from repro_torch.serve import engine as eng
-    arch, B, L, T, steps = SERVE_CASES[case]
+    arch, B, _, T, _ = SERVE_CASES[case]
     cfg = reduced_config(arch)
-    run = RunConfig(model=cfg, shape=SHAPES["decode_32k"])
     threads = torch.get_num_threads()
     torch.set_num_threads(1)     # erfinv's CPU paths: the same bits on
     params = tf.init_params(     # every rank and in the reference
         cfg, torch.Generator(device=device).manual_seed(5))
     torch.set_num_threads(threads)
-    state = eng.make_serve_state(cfg, run, params, B, L, torch.float32,
-                                 device)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T),
+                           generator=torch.Generator().manual_seed(6),
+                           dtype=torch.int32).to(device)
+    return cfg, params, tokens
+
+
+def serve_run(case, device, placement=None, dtype=torch.float32,
+              made=None) -> dict:
+    """Prefill and ``steps`` decode steps of ``case`` from one seed: the
+    one-rank step (``placement`` None; ``dtype`` float32, or float64
+    through :class:`_Float64`) or this rank's placed float32 step.
+    Returns, as numpy, the tokens, lengths and stats of every step, the
+    logits of every greedy pick as this rank holds them (with its mesh
+    coordinate on a placed step), the store and the whole cache after the
+    last step; ``made`` receives the placement's largest tensors
+    (:func:`serve_made`)."""
+    from repro_torch.ckpt.manager import tree_flatten
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.specs import map_leaves
+    from repro_torch.serve import engine as eng
+    _, B, L, _, steps = SERVE_CASES[case]
+    cfg, params, tokens = serve_inputs(case, device)
+    run = RunConfig(model=cfg, shape=SHAPES["decode_32k"])
+    if dtype == torch.float64:
+        params = map_leaves(params, lambda x: x.double())
+    state = eng.make_serve_state(cfg, run, params, B, L, dtype, device)
+    if dtype == torch.float64:   # a recurrent state is float32 by default
+        state = state._replace(cache=map_leaves(
+            state.cache, lambda x: x.double() if x.is_floating_point()
+            else x))
     pl = placement(cfg, params, state.cache) if placement else None
+    out = {}
     if pl is not None:
+        if made is not None:
+            serve_made(pl, made)
         state = state._replace(
             params=pl.params.shard_tree(params),
             cache=pl.shard_cache(state.cache),
             cache_len=pl.rows(state.cache_len).clone(),
             last_tokens=pl.rows(state.last_tokens).clone())
-    g = torch.Generator().manual_seed(6)
-    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
-                           dtype=torch.int32).to(device)
-    state = eng.prefill_step(state, cfg, run, tokens, placement=pl)
-    out = {}
-    for i in range(steps):
-        state, toks, _, stats = eng.decode_one(state, cfg, run,
-                                               placement=pl)
-        out[f"toks_{i}"] = toks.cpu().numpy()
-        out[f"stats_{i}"] = np.stack([v.cpu().numpy()
-                                      for v in stats.values()])
+        out["coord"] = np.asarray(pl.params.mesh.get_coordinate())
+    whole = pl.whole if pl is not None else (lambda x: x)
+    with (_Float64() if dtype == torch.float64
+          else contextlib.nullcontext()), _Logits() as seen:
+        state = eng.prefill_step(state, cfg, run, tokens, placement=pl)
+        out["toks_0"] = whole(state.last_tokens).cpu().numpy()
+        out["lens_0"] = whole(state.cache_len).cpu().numpy()
+        for i in range(1, steps + 1):
+            state, toks, _, stats = eng.decode_one(state, cfg, run,
+                                                   placement=pl)
+            out[f"toks_{i}"] = toks.cpu().numpy()
+            out[f"lens_{i}"] = whole(state.cache_len).cpu().numpy()
+            out[f"stats_{i}"] = np.stack([v.cpu().numpy()
+                                          for v in stats.values()])
+    for i, x in enumerate(seen.rows):
+        out[f"logits_{i}"] = x
     for j, x in enumerate(tree_flatten(state.mv)):
         out[f"mv_{j}"] = x.cpu().numpy()
     cache = pl.gather_cache(state.cache) if pl is not None else state.cache
@@ -1236,11 +1348,94 @@ class _WrongShard:
         sharding.ServePlacement._cut_leaf = self._cut
 
 
+class _ServeSkipG:
+    """Planted fault: serving attention returns this rank's partial
+    output, ``g`` (the sum over the ``model`` ranks) skipped after
+    ``wo``."""
+
+    def __enter__(self):
+        from repro_torch.models import attention as att
+        self.real = att._serve_out
+        att._serve_out = lambda params, out, tp: att._out_proj(params, out)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as att
+        att._serve_out = self.real
+
+
+class _NoVocabOffset:
+    """Planted fault: the vocab-parallel greedy pick combines each rank's
+    first index without its block's first row (every rank's offset 0)."""
+
+    class _Axis:
+        def __init__(self, tp):
+            self.tp, self.index, self.n = tp, 0, tp.n
+
+        def reduce(self, x, op):
+            return self.tp.reduce(x, op)
+
+    def __enter__(self):
+        from repro_torch.serve import engine as eng
+        self.real = real = eng._greedy
+
+        def greedy(logits, tp=None):
+            return real(logits, self._Axis(tp) if tp is not None else None)
+        eng._greedy = greedy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serve import engine as eng
+        eng._greedy = self.real
+
+
+class _LocalRowSum:
+    """Planted fault: a sequence-split decode normalises ``p`` by this
+    rank's row sum, not the sum over the ranks: ``_decode_attend``'s axis
+    skips the second of its three reductions (the row max and ``P V``
+    still reduced)."""
+
+    class _Axis:
+        def __init__(self, tp):
+            self.tp, self.calls = tp, 0
+
+        def __getattr__(self, name):
+            return getattr(self.tp, name)
+
+        def reduce(self, x, op=dist.ReduceOp.SUM):
+            self.calls += 1
+            return x if self.calls == 2 else self.tp.reduce(x, op)
+
+    def __enter__(self):
+        from repro_torch.models import attention as att
+        self.real = real = att._decode_attend
+
+        def attend(cfg, q, k, v, mask, out_dtype, tp=None):
+            return real(cfg, q, k, v, mask, out_dtype,
+                        None if tp is None else self._Axis(tp))
+        att._decode_attend = attend
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as att
+        att._decode_attend = self.real
+
+
+#: planted faults of the placed serve step: (fault, case, ranks that run
+#: under it); each must fail check_serve
+SERVE_FAULTS = {"wrong_shard": (_WrongShard, "gemma2", (1,)),
+                "skip_g": (_ServeSkipG, "gemma2", (0, 1, 2, 3)),
+                "vocab_offset": (_NoVocabOffset, "gemma2", (0, 1, 2, 3)),
+                "local_row_sum": (_LocalRowSum, "recurrentgemma",
+                                  (0, 1, 2, 3))}
+
+
 def program_serve(rank, world, io, device) -> None:
-    """Each serve case on a 2 x 2 (data, model) mesh: the placed step
-    (parameters by ``param_shardings(fsdp=False)``, the cache by
-    ``cache_shardings``), and the gemma2 case with the planted fault on
-    rank 1; rank 0 also runs the one-rank step."""
+    """Each serve case on a 2 x 2 (data, model) mesh: the placed float32
+    step (parameters by ``param_shardings(fsdp=False)``, the cache by
+    ``cache_shardings``), with every tensor the placement makes recorded;
+    each of SERVE_FAULTS on its case; rank 0 also runs the one-rank step
+    in float32 and in float64."""
     from repro_torch.dist.sharding import ServePlacement, param_shardings
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.specs import cache_shardings
@@ -1252,22 +1447,98 @@ def program_serve(rank, world, io, device) -> None:
             cache_shardings(cache, mesh, cfg, cache[0][0].shape[0]))
 
     for case in SERVE_CASES:
-        save(io, f"serve_{case}", rank,
-             **serve_run(case, device, placement))
+        made = {}
+        rec = serve_run(case, device, placement, made=made)
+        save(io, f"serve_{case}", rank, made=record(made), **rec)
         if rank == 0:
             save(io, f"serve_ref_{case}", 0, **serve_run(case, device))
-    with _WrongShard() if rank == 1 else contextlib.nullcontext():
-        save(io, "serve_fault", rank,
-             **serve_run("gemma2", device, placement))
+            save(io, f"serve_ref64_{case}", 0,
+                 **serve_run(case, device, dtype=torch.float64))
+    for name, (fault, case, ranks) in SERVE_FAULTS.items():
+        with fault() if rank in ranks else contextlib.nullcontext():
+            save(io, f"serve_fault_{name}", rank,
+                 **serve_run(case, device, placement))
 
 
-def check_serve(got: dict, want: dict) -> None:
-    """The placed step's record against the one-rank step's: tokens,
-    stats, the store and the gathered cache, bit for bit."""
-    assert sorted(got) == sorted(want)
-    for k in want:
-        assert got[k].dtype == want[k].dtype, k
-        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+def _assemble(recs: list, key: str) -> np.ndarray:
+    """A whole logit array from every rank's block: rank at coordinate
+    (data i, model j) holds rows block i and columns block j."""
+    coords = [tuple(r["coord"]) for r in recs]
+    nd, nm = (max(c[k] for c in coords) + 1 for k in (0, 1))
+    b, v = recs[0][key].shape
+    out = np.empty((b * nd, v * nm))
+    for r, (i, j) in zip(recs, coords):
+        out[i * b:(i + 1) * b, j * v:(j + 1) * v] = r[key]
+    return out
+
+
+def check_serve(got: list, want32: dict, want64: dict, k: float = SERVE_K
+                ) -> dict:
+    """Every rank's record of the placed step (``got``, one per rank)
+    against the one-rank step's in float32 (``want32``) and float64
+    (``want64``).
+
+    * Exact, on every rank and at every step: the lengths, the stats and
+      the store (they depend on lengths alone).
+    * Each row of logits, step by step (the prefill's pick, then each
+      decode step's): the placed logits within ``k * d32`` of float64's,
+      ``d32`` the float32 one-rank row's largest distance from them.  A
+      row's tokens are equal in all three runs while its float64 top-2
+      margin exceeds twice that limit; from the first step where it does
+      not, the row may take another token, and its logits, tokens and
+      cache are no longer compared.
+    * The whole cache after the last step, on the rows still compared:
+      each float leaf within ``k * d32`` of float64's, each integer leaf
+      (a ring's ``pos``) equal.
+
+    Returns the steps at which a row's margin stopped the comparison
+    ({row: step}) and the worst ratio of error to ``d32``."""
+    for rec in got:
+        assert sorted(k_ for k_ in rec if k_ not in ("coord", "made")) \
+            == sorted(want32), "records differ in their keys"
+        for key in want32:
+            if key.startswith(("lens_", "stats_", "mv_")):
+                np.testing.assert_array_equal(rec[key], want32[key],
+                                              err_msg=key)
+    steps = sum(1 for key in want32 if key.startswith("logits_"))
+    B = want32["logits_0"].shape[0]
+    live = np.ones(B, dtype=bool)
+    closed, worst = {}, 0.0
+    for s in range(steps):
+        key = f"logits_{s}"
+        l64, l32 = want64[key], want32[key]
+        lp = _assemble(got, key)
+        d32 = np.abs(l32 - l64).max(axis=-1)
+        err = np.abs(lp - l64).max(axis=-1)
+        limit = k * d32
+        top2 = np.sort(l64, axis=-1)[:, -2:]
+        margin = top2[:, 1] - top2[:, 0]
+        for b in np.flatnonzero(live):
+            assert err[b] <= limit[b], \
+                f"step {s} row {b}: logits {err[b]} from float64, " \
+                f"limit {limit[b]} ({k} x {d32[b]})"
+            worst = max(worst, err[b] / d32[b] if d32[b] else 0.0)
+            if margin[b] <= 2 * limit[b]:
+                live[b] = False
+                closed[int(b)] = s
+                continue
+            toks = f"toks_{s}"
+            assert want32[toks][b] == want64[toks][b] and all(
+                rec[toks][b] == want64[toks][b] for rec in got), \
+                f"step {s} row {b}: tokens differ at margin {margin[b]}"
+    for key in (k_ for k_ in want32 if k_.startswith("cache_")):
+        w64, w32 = want64[key][live], want32[key][live]
+        for rec in got:
+            g = rec[key][live]
+            if not np.issubdtype(w32.dtype, np.floating):
+                np.testing.assert_array_equal(g, w32, err_msg=key)
+                continue
+            d32 = float(np.abs(w32 - w64).max()) if w32.size else 0.0
+            err = float(np.abs(g - w64).max()) if g.size else 0.0
+            assert err <= k * d32, \
+                f"{key}: {err} from float64, limit {k} x {d32}"
+            worst = max(worst, err / d32 if d32 else 0.0)
+    return {"closed": closed, "worst": worst}
 
 
 PROGRAMS = {"engine": program_engine, "pipeline": program_pipeline,

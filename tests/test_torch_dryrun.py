@@ -20,6 +20,8 @@
   compiled step's HLO (``repro.launch.hlo_cost.analyze_hlo``, as JAX's
   dry run reads it) on 4 fake CPU devices, the port's from its dry run on
   a fake 4-rank group.
+* The same for the placed serve step: reduced gemma2-2b's decode step and
+  prefill on 2 x 2 against JAX's GSPMD decode and prefill cells.
 """
 import json
 import os
@@ -69,9 +71,9 @@ def test_oracle_cell(oracle):
     assert rec["memory"]["temp_bytes"] > 0
     assert (rec["chips"], rec["kind"], rec["global_batch"],
             rec["seq_len"]) == (256, "decode", 128, 32768)
-    # this rank's 8 of 128 rows; the parameters gathered over model, the
-    # cache (6 KV heads do not divide 16: the sequence) over model, the
-    # new lengths and tokens over data
+    # this rank's 8 of 128 rows; the attention's parameters and its cache
+    # gathered over model (6 heads do not divide 16: the layer computes
+    # whole), the new lengths and tokens over data
     assert rec["collectives"]["all-gather"]["count"] > 0
     assert rec["collective_bytes_per_device"] > 0
     # K6 in the 4 cross-attention layers, and the store's sweeps
@@ -222,3 +224,126 @@ def test_placed_step_flops_per_device_match_jax_gspmd():
     want = json.loads(out.strip().splitlines()[-1])
     got = json.loads(port.stdout.strip().splitlines()[-1])
     assert abs(got - want) <= FLOPS_RTOL * want, (got, want)
+
+
+_SERVE_FLOPS_JAX = r"""
+import json, sys
+import jax, jax.numpy as jnp
+import repro  # noqa: F401  (installs jax.set_mesh, jax.P on this jax)
+from repro.configs import reduced_config
+from repro.configs.base import RunConfig, SHAPES
+from repro.dist.sharding import param_shardings
+from repro.launch.hlo_cost import analyze_hlo
+from repro.launch.specs import cache_shardings, mv_shardings
+from repro.models import transformer as tf
+from repro.serve import engine as eng
+B, L = json.loads(sys.argv[1])
+cfg = reduced_config("gemma2-2b")
+run = RunConfig(model=cfg, shape=SHAPES["decode_32k"])
+mesh = jax.make_mesh((2, 2), ("data", "model"),
+                     axis_types=(jax.sharding.AxisType.Auto,) * 2)
+rows = jax.NamedSharding(mesh, jax.P("data", None))
+out = {}
+with jax.set_mesh(mesh):
+    params = jax.eval_shape(lambda: tf.init_params(
+        cfg, jax.random.PRNGKey(0), dtype=jnp.bfloat16))
+    psh = param_shardings(params, mesh, fsdp=False)
+    cache = jax.eval_shape(lambda: tf.init_cache(cfg, B, L, jnp.bfloat16))
+    prefill = jax.jit(lambda p, c, t: tf.prefill(p, cfg, t, c),
+                      in_shardings=(psh, cache_shardings(cache, mesh, cfg, B),
+                                    rows))
+    out["prefill"] = analyze_hlo(prefill.lower(
+        params, cache, jax.ShapeDtypeStruct((B, L), jnp.int32)
+    ).compile().as_text())["flops"]
+    st = jax.eval_shape(lambda: eng.make_serve_state(cfg, run, params, B, L,
+                                                     jnp.bfloat16))
+    ssh = eng.ServeState(params=psh,
+                         cache=cache_shardings(st.cache, mesh, cfg, B),
+                         cache_len=jax.NamedSharding(mesh, jax.P("data")),
+                         mv=mv_shardings(st.mv, mesh, B), last_tokens=rows)
+    decode = jax.jit(lambda s: eng.decode_one(s, cfg, run)[:2],
+                     in_shardings=(ssh,))
+    out["decode"] = analyze_hlo(decode.lower(st).compile().as_text())["flops"]
+print(json.dumps(out))
+"""
+
+_SERVE_FLOPS_PORT = r"""
+import json, sys, torch
+from repro_torch.configs import reduced_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun, specs
+from repro_torch.launch.mesh import make_host_mesh
+B, L = json.loads(sys.argv[1])
+specs.get_config = reduced_config     # the cell of reduced gemma2-2b
+dryrun.start_group(4)
+cpu = torch.device("cpu")
+mesh = make_host_mesh(2, 2, device=cpu)
+out = {}
+for kind in ("prefill", "decode"):
+    step, args, _ = specs.build_serve_cell(
+        "gemma2-2b", mesh, ShapeConfig(kind, kind, L, B))
+    counter, _ = dryrun.trace(step, args, cpu)
+    out[kind] = counter.result()["flops"]
+print(json.dumps(out))
+"""
+
+#: the serve cells' shape: B 4 (2 rows a data rank), a cache of 32
+#: positions; the prefill's prompt fills it (32 tokens, past reduced
+#: gemma2-2b's 16-slot ring)
+SERVE_FLOPS_SHAPE = (4, 32)
+
+#: the port's per-device FLOPs of the placed serve step within this share
+#: of JAX's GSPMD cell's, for decode and for prefill.  Measured before the
+#: serve step computed over ``model`` (the parent's, every ``model`` rank
+#: repeating each layer whole for its rows): decode 403334 against JAX's
+#: 228749 (1.763x); prefill 10204935 against JAX's 6731447 (1.516x), or
+#: 1.785x against JAX's less the unembedding of the positions the port
+#: does not unembed (below).  A step that divides attention, the MLP and
+#: the vocabulary over ``model`` as JAX's does should land near 1 (the
+#: train step's gap was 4.3 %: eager ops by hlo_cost's rules, no fusion).
+SERVE_FLOPS_RTOL = 0.15
+
+
+def _t3_unembed_flops(B: int, T: int) -> float:
+    """The FLOPs per device of JAX's prefill that the port skips by trap
+    T3: JAX unembeds every position and keeps the last; the port
+    unembeds the last alone.  Per device, ``B / 2`` rows (``data`` of 2)
+    times ``T - 1`` positions times ``V / 2`` vocabulary rows (``model``
+    of 2) times ``d``, two FLOPs a product."""
+    cfg = reduced_config("gemma2-2b")
+    return 2.0 * (B // 2) * (T - 1) * (cfg.vocab_size // 2) * cfg.d_model
+
+
+def test_placed_serve_flops_per_device_match_jax_gspmd():
+    """Reduced gemma2-2b's placed decode step (JAX's ``decode_one``: the
+    model's decode, the descriptor write and GC) and its prefill on 2 x 2
+    (data, model), parameters by ``param_shardings(fsdp=False)``, the
+    cache by ``cache_shardings``, the store by ``mv_shardings``: the
+    port's dry-run FLOPs per device within SERVE_FLOPS_RTOL of JAX's
+    compiled GSPMD cells (``analyze_hlo``; 4 fake CPU devices in one
+    subprocess, the port's fake 4-rank group in another).  JAX's prefill
+    is taken less :func:`_t3_unembed_flops`, the work the port leaves out
+    by design."""
+    over = json.dumps(SERVE_FLOPS_SHAPE)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    jax_proc = subprocess.Popen([sys.executable, "-c", _SERVE_FLOPS_JAX,
+                                 over], env=env, cwd=ROOT,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+    port = subprocess.run([sys.executable, "-c", _SERVE_FLOPS_PORT, over],
+                          env=env, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    out, err = jax_proc.communicate(timeout=600)
+    assert jax_proc.returncode == 0, err[-3000:]
+    assert port.returncode == 0, port.stderr[-3000:]
+    want = json.loads(out.strip().splitlines()[-1])
+    got = json.loads(port.stdout.strip().splitlines()[-1])
+    want["prefill"] -= _t3_unembed_flops(*SERVE_FLOPS_SHAPE)
+    ratios = {k: got[k] / want[k] for k in want}
+    print(f"port / JAX FLOPs per device: {ratios} (port {got}, JAX {want};"
+          " the parent's 1.763 decode, 1.785 prefill)")
+    for kind in ("decode", "prefill"):
+        assert abs(got[kind] - want[kind]) <= SERVE_FLOPS_RTOL * want[kind], \
+            (kind, got[kind], want[kind])

@@ -8,7 +8,9 @@ the sharded engine's global-LWM pin through K1 and a 4-host trace on the
 card against the CPU, and the rank programs of ``tests/_torch_ranks.py``
 on 4 gloo ranks on the card (the engine over meshes of 2 and 4 ranks,
 the pipeline, the 2 x 2 sharded step and data parallelism) against the
-one-process port on the card.  These tests
+one-process port on the card, and the placed serve step's combines over
+``model`` (the sequence-split decode's softmax, the vocab-shard argmax)
+on thread ranks against the one-rank code.  These tests
 need a GPU and ``nvcc``; without a card they skip.  Run them on the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -1859,3 +1861,136 @@ def test_dry_run_census_equals_the_card_launches(cuda):
     launched = {k: v - before[k] for k, v in counts().items()}
     assert census == launched == {"flash_prefill": 4,
                                   "flash_backward_bf16": 2}
+
+
+class _ThreadAxis:
+    """``n`` model ranks as threads of this process, for the serve step's
+    combines over ``model`` without a process group: ``reduce`` and
+    ``gather`` meet the other threads' tensors at a barrier and combine
+    them in rank order, as gloo's collectives do across ranks."""
+
+    def __init__(self, n: int):
+        import threading
+        self.n, self.slots = n, [None] * n
+        self.barrier = threading.Barrier(n)
+
+    def rank(self, index: int):
+        import copy
+        axis = copy.copy(self)
+        axis.index = index
+        return axis
+
+    def _meet(self, x):
+        self.slots[self.index] = x
+        self.barrier.wait()
+        parts = list(self.slots)
+        self.barrier.wait()
+        return parts
+
+    def reduce(self, x, op=None):
+        import torch.distributed as dist
+        parts = self._meet(x.detach())
+        if op == dist.ReduceOp.MAX:
+            return torch.stack(parts).amax(0)
+        if op == dist.ReduceOp.MIN:
+            return torch.stack(parts).amin(0)
+        out = parts[0].clone()
+        for p in parts[1:]:
+            out += p
+        return out
+
+    def gather(self, x, dim):
+        return torch.cat(self._meet(x.detach()), dim=dim)
+
+
+def _on_threads(fn, n: int) -> list:
+    """``fn(axis)`` for each of ``n`` thread ranks; their results in rank
+    order."""
+    import threading
+    axis, out = _ThreadAxis(n), [None] * n
+
+    def run(r):
+        out[r] = fn(axis.rank(r))
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+#: gemma2-2b's and recurrentgemma-9b's decode heads (Hq, Hkv, D, softcap)
+#: at B 8 (a data rank's rows) over a 1024-position cache
+SERVE_HEADS = {"gemma2-2b": (8, 4, 256, 50.0),
+               "recurrentgemma-9b": (16, 1, 256, 0.0)}
+
+
+@pytest.mark.parametrize("arch", list(SERVE_HEADS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sequence_split_decode_combine_on_the_card(cuda, arch, dtype):
+    """``attention._decode_attend`` over a cache split on its positions
+    into 2 blocks (each thread rank's query heads gathered; the row max,
+    then the row sum, then ``P V`` reduced over the thread ranks; each
+    rank's heads of the output returned) against the one-rank plain code
+    over the whole cache, on CUDA tensors: only the order of the two sums
+    differs, so
+    float32 agrees within 1e-5 relative (atol 1e-6); in bf16 the cache's
+    rounding of ``p`` may fall on the other side of a bf16 step, within
+    one bf16 step of the output (2^-7 relative) and 2^-6 of the largest
+    |v| (one step of one ``p`` times its ``v``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as att
+    Hq, Hkv, D, cap = SERVE_HEADS[arch]
+    cfg = dataclasses.replace(get_config(arch), attn_softcap=cap)
+    B, L, n = 8, 1024, 2
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((B, 1, Hq, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, L, Hkv, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, L, Hkv, D), generator=g, device=cuda).to(dtype)
+    lens = torch.randint(1, L, (B,), generator=g, device=cuda)
+    mask = torch.arange(L, device=cuda)[None, None, :] < lens[:, None, None]
+    want = att._decode_attend(cfg, q, k, v, mask, dtype)
+    blk = L // n
+    got = _on_threads(lambda ax: att._decode_attend(
+        cfg, q.chunk(n, dim=2)[ax.index],
+        k[:, ax.index * blk:(ax.index + 1) * blk],
+        v[:, ax.index * blk:(ax.index + 1) * blk],
+        mask[..., ax.index * blk:(ax.index + 1) * blk], dtype, ax), n)
+    tol = (dict(atol=1e-6, rtol=1e-5) if dtype == torch.float32 else
+           dict(atol=2**-6 * float(v.float().abs().max()), rtol=2**-7))
+    for out in got:
+        assert out.is_cuda and out.dtype == dtype
+        assert out.shape == (B, 1, Hq // n, D)
+    torch.testing.assert_close(torch.cat(got, dim=2).float(), want.float(),
+                               **tol)
+
+
+@pytest.mark.parametrize("V", [256000, 256])
+def test_vocab_shard_argmax_on_the_card(cuda, V):
+    """``engine._greedy`` over the vocabulary's blocks of 2 thread ranks
+    (each block's largest value and first index, offset by the block's
+    first row; the largest value, then the smallest global index) equals
+    ``torch.argmax`` of the whole rows on CUDA bit for bit: random bf16
+    and float32 logits at gemma2-2b's and recurrentgemma-9b's vocabulary
+    and at the reduced one, and rows with exact ties inside a block,
+    across the blocks, at both blocks' first columns, at their seam, and
+    over a whole row."""
+    from repro_torch.serve import engine as eng
+    n, blk = 2, V // 2
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((8, 1, V), generator=g, device=cuda).to(dtype)
+        x[1, 0, [3, blk + 3]] = 9.0                 # tie across the blocks
+        x[2, 0, [blk + 5, blk + 1]] = 9.0           # tie inside block 1
+        x[3, 0, [blk, 0]] = 9.0                     # both first columns
+        x[4, 0, [blk - 1, blk]] = 9.0               # the blocks' seam
+        x[5] = 0.0                                  # a whole row tied
+        want = eng._greedy(x)
+        got = _on_threads(lambda ax: eng._greedy(
+            x[..., ax.index * blk:(ax.index + 1) * blk], ax), n)
+        for out in got:
+            assert out.dtype == want.dtype and out.is_cuda
+            assert torch.equal(out, want), (dtype, out.ravel(), want.ravel())
+        assert want[1, 0] == 3 and want[2, 0] == blk + 1 \
+            and want[3, 0] == 0 and want[4, 0] == blk - 1 and want[5, 0] == 0
