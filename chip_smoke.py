@@ -156,7 +156,7 @@ Phases, each printing one JSON line:
    and restored bit-equal; the uninterrupted and the crashing run side
    by side) and reduced minitron-4b's 30 steps with and without gradient
    compression (the loss must fall by 0.1 and 0.2), while phase 10e's
-   one-rank reference runs in a process of its own;
+   one-rank references run, each case in a process of its own;
 10c. train_bf16 — the same gemma2-2b run in bf16 (init_state(dtype=
    bfloat16), AdamW's moments float32, as in JAX), 4 steps: the same
    checks, with K6 on its wgmma route and K6b on its bf16 route, counted
@@ -164,9 +164,9 @@ Phases, each printing one JSON line:
 10d-10f, 10h. four rank processes of this script (``--rank``), each on the
    card (cuda:0), joined by gloo through a file store (NCCL refuses two
    ranks of one group on one GPU); only the collectives cross gloo,
-   through host memory.  Phase 10e's one-rank reference has run in a
-   process of its own beside 10b's launcher checks (none of them timed),
-   so that its memory was the card's again before 10c.  Each rank runs
+   through host memory.  Phase 10e's one-rank references have run in
+   processes of their own beside 10b's launcher checks (none of them
+   timed), so that their memory was the card's again before 10c.  Each rank runs
    10e, 10f and 10h, then 10d (10e needs the card's memory most):
    10d dist_ranks — phase 10's traffic loop unchanged, its engine spread over
    the 4 ranks by the default mesh (one host each, the LWM over the min
@@ -174,19 +174,24 @@ Phases, each printing one JSON line:
    step, the pages reclaimed and the peak per host and a digest of every
    view and K4 output must equal phase 10's run; then phase 9's smoke
    and stall rows at 4 ranks;
-   10e train_sharded — gemma2-2b at full widths in float32, cut to 4 of
-   its 26 layers (TRAIN_SHARDED: two local/global pairs), on
+   10e train_sharded — two cases at full widths in float32
+   (TRAIN_SHARDED): gemma2-2b cut to 2 of its 26 layers (one local, one
+   global) and granite-moe-1b-a400m cut to 2 of its 24, each on
    a 2 x 2 (data, model) mesh with fsdp=True, computed on its shards over
    model as JAX's GSPMD step does (local heads, the MLP split on its
-   hidden dim, the vocab-parallel embedding and loss; every leaf gathered
-   at use over data only where the layer computes locally, else whole),
-   B 2 x T 2048, 2 steps: the losses and gradient norms within rtol 1e-4
-   of the one-rank step, SHARDED_LEAVES' shards (mu, nu) within their
-   stated limits and each parameter's change over the run against the
-   one-rank step's (step 0's rate is 0: the update shows only there), K6
-   and K6b counted on every rank by their head counts (4 query and 2 KV
-   heads of gemma2-2b's 8 and 4), each rank's peak memory, step seconds
-   and bytes across host memory a step, beside the parent's
+   hidden dim, a mixture's block of 16 of 32 experts with each expert's
+   bucket rows split over data, the vocab-parallel embedding and loss
+   where the vocabulary divides; every leaf gathered at use over data
+   only where the layer computes locally, else whole), B 2 x T 2048, 2
+   steps, each against its own one-rank step: the losses and gradient
+   norms within rtol 1e-4, the case's SHARDED_LEAVES' shards (mu, nu)
+   within their stated limits and each parameter's change over the run
+   against the one-rank step's (step 0's rate is 0: the update shows only
+   there), K6 and K6b counted on every rank by their head counts (4 query
+   and 2 KV heads of gemma2-2b's 8 and 4; 8 and 4 of granite's 16 and 8),
+   granite's expert leaf made [16, 1024, 512] at most and its router
+   whole, each rank's peak memory, step seconds and bytes across host
+   memory a step, gemma2-2b's beside the parent's
    (TRAIN_SHARDED_PARENT);
    10f pipeline — minitron-4b's 32 layers in bf16 over 4 stage ranks
    (GPipe, M 8 microbatches of B 2 x T 2048): the output under no_grad
@@ -203,9 +208,11 @@ Phases, each printing one JSON line:
    ServePlacement on a 2 x 2 (data, model) mesh, in bf16 at full widths,
    computing on each rank's shards over model as JAX's decode and prefill
    cells do (KV heads or the cache's positions, the MLP's hidden dim, the
-   RG-LRU's width, the vocabulary; ServePlacement): gemma2-2b at full
-   depth and recurrentgemma-9b at 3 of its 38 layers (SERVE_PLACED), B 16
-   (8 a data rank), a 512-token prompt, 16 greedy steps.  Rank 0 runs the
+   RG-LRU's width, a mixture's block of experts and its shared experts'
+   hidden dim, the vocabulary; ServePlacement): gemma2-2b at full depth,
+   recurrentgemma-9b at 3 of its 38 layers and deepseek-moe-16b at 2 of
+   its 28 (SERVE_PLACED), B 16 (8 a data rank), a 512-token prompt, 16
+   greedy steps.  Rank 0 runs the
    one-rank step in float32 and rank 1 in bf16 from the same weights,
    side by side, first; then the placed step must give their lengths,
    stats and store exactly, each logit row within SERVE_PLACED_K times
@@ -214,9 +221,10 @@ Phases, each printing one JSON line:
    (from the first step where it does not, the row is no longer
    compared), the checked cache leaves (SERVE_PLACED_LEAVES) within the
    same limit on the rows and positions still compared; K6 on 4 of 8
-   query and 2 of 4 KV heads (gemma2-2b) and on 8 of 16 query heads and
-   the one KV head (recurrentgemma-9b), counted by head counts; nothing
-   made larger than its shard but a heads-split ring's positions;
+   query and 2 of 4 KV heads (gemma2-2b), on 8 of 16 query heads and
+   the one KV head (recurrentgemma-9b) and on 8 of 16 query and KV heads
+   (deepseek-moe-16b), counted by head counts; nothing made larger than
+   its shard but a heads-split ring's positions (no expert leaf whole);
    printed: prefill seconds, decode ms a step, bytes across host memory
    a decode step and the prefill's, and peak memory, a rank, beside the
    one-rank steps';
@@ -224,9 +232,11 @@ Phases, each printing one JSON line:
    rank is stopped before the script goes on;
 10g. dryrun — the dry run (``repro_torch/launch/dryrun.py``: rank 0's
    program of a cell on fake CUDA tensors, nothing built or launched), in
-   five processes started together after 10f, the last timed phase (one
-   fake default group a process; run last, so that they take no host
-   time from a phase that reads times): the CLI's ``--smoke`` and
+   five processes started together beside phase 10b's untimed launcher
+   checks and 10e's references, and waited for before 10c (one fake
+   default group a process; CPU-bound, so they overlap no phase that
+   reads times; run last, after 10d-10h, they took about 51 s of the
+   script's wall); held after the ranks phase: the CLI's ``--smoke`` and
    ``--smoke --mesh host2``, JAX's oracle cell whisper-tiny x decode_32k
    on the 256-rank pod and minitron-4b x train_4k on the pod must exit 0;
    then phase 10c's own cell (gemma2-2b, bf16, B 1 x T 4096, one rank)
@@ -375,6 +385,15 @@ FLASH = {
     "recurrentgemma_placed_local": dict(B=8, Hq=8, Hkv=1, T=512, D=256,
                                         window=2048, softcap=0.0,
                                         dtype="bf16", p_rounding=True),
+    # and deepseek-moe-16b's layers there: 8 of its 16 query and KV heads
+    "moe_placed": dict(B=8, Hq=8, Hkv=8, T=512, D=128, window=0,
+                       softcap=0.0, dtype="bf16", p_rounding=True),
+    # phase 10e's granite-moe-1b-a400m layer on one rank of its 2 x 2
+    # mesh (one sequence of 2048 a data rank, 8 of 16 query and 4 of 8 KV
+    # heads of 64 a model rank), float32 as it trains; its K6b row in
+    # FLASH_BWD
+    "granite_placed_train_f32": dict(B=1, Hq=8, Hkv=4, T=2048, D=64,
+                                     window=0, softcap=0.0, dtype="f32"),
     # the same layer with q scaled by 12: logits q.k/sqrt(D) of about
     # N(0, 12^2), so the cap of 50 bends them (randn's N(0, 1) logits move
     # by under 0.006 under it); the same inputs with no softcap must fail
@@ -427,7 +446,8 @@ FLASH.update({f"{name}{sfx}": dict(c, softcap=0.0, **kw)
 # softcap 50; its local layers' window 4096 covers the sequence, so they
 # and its global layers compute the same function and one row stands for
 # both) and a window of 512, minitron-4b's heads, whisper-tiny's
-# cross-attention (64 rows over 1500 frames, bidirectional).
+# cross-attention (64 rows over 1500 frames, bidirectional), and phase
+# 10e's granite-moe-1b-a400m layer a rank.
 # "gemma2_train" is the kernel table's row of each route
 FLASH_BWD = {
     "gemma2_train": dict(B=1, Hq=8, Hkv=4, T=4096, D=256, window=4096,
@@ -438,6 +458,10 @@ FLASH_BWD = {
                      softcap=0.0),
     "whisper_cross": dict(B=16, Hq=6, Hkv=6, T=64, S=1500, D=64, window=0,
                           softcap=0.0, causal=False),
+    # phase 10e's granite-moe-1b-a400m layer on one rank (FLASH's
+    # granite_placed_train_f32)
+    "granite_placed_train": dict(B=1, Hq=8, Hkv=4, T=2048, D=64, window=0,
+                                 softcap=0.0),
 }
 # K6b's float32 route against attention_bwd_ref: both sum in float32 in
 # other orders over up to 4096 columns; the atol is about 4x the largest
@@ -467,9 +491,9 @@ CHARGE_ROUNDS = 5
 TRAIN_BF16 = dict(TRAIN, steps=4)
 # phase 10g: the dry run (repro_torch/launch/dryrun.py) on the card's
 # machine, each in a process of its own (one fake default group a
-# process), all started together after phase 10f, the last timed phase
-# (they are CPU-bound, and every earlier phase reads host or device
-# times): the CLI's smoke cells, JAX's oracle cell
+# process), all started together beside phase 10b's untimed launcher
+# checks and waited for before 10c (they are CPU-bound, and every timed
+# phase reads host or device times): the CLI's smoke cells, JAX's oracle cell
 # (tests/launch/test_distributed.py:105-114) and a zoo model's train_4k
 # on the 256-rank pod; then phase 10c's own cell on one rank, held
 # against 10c's run: its kernel census equal to the launches 10c's
@@ -520,33 +544,50 @@ RANKS_TIMEOUT_S = 900          # each rank's own limit: a deadlock fails
 # add no host count or stall the other two lack, are left to phase 9 and
 # the CPU tests
 RANK_TIERS = ("smoke", "stall")
-# 10e: gemma2-2b at its full widths in float32 on a 2 x 2 (data, model)
+# 10e: each case at its full widths in float32 on a 2 x 2 (data, model)
 # mesh with fsdp=True: B 2 (one sequence per data row), 2 steps at phase
 # 10b's schedule, against the one-rank train_step on the same batches from
-# the same state (run first in a process of its own, so that its memory is
-# the card's again before the ranks start).  Its depth is cut to 4 of the
-# 26 layers (two local/global pairs: both layer kinds and the softcap
-# stay): when each rank gathered every leaf whole through host memory
-# twice a step, at full depth (10.46 GB of float32) its two steps took
-# 46-83 s each and pushed the script past its time limit; 10b trains the
-# full depth.  The step now computes over model (a gather of a split leaf
-# brings a quarter of it; activations cross the model ranks)
-TRAIN_SHARDED = dict(TRAIN, batch=2, seq_len=2048, steps=2, mesh=(2, 2),
-                     layers=4)
-# the leaves held against the one-rank step (replicated norms, attention
-# and MLP matrices split over model and data, the last layer's MLP), with
-# their AdamW moments
-# 10e before its step computed over model (PERF.md section 5, runs
-# 26A-26C, "NVIDIA H100 80GB HBM3, 700.00 W"): every leaf gathered whole
-# on every rank, K6 and K6b on all 8 query and 4 KV heads; the host bytes
-# were not counted then (3.6 GB of leaves gathered a step, twice)
+# the same state (each run first in a process of its own, so that its
+# memory is the card's again before the ranks start).  gemma2-2b cut to 2
+# of its 26 layers (layer 0 local, layer 1 global: both layer kinds and
+# the softcap stay; 4 layers until the MoE case came, and when each rank
+# gathered every leaf whole through host memory twice a step, at full
+# depth (10.46 GB of float32) its two steps took 46-83 s each and pushed
+# the script past its time limit; 10b trains the full depth); the step
+# computes over model (a gather of a split leaf brings a quarter of it;
+# activations cross the model ranks).  granite-moe-1b-a400m
+# (hf:ibm-granite/granite-3.0-1b-a400m-base: 32 experts, top 8, d 1024,
+# f 512, 16 query and 8 KV heads of 64) cut to 2 of its 24 layers: 16 of
+# its 32 experts a model rank, each expert's bucket rows split over the
+# data ranks (its experts split over data too, by FSDP), as JAX's GSPMD
+# step computes them
+TRAIN_SHARDED = {
+    "gemma2": dict(TRAIN, batch=2, seq_len=2048, steps=2, mesh=(2, 2),
+                   layers=2),
+    "moe": dict(TRAIN, arch="granite-moe-1b-a400m", batch=2, seq_len=2048,
+                steps=2, mesh=(2, 2), layers=2),
+}
+# 10e's gemma2-2b case before its step computed over model, at 4 layers
+# (PERF.md section 5, runs 26A-26C, "NVIDIA H100 80GB HBM3, 700.00 W"):
+# every leaf gathered whole on every rank, K6 and K6b on all 8 query and 4
+# KV heads; the host bytes were not counted then (3.6 GB of leaves
+# gathered a step, twice)
 TRAIN_SHARDED_PARENT = {"step_s": [[36.3, 38.9], [22.1, 24.8]],
+                        "layers": 4,
                         "peak_gib": 10.06, "host_bytes_per_step": None,
                         "leaf_bytes_gathered_per_step": 3.6e9,
                         "k6_heads": {"8x4": 16}, "k6b_heads": {"8x4": 8}}
-SHARDED_LEAVES = ("final_norm", "layers/0/ln1", "layers/0/mixer/wq",
-                  "layers/0/mixer/wo",
-                  f"layers/{TRAIN_SHARDED['layers'] - 1}/ffn/wd")
+# the leaves held against the one-rank step, with their AdamW moments:
+# gemma2-2b's replicated norms, attention and MLP matrices split over
+# model and data, the last layer's MLP; granite's norm, attention
+# matrices, a router (whole over model) and an expert leaf (its experts
+# split over model, its d over data)
+SHARDED_LEAVES = {
+    "gemma2": ("final_norm", "layers/0/ln1", "layers/0/mixer/wq",
+               "layers/0/mixer/wo", "layers/1/ffn/wd"),
+    "moe": ("final_norm", "layers/0/mixer/wq", "layers/0/ffn/router",
+            "layers/0/ffn/wg", "layers/1/mixer/wo"),
+}
 # loss and gradient norm: JAX's limit for the sharded step's loss
 # (tests/launch/test_distributed.py:98); mu and nu within this share of
 # each leaf's largest entry (float32 sums in another order).  Step 0's
@@ -573,13 +614,16 @@ PIPELINE = dict(arch="minitron-4b", microbatches=8, batch=2, seq_len=2048,
 # full widths: gemma2-2b at full depth (KV heads on model; each local
 # ring's pos gathered whole at use) and recurrentgemma-9b cut to one period
 # of its pattern, 3 of its 38 layers (the RG-LRU on its width shard, the
-# ring on its slot shard: sequence-split decode).  B 16 (8 a data rank), a
-# 512-token prompt, 16 greedy steps into a 1024-position cache (no ring
-# wraps: C10).  Rank 0 runs the one-rank step in float32 and rank 1 in bf16
+# ring on its slot shard: sequence-split decode), and deepseek-moe-16b cut
+# to 2 of its 28 layers (32 of its 64 experts a model rank, the shared
+# experts on half their hidden dim, 8 of 16 query and KV heads).  B 16 (8
+# a data rank), a 512-token prompt, 16 greedy steps into a 1024-position
+# cache (no ring wraps: C10).  Rank 0 runs the one-rank step in float32 and rank 1 in bf16
 # from the same weights (the bf16 leaves, widened for float32), side by
 # side, before the placed run
 SERVE_PLACED = {"gemma2": dict(arch="gemma2-2b", layers=None),
-                "recurrentgemma": dict(arch="recurrentgemma-9b", layers=3)}
+                "recurrentgemma": dict(arch="recurrentgemma-9b", layers=3),
+                "moe": dict(arch="deepseek-moe-16b", layers=2)}
 SERVE_PLACED_RUN = dict(batch=16, prompt=512, max_len=1024, steps=16,
                         mesh=(2, 2), seed=0)
 # the placed bf16 step lies within SERVE_PLACED_K times the bf16 one-rank
@@ -591,7 +635,23 @@ SERVE_PLACED_RUN = dict(batch=16, prompt=512, max_len=1024, steps=16,
 # their sum over gloo, 2n - 1 = 3 bf16 roundings; plus 1 for one run's
 # largest error over a row against another's (the CPU test's float32 k of
 # 2 is 1 + 1: there a split sum rounds no more often than the whole).
-# Stated before the first card run
+# Stated before the first card run.  A mixture of experts' combine stays
+# within it: a token's k bf16 contributions and its shared expert's
+# product go through k + 1 bf16 roundings on one rank, and through at most
+# k + 2 placed (the shared expert's partial product and the sum over gloo
+# in place of its one product), and the shared expert's sum alone through
+# 3 for 1, as at a dense MLP's.  But a mixture's routing is no sum: a
+# rounding step can flip a near tie of its top-k, and a token routed to
+# other experts moves by a share of an expert's output.  On an H100 the
+# deepseek-moe-16b case's prefill pick had a row 11.6 times its own d16
+# from float32 (0.335 against 0.0289), and in bf16 258 and 356 of the
+# prefill's 8192 tokens (layers 0 and 1) routed otherwise than in float32
+# on one rank (254 and 409 placed), each run at other tokens
+# (tools/serve_placed_case.py prints both).  So a row whose current token either bf16 step routed
+# otherwise than the float32 step is treated as a row whose margin fell
+# under the limit: from that step it is no longer compared
+# (check_serve_placed, SeenRoutes); every other row is held to K as
+# derived.  Stated after those runs, before the run that holds it
 SERVE_PLACED_K = 4.0
 # what the one-rank step of 10h may leave allocated on the card once its
 # state is freed (a library's workspace made at its first call; the state
@@ -603,7 +663,8 @@ SERVE_REF_LEFT_BYTES = 64 * 2**20
 SERVE_PLACED_LEAVES = {
     "gemma2": ((0, "k"), (0, "v"), (0, "pos"), (25, "k"), (25, "v")),
     "recurrentgemma": ((0, "h"), (0, "conv"), (2, "k"), (2, "v"),
-                       (2, "pos"))}
+                       (2, "pos")),
+    "moe": ((0, "k"), (0, "v"), (1, "k"), (1, "v"))}
 # phase 6: the launcher's flags (minitron-4b at full width, no --reduced)
 MODEL_ARGS = ["--arch", "minitron-4b", "--batch", "16", "--prompt-len",
               "2048", "--max-len", "4096", "--steps", "64", "--pin-every",
@@ -3340,46 +3401,56 @@ def train_compression(dev) -> dict:
     return out
 
 
-def phase_train(dev, io: str) -> tuple[dict, dict, float]:
+def phase_train(dev, io: str) -> tuple[dict, dict, float, tuple]:
     """Phase 10b: full-width training in float32, then the launcher's
     crash/resume and gradient compression at reduced widths, while phase
-    10e's one-rank reference runs in a process of its own (``io``: none of
-    them is timed, and the reference's memory is the card's again when it
-    exits); phase 10c: full-width training in bf16, once the reference
-    is done.  Returns the two full-width runs' lines (their launch counts
-    and peaks) and the reference's wall seconds."""
+    10e's one-rank references run, a process each (``io``: none of them is
+    timed, and the references' memory is the card's again when they
+    exit), and phase 10g's CPU-bound dry runs beside them; phase 10c:
+    full-width training in bf16, once the references and the dry runs are
+    done.  Returns the two full-width runs' lines (their launch counts
+    and peaks), the references' wall seconds and the dry runs' outputs
+    (held against 10c by :func:`phase_dryrun` after the ranks)."""
     f32 = train_full_width(dev)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    reference = _start(io, [["--train-reference", io]])
+    reference = _start(io, [["--train-reference", io, case]
+                            for case in TRAIN_SHARDED])
+    dry = start_dryrun()
     res = {"phase": "train_resume", **train_resume(dev)}
     res["compression"] = train_compression(dev)
     emit(res)
     _wait(reference)
     ref_wall = time.perf_counter() - t0
+    dry = finish_dryrun(dry)
     torch.cuda.empty_cache()
-    return f32, train_full_width(dev, torch.bfloat16), ref_wall
+    return f32, train_full_width(dev, torch.bfloat16), ref_wall, dry
 
 
 # ---------------------------------------------------------------------------
 # phase 10g: the dry run, held against phase 10c
 # ---------------------------------------------------------------------------
-def phase_dryrun(bf16: dict) -> dict:
-    """Phase 10g: the dry runs, each in a process of its own, all started
-    at once (they need no card: their tensors are fake); every one must
-    exit 0; phase 10c's cell's kernel census must equal 10c's launches per
-    step (K6 and K6b), and its predicted peak lie within DRYRUN_PEAK_RTOL
-    of 10c's measured one."""
-    t0 = time.perf_counter()
+def start_dryrun() -> tuple:
+    """Phase 10g's dry runs, each in a process of its own, all started at
+    once (they need no card: their tensors are fake).  Returns what
+    :func:`finish_dryrun` waits for."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
     argvs = [("cli " + " ".join(a),
               ["-m", "repro_torch.launch.dryrun", *a]) for a in DRYRUN_CLI]
     argvs.append(("train_bf16", ["-c", DRYRUN_TRAIN, json.dumps(TRAIN_BF16)]))
-    procs = [(name, subprocess.Popen([sys.executable, *argv], env=env,
-                                     cwd=ROOT, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True))
-             for name, argv in argvs]
+    return time.perf_counter(), [
+        (name, subprocess.Popen([sys.executable, *argv], env=env, cwd=ROOT,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True))
+        for name, argv in argvs]
+
+
+def finish_dryrun(started: tuple) -> tuple:
+    """Waits for :func:`start_dryrun`'s processes (every one must exit 0;
+    each is stopped before this returns): (their outputs by name, the
+    dry runs' wall seconds)."""
+    t0, procs = started
     outs = {}
     try:
         for name, p in procs:
@@ -3392,6 +3463,15 @@ def phase_dryrun(bf16: dict) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    return outs, time.perf_counter() - t0
+
+
+def phase_dryrun(bf16: dict, done: tuple) -> dict:
+    """Phase 10g: the dry runs' results (``done``, :func:`finish_dryrun`'s)
+    held: each CLI cell's record; phase 10c's cell's kernel census must
+    equal 10c's launches per step (K6 and K6b), and its predicted peak lie
+    within DRYRUN_PEAK_RTOL of 10c's measured one."""
+    outs, seconds = done
     cells = {name: [ln for ln in out.splitlines()
                     if ln.startswith(("OK", "FAIL"))]
              for name, out in outs.items() if name != "train_bf16"}
@@ -3438,7 +3518,7 @@ def phase_dryrun(bf16: dict) -> dict:
            "census_per_step": census, "train_bf16_launches_per_step": want,
            "predicted_peak_gib": predicted, "measured_peak_gib": measured,
            "peak_gap": gap, "peak_rtol": DRYRUN_PEAK_RTOL,
-           "memory": mem, "seconds": time.perf_counter() - t0}
+           "memory": mem, "seconds": seconds}
     emit(res)
     return res
 
@@ -3446,43 +3526,52 @@ def phase_dryrun(bf16: dict) -> dict:
 # ---------------------------------------------------------------------------
 # phases 10d-10f: placement over four rank processes on the card
 # ---------------------------------------------------------------------------
-def _sharded_config():
-    """Phase 10e's model: its arch at full widths, TRAIN_SHARDED's
-    depth."""
-    return dataclasses.replace(get_config(TRAIN_SHARDED["arch"]),
-                               num_layers=TRAIN_SHARDED["layers"])
+def _sharded_config(case: str):
+    """Phase 10e's model of ``case``: its arch at full widths,
+    TRAIN_SHARDED's depth."""
+    p = TRAIN_SHARDED[case]
+    return dataclasses.replace(get_config(p["arch"]),
+                               num_layers=p["layers"])
 
 
-def _sharded_run(cfg) -> RunConfig:
+def _sharded_run(case: str, cfg) -> RunConfig:
     return RunConfig(model=cfg, shape=SHAPES["train_4k"],
-                     lr=TRAIN_SHARDED["lr"])
+                     lr=TRAIN_SHARDED[case]["lr"])
 
 
-def _mesh_stand_in() -> object:
+def _mesh_stand_in(case: str) -> object:
     """The 2 x 2 mesh as the sharding rules read it (axis sizes only)."""
     return type("Mesh", (), {"shape": dict(zip(
-        ("data", "model"), TRAIN_SHARDED["mesh"]))})()
+        ("data", "model"), TRAIN_SHARDED[case]["mesh"]))})()
 
 
-def train_sharded_reference(dev, io: str) -> int:
-    """Phase 10e's one-rank run, in a process of its own (``chip_smoke.py
-    --train-reference IO``), so that its memory is the card's again when
-    it exits: TRAIN_SHARDED's steps of the plain ``train_step`` from the
-    seed's state on the same batches.  Writes the losses, gradient norms,
-    step seconds, peak memory and each SHARDED_LEAVES' spec on the 2 x 2
-    mesh to ``IO/reference.json`` and the leaves (params, mu, nu, and the
+def _leaf_file(io: str, who: str, kind: str, name: str) -> str:
+    """Where phase 10e keeps one leaf of a run: ``who`` is
+    ``reference_<case>`` or ``sharded_<case>_<rank>``."""
+    return os.path.join(io, f"{who}_{kind}_{name.replace('/', '.')}.npy")
+
+
+def train_sharded_reference(dev, io: str, case: str) -> int:
+    """Phase 10e's one-rank run of ``case``, in a process of its own
+    (``chip_smoke.py --train-reference IO CASE``), so that its memory is
+    the card's again when it exits: the case's steps of the plain
+    ``train_step`` from the seed's state on the same batches.  Writes the
+    losses, gradient norms, step seconds, peak memory and each of the
+    case's SHARDED_LEAVES' spec on the 2 x 2 mesh to
+    ``IO/reference_<case>.json`` and the leaves (params, mu, nu, and the
     initial params as p0) as ``.npy`` beside it."""
-    p = TRAIN_SHARDED
-    cfg = _sharded_config()
-    run = _sharded_run(cfg)
+    p = TRAIN_SHARDED[case]
+    cfg = _sharded_config(case)
+    run = _sharded_run(case, cfg)
+    who = f"reference_{case}"
     torch.cuda.reset_peak_memory_stats()
     state = init_state(cfg, torch.Generator(device=dev).manual_seed(
         p["seed"]))
     for path, x in _paths(state.params):
         name = "/".join(path)
-        if name in SHARDED_LEAVES:
-            np.save(os.path.join(io, "reference_p0_" + name.replace("/", ".")
-                                 + ".npy"), x.detach().float().cpu().numpy())
+        if name in SHARDED_LEAVES[case]:
+            np.save(_leaf_file(io, who, "p0", name),
+                    x.detach().float().cpu().numpy())
     data = SyntheticLM(DataConfig(cfg.vocab_size, p["seq_len"], p["batch"]))
     losses, norms, step_s, rates = [], [], [], 0.0
     for _ in range(p["steps"]):
@@ -3496,21 +3585,20 @@ def train_sharded_reference(dev, io: str) -> int:
         step_s.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
-    specs = dict(_paths(param_shardings(state.params, _mesh_stand_in(),
+    specs = dict(_paths(param_shardings(state.params, _mesh_stand_in(case),
                                         fsdp=True)))
     for kind, tree in (("param", state.params), ("mu", state.opt.mu),
                        ("nu", state.opt.nu)):
         for path, x in _paths(tree):
             name = "/".join(path)
-            if name in SHARDED_LEAVES:
-                np.save(os.path.join(io, f"reference_{kind}_"
-                                     + name.replace("/", ".") + ".npy"),
+            if name in SHARDED_LEAVES[case]:
+                np.save(_leaf_file(io, who, kind, name),
                         x.detach().float().cpu().numpy())
-    with open(os.path.join(io, "reference.json"), "w") as f:
+    with open(os.path.join(io, who + ".json"), "w") as f:
         json.dump({"losses": losses, "grad_norms": norms, "step_s": step_s,
                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                    "specs": {n: list(specs[tuple(n.split("/"))])
-                             for n in SHARDED_LEAVES},
+                             for n in SHARDED_LEAVES[case]},
                    "rates": rates},
                   f)
     return 0
@@ -3571,18 +3659,21 @@ def record_made(pl) -> dict:
     return made
 
 
-def rank_train_sharded(dev, rank: int, world: int, io: str) -> dict:
-    """Phase 10e on one rank: the seed's state placed over the 2 x 2 mesh
-    (each rank builds it whole in turn, keeps its shards and frees it: a
-    float32 state at full depth is 31 GiB), then the sharded train_step;
-    this rank's shards of SHARDED_LEAVES go to ``io``.  The step
-    computes on its shards over ``model`` (local heads, the MLP's
-    slice of its hidden dim, the vocabulary's rows): this rank's K6 and
-    K6b run on its heads, counted by head counts, and the bytes that
-    cross between the card and host memory are counted a step."""
-    p = TRAIN_SHARDED
-    cfg = _sharded_config()
-    run = _sharded_run(cfg)
+def rank_train_sharded(dev, rank: int, world: int, io: str,
+                       case: str) -> dict:
+    """Phase 10e's ``case`` on one rank: the seed's state placed over the
+    2 x 2 mesh (each rank builds it whole in turn, keeps its shards and
+    frees it: gemma2-2b's float32 state at full depth is 31 GiB), then the
+    sharded train_step; this rank's shards of the case's SHARDED_LEAVES go
+    to ``io``.  The step computes on its shards over ``model`` (local
+    heads, the MLP's slice of its hidden dim, a mixture's block of
+    experts, the vocabulary's rows): this rank's K6 and K6b run on its
+    heads, counted by head counts, and the bytes that cross between the
+    card and host memory are counted a step."""
+    p = TRAIN_SHARDED[case]
+    cfg = _sharded_config(case)
+    run = _sharded_run(case, cfg)
+    who = f"sharded_{case}_{rank}"
     mesh = make_host_mesh(*p["mesh"], device=dev)
     torch.cuda.reset_peak_memory_stats()
     for r in range(world):
@@ -3600,11 +3691,10 @@ def rank_train_sharded(dev, rank: int, world: int, io: str) -> dict:
     state_gib = torch.cuda.memory_allocated() / 2**30
     for path, x in _paths(state.params):
         name = "/".join(path)
-        if name in SHARDED_LEAVES:
-            np.save(os.path.join(io, f"sharded_{rank}_p0_"
-                                 + name.replace("/", ".") + ".npy"),
+        if name in SHARDED_LEAVES[case]:
+            np.save(_leaf_file(io, who, "p0", name),
                     x.detach().float().cpu().numpy())
-    emit({"phase": "train_sharded_rank", "rank": rank,
+    emit({"phase": "train_sharded_rank", "case": case, "rank": rank,
           "state_gib": state_gib, "init_peak_gib": init_peak})
     data = SyntheticLM(DataConfig(cfg.vocab_size, p["seq_len"], p["batch"]))
     n_attn = attention_layers(cfg)
@@ -3626,35 +3716,35 @@ def rank_train_sharded(dev, rank: int, world: int, io: str) -> dict:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         step_bytes.append(wire.bytes - before)
-        emit({"phase": "train_sharded_rank", "rank": rank, "step": i,
-              "seconds": step_s[-1],
+        emit({"phase": "train_sharded_rank", "case": case, "rank": rank,
+              "step": i, "seconds": step_s[-1],
               "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         check(math.isfinite(losses[-1]) and math.isfinite(norms[-1]),
-              f"rank {rank} step {i}: loss or grad norm not finite")
+              f"rank {rank} {case} step {i}: loss or grad norm not finite")
     launches = launch_counts()
     copies = wire.copies
-    # local heads: gemma2-2b's 8 query heads and 4 KV heads over model 2
+    # local heads: the query and KV heads over model 2 (gemma2-2b's 8 and
+    # 4, granite's 16 and 8)
     local = f"{cfg.num_heads // p['mesh'][1]}x" \
         f"{cfg.num_kv_heads // p['mesh'][1]}"
     check(dict(heads.k6) == {local: 2 * n_attn * p["steps"]}
           and dict(heads.k6b) == {local: n_attn * p["steps"]},
-          f"rank {rank}: K6 / K6b heads {dict(heads.k6)} / "
+          f"rank {rank} {case}: K6 / K6b heads {dict(heads.k6)} / "
           f"{dict(heads.k6b)}, not {local}")
     k6 = dict(flash_ops.flash_attention.route_launches)
     k6_route = flash_ops.ROUTES[torch.float32]
     check(k6 == {r: 2 * n_attn * p["steps"] if r == k6_route else 0
-                 for r in k6}, f"rank {rank}: K6 launches {k6}")
+                 for r in k6}, f"rank {rank} {case}: K6 launches {k6}")
     check(launches["flash_backward"] == n_attn * p["steps"],
-          f"rank {rank}: K6b launches {launches['flash_backward']}")
+          f"rank {rank} {case}: K6b launches {launches['flash_backward']}")
     for kind, tree in (("param", state.params), ("mu", state.opt.mu),
                        ("nu", state.opt.nu)):
         for path, x in _paths(tree):
             name = "/".join(path)
-            if name in SHARDED_LEAVES:
-                np.save(os.path.join(io, f"sharded_{rank}_{kind}_"
-                                     + name.replace("/", ".") + ".npy"),
+            if name in SHARDED_LEAVES[case]:
+                np.save(_leaf_file(io, who, kind, name),
                         x.detach().float().cpu().numpy())
     coord = dict(zip(("data", "model"), mesh.get_coordinate()))
     out = {"coord": coord, "losses": losses, "grad_norms": norms,
@@ -3666,7 +3756,8 @@ def rank_train_sharded(dev, rank: int, world: int, io: str) -> dict:
            "k6_heads": dict(heads.k6), "k6b_heads": dict(heads.k6b),
            "largest_made": {"/".join(k): list(v) for k, v in made.items()
                             if k[0] in ("embed", "unembed")
-                            or k[-1] in ("wq", "wo", "wu", "wd")},
+                            or k[-1] in ("wq", "wo", "wg", "wu", "wd",
+                                         "router")},
            "local_params": sum(x.numel() for x in tree_flatten(
                state.params))}
     del state, data
@@ -3834,6 +3925,28 @@ class SeenLogits:
         serve_engine._greedy = self.real
 
 
+class SeenRoutes:
+    """Keeps, on the card, the top-k expert ids (ascending) that a
+    mixture's router gives the last position of every row at each call (a
+    layer of a step), as this rank routes them (its rows)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real = real = moe._route
+        self.rows = []
+
+        def route(params, cfg, x, group=None):
+            out = real(params, cfg, x, group)
+            self.rows.append(torch.sort(out[1][:, -1], dim=-1).values)
+            return out
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route = self.real
+
+
 def record_cache_made(pl, made: dict) -> None:
     """Wraps ``pl.cache_in`` so that ``made`` keeps, under ("cache",
     layer, field), the shape of each cache leaf a layer reads larger than
@@ -3858,10 +3971,10 @@ def serve_drive(cfg, dev, params, dtype, place=None) -> tuple:
     freed).  Returns (record, the state after the last step): tokens of
     every step (the whole batch's), the last lengths, the stats, a digest
     of the store, the picks' logits as this rank holds them, the cache
-    leaves of SERVE_PLACED_LEAVES as it holds them, seconds, and on a
-    placed step its launches, K6's heads, the bytes across host memory a
-    decode step, its peak memory and what the placement made larger than
-    a shard."""
+    leaves of SERVE_PLACED_LEAVES as it holds them, a mixture's routes
+    (:class:`SeenRoutes`), seconds, and on a placed step its launches,
+    K6's heads, the bytes across host memory a decode step, its peak
+    memory and what the placement made larger than a shard."""
     p = SERVE_PLACED_RUN
     run = RunConfig(model=cfg, shape=SHAPES["decode_32k"])
     state = serve_engine.make_serve_state(cfg, run, params, p["batch"],
@@ -3886,7 +3999,7 @@ def serve_drive(cfg, dev, params, dtype, place=None) -> tuple:
     rec["state_gib"] = torch.cuda.memory_allocated() / 2**30
     zero_counts()
     heads = HeadCounts()
-    with SeenLogits() as seen:
+    with SeenLogits() as seen, SeenRoutes() as routes:
         t0 = time.perf_counter()
         with heads:
             state = serve_engine.prefill_step(state, cfg, run, tokens,
@@ -3917,6 +4030,9 @@ def serve_drive(cfg, dev, params, dtype, place=None) -> tuple:
     rec["stats"] = torch.stack(stats).cpu().numpy()
     rec["mv"] = _digest(*(x.reshape(-1) for x in tree_flatten(state.mv)))
     rec["logits"] = torch.stack(seen.rows).cpu().numpy()   # [S+1, b, v]
+    if routes.rows:                              # [S+1, layers, b, k]
+        rec["routes"] = torch.stack(routes.rows).view(
+            p["steps"] + 1, -1, *routes.rows[0].shape).cpu().numpy()
     for layer, field in SERVE_PLACED_LEAVES[_serve_name(cfg)]:
         x = getattr(state.cache[layer], field)
         rec[f"leaf_{layer}_{field}"] = (x.float() if x.is_floating_point()
@@ -3980,6 +4096,8 @@ def serve_placed_case(dev, rank: int, mesh, io: str, name: str) -> dict:
               f"{ref['left_bytes']} bytes on the card")
         if rank == 0:
             np.save(base + "_logits32.npy", ref.pop("logits"))
+            if "routes" in ref:
+                np.save(base + "_routes32.npy", ref.pop("routes"))
             np.savez(base + "_ref32.npz", **{
                 k: v for k, v in ref.items() if isinstance(v, np.ndarray)})
     dist.barrier()
@@ -3996,6 +4114,11 @@ def serve_placed_case(dev, rank: int, mesh, io: str, name: str) -> dict:
             "equal_32": {k: bool(np.array_equal(ref[k], r32[k]))
                          for k in ("lens", "stats")},
             "toks": ref["toks"].tolist()}
+        if "routes" in ref:
+            # (step, row): the row's current token routed otherwise than
+            # in float32 in some layer
+            out["ref16"]["route_flips"] = (ref["routes"] != np.load(
+                base + "_routes32.npy")).any(axis=(1, 3)).tolist()
         del l32, r32, top2
     if ref is not None:
         out["ref"] = {k: ref[k] for k in ("prefill_s", "decode_ms",
@@ -4024,6 +4147,10 @@ def serve_placed_case(dev, rank: int, mesh, io: str, name: str) -> dict:
     rows, cols = slice(data * b, (data + 1) * b), slice(model * v,
                                                         (model + 1) * v)
     err = np.abs(rec["logits"] - l32[:, rows, cols]).max(-1)
+    flips = None
+    if "routes" in rec:
+        flips = (rec["routes"] != np.load(base + "_routes32.npy")[
+            :, :, rows]).any(axis=(1, 3)).tolist()
     leaf_err = {}
     for layer, field in SERVE_PLACED_LEAVES[name]:
         key = f"leaf_{layer}_{field}"
@@ -4045,7 +4172,7 @@ def serve_placed_case(dev, rank: int, mesh, io: str, name: str) -> dict:
         "decode_ms": rec["decode_ms"],
         "decode_wire_bytes": rec["decode_wire_bytes"],
         "peak_gib": rec["peak_gib"], "state_gib": rec["state_gib"],
-        "wall_s": wall}
+        "wall_s": wall, **({} if flips is None else {"route_flips": flips})}
     if rank == 0:
         out["ref32"] = {k: rec_v.tolist() for k, rec_v in np.load(
             base + "_ref32.npz").items() if k in ("toks", "lens", "stats")}
@@ -4092,17 +4219,35 @@ def check_serve_placed(outs: list) -> dict:
         check(len(mvs) == 1, f"serve_placed {name}: the stores differ {mvs}")
         d16, margin = np.asarray(r16["d16"]), np.asarray(r16["margin32"])
         S1, B = d16.shape
+        # a mixture's routing: (step, row) where the bf16 one-rank step or
+        # the placed step routed the row's current token otherwise than
+        # the float32 step (SERVE_PLACED_K's comment)
+        flip = np.zeros((S1, B), dtype=bool)
+        if "route_flips" in r16:
+            flip |= np.asarray(r16["route_flips"], dtype=bool)
+            for x in placed:
+                f = np.asarray(x["route_flips"], dtype=bool)
+                i = x["coord"][0] * f.shape[1]
+                flip[:, i:i + f.shape[1]] |= f
         err = np.zeros((S1, B))
         for x in placed:
             e = np.asarray(x["err"])
             i = x["coord"][0] * e.shape[1]
             err[:, i:i + e.shape[1]] = np.maximum(err[:, i:i + e.shape[1]], e)
         live = np.ones(B, dtype=bool)
-        closed, worst = {}, 0.0
+        closed, routed, worst = {}, [], 0.0
         t32, t16 = np.asarray(r32["toks"]), np.asarray(r16["toks"])
         for s in range(S1):
             limit = K * d16[s]
             for b in np.flatnonzero(live):
+                if flip[s, b]:
+                    # its logits moved by a share of an expert's output,
+                    # not by a rounding step: from here the row may take
+                    # another token and is no longer compared
+                    live[b] = False
+                    closed[int(b)] = s
+                    routed.append(int(b))
+                    continue
                 check(err[s, b] <= limit[b], f"serve_placed {name} step {s} "
                       f"row {b}: logits {err[s, b]} from float32's, limit "
                       f"{limit[b]} ({K} x {d16[s, b]})")
@@ -4169,6 +4314,9 @@ def check_serve_placed(outs: list) -> dict:
                                                            "max_len",
                                                            "steps")},
             "k": K, "worst_err_over_d16": worst,
+            **({"route_flips_by_step": flip.sum(1).tolist(),
+                "rows_stopped_by_route": routed} if "route_flips" in r16
+               else {}),
             "rows_stopped_at_step": closed,
             "rows_compared_to_the_end": int(live.sum()),
             "leaves": leaves, "k6_heads_by_rank": [x["k6_heads"]
@@ -4209,7 +4357,9 @@ def rank_main(rank: int, world: int, io: str) -> int:
     try:
         # 10e first: its gemma2-2b state is the phase that needs the card's
         # memory most
-        out = {"train": rank_train_sharded(dev, rank, world, io)}
+        out = {"train": {case: rank_train_sharded(dev, rank, world, io, case)
+                         for case in TRAIN_SHARDED}}
+        torch.cuda.empty_cache()
         out["pipeline"] = rank_pipeline(dev, rank, world)
         torch.cuda.empty_cache()
         out["serve_placed"] = rank_serve_placed(dev, rank, world, io)
@@ -4280,37 +4430,41 @@ DIST_RANK_FIELDS = ("steps", "tokens_appended", "sequences_completed",
                     "sweep_killed_unpinned_by_host", "lwm_trace", "digests")
 
 
-def _ref_shard(full: torch.Tensor, spec, coord: dict) -> np.ndarray:
+def _ref_shard(full: torch.Tensor, spec, coord: dict, mesh) -> np.ndarray:
     x = full
     for d, axis in enumerate(spec):
         if axis is not None:
-            x = x.chunk(TRAIN_SHARDED["mesh"][("data", "model").index(axis)],
+            x = x.chunk(mesh[("data", "model").index(axis)],
                         dim=d)[coord[axis]]
     return x.numpy()
 
 
-def check_train_sharded(io: str, ref: dict, trains: list) -> tuple:
-    """Phase 10e's checks: each rank's losses and gradient norms against
-    the one-rank reference's, and its shards of SHARDED_LEAVES (mu and nu
-    within their limits, each parameter's change over the run against the
-    reference's).  Returns (the largest |error| of each leaf and kind, the
-    update check's worst errors and counts)."""
+def check_train_sharded(io: str, ref: dict, trains: list, case: str
+                        ) -> tuple:
+    """Phase 10e's checks of ``case``: each rank's losses and gradient
+    norms against the one-rank reference's, and its shards of the case's
+    SHARDED_LEAVES (mu and nu within their limits, each parameter's change
+    over the run against the reference's).  Returns (the largest |error|
+    of each leaf and kind, the update check's worst errors and counts)."""
     worst, update = {}, {"rel": 0.0, "abs": 0.0, "big": 0, "n": 0}
+    mesh = TRAIN_SHARDED[case]["mesh"]
+    who = f"reference_{case}"
+
+    def want_of(kind, name, spec, coord):
+        return _ref_shard(torch.from_numpy(np.load(_leaf_file(
+            io, who, kind, name))), spec, coord, mesh)
     for r, res in enumerate(trains):
         np.testing.assert_allclose(res["losses"], ref["losses"],
                                    rtol=SHARDED_RTOL)
         np.testing.assert_allclose(res["grad_norms"], ref["grad_norms"],
                                    rtol=SHARDED_RTOL)
         for name, kind in itertools.product(
-                SHARDED_LEAVES, ("param", "mu", "nu")):
-            leaf = name.replace("/", ".")
-            got = np.load(os.path.join(
-                io, f"sharded_{r}_{kind}_{leaf}.npy"))
+                SHARDED_LEAVES[case], ("param", "mu", "nu")):
+            got = np.load(_leaf_file(io, f"sharded_{case}_{r}", kind, name))
             spec, coord = ref["specs"][name], res["coord"]
-            want = _ref_shard(torch.from_numpy(np.load(os.path.join(
-                io, f"reference_{kind}_{leaf}.npy"))), spec, coord)
+            want = want_of(kind, name, spec, coord)
             check(got.shape == want.shape,
-                  f"train_sharded: rank {r} {name} shard {got.shape}")
+                  f"train_sharded {case}: rank {r} {name} shard {got.shape}")
             worst[f"{name}:{kind}"] = max(
                 worst.get(f"{name}:{kind}", 0.0),
                 float(np.abs(got - want).max()))
@@ -4318,24 +4472,21 @@ def check_train_sharded(io: str, ref: dict, trains: list) -> tuple:
                 np.testing.assert_allclose(got, want, rtol=0, atol=(
                     SHARDED_MOMENT_SHARE * float(np.abs(want).max())))
                 continue
-            p0, nu = (_ref_shard(torch.from_numpy(np.load(os.path.join(
-                io, f"reference_{k}_{leaf}.npy"))), spec, coord)
-                for k in ("p0", "nu"))
+            p0, nu = (want_of(k, name, spec, coord) for k in ("p0", "nu"))
             # every rank starts from the reference's state, bit for bit
-            check(np.array_equal(np.load(os.path.join(
-                io, f"sharded_{r}_p0_{leaf}.npy")), p0),
-                f"train_sharded: rank {r} {name} starts elsewhere")
+            check(np.array_equal(np.load(_leaf_file(
+                io, f"sharded_{case}_{r}", "p0", name)), p0),
+                f"train_sharded {case}: rank {r} {name} starts elsewhere")
             dg, dw = got - p0, want - p0
             err = np.abs(dg - dw)
             spacing = 4 * np.finfo(np.float32).eps * np.abs(p0)
-            scale = np.sqrt(np.load(os.path.join(
-                io, f"reference_nu_{leaf}.npy")).max())
+            scale = np.sqrt(np.load(_leaf_file(io, who, "nu", name)).max())
             big = ((np.abs(dw) >= 0.5 * ref["rates"])
                    & (np.sqrt(nu) >= SHARDED_GRAD_SHARE * scale))
             check(np.all(err[big] <= SHARDED_UPDATE_RTOL
                          * np.abs(dw[big]) + spacing[big])
                   and np.all(err <= 2 * ref["rates"] + spacing),
-                  f"train_sharded: rank {r} {name}'s update differs "
+                  f"train_sharded {case}: rank {r} {name}'s update differs "
                   "from the one-rank step's")
             if big.any():
                 update["rel"] = max(update["rel"], float(
@@ -4343,22 +4494,20 @@ def check_train_sharded(io: str, ref: dict, trains: list) -> tuple:
             update["abs"] = max(update["abs"], float(err.max()))
             update["big"] += int(big.sum())
             update["n"] += big.size
-    check(update["big"] > 0, "train_sharded: no parameter of "
-          f"{SHARDED_LEAVES} was updated")
+    check(update["big"] > 0, f"train_sharded {case}: no parameter of "
+          f"{SHARDED_LEAVES[case]} was updated")
     return worst, update
 
 
 def phase_ranks(dev, dist_ref: dict, io: str, ref_wall: float) -> dict:
     """Phases 10d-10f and 10h over RANKS rank processes on the card, then
-    each phase's checks against phase 10's run, 10e's one-rank reference
+    each phase's checks against phase 10's run, 10e's one-rank references
     (which :func:`phase_train` ran into ``io``, ``ref_wall`` seconds) and
     10h's one-rank steps (run by ranks 0 and 1).
     Returns each phase's launches, summed over the ranks."""
     with open(os.path.join(io, "ref.json"), "w") as f:
         json.dump({"dist_steps": dist_ref["steps"]}, f)
     torch.cuda.empty_cache()
-    with open(os.path.join(io, "reference.json")) as f:
-        ref = json.load(f)
     parent_gib = torch.cuda.memory_reserved() / 2**30
     free_gib = torch.cuda.mem_get_info()[0] / 2**30
     t0 = time.perf_counter()
@@ -4399,39 +4548,54 @@ def phase_ranks(dev, dist_ref: dict, io: str, ref_wall: float) -> dict:
           "one_process_ms_per_step": dist_ref["ms_per_step"],
           "launches_by_rank": [x["launches"] for x in dist_runs],
           "launches": summed})
-    # 10e: the sharded step against the one-rank step
-    trains = [o["train"] for o in outs]
-    worst, update = check_train_sharded(io, ref, trains)
-    emit({"phase": "train_sharded", "arch": TRAIN_SHARDED["arch"],
-          "layers": TRAIN_SHARDED["layers"],
-          "mesh": TRAIN_SHARDED["mesh"], "fsdp": True,
-          "batch": TRAIN_SHARDED["batch"],
-          "seq_len": TRAIN_SHARDED["seq_len"],
-          "steps": TRAIN_SHARDED["steps"],
-          "losses": trains[0]["losses"], "ref_losses": ref["losses"],
-          "grad_norms": trains[0]["grad_norms"],
-          "ref_grad_norms": ref["grad_norms"],
-          "max_abs_err": worst, "rates": ref["rates"],
-          "update_max_rel_err": update["rel"],
-          "update_max_abs_err": update["abs"],
-          "update_share_held_relative": update["big"] / update["n"],
-          "update_rtol": SHARDED_UPDATE_RTOL,
-          "step_s_by_rank": [x["step_s"] for x in trains],
-          "ref_step_s": ref["step_s"], "ref_peak_gib": ref["peak_gib"],
-          "ref_wall_s": ref_wall, "parent_reserved_gib": parent_gib,
-          "free_gib_at_spawn": free_gib,
-          "init_peak_gib_by_rank": [x["init_peak_gib"] for x in trains],
-          "peak_gib_by_rank": [x["peak_gib"] for x in trains],
-          "peak_gib_sum": sum(x["peak_gib"] for x in trains),
-          "local_params_by_rank": [x["local_params"] for x in trains],
-          "wire_copies_by_rank": [x["wire_copies"] for x in trains],
-          "host_bytes_per_step_by_rank": [x["host_bytes_per_step"]
-                                          for x in trains],
-          "k6_heads_by_rank": [x["k6_heads"] for x in trains],
-          "k6b_heads_by_rank": [x["k6b_heads"] for x in trains],
-          "largest_made_rank0": trains[0]["largest_made"],
-          "parent": TRAIN_SHARDED_PARENT,
-          "launches_by_rank": [x["launches"] for x in trains]})
+    # 10e: each case's sharded step against its one-rank step
+    for case, p in TRAIN_SHARDED.items():
+        with open(os.path.join(io, f"reference_{case}.json")) as f:
+            ref = json.load(f)
+        trains = [o["train"][case] for o in outs]
+        worst, update = check_train_sharded(io, ref, trains, case)
+        cfg = _sharded_config(case)
+        if cfg.num_experts:
+            # each rank made its block of experts, never the whole leaf,
+            # and the router whole
+            m = p["mesh"][1]
+            for r, x in enumerate(trains):
+                made = x["largest_made"]
+                check(made["layers/0/ffn/wg"] == [
+                    cfg.num_experts // m, cfg.d_model, cfg.d_ff]
+                    and made["layers/0/ffn/router"] == [
+                        cfg.d_model, cfg.num_experts],
+                    f"train_sharded {case}: rank {r} made {made}")
+        emit({"phase": "train_sharded", "case": case, "arch": p["arch"],
+              "layers": p["layers"], "mesh": p["mesh"], "fsdp": True,
+              "batch": p["batch"], "seq_len": p["seq_len"],
+              "steps": p["steps"],
+              "losses": trains[0]["losses"], "ref_losses": ref["losses"],
+              "grad_norms": trains[0]["grad_norms"],
+              "ref_grad_norms": ref["grad_norms"],
+              "max_abs_err": worst, "rates": ref["rates"],
+              "update_max_rel_err": update["rel"],
+              "update_max_abs_err": update["abs"],
+              "update_share_held_relative": update["big"] / update["n"],
+              "update_rtol": SHARDED_UPDATE_RTOL,
+              "step_s_by_rank": [x["step_s"] for x in trains],
+              "ref_step_s": ref["step_s"], "ref_peak_gib": ref["peak_gib"],
+              "ref_wall_s": ref_wall, "parent_reserved_gib": parent_gib,
+              "free_gib_at_spawn": free_gib,
+              "init_peak_gib_by_rank": [x["init_peak_gib"]
+                                        for x in trains],
+              "peak_gib_by_rank": [x["peak_gib"] for x in trains],
+              "peak_gib_sum": sum(x["peak_gib"] for x in trains),
+              "local_params_by_rank": [x["local_params"] for x in trains],
+              "wire_copies_by_rank": [x["wire_copies"] for x in trains],
+              "host_bytes_per_step_by_rank": [x["host_bytes_per_step"]
+                                              for x in trains],
+              "k6_heads_by_rank": [x["k6_heads"] for x in trains],
+              "k6b_heads_by_rank": [x["k6b_heads"] for x in trains],
+              "largest_made_rank0": trains[0]["largest_made"],
+              **({"parent": TRAIN_SHARDED_PARENT} if case == "gemma2"
+                 else {}),
+              "launches_by_rank": [x["launches"] for x in trains]})
     # 10f: the stages' output against the sequential forward, their
     # gradients against stage 0's sequential reference
     pipes = [o["pipeline"] for o in outs]
@@ -4506,11 +4670,14 @@ def phase_ranks(dev, dist_ref: dict, io: str, ref_wall: float) -> dict:
     def total(key, field="launches"):
         return {k: sum(o[key][field][k] for o in outs)
                 for k in outs[0][key][field]}
+    train = {k: sum(o["train"][c]["launches"][k] for o in outs
+                    for c in TRAIN_SHARDED)
+             for k in outs[0]["train"]["gemma2"]["launches"]}
     grad = total("pipeline", "grad_launches")
     serve = {k: sum(o["serve_placed"][m]["placed"]["launches"][k]
                     for o in outs for m in SERVE_PLACED)
              for k in outs[0]["serve_placed"]["gemma2"]["placed"]["launches"]}
-    return {"dist_ranks": summed, "train_sharded": total("train"),
+    return {"dist_ranks": summed, "train_sharded": train,
             "pipeline": {k: n + grad[k]
                          for k, n in total("pipeline").items()},
             "serve_placed": serve}
@@ -4572,13 +4739,13 @@ def main() -> int:
     lap("dist")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as io:
-        f32_run, bf16_run, ref_wall = phase_train(dev, io)
+        f32_run, bf16_run, ref_wall, dry = phase_train(dev, io)
         lap("train")
         rank_launches = phase_ranks(dev, dist_ref, io, ref_wall)
     train_launches, bf16_launches = f32_run["launches"], bf16_run["launches"]
     del dist_ref
     lap("ranks")
-    phase_dryrun(bf16_run)
+    phase_dryrun(bf16_run, dry)
     lap("dryrun")
     emit({"phase": "timeline", "seconds_at_end_of": seconds})
     table = []
@@ -4655,5 +4822,5 @@ if __name__ == "__main__":
         torch.backends.cudnn.allow_tf32 = False
         _build.lib()
         sys.exit(train_sharded_reference(torch.device("cuda", 0),
-                                         sys.argv[2]))
+                                         sys.argv[2], sys.argv[3]))
     sys.exit(main())

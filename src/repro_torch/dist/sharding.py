@@ -30,7 +30,12 @@ its DTensor placements).  It cuts this rank's shards out of a full tree
 ``jax.device_put(state, shardings)``), gathers a leaf at use and sends its
 gradient back to the leaf's placement (:meth:`Placement.gather`), takes
 this rank's rows of a batch (:meth:`Placement.split`) and the gradients'
-global norm over the ranks (:meth:`Placement.global_norm`).  Every
+global norm over the ranks (:meth:`Placement.global_norm`).  A part that
+computes on its shards over ``model`` (:meth:`Placement.gather_local`)
+takes each leaf split over ``model`` as this rank's piece, gathered over
+the other axes only: attention heads, the hidden slice of an MLP or of a
+shared expert, a mixture's block of ``E / n`` experts (expert
+parallelism), the vocabulary's rows.  Every
 collective goes through :mod:`repro_torch.dist.overlap` (gloo, CUDA
 tensors staged through host memory).
 
@@ -255,22 +260,32 @@ def _local_dim(parts: Sequence[str], ndim: int) -> Optional[int]:
     """The dim of a leaf that a layer computing over ``model`` keeps
     split (the same names and ranks as :func:`_tp_axes`' rules): the
     heads of ``wq``/``wk``/``wv``/``wo`` and their biases, the hidden dim
-    of a dense MLP's ``wg``/``wu``/``wd``, the width of an RG-LRU's
-    ``w_in``/``w_gate``/``w_out`` (split so at serve time), the vocab
-    rows of ``embed`` and ``unembed``; None for any other leaf."""
+    of a dense MLP's (or a shared expert's) ``wg``/``wu``/``wd``, the
+    experts of a mixture's ``[E, ., .]`` ``wg``/``wu``/``wd`` (expert
+    parallelism), the width of an RG-LRU's ``w_in``/``w_gate``/``w_out``
+    (split so at serve time), the vocab rows of ``embed`` and
+    ``unembed``; None for any other leaf (a router among them)."""
     name = parts[-1]
     if name in ("embed", "unembed") and ndim == 2:
         return 0
     if name in ("wq", "wk", "wv") and ndim == 3:
         return 1
-    if (name == "wo" and ndim == 3) or (name in ("bq", "bk", "bv")
-                                        and ndim == 2):
+    if (name in ("wo", "wg", "wu", "wd") and ndim == 3) or (
+            name in ("bq", "bk", "bv") and ndim == 2):
         return 0
     if name in ("wg", "wu", "w_in", "w_gate") and ndim == 2:
         return 1
     if name in ("wd", "w_out") and ndim == 2:
         return 0
     return None
+
+
+def _piece_names(prefix: Tuple[str, ...], paths) -> frozenset:
+    """The names by which a part gathered at ``prefix`` knows its leaves
+    at ``paths`` (relative to the part): each path joined by "/" (a
+    mixture's ``wg`` and its shared expert's ``shared/wg`` stay apart),
+    the part's own name for a part that is one leaf (``embed``)."""
+    return frozenset("/".join(p) if p else prefix[-1] for p in paths)
 
 
 class _Gather(torch.autograd.Function):
@@ -322,9 +337,15 @@ class ModelAxis:
     """The ``model`` ranks of one data row, as a layer that computes on
     its shards sees them: ``n`` ranks, this one at ``index``; rank ``r``
     holds the ``r``-th of ``n`` equal blocks of each split dim.  ``local``
-    names the leaves of the layer that came as this rank's pieces
-    (:meth:`Placement.gather_local`); the layer reads it, not the
-    leaves' shapes."""
+    names the leaves of the layer that came as this rank's pieces, by
+    their paths in the part (:meth:`Placement.gather_local`: ``wq``, or a
+    mixture's ``wg`` and its shared expert's ``shared/wg``); the layer
+    reads it, not the leaves' shapes."""
+
+    #: a mixture's experts (``local`` holding them) that came split over
+    #: the batch axes too (FSDP): each expert's bucket rows are split over
+    #: the ranks of the batch as well (:func:`repro_torch.models.moe.moe`)
+    rows: bool = False
 
     def __init__(self, placement: "Placement",
                  local: frozenset = frozenset()):
@@ -509,13 +530,21 @@ class Placement:
         leaf :meth:`is_local` is gathered over every axis but ``model``
         (this rank's piece of it), and its gradient stays that piece's.
         Returns ``(leaves, tp)``: ``tp`` is :attr:`tp` holding the names
-        of the leaves that came as pieces, or None when none did (no
-        ``model`` axis, or no leaf split over it)."""
+        of the leaves that came as pieces (:func:`_piece_names`), or None
+        when none did (no ``model`` axis, or no leaf split over it)."""
         prefix = tuple(str(p) for p in path)
         out = self._gather_tree(tree, prefix, True)
-        local = frozenset((prefix + p)[-1] for p, _ in _paths(tree)
-                          if self.is_local(prefix + p))
-        return out, self.tp.holding(local) if local else None
+        local = _piece_names(prefix, [p for p, _ in _paths(tree)
+                                      if self.is_local(prefix + p)])
+        if not local:
+            return out, None
+        # experts split over the batch axes too (FSDP): their bucket rows
+        # are split over the batch's ranks, as JAX's GSPMD step divides
+        # them
+        batch = {a for a in self.batch_axes if self.sizes.get(a, 1) > 1}
+        spec = self.specs.get(prefix + ("wg",), ())
+        rows = len(spec) == 3 and bool(batch) and batch <= set(spec)
+        return out, self.tp.holding(local, rows=rows)
 
     def _gather_tree(self, tree, prefix, local: bool):
         paths = _paths(tree)
@@ -597,6 +626,49 @@ class BatchGroup:
             y = all_gather_cat(y, self._pl._group(a), dim=0)
         return y
 
+    def _sum(self, x: torch.Tensor) -> torch.Tensor:
+        for a in self.axes:
+            x = all_reduce(x, self._pl._group(a))
+        return x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` joined along dim 0 in ``index`` order,
+        differentiable: the backward sums the gradient over the ranks and
+        keeps this rank's rows (each rank's gradient of its rows from every
+        rank's use of them)."""
+        return _GatherRows.apply(x, self)
+
+    def sum_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (dim 0: every rank's rows in ``index`` order, each rank a
+        partial sum of them) summed over the ranks, this rank's rows kept,
+        differentiable: the backward joins the ranks' gradients of their
+        rows (:meth:`gather`'s transpose)."""
+        return _SumRows.apply(x, self)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.rows(x).reshape(-1, *x.shape[1:])
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = ctx.group
+        return g._sum(grad).chunk(g.n, dim=0)[g.index], None
+
+
+class _SumRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group._sum(x).chunk(group.n, dim=0)[group.index].clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = ctx.group
+        return g.rows(grad).reshape(-1, *grad.shape[1:]), None
+
 
 class ServePlacement:
     """One rank's placement of a serve state over ``mesh``: what JAX's
@@ -607,11 +679,13 @@ class ServePlacement:
     * The parameters by ``param_specs`` (:func:`param_shardings` with
       ``fsdp=False``: no leaf is split over the batch axes).  A part that
       computes on its shards (:meth:`gather_local`: the attention and
-      RG-LRU mixers, a dense MLP, the (un)embedding) takes its leaves
-      split over ``model`` as they are; every other leaf is gathered
-      whole at use (:meth:`param`): a mixture of experts, the xLSTM
-      mixers, the encoder and cross-attention, and a mixer whose leaves
-      are split on a dim it does not compute on (``attn_hd_shard``).
+      RG-LRU mixers, a dense MLP, a mixture of experts on this rank's
+      block of experts and its shared expert's slice of the hidden dim,
+      the (un)embedding) takes its leaves split over ``model`` as they
+      are; every other leaf is gathered whole at use (:meth:`param`): a
+      router, the xLSTM mixers, the encoder and cross-attention, and a
+      mixer whose leaves are split on a dim it does not compute on
+      (``attn_hd_shard``).
     * The cache by ``cache_specs`` (``specs.cache_shardings``: per layer,
       the layer's cache type holding a spec per leaf).  Dim 0 of every
       leaf is the batch: when it is split, this rank computes its rows of
@@ -673,8 +747,8 @@ class ServePlacement:
         ``(whole leaves, None)`` when the part computes whole."""
         prefix = tuple(str(p) for p in path)
         paths = [(prefix + p, x) for p, x in _paths(tree)]
-        local = frozenset(p[-1] for p, _ in paths
-                          if self.params.is_local(p))
+        local = _piece_names(prefix, [p[len(prefix):] for p, _ in paths
+                                      if self.params.is_local(p)])
         attrs = {}
         if prefix[0] == "layers" and prefix[-1] == "mixer":
             attrs = self._mixer_cache(int(prefix[1]), local, paths)

@@ -150,10 +150,12 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     ``tp``: on a placed state, the
     :class:`repro_torch.dist.sharding.ModelAxis` of each part (``mixer``,
     ``ffn``) whose leaves came split over ``model``, which then computes
-    on its shards: in train mode the attention mixer and a dense MLP; at
-    serve time (a :class:`repro_torch.dist.sharding.ServeAxis`) those and
-    the RG-LRU mixer, each on its cache shard.  A mixture of experts, the
-    xLSTM mixers and cross-attention come whole."""
+    on its shards: in train mode the attention mixer, a dense MLP and a
+    mixture of experts (this rank's block of experts, its shared expert's
+    slice of the hidden dim; the router whole); at serve time (a
+    :class:`repro_torch.dist.sharding.ServeAxis`) those and the RG-LRU
+    mixer, each on its cache shard.  The xLSTM mixers and
+    cross-attention come whole."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
@@ -173,7 +175,7 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     if "ffn" in params:
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
         if cfg.num_experts > 0:
-            h, aux = moe(params["ffn"], cfg, h, group)
+            h, aux = moe(params["ffn"], cfg, h, group, tp.get("ffn"))
         else:
             h = mlp(params["ffn"], cfg, h, tp.get("ffn"))
         if cfg.post_norms:

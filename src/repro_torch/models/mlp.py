@@ -38,13 +38,20 @@ def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor, tp=None
     """``x`` [B, T, d] -> [B, T, d]; with ``tp``, over this rank's slice
     of the hidden dim when the weights come split (see the module
     docstring)."""
-    split = tp is not None and "wu" in tp.local
-    if split:
-        x = tp.f(x)
+    if tp is not None and "wu" in tp.local:
+        return tp.g(mlp_product(params, cfg, tp.f(x)))
+    return mlp_product(params, cfg, x)
+
+
+def mlp_product(params: dict, cfg: ModelConfig, x: torch.Tensor
+                ) -> torch.Tensor:
+    """The MLP over the hidden slice its weights hold: the output, or on
+    split weights this rank's partial sum of it (no collective; a mixture
+    of experts adds its shared expert's partial sum to its experts' before
+    one sum over the ranks)."""
     u = x @ params["wu"]
     if cfg.gated_mlp:
         h = _act(cfg.act, x @ params["wg"]) * u
     else:
         h = _act(cfg.act, u)
-    out = h @ params["wd"]
-    return tp.g(out) if split else out
+    return h @ params["wd"]

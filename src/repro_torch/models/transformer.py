@@ -108,13 +108,12 @@ def _block_params(placement, bp: dict, i: int, kind: str,
     """Layer ``i``'s parameters from this rank's shards, and the model
     axes of its parts that compute on their shards: the mixer of a kind
     in ``placement.local_mixers`` (attention; at serve time RG-LRU too)
-    and a dense MLP, gathered by the placement's ``gather_local`` (split
-    over ``model`` where the specs split them), every other part whole (a
-    mixture of experts, the other mixers, cross-attention and the
-    norms)."""
-    local = {"mixer"} if kind in placement.local_mixers else set()
-    if cfg.num_experts == 0:
-        local.add("ffn")
+    and the feed-forward part (a dense MLP, or a mixture of experts on
+    its block of experts and its shared expert's hidden slice, the router
+    whole), gathered by the placement's ``gather_local`` (split over
+    ``model`` where the specs split them), every other part whole (the
+    other mixers, cross-attention and the norms)."""
+    local = {"mixer", "ffn"} if kind in placement.local_mixers else {"ffn"}
     params, tp = {}, {}
     for k in sorted(bp):
         if k in local:
@@ -187,15 +186,17 @@ def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
     ``embed`` is the embedding table as the caller holds it (on a placed
     state, gathered by :func:`loss_fn`, once for a tied table's two
     uses), and ``embed_tp`` the model axis when it came as this rank's
-    vocabulary rows.  ``placement`` (a :class:`repro_torch.dist.sharding.Placement`)
-    says that ``params`` are this rank's shards: each part of a layer is
-    gathered just before its use (inside the layer's checkpoint, so the
-    recompute gathers again), the attention mixers and the dense MLPs,
-    like the embedding, over every axis but ``model``, computing on their
-    shards over it (:func:`_block_params`, :func:`_embed`), the rest
-    whole.  ``group`` (a :class:`repro_torch.dist.sharding.BatchGroup`)
-    says that ``tokens`` are this rank's rows of a batch split over
-    ranks: a mixture of experts reads the whole batch's statistics over
+    vocabulary rows.  ``placement`` (a
+    :class:`repro_torch.dist.sharding.Placement`) says that ``params``
+    are this rank's shards: each part of a layer is gathered just before
+    its use (inside the layer's checkpoint, so the recompute gathers
+    again), the attention mixers and the feed-forward parts (a dense MLP,
+    a mixture of experts on this rank's block of experts), like the
+    embedding, over every axis but ``model``, computing on their shards
+    over it (:func:`_block_params`, :func:`_embed`), the rest whole.
+    ``group`` (a :class:`repro_torch.dist.sharding.BatchGroup`) says that
+    ``tokens`` are this rank's rows of a batch split over ranks: a
+    mixture of experts reads the whole batch's statistics over
     it."""
     B = tokens.shape[0]
     gather = placement.gather if placement is not None else _take
@@ -319,8 +320,8 @@ def _serve_pass(params, cfg: ModelConfig, tokens: torch.Tensor,
     says that ``params`` and ``cache`` are this rank's shards and
     ``tokens`` its rows.  Each layer's parts that compute on their shards
     over ``model`` (:func:`_block_params`: the attention and RG-LRU
-    mixers on their cache shards, a dense MLP) take their pieces, the
-    rest is gathered at use; a cache leaf the mixer does not keep is
+    mixers on their cache shards, a dense MLP, a mixture's block of
+    experts) take their pieces, the rest is gathered at use; a cache leaf the mixer does not keep is
     gathered before the layer and cut back to the shard after it
     (``cache_in``, ``cache_out``); a mixture of experts reads the whole
     batch's statistics.  Where the (un)embedding is split on its

@@ -745,6 +745,123 @@ TP_FAULTS = {"fault_skip_g": _SkipG, "fault_local_lse": _LocalLse,
              "fault_skip_f_backward": _SkipFBackward}
 
 
+class _ExpertAxis:
+    """The experts' model axis of one MoE layer call, as a planted fault
+    sees it: the real axis, but for what the fault changes."""
+
+    def __init__(self, tp, index=None, g=None, f_calls=None):
+        self.tp, self.calls = tp, 0
+        self.index = tp.index if index is None else index
+        self._g, self._f_calls = g, f_calls
+
+    def __getattr__(self, name):
+        return getattr(self.tp, name)
+
+    def f(self, x):
+        self.calls += 1
+        if self._f_calls is not None and self.calls not in self._f_calls:
+            return x
+        return self.tp.f(x)
+
+    def g(self, x):
+        return self.tp.g(x) if self._g is None else self._g(x)
+
+
+class _ExpertFault:
+    """A planted fault of a mixture of experts over ``model``: the axis
+    that ``moe._axes`` gives each layer call wrapped by ``wrap``."""
+
+    wrap = None
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real = real = moe._axes
+
+        def axes(tp):
+            ep, sh = real(tp)
+            return (ep if ep is None else self.wrap(ep)), sh
+        moe._axes = axes
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._axes = self.real
+
+
+class _WrongExperts(_ExpertFault):
+    """Each rank runs its pieces of the experts on the bucket rows of the
+    next rank's block."""
+
+    def wrap(self, ep):
+        return _ExpertAxis(ep, index=(ep.index + 1) % ep.n)
+
+
+class _CombineSkipG(_ExpertFault):
+    """The combine without its ``g``: each rank keeps its experts' (and
+    its shared expert's) partial sum."""
+
+    def wrap(self, ep):
+        return _ExpertAxis(ep, g=lambda x: x)
+
+
+class _GateSkipF(_ExpertFault):
+    """``f`` skipped on the gate weights (the second of a layer call's two
+    ``f``, after the one on the tokens): the router's gradient on a rank is
+    its own experts' share."""
+
+    def wrap(self, ep):
+        return _ExpertAxis(ep, f_calls=(1,))
+
+
+class _LocalCounts:
+    """The load-balance loss from the counts of this rank's block of
+    experts only (each other expert's count taken as 0); the dispatch
+    reads the true counts."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.route, self.axes = route, axes = moe._route, moe._axes
+        block = {}
+
+        def local_axes(tp):
+            ep, sh = axes(tp)
+            block["ep"] = ep
+            return ep, sh
+
+        def local_route(params, cfg, x, group=None):
+            gate_vals, gate_idx, aux, before = route(params, cfg, x, group)
+            ep = block.get("ep")
+            if ep is None:
+                return gate_vals, gate_idx, aux, before
+            E = cfg.num_experts
+            probs = torch.softmax(x.float() @ params["router"], dim=-1)
+            me = probs.reshape(-1, E).mean(0)
+            flat = gate_idx.reshape(-1)
+            counts = probs.new_zeros((E,)).scatter_add_(
+                0, flat, torch.ones_like(flat, dtype=probs.dtype))
+            n = 1
+            if group is not None:
+                counts, n = group.rows(counts).sum(0), group.n
+            mine = torch.arange(E) // (E // ep.n) == ep.index
+            ce = torch.where(mine.to(counts.device), counts, 0) / (
+                flat.numel() * n)
+            return gate_vals, gate_idx, E * torch.sum(me * ce), before
+        moe._axes, moe._route = local_axes, local_route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._axes, moe._route = self.axes, self.route
+
+
+#: planted faults of the mixture of experts over ``model``, each run as the
+#: MoE case's placed run; each must fail check_run
+MOE_FAULTS = {"fault_wrong_experts": _WrongExperts,
+              "fault_combine_skip_g": _CombineSkipG,
+              "fault_gate_skip_f": _GateSkipF,
+              "fault_local_counts": _LocalCounts}
+
+
 class _QuantRecord:
     """Records every call of ``optim.compress.quantize`` (a leaf of the
     int8 round trip): its int8 values, its scale and the values it
@@ -853,8 +970,8 @@ def program_train(rank, world, io, device) -> None:
     faults (the update skipped, both data rows on the first half); then
     data parallelism through ``make_grad_reduce`` over the data groups,
     as it is and with both ranks on the first half; the dense case with
-    each of TP_FAULTS; the dense case with int8 compression, every
-    quantized leaf recorded."""
+    each of TP_FAULTS, the MoE case with each of MOE_FAULTS; the dense
+    case with int8 compression, every quantized leaf recorded."""
     from repro_torch.ckpt.manager import tree_flatten
     from repro_torch.dist.sharding import _paths, place_train_state
     from repro_torch.launch.mesh import make_host_mesh
@@ -870,15 +987,16 @@ def program_train(rank, world, io, device) -> None:
                                  device=device)}
     _, m = train_step(state, ones, cfg, run, placement=pl)
     out["ones_loss"] = float(m["loss"])
-    made = {}
     for case in TRAIN_CASES:
-        _record(out, case, *placed_run(io, case, mesh, device,
-                                       made=made if case == "dense"
-                                       else None))
-    out["made"] = record(made)
+        made = {}
+        _record(out, case, *placed_run(io, case, mesh, device, made=made))
+        out[f"made_{case}"] = record(made)
     for name, fault in TP_FAULTS.items():
         with fault():
             _record(out, name, *placed_run(io, "dense", mesh, device))
+    for name, fault in MOE_FAULTS.items():
+        with fault():
+            _record(out, name, *placed_run(io, "moe", mesh, device))
     with _QuantRecord() as rec:
         _record(out, "compressed", *placed_run(io, "dense", mesh, device,
                                                compression=True))
@@ -1159,20 +1277,25 @@ def check_compressed(got: list, want: list, n_leaves: int) -> tuple:
 # ---------------------------------------------------------------------------
 #: (arch, batch, cache length, prompt, decode steps): reduced gemma2-2b (2
 #: KV heads: heads on ``model``; a local ring whose ``pos`` is split over
-#: ``model``) and reduced recurrentgemma-9b (1 KV head: the sequence on
-#: ``model``; the RG-LRU ``h`` and ``conv`` split by width)
+#: ``model``), reduced recurrentgemma-9b (1 KV head: the sequence on
+#: ``model``; the RG-LRU ``h`` and ``conv`` split by width) and reduced
+#: deepseek-moe-16b (4 KV heads on ``model``; 2 of its 4 experts a rank,
+#: its shared expert on half its hidden dim)
 SERVE_CASES = {"gemma2": ("gemma2-2b", 4, 32, 8, 4),
-               "recurrentgemma": ("recurrentgemma-9b", 4, 32, 8, 4)}
+               "recurrentgemma": ("recurrentgemma-9b", 4, 32, 8, 4),
+               "moe": ("deepseek-moe-16b", 4, 32, 8, 4)}
 
 #: the placed float32 step lies within SERVE_K times the float32 one-rank
 #: step's distance from the float64 one-rank step (``d32``), for each
 #: logit row and each cache leaf.  Derived from the sums the placed step
 #: reorders (row-parallel sums after ``wo``, ``wd`` and ``w_out``, the
 #: vocab-parallel lookup, the RG-LRU gates' products over the gathered
-#: ``u``, a sequence-split softmax's row sum and ``P V``): a sum of N
-#: float32 terms over n = 2 ranks rounds (N/n - 1) + (n - 1) times, at
-#: most the one-rank sum's N - 1, so the placed step's rounding error has
-#: the one-rank step's size; the factor 2 holds the largest of one run's
+#: ``u``, a sequence-split softmax's row sum and ``P V``; and a mixture of
+#: experts' combine, each rank's slots of its experts plus its shared
+#: expert's partial sum, summed over the ranks): a sum of N float32 terms
+#: over n = 2 ranks rounds (N/n - 1) + (n - 1) times, at most the
+#: one-rank sum's N - 1, so the placed step's rounding error has the
+#: one-rank step's size; the factor 2 holds the largest of one run's
 #: errors over a row or a leaf against another run's.  Stated before the
 #: first run of the placed step on its shards, not fitted.
 SERVE_K = 2.0
@@ -1547,6 +1670,11 @@ PROGRAMS = {"engine": program_engine, "pipeline": program_pipeline,
 
 def main(argv) -> int:
     rank, world, io, device = int(argv[1]), int(argv[2]), argv[3], argv[4]
+    # one thread a rank: the four rank processes share the host's cores,
+    # and at torch's default each takes all of them, so the ranks' small
+    # ops spend their time in the threads' contention (3 steps of the MoE
+    # case took 29.6 s so on an 8-core host, 3.0 s in one thread)
+    torch.set_num_threads(1)
     torch.manual_seed(0)
     dist.init_process_group("gloo", init_method="file://" + os.path.join(
         io, "store"), rank=rank, world_size=world)

@@ -148,10 +148,11 @@ from repro.configs.base import RunConfig, SHAPES
 from repro.dist.sharding import batch_sharding, param_shardings
 from repro.launch.hlo_cost import analyze_hlo
 from repro.train.step import init_state, train_step
-cfg = reduced_config("minitron-4b", **json.loads(__import__("sys").argv[1]))
+arch, over, shape = json.loads(__import__("sys").argv[1])
+cfg = reduced_config(arch, **over)
 run = RunConfig(model=cfg, shape=SHAPES["train_4k"], lr=1e-3)
 state = init_state(cfg, jax.random.PRNGKey(0))
-batch = {"tokens": jnp.ones((8, 16), jnp.int32)}
+batch = {"tokens": jnp.ones(shape, jnp.int32)}
 mesh = jax.make_mesh((2, 2), ("data", "model"),
                      axis_types=(jax.sharding.AxisType.Auto,) * 2)
 with jax.set_mesh(mesh):
@@ -174,7 +175,8 @@ from repro_torch.dist.sharding import Placement
 from repro_torch.launch import dryrun, specs
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.train.step import init_state, train_step
-cfg = reduced_config("minitron-4b", **json.loads(sys.argv[1]))
+arch, over, shape = json.loads(sys.argv[1])
+cfg = reduced_config(arch, **over)
 run = RunConfig(model=cfg, shape=SHAPES["train_4k"], lr=1e-3, fsdp=True)
 dryrun.start_group(4)
 cpu = torch.device("cpu")
@@ -186,7 +188,7 @@ pl = Placement(mesh, spec.params)
 counter, _ = dryrun.trace(
     lambda s, b: train_step(s, b, cfg, run, placement=pl),
     (specs._placed(state, spec, mesh),
-     {"tokens": specs.Shaped((8, 16), torch.int32)}), cpu)
+     {"tokens": specs.Shaped(tuple(shape), torch.int32)}), cpu)
 print(json.dumps(counter.result()["flops"]))
 """
 
@@ -197,8 +199,51 @@ print(json.dumps(counter.result()["flops"]))
 #: by hlo_cost's rules, no fusion), and a step that divides the attention,
 #: the MLP and the vocabulary over ``model`` as JAX's does should keep
 #: about that gap; a step that repeats them on each ``model`` rank counts
-#: 1.88 times JAX's (48.37 M, the parent's, against 25.76 M).
+#: 1.88 times JAX's (48.37 M, the parent's, against 25.76 M).  The MoE
+#: step (reduced deepseek-moe-16b) held to the same share once its
+#: experts split over ``model`` as JAX's do; the parent's, every
+#: ``model`` rank running all the experts, is MOE_PARENT_RATIOS' "train".
 FLOPS_RTOL = 0.15
+
+#: port / JAX FLOPs per device of the MoE cells before the experts
+#: computed over ``model`` (this file's MoE tests run on that code): each
+#: ``model`` rank ran all E experts for its rows and its shared expert
+#: whole, and in training each data rank ran every bucket row of the
+#: global capacity for its own tokens (train 1135894986 against JAX's
+#: 484457313; decode 3489337 against 1850591; prefill 59564240 against
+#: 31937915 less the T3 unembedding)
+MOE_PARENT_RATIOS = {"train": 2.345, "decode": 1.886, "prefill": 1.865}
+
+
+def _flops_env():
+    return dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+                XLA_FLAGS="--xla_force_host_platform_device_count=4")
+
+
+def _both(jax_script: str, port_script: str, arg) -> tuple:
+    """(JAX's FLOPs, the port's) of one cell: each script in a subprocess
+    of its own (4 fake CPU devices; a fake 4-rank group), given ``arg``
+    as JSON."""
+    env, over = _flops_env(), json.dumps(arg)
+    jax_proc = subprocess.Popen([sys.executable, "-c", jax_script, over],
+                                env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+    port = subprocess.run([sys.executable, "-c", port_script, over],
+                          env=env, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    out, err = jax_proc.communicate(timeout=600)
+    assert jax_proc.returncode == 0, err[-3000:]
+    assert port.returncode == 0, port.stderr[-3000:]
+    return (json.loads(out.strip().splitlines()[-1]),
+            json.loads(port.stdout.strip().splitlines()[-1]))
+
+
+def _train_case(case: str) -> list:
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from _torch_ranks import TRAIN_CASES
+    arch, over, shape = TRAIN_CASES[case]
+    return [arch, over, list(shape)]
 
 
 def test_placed_step_flops_per_device_match_jax_gspmd():
@@ -206,23 +251,19 @@ def test_placed_step_flops_per_device_match_jax_gspmd():
     counts per device within FLOPS_RTOL of JAX's compiled GSPMD step (the
     JAX side in a subprocess with 4 fake CPU devices, the port's in one
     with a fake 4-rank group: one fake default group a process)."""
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from _torch_ranks import TRAIN_CFG
-    over = json.dumps(TRAIN_CFG)
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    jax_proc = subprocess.Popen([sys.executable, "-c", _FLOPS_JAX, over],
-                                env=env, cwd=ROOT, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
-    port = subprocess.run([sys.executable, "-c", _FLOPS_PORT, over],
-                          env=env, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    out, err = jax_proc.communicate(timeout=600)
-    assert jax_proc.returncode == 0, err[-3000:]
-    assert port.returncode == 0, port.stderr[-3000:]
-    want = json.loads(out.strip().splitlines()[-1])
-    got = json.loads(port.stdout.strip().splitlines()[-1])
+    want, got = _both(_FLOPS_JAX, _FLOPS_PORT, _train_case("dense"))
+    assert abs(got - want) <= FLOPS_RTOL * want, (got, want)
+
+
+def test_placed_moe_step_flops_per_device_match_jax_gspmd():
+    """The same for the MoE training case of ``tests/_torch_ranks.py``
+    (reduced deepseek-moe-16b: 4 experts, top 2, one shared expert, B 8
+    x T 128): JAX puts the expert dim on ``model``, and so does the
+    port's step."""
+    want, got = _both(_FLOPS_JAX, _FLOPS_PORT, _train_case("moe"))
+    print(f"MoE train step: port / JAX FLOPs per device {got / want} "
+          f"(port {got}, JAX {want}; the parent's "
+          f"{MOE_PARENT_RATIOS['train']})")
     assert abs(got - want) <= FLOPS_RTOL * want, (got, want)
 
 
@@ -237,8 +278,8 @@ from repro.launch.hlo_cost import analyze_hlo
 from repro.launch.specs import cache_shardings, mv_shardings
 from repro.models import transformer as tf
 from repro.serve import engine as eng
-B, L = json.loads(sys.argv[1])
-cfg = reduced_config("gemma2-2b")
+arch, B, L = json.loads(sys.argv[1])
+cfg = reduced_config(arch)
 run = RunConfig(model=cfg, shape=SHAPES["decode_32k"])
 mesh = jax.make_mesh((2, 2), ("data", "model"),
                      axis_types=(jax.sharding.AxisType.Auto,) * 2)
@@ -273,15 +314,15 @@ from repro_torch.configs import reduced_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun, specs
 from repro_torch.launch.mesh import make_host_mesh
-B, L = json.loads(sys.argv[1])
-specs.get_config = reduced_config     # the cell of reduced gemma2-2b
+arch, B, L = json.loads(sys.argv[1])
+specs.get_config = reduced_config     # the cell of the reduced config
 dryrun.start_group(4)
 cpu = torch.device("cpu")
 mesh = make_host_mesh(2, 2, device=cpu)
 out = {}
 for kind in ("prefill", "decode"):
     step, args, _ = specs.build_serve_cell(
-        "gemma2-2b", mesh, ShapeConfig(kind, kind, L, B))
+        arch, mesh, ShapeConfig(kind, kind, L, B))
     counter, _ = dryrun.trace(step, args, cpu)
     out[kind] = counter.result()["flops"]
 print(json.dumps(out))
@@ -304,14 +345,23 @@ SERVE_FLOPS_SHAPE = (4, 32)
 SERVE_FLOPS_RTOL = 0.15
 
 
-def _t3_unembed_flops(B: int, T: int) -> float:
+def _t3_unembed_flops(B: int, T: int, arch: str = "gemma2-2b") -> float:
     """The FLOPs per device of JAX's prefill that the port skips by trap
     T3: JAX unembeds every position and keeps the last; the port
     unembeds the last alone.  Per device, ``B / 2`` rows (``data`` of 2)
     times ``T - 1`` positions times ``V / 2`` vocabulary rows (``model``
     of 2) times ``d``, two FLOPs a product."""
-    cfg = reduced_config("gemma2-2b")
+    cfg = reduced_config(arch)
     return 2.0 * (B // 2) * (T - 1) * (cfg.vocab_size // 2) * cfg.d_model
+
+
+def _serve_ratios(arch: str) -> tuple:
+    """(port / JAX FLOPs per device of the decode and prefill cells, the
+    port's, JAX's less :func:`_t3_unembed_flops`)."""
+    want, got = _both(_SERVE_FLOPS_JAX, _SERVE_FLOPS_PORT,
+                      [arch, *SERVE_FLOPS_SHAPE])
+    want["prefill"] -= _t3_unembed_flops(*SERVE_FLOPS_SHAPE, arch)
+    return {k: got[k] / want[k] for k in want}, got, want
 
 
 def test_placed_serve_flops_per_device_match_jax_gspmd():
@@ -324,26 +374,21 @@ def test_placed_serve_flops_per_device_match_jax_gspmd():
     subprocess, the port's fake 4-rank group in another).  JAX's prefill
     is taken less :func:`_t3_unembed_flops`, the work the port leaves out
     by design."""
-    over = json.dumps(SERVE_FLOPS_SHAPE)
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    jax_proc = subprocess.Popen([sys.executable, "-c", _SERVE_FLOPS_JAX,
-                                 over], env=env, cwd=ROOT,
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
-    port = subprocess.run([sys.executable, "-c", _SERVE_FLOPS_PORT, over],
-                          env=env, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    out, err = jax_proc.communicate(timeout=600)
-    assert jax_proc.returncode == 0, err[-3000:]
-    assert port.returncode == 0, port.stderr[-3000:]
-    want = json.loads(out.strip().splitlines()[-1])
-    got = json.loads(port.stdout.strip().splitlines()[-1])
-    want["prefill"] -= _t3_unembed_flops(*SERVE_FLOPS_SHAPE)
-    ratios = {k: got[k] / want[k] for k in want}
+    ratios, got, want = _serve_ratios("gemma2-2b")
     print(f"port / JAX FLOPs per device: {ratios} (port {got}, JAX {want};"
           " the parent's 1.763 decode, 1.785 prefill)")
+    for kind in ("decode", "prefill"):
+        assert abs(got[kind] - want[kind]) <= SERVE_FLOPS_RTOL * want[kind], \
+            (kind, got[kind], want[kind])
+
+
+def test_placed_moe_serve_flops_per_device_match_jax_gspmd():
+    """The same cells of reduced deepseek-moe-16b (4 experts, top 2, one
+    shared expert; its 4 KV heads on ``model``): JAX's GSPMD cells put
+    the expert dim on ``model``, and so does the port's placed step."""
+    ratios, got, want = _serve_ratios("deepseek-moe-16b")
+    print(f"MoE serve cells: port / JAX FLOPs per device {ratios} (port "
+          f"{got}, JAX {want}; the parent's {MOE_PARENT_RATIOS})")
     for kind in ("decode", "prefill"):
         assert abs(got[kind] - want[kind]) <= SERVE_FLOPS_RTOL * want[kind], \
             (kind, got[kind], want[kind])

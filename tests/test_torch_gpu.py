@@ -1800,7 +1800,9 @@ def test_rank_train_on_the_card_matches_one_rank(card_ranks, cuda, case):
     the card from the same state, 3 steps: ``_torch_ranks.check_run``'s
     limits, the losses and gradient norms within JAX's rtol 1e-4; the
     planted faults (the update skipped, a wrong half, and the three of
-    the compute over ``model``: ``_torch_ranks.TP_FAULTS``) fail them."""
+    the compute over ``model``: ``_torch_ranks.TP_FAULTS``; for the MoE
+    case the four of its experts over ``model``:
+    ``_torch_ranks.MOE_FAULTS``) fail them."""
     import _torch_ranks as R
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.train.step import init_state
@@ -1812,6 +1814,10 @@ def test_rank_train_on_the_card_matches_one_rank(card_ranks, cuda, case):
     ref = R.one_rank(state, case, cuda)
     R.check_run(R.placed(io, case, case), ref, ref["p0"], rtol=R.JAX_RTOL)
     if case != "dense":
+        for fault in R.MOE_FAULTS:
+            with pytest.raises(AssertionError):
+                R.check_run(R.placed(io, fault, case), ref, ref["p0"],
+                            rtol=R.JAX_RTOL)
         return
     for rec in R.data_parallel(io, "dp"):
         R.check_run(rec, ref, ref["p0"], rtol=R.JAX_RTOL)

@@ -590,33 +590,40 @@ def test_sharded_step_matches_jax_sharded(ranks, one_rank, case):
 
 
 def test_no_rank_holds_a_model_split_leaf_whole(ranks):
-    """The dense case's placed run: for every attention, MLP and
+    """Both cases' placed runs: for every attention, MLP, expert and
     embedding leaf that the specs split over ``model`` (on the 2 x 2 mesh
     with ``fsdp=True``), the largest tensor the placement made of it on
     every rank is the leaf's shape with its ``model`` dim halved (its
     ``data`` dim gathered): the layer computed on its shard.  Every other
-    leaf was gathered whole."""
+    leaf (the MoE case's routers among them) was gathered whole."""
     from repro_torch.dist.sharding import _local_dim, _paths, param_shardings
-    like = R.like_params("dense")
     stand_in = type("StandIn", (), {"shape": {"data": 2, "model": 2}})()
-    specs = dict(_paths(param_shardings(like, stand_in, fsdp=True)))
-    n_local = 0
-    for rank in range(WORLD):
-        made = json.loads(str(R.load(ranks["io"], "train", rank)["made"]))
-        for path, leaf in _paths(like):
-            name, spec = "/".join(path), specs[path]
-            d = _local_dim(path, leaf.ndim)
-            want = list(leaf.shape)
-            if d is not None and spec[d] == "model" and (
-                    path[0] in ("embed", "unembed")
-                    or path[2] in ("mixer", "ffn")):
-                want[d] //= 2
-                n_local += 1
-            assert made[name] == want, (rank, name)
-    # every attention and MLP matrix and the (un)embedding of the dense
-    # case (each divides over model)
-    matrices = [p for p, x in _paths(like) if x.ndim >= 2]
-    assert n_local == WORLD * len(matrices) > 0
+    for case in R.TRAIN_CASES:
+        like = R.like_params(case)
+        specs = dict(_paths(param_shardings(like, stand_in, fsdp=True)))
+        n_local = 0
+        for rank in range(WORLD):
+            made = json.loads(str(R.load(ranks["io"], "train",
+                                         rank)[f"made_{case}"]))
+            for path, leaf in _paths(like):
+                name, spec = "/".join(path), specs[path]
+                d = _local_dim(path, leaf.ndim)
+                want = list(leaf.shape)
+                if d is not None and spec[d] == "model" and (
+                        path[0] in ("embed", "unembed")
+                        or path[2] in ("mixer", "ffn")):
+                    want[d] //= 2
+                    n_local += 1
+                assert made[name] == want, (case, rank, name)
+            if case == "moe":
+                # reduced deepseek-moe-16b's experts: [E / 2, d, f] a rank
+                assert made["layers/0/ffn/wg"] == [2, 64, 128], made
+                assert made["layers/0/ffn/router"] == [64, 4], made
+        # every attention, MLP and expert matrix and the (un)embedding of
+        # both cases (each divides over model); the routers whole
+        matrices = [p for p, x in _paths(like)
+                    if x.ndim >= 2 and p[-1] != "router"]
+        assert n_local == WORLD * len(matrices) > 0, case
 
 
 @pytest.mark.parametrize("fault", list(R.TP_FAULTS))
@@ -629,6 +636,19 @@ def test_model_axis_planted_fault_fails_its_check(ranks, one_rank, fault):
     ref = one_rank["dense"]
     with pytest.raises(AssertionError):
         R.check_run(R.placed(ranks["io"], fault), ref, ref["p0"])
+
+
+@pytest.mark.parametrize("fault", list(R.MOE_FAULTS))
+def test_expert_parallel_planted_fault_fails_its_check(ranks, one_rank,
+                                                       fault):
+    """The check against the one-rank step sees each planted fault of the
+    mixture of experts over ``model`` (the MoE case): a rank running the
+    next rank's block of experts, the combine without its ``g``, ``f``
+    skipped on the gate weights (the router's gradient one rank's share),
+    the load-balance loss from the local experts' counts only."""
+    ref = one_rank["moe"]
+    with pytest.raises(AssertionError):
+        R.check_run(R.placed(ranks["io"], fault, "moe"), ref, ref["p0"])
 
 
 def test_compressed_placed_step_matches_one_rank(ranks):
@@ -765,7 +785,8 @@ def test_placed_serve_planted_fault_fails(ranks, fault):
 #: ``model``, by case: a local ring's ``pos`` where its K/V go on heads
 #: (gemma2's layer 0: [B / 2, W] gathered at use, as the layer needs the
 #: whole ring's positions); nothing else, parameter or cache
-SERVE_MADE = {"gemma2": {"cache/0/pos": [2, 16]}, "recurrentgemma": {}}
+SERVE_MADE = {"gemma2": {"cache/0/pos": [2, 16]}, "recurrentgemma": {},
+              "moe": {}}
 
 
 @pytest.mark.parametrize("case", list(R.SERVE_CASES))

@@ -15,8 +15,21 @@ attention and MLP the training tests hold to JAX's).
   head), with RoPE and a sliding window.
 * The MLP split on its hidden dim (:func:`repro_torch.models.mlp.mlp`):
   the same sums, gated and not.
+* A mixture of experts over its block of experts (expert parallelism,
+  :func:`repro_torch.models.moe.moe`): reduced deepseek-moe-16b (4
+  experts, top 2, a shared expert split on its hidden dim), both
+  dispatches, buckets that drop tokens.  Each rank runs in a thread of its
+  own, its ``f`` summing its gradient over the threads as the real
+  axis's all-reduce does: the router's path runs in full on every rank,
+  so the ``x`` and router gradients would come out ``n`` times too large
+  with an ``f`` on the router's input (and one rank's share without one
+  on the gate weights), which summing per-rank gradients with
+  ``Alone``'s identity ``f`` could not see.  The ranks' outputs sum to
+  the layer's; each rank's gradients of ``x`` and the router are the
+  layer's, and of its pieces the layer's gradient of those pieces.
 """
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -25,6 +38,7 @@ import torch
 from repro_torch.configs import reduced_config
 from repro_torch.models import attention as att
 from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.models.moe import init_moe, moe
 
 N = 2  # model ranks
 # float32 sums in another order (the ranks' partial sums added last)
@@ -35,6 +49,8 @@ class Alone:
     """One ``model`` rank's axis with its collectives as identities (the
     caller sums the ranks' results), holding the leaves ``local`` as its
     pieces."""
+
+    rows = False
 
     def __init__(self, index, local):
         self.n, self.index, self.local = N, index, frozenset(local)
@@ -145,3 +161,138 @@ def test_split_mlp_sums_to_the_layer(gated):
                 atol=ATOL, rtol=RTOL)
     torch.testing.assert_close(got, want.detach(), atol=ATOL, rtol=RTOL)
     torch.testing.assert_close(gx, want_g["x"], atol=ATOL, rtol=RTOL)
+
+
+class _Hub:
+    """The threads of N simulated ``model`` ranks: :meth:`sum` adds every
+    rank's tensor, in rank order, for each of them."""
+
+    def __init__(self):
+        self.barrier = threading.Barrier(N, timeout=120)
+        self.slots = [None] * N
+
+    def sum(self, index, x):
+        self.slots[index] = x
+        self.barrier.wait()
+        total = self.slots[0]
+        for y in self.slots[1:]:
+            total = total + y
+        self.barrier.wait()
+        return total
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, hub, index):
+        ctx.hub, ctx.index = hub, index
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.hub.sum(ctx.index, grad), None, None
+
+
+class Threaded(Alone):
+    """:class:`Alone` whose ``f`` sums its gradient over the ranks'
+    threads (the real axis's backward all-reduce); ``g`` stays the
+    identity (the caller sums the ranks' outputs)."""
+
+    def __init__(self, hub, index, local):
+        super().__init__(index, local)
+        self.hub = hub
+
+    def f(self, x):
+        return _SumGrad.apply(x, self.hub, self.index)
+
+    def holding(self, local):
+        return Threaded(self.hub, self.index, local)
+
+
+#: weight of the load-balance loss in the tests' objective: large, so that
+#: a router gradient from that path counted n times would show
+AUX_WEIGHT = 0.5
+
+
+def _moe_pieces(p, r):
+    """Rank ``r``'s leaves of a mixture of experts: its block of experts,
+    its shared expert's slice of the hidden dim, the router whole."""
+    out = {k: _cut(p[k], 0, r) for k in ("wg", "wu", "wd")}
+    out["router"] = p["router"].detach().clone().requires_grad_()
+    out["shared"] = {k: _cut(v, 0 if k == "wd" else 1, r)
+                     for k, v in p["shared"].items()}
+    return out
+
+
+def _flat(tree):
+    return [(k, v) for k, v in sorted(tree.items()) if k != "shared"] + [
+        ("shared/" + k, v) for k, v in sorted(tree["shared"].items())]
+
+
+@pytest.mark.parametrize("dispatch", ["global", "grouped"])
+def test_expert_parallel_moe_sums_to_the_layer(dispatch):
+    cfg = reduced_config("deepseek-moe-16b", moe_dispatch=dispatch,
+                         moe_capacity_factor=1.0)
+    assert (cfg.num_experts, cfg.top_k, cfg.num_shared_experts) == (4, 2, 1)
+    p = init_moe(torch.Generator().manual_seed(4), cfg)
+    rng = np.random.default_rng(2)
+    B, T = 2, 128
+    x = torch.from_numpy(rng.standard_normal((B, T, cfg.d_model))
+                         .astype(np.float32)).requires_grad_()
+    c = torch.from_numpy(rng.standard_normal((B, T, cfg.d_model))
+                         .astype(np.float32))
+    full = {k: v.detach().clone().requires_grad_() for k, v in p.items()
+            if k != "shared"}
+    full["shared"] = {k: v.detach().clone().requires_grad_()
+                      for k, v in p["shared"].items()}
+    want, want_aux = moe(full, cfg, x)
+    names = [k for k, _ in _flat(full)]
+    want_g = dict(zip(["x"] + names, torch.autograd.grad(
+        (want * c).sum() + AUX_WEIGHT * want_aux,
+        [x] + [v for _, v in _flat(full)])))
+    if dispatch == "global":
+        # the global capacity (from 256 tokens) drops some assignments
+        from repro_torch.models.moe import _route, capacity
+        _, idx, _, _ = _route(p, cfg, x.detach())
+        load = torch.bincount(idx.reshape(-1), minlength=cfg.num_experts)
+        assert int(load.max()) > capacity(cfg, B * T)
+
+    hub, results = _Hub(), [None] * N
+
+    def rank(r):
+        try:
+            local = _moe_pieces(p, r)
+            xr = x.detach().clone().requires_grad_()
+            tp = Threaded(hub, r, ["wg", "wu", "wd", "shared/wg",
+                                   "shared/wu", "shared/wd"])
+            out, aux = moe(local, cfg, xr, tp=tp)
+            grads = torch.autograd.grad(
+                (out * c).sum() + AUX_WEIGHT * aux,
+                [xr] + [v for _, v in _flat(local)])
+            results[r] = (out.detach(), aux.detach(),
+                          dict(zip(["x"] + names, grads)))
+        except BaseException as e:    # the other thread must not wait on
+            hub.barrier.abort()       # a rank that died
+            results[r] = e
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(N)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for res in results:
+        if isinstance(res, BaseException):
+            raise res
+    got = sum(res[0] for res in results)
+    torch.testing.assert_close(got, want.detach(), atol=ATOL, rtol=RTOL)
+    for r, (_, aux, g) in enumerate(results):
+        torch.testing.assert_close(aux, want_aux.detach(), atol=0, rtol=0)
+        for k in ("x", "router"):
+            torch.testing.assert_close(g[k], want_g[k], atol=ATOL, rtol=RTOL,
+                                       msg=lambda m: f"rank {r} {k}: {m}")
+        for k in names:
+            if k == "router":
+                continue
+            dim = 0 if k in ("wg", "wu", "wd", "shared/wd") else 1
+            torch.testing.assert_close(
+                g[k], want_g[k].chunk(N, dim=dim)[r], atol=ATOL, rtol=RTOL,
+                msg=lambda m: f"rank {r} {k}: {m}")

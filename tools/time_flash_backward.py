@@ -51,6 +51,8 @@ CASES = {
                      softcap=0.0),
     "whisper_cross": dict(B=16, Hq=6, Hkv=6, T=64, S=1500, D=64, window=0,
                           softcap=0.0, causal=False),
+    "granite_placed_train": dict(B=1, Hq=8, Hkv=4, T=2048, D=64, window=0,
+                                 softcap=0.0),
 }
 TOL_F32 = dict(atol=1e-4, rtol=1e-4)   # chip_smoke.py's FLASH_BWD_TOL
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -56,6 +56,7 @@ CASES = {
     "whisper_cross_decode_f32": (16, 6, 6, 1, 1500, 64, False, 0, 0.0),
     "recurrentgemma_local_f32": (16, 16, 1, 1984, 1984, 256, True, 2048,
                                  0.0),
+    "granite_placed_train_f32": (1, 8, 4, 2048, 2048, 64, True, 0, 0.0),
 }
 # causal cases against float64: (B, Hq, Hkv, T, D, window, softcap, q
 # scale, seed)
