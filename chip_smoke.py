@@ -141,13 +141,13 @@ Phases, each printing one JSON line:
    are zeroed just before this phase and read just after, then a
    profiled window;
 10b. train — gemma2-2b at its full published widths and depth in float32
-   (JAX's training dtype): init_state on the card, then 8 train_step's of
+   (JAX's training dtype): init_state on the card, then 4 train_step's of
    B 1 x T 4096 from SyntheticLM (train_4k's global batch of 256 cut to 1
    for one card); at every step the loss, the gradient norm and every
    parameter finite, the lr equal to cosine_schedule, the parameters
    unchanged by step 0 (lr 0) and moved by step 1; K6 twice per attention
    layer and step (forward and the checkpoint's recompute) and K6b once,
-   both counted from zero over the 8 steps; step seconds, tokens/s, peak
+   both counted from zero over the 4 steps; step seconds, tokens/s, peak
    memory beside the peak before K6's float32 workspace, and a profiled
    step's idle share and K6's device ms a step; K6 and K6b on their
    float32 (split-TF32) routes; then the launcher's
@@ -173,14 +173,19 @@ Phases, each printing one JSON line:
    ring), to phase 10's step count: every counter, the LWM after every
    step, the pages reclaimed and the peak per host and a digest of every
    view and K4 output must equal phase 10's run; then phase 9's smoke
-   and stall rows at 4 ranks;
-   10e train_sharded — two cases at full widths in float32
+   rows at 4 ranks;
+   10e train_sharded — five cases at full widths in float32
    (TRAIN_SHARDED): gemma2-2b cut to 2 of its 26 layers (one local, one
-   global) and granite-moe-1b-a400m cut to 2 of its 24, each on
+   global), granite-moe-1b-a400m cut to 2 of its 24, recurrentgemma-9b
+   cut to 3 of its 38 (one period: RG-LRU, RG-LRU, local; B 2 x T 1024),
+   xlstm-125m at 4 of its 12 (one period; B 2 x T 512) and whisper-tiny at all 4 +
+   4 over 1500 seeded frames (B 2 x T 448), each on
    a 2 x 2 (data, model) mesh with fsdp=True, computed on its shards over
    model as JAX's GSPMD step does (local heads, the MLP split on its
    hidden dim, a mixture's block of 16 of 32 experts with each expert's
-   bucket rows split over data, the vocab-parallel embedding and loss
+   bucket rows split over data, the RG-LRU on its channels, the mLSTM
+   and sLSTM on their heads, the encoder's layers and cross-attention on
+   their heads, the vocab-parallel embedding and loss
    where the vocabulary divides; every leaf gathered at use over data
    only where the layer computes locally, else whole), B 2 x T 2048, 2
    steps, each against its own one-rank step: the losses and gradient
@@ -209,10 +214,14 @@ Phases, each printing one JSON line:
    computing on each rank's shards over model as JAX's decode and prefill
    cells do (KV heads or the cache's positions, the MLP's hidden dim, the
    RG-LRU's width, a mixture's block of experts and its shared experts'
-   hidden dim, the vocabulary; ServePlacement): gemma2-2b at full depth,
-   recurrentgemma-9b at 3 of its 38 layers and deepseek-moe-16b at 2 of
-   its 28 (SERVE_PLACED), B 16 (8 a data rank), a 512-token prompt, 16
-   greedy steps.  Rank 0 runs the
+   hidden dim, the vocabulary, the mLSTM and sLSTM on their heads, the
+   encoder and cross-attention on theirs; ServePlacement): gemma2-2b at 4
+   of its 26 layers (cut to keep the script's time), recurrentgemma-9b at
+   3 of its 38, deepseek-moe-16b at 2 of its 28 and xlstm-125m at all 12
+   (SERVE_PLACED), B 16 (8 a data rank), a 512-token prompt, 16 greedy
+   steps; whisper-tiny at all 4 + 4 layers over 1500 frames with a
+   64-token prompt and enc_out from its encoder on each rank's rows.
+   Rank 0 runs the
    one-rank step in float32 and rank 1 in bf16 from the same weights,
    side by side, first; then the placed step must give their lengths,
    stats and store exactly, each logit row within SERVE_PLACED_K times
@@ -222,8 +231,9 @@ Phases, each printing one JSON line:
    compared), the checked cache leaves (SERVE_PLACED_LEAVES) within the
    same limit on the rows and positions still compared; K6 on 4 of 8
    query and 2 of 4 KV heads (gemma2-2b), on 8 of 16 query heads and
-   the one KV head (recurrentgemma-9b) and on 8 of 16 query and KV heads
-   (deepseek-moe-16b), counted by head counts; nothing made larger than
+   the one KV head (recurrentgemma-9b), on 8 of 16 query and KV heads
+   (deepseek-moe-16b) and on 3 of 6 (whisper-tiny's encoder, self- and
+   cross-attention), counted by head counts; nothing made larger than
    its shard but a heads-split ring's positions (no expert leaf whole);
    printed: prefill seconds, decode ms a step, bytes across host memory
    a decode step and the prefill's, and peak memory, a rank, beside the
@@ -278,6 +288,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -301,7 +312,8 @@ from repro_torch.dist.sharding import (  # noqa: E402
     ServePlacement, _paths, param_shardings, place_train_state)
 from repro_torch.launch.mesh import make_gc_mesh, make_host_mesh  # noqa: E402
 from repro_torch.train.pipeline_parallel import pipeline_forward  # noqa: E402
-from repro_torch.models.blocks import block_apply, init_block  # noqa: E402
+from repro_torch.models.blocks import (  # noqa: E402
+    RECURRENT_STATES, block_apply, init_block)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import cost as kernel_cost  # noqa: E402
 from repro_torch.kernels.compact import ops as compact_ops  # noqa: E402
@@ -394,6 +406,30 @@ FLASH = {
     # FLASH_BWD
     "granite_placed_train_f32": dict(B=1, Hq=8, Hkv=4, T=2048, D=64,
                                      window=0, softcap=0.0, dtype="f32"),
+    # phase 10e's new cases on one rank of its 2 x 2 mesh, float32 as they
+    # train (one sequence a data rank): whisper-tiny's encoder layer and
+    # cross-attention (448 rows over the 1500 frames) on 3 of its 6 heads,
+    # bidirectional, and recurrentgemma-9b's local layer (8 of 16 query
+    # heads over its one KV head, window 2048 over T 1024); their K6b rows
+    # in FLASH_BWD
+    "whisper_encoder_placed_train_f32": dict(
+        B=1, Hq=3, Hkv=3, T=1500, S=1500, D=64, window=0, causal=False,
+        softcap=0.0, dtype="f32"),
+    "whisper_cross_placed_train_f32": dict(
+        B=1, Hq=3, Hkv=3, T=448, S=1500, D=64, window=0, causal=False,
+        softcap=0.0, dtype="f32"),
+    "recurrentgemma_placed_train_f32": dict(
+        B=1, Hq=8, Hkv=1, T=1024, D=256, window=2048, softcap=0.0,
+        dtype="f32"),
+    # and phase 10h's whisper-tiny prefill on one rank (8 rows a data rank,
+    # 3 of 6 heads): its encoder over the 1500 frames and cross-attention
+    # at the 64-token prompt, in bf16 as it serves
+    "whisper_encoder_placed": dict(B=8, Hq=3, Hkv=3, T=1500, S=1500, D=64,
+                                   window=0, causal=False, softcap=0.0,
+                                   dtype="bf16", p_rounding=True),
+    "whisper_cross_placed": dict(B=8, Hq=3, Hkv=3, T=64, S=1500, D=64,
+                                 window=0, causal=False, softcap=0.0,
+                                 dtype="bf16", p_rounding=True),
     # the same layer with q scaled by 12: logits q.k/sqrt(D) of about
     # N(0, 12^2), so the cap of 50 bends them (randn's N(0, 1) logits move
     # by under 0.006 under it); the same inputs with no softcap must fail
@@ -462,6 +498,16 @@ FLASH_BWD = {
     # granite_placed_train_f32)
     "granite_placed_train": dict(B=1, Hq=8, Hkv=4, T=2048, D=64, window=0,
                                  softcap=0.0),
+    # phase 10e's whisper-tiny encoder layer and cross-attention and
+    # recurrentgemma-9b's local layer on one rank (FLASH's *_placed_train_f32)
+    "whisper_encoder_placed_train": dict(B=1, Hq=3, Hkv=3, T=1500, S=1500,
+                                         D=64, window=0, softcap=0.0,
+                                         causal=False),
+    "whisper_cross_placed_train": dict(B=1, Hq=3, Hkv=3, T=448, S=1500,
+                                       D=64, window=0, softcap=0.0,
+                                       causal=False),
+    "recurrentgemma_placed_train": dict(B=1, Hq=8, Hkv=1, T=1024, D=256,
+                                        window=2048, softcap=0.0),
 }
 # K6b's float32 route against attention_bwd_ref: both sum in float32 in
 # other orders over up to 4096 columns; the atol is about 4x the largest
@@ -473,11 +519,13 @@ FLASH_BWD = {
 FLASH_BWD_TOL = dict(atol=1e-4, rtol=1e-4)
 # phase 10b: gemma2-2b at its full published widths and depth, float32 as
 # JAX's init_state makes it, B 1 x T 4096 (train_4k's sequence; its global
-# batch of 256 cut to 1 for one card), 8 steps from SyntheticLM at the
-# launcher's learning rate; then the launcher's crash/resume at reduced
+# batch of 256 cut to 1 for one card), 4 steps from SyntheticLM at the
+# launcher's learning rate (8 until 10e and 10h took the recurrent and
+# encoder-decoder cases: each step repeats the one before, and the script
+# must stay inside its limit); then the launcher's crash/resume at reduced
 # widths on the card, and reduced minitron-4b's 30 steps with and without
 # gradient compression (JAX's test_compression_path_trains)
-TRAIN = dict(arch="gemma2-2b", batch=1, seq_len=4096, steps=8, lr=3e-3,
+TRAIN = dict(arch="gemma2-2b", batch=1, seq_len=4096, steps=4, lr=3e-3,
              seed=0)
 # phase 10b's peak GiB before K6's float32 route took its workspace (the
 # split copies of k and v, 48 MiB a call at this shape), recorded in an
@@ -538,12 +586,13 @@ RESUME_RTOL = 1e-5
 # gloo, through host memory
 RANKS = 4
 RANKS_TIMEOUT_S = 900          # each rank's own limit: a deadlock fails
-# 10d replays BENCH_dist.json's smoke and stall tiers at 4 ranks (8 rows):
-# the three rank phases take more than the 240 s aimed at on top of the
-# script (10e's gathers cross gloo), so the standard tier's 4 rows, which
-# add no host count or stall the other two lack, are left to phase 9 and
-# the CPU tests
-RANK_TIERS = ("smoke", "stall")
+# 10d replays BENCH_dist.json's smoke tier at 4 ranks (4 rows): the rank
+# phases take more than the 240 s aimed at on top of the script (10e's
+# gathers cross gloo), so the standard tier's 4 rows, which add no host
+# count or stall, and the stall tier's (about 20 s a rank; its stalled
+# host over 4 ranks is 10d's own traffic, phase 10's) are left to phase 9
+# and the CPU tests (tests/test_torch_ranks.py holds both at 4 ranks)
+RANK_TIERS = ("smoke",)
 # 10e: each case at its full widths in float32 on a 2 x 2 (data, model)
 # mesh with fsdp=True: B 2 (one sequence per data row), 2 steps at phase
 # 10b's schedule, against the one-rank train_step on the same batches from
@@ -560,13 +609,44 @@ RANK_TIERS = ("smoke", "stall")
 # f 512, 16 query and 8 KV heads of 64) cut to 2 of its 24 layers: 16 of
 # its 32 experts a model rank, each expert's bucket rows split over the
 # data ranks (its experts split over data too, by FSDP), as JAX's GSPMD
-# step computes them
+# step computes them.  recurrentgemma-9b (arXiv:2402.19427) cut to one
+# period of its pattern, 3 of its 38 layers (RG-LRU, RG-LRU, local
+# attention), B 2 x T 1024: the RG-LRU on its 2048 of 4096 channels, its
+# local layer on 8 of 16 query heads and its one KV head; its tied
+# 256000 x 4096 embedding on the vocabulary's rows.  xlstm-125m
+# (arXiv:2405.04517) cut to one period of its pattern, 4 of its 12 layers
+# (mLSTM x 3, sLSTM), B 2 x T 512: each mLSTM and sLSTM on 2 of its 4
+# heads.  At all 12 layers its first layer's gradient carries the float32
+# rounding of the eleven above it: with its forward products perturbed by
+# one part in 10^6 (about eight float32 roundings), ten of its held update
+# entries move by more than SHARDED_UPDATE_RTOL of the one-rank step's
+# change (up to 2.7e-2) and none at 4 layers (up to 6.4e-3), at these
+# widths (tools/update_sensitivity.py); so the case is held at the depth
+# the limit can hold.  whisper-tiny (arXiv:2212.04356) at all 4 encoder and
+# 4 decoder layers, B 2 x 1500 frames (seeded, SHARDED_FRAMES_SCALE) x T
+# 448: the encoder's layers, self- and cross-attention on 3 of 6 heads,
+# the MLPs on half their hidden dim
 TRAIN_SHARDED = {
     "gemma2": dict(TRAIN, batch=2, seq_len=2048, steps=2, mesh=(2, 2),
                    layers=2),
     "moe": dict(TRAIN, arch="granite-moe-1b-a400m", batch=2, seq_len=2048,
                 steps=2, mesh=(2, 2), layers=2),
+    "rglru": dict(TRAIN, arch="recurrentgemma-9b", batch=2, seq_len=1024,
+                  steps=2, mesh=(2, 2), layers=3),
+    "xlstm": dict(TRAIN, arch="xlstm-125m", batch=2, seq_len=512, steps=2,
+                  mesh=(2, 2), layers=4),
+    "whisper": dict(TRAIN, arch="whisper-tiny", batch=2, seq_len=448,
+                    steps=2, mesh=(2, 2), layers=4),
 }
+# the cases whose one-rank reference runs alone, before the others:
+# recurrentgemma-9b's peaked at 48.9 GiB on an H100 (its tied 256000 x
+# 4096 embedding and the whole float32 state with AdamW's moments), and
+# the five together would come near the card's 80 GB
+TRAIN_REFERENCE_ALONE = ("rglru",)
+# an encoder-decoder case's frame embeddings: standard normal from the
+# case's seed and step, times this scale (phases 6f and 6g take 0.02 for
+# served frames; a training step's gradient wants the encoder to matter)
+SHARDED_FRAMES_SCALE = 0.5
 # 10e's gemma2-2b case before its step computed over model, at 4 layers
 # (PERF.md section 5, runs 26A-26C, "NVIDIA H100 80GB HBM3, 700.00 W"):
 # every leaf gathered whole on every rank, K6 and K6b on all 8 query and 4
@@ -587,6 +667,39 @@ SHARDED_LEAVES = {
                "layers/0/mixer/wo", "layers/1/ffn/wd"),
     "moe": ("final_norm", "layers/0/mixer/wq", "layers/0/ffn/router",
             "layers/0/ffn/wg", "layers/1/mixer/wo"),
+    # an RG-LRU's width-split input, a gate matrix and the decay, both
+    # sliced per rank (their gradients summed over model)
+    "rglru": ("layers/0/mixer/w_in", "layers/0/mixer/wa",
+              "layers/0/mixer/lambda"),
+    # an mLSTM's up-projection, a head projection, its gates and its norm
+    # (the statistic crossing the ranks); the sLSTM's recurrence and bias
+    "xlstm": ("layers/0/mixer/w_up", "layers/0/mixer/wq",
+              "layers/0/mixer/w_if", "layers/0/mixer/ln_out",
+              "layers/3/mixer/wr", "layers/3/mixer/b"),
+    # an encoder layer's query heads and MLP rows, a decoder layer's
+    # cross-attention keys (reading the encoder's output)
+    "whisper": ("encoder/layers/0/mixer/wq", "encoder/layers/0/ffn/wd",
+                "layers/0/cross/wk"),
+}
+# the largest tensor the placement may make of some leaves of the new
+# cases, on every rank: a model-split leaf as this rank's piece over model
+# (its data dim gathered), a leaf a layer slices (an RG-LRU's gate matrix)
+# whole
+SHARDED_MADE = {
+    "rglru": {"layers/0/mixer/w_in": [4096, 2048],
+              "layers/0/mixer/w_out": [2048, 4096],
+              "layers/0/mixer/wa": [4096, 4096],
+              "layers/2/mixer/wq": [4096, 8, 256]},
+    "xlstm": {"layers/0/mixer/w_up": [768, 768],
+              "layers/0/mixer/wq": [1536, 2, 384],
+              "layers/0/mixer/w_if": [1536, 2, 2],
+              "layers/0/mixer/w_down": [768, 768],
+              "layers/3/mixer/wx_s": [768, 2, 768],
+              "layers/3/mixer/wr": [2, 192, 768]},
+    "whisper": {"encoder/layers/0/mixer/wq": [384, 3, 64],
+                "encoder/layers/0/ffn/wd": [768, 384],
+                "layers/0/cross/wk": [384, 3, 64],
+                "layers/0/cross/wo": [3, 64, 384]},
 }
 # loss and gradient norm: JAX's limit for the sharded step's loss
 # (tests/launch/test_distributed.py:98); mu and nu within this share of
@@ -611,7 +724,10 @@ PIPELINE = dict(arch="minitron-4b", microbatches=8, batch=2, seq_len=2048,
 # 10h: the placed serve step (MVServeEngine's prefill_step and decode_one
 # with a ServePlacement) on a 2 x 2 (data, model) mesh, computing on each
 # rank's shards over model as JAX's decode and prefill cells do, in bf16 at
-# full widths: gemma2-2b at full depth (KV heads on model; each local
+# full widths: gemma2-2b cut to 4 of its 26 layers (local, global, local,
+# global: both kinds; cut from its full depth so that the recurrent and
+# encoder-decoder cases keep the script inside its limit) (KV heads on
+# model; each local
 # ring's pos gathered whole at use) and recurrentgemma-9b cut to one period
 # of its pattern, 3 of its 38 layers (the RG-LRU on its width shard, the
 # ring on its slot shard: sequence-split decode), and deepseek-moe-16b cut
@@ -621,11 +737,23 @@ PIPELINE = dict(arch="minitron-4b", microbatches=8, batch=2, seq_len=2048,
 # cache (no ring wraps: C10).  Rank 0 runs the one-rank step in float32 and rank 1 in bf16
 # from the same weights (the bf16 leaves, widened for float32), side by
 # side, before the placed run
-SERVE_PLACED = {"gemma2": dict(arch="gemma2-2b", layers=None),
+SERVE_PLACED = {"gemma2": dict(arch="gemma2-2b", layers=4),
                 "recurrentgemma": dict(arch="recurrentgemma-9b", layers=3),
-                "moe": dict(arch="deepseek-moe-16b", layers=2)}
+                "moe": dict(arch="deepseek-moe-16b", layers=2),
+                "xlstm": dict(arch="xlstm-125m", layers=None),
+                "whisper": dict(arch="whisper-tiny", layers=None, prompt=64,
+                                max_len=448)}
 SERVE_PLACED_RUN = dict(batch=16, prompt=512, max_len=1024, steps=16,
                         mesh=(2, 2), seed=0)
+# xlstm-125m at all 12 layers (9 mLSTM, 3 sLSTM: each on 2 of its 4 heads,
+# its state whole over model as JAX's cache_shardings keeps it, each
+# rank's heads of the new state gathered after the layer) and whisper-tiny
+# at all 4 + 4 layers over 1500 frames (seeded, scale 0.02 as in phase
+# 6g) with a 64-token prompt into its 448 positions (the encoder, self-
+# and cross-attention on 3 of 6 heads; enc_out from the encoder over each
+# rank's rows, as JAX's callers compute it; trap C13: the engine's
+# decode_one takes it, MVServeEngine does not)
+SERVE_PLACED_FRAMES_SCALE = 0.02
 # the placed bf16 step lies within SERVE_PLACED_K times the bf16 one-rank
 # step's distance from the float32 one-rank step (d16), for each logit row
 # and each checked cache leaf: tests/_torch_ranks.py's check_serve, with
@@ -659,12 +787,16 @@ SERVE_PLACED_K = 4.0
 SERVE_REF_LEFT_BYTES = 64 * 2**20
 # the cache leaves held against the one-rank steps, (layer, field): a local
 # ring and the last global layer of gemma2-2b; an RG-LRU state and the
-# sequence-split ring of recurrentgemma-9b
+# sequence-split ring of recurrentgemma-9b; an mLSTM's and the sLSTM's
+# state (whole over model, gathered from the ranks' heads); whisper-tiny's
+# first and last decoder layers' K/V
 SERVE_PLACED_LEAVES = {
-    "gemma2": ((0, "k"), (0, "v"), (0, "pos"), (25, "k"), (25, "v")),
+    "gemma2": ((0, "k"), (0, "v"), (0, "pos"), (3, "k"), (3, "v")),
     "recurrentgemma": ((0, "h"), (0, "conv"), (2, "k"), (2, "v"),
                        (2, "pos")),
-    "moe": ((0, "k"), (0, "v"), (1, "k"), (1, "v"))}
+    "moe": ((0, "k"), (0, "v"), (1, "k"), (1, "v")),
+    "xlstm": ((0, "C"), (0, "n"), (3, "c"), (3, "h")),
+    "whisper": ((0, "k"), (0, "v"), (3, "k"), (3, "v"))}
 # phase 6: the launcher's flags (minitron-4b at full width, no --reduced)
 MODEL_ARGS = ["--arch", "minitron-4b", "--batch", "16", "--prompt-len",
               "2048", "--max-len", "4096", "--steps", "64", "--pin-every",
@@ -3406,7 +3538,8 @@ def phase_train(dev, io: str) -> tuple[dict, dict, float, tuple]:
     crash/resume and gradient compression at reduced widths, while phase
     10e's one-rank references run, a process each (``io``: none of them is
     timed, and the references' memory is the card's again when they
-    exit), and phase 10g's CPU-bound dry runs beside them; phase 10c:
+    exit; TRAIN_REFERENCE_ALONE's each alone, then the rest together),
+    and phase 10g's CPU-bound dry runs beside them; phase 10c:
     full-width training in bf16, once the references and the dry runs are
     done.  Returns the two full-width runs' lines (their launch counts
     and peaks), the references' wall seconds and the dry runs' outputs
@@ -3414,13 +3547,28 @@ def phase_train(dev, io: str) -> tuple[dict, dict, float, tuple]:
     f32 = train_full_width(dev)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    reference = _start(io, [["--train-reference", io, case]
-                            for case in TRAIN_SHARDED])
+    failed = []
+
+    def references():
+        """The references in their waves (TRAIN_REFERENCE_ALONE first, a
+        process each, then the rest together)."""
+        try:
+            for wave in [[c] for c in TRAIN_REFERENCE_ALONE] + [
+                    [c for c in TRAIN_SHARDED
+                     if c not in TRAIN_REFERENCE_ALONE]]:
+                _wait(_start(io, [["--train-reference", io, case]
+                                  for case in wave]))
+        except BaseException as e:    # raised again in the main thread
+            failed.append(e)
+    waves = threading.Thread(target=references)
+    waves.start()
     dry = start_dryrun()
     res = {"phase": "train_resume", **train_resume(dev)}
     res["compression"] = train_compression(dev)
     emit(res)
-    _wait(reference)
+    waves.join()
+    if failed:
+        raise failed[0]
     ref_wall = time.perf_counter() - t0
     dry = finish_dryrun(dry)
     torch.cuda.empty_cache()
@@ -3551,6 +3699,31 @@ def _leaf_file(io: str, who: str, kind: str, name: str) -> str:
     return os.path.join(io, f"{who}_{kind}_{name.replace('/', '.')}.npy")
 
 
+def _sharded_batch(data: SyntheticLM, dev, case: str, cfg, step: int
+                   ) -> dict:
+    """Phase 10e's batch of ``case`` at ``step``: SyntheticLM's tokens,
+    and an encoder-decoder's frames from the case's seed and the step
+    (the same on every rank and in the reference)."""
+    batch = _batch(data, dev)
+    if cfg.encoder_layers:
+        gen = torch.Generator(device=dev).manual_seed(
+            TRAIN_SHARDED[case]["seed"] + 1 + step)
+        batch["frontend"] = torch.randn(
+            (TRAIN_SHARDED[case]["batch"], cfg.encoder_tokens, cfg.d_model),
+            generator=gen, device=dev) * SHARDED_FRAMES_SCALE
+    return batch
+
+
+def train_flash_launches(cfg) -> tuple:
+    """K6's and K6b's launches in one training step of ``cfg``: K6 twice
+    in each decoder attention layer and cross-attention sublayer (the
+    forward and the checkpointed layer's recompute), once in each encoder
+    layer (the encoder is not checkpointed); K6b once in each."""
+    n = attention_layers(cfg) + (cfg.num_layers if cfg.encoder_layers
+                                 else 0)
+    return 2 * n + cfg.encoder_layers, n + cfg.encoder_layers
+
+
 def train_sharded_reference(dev, io: str, case: str) -> int:
     """Phase 10e's one-rank run of ``case``, in a process of its own
     (``chip_smoke.py --train-reference IO CASE``), so that its memory is
@@ -3574,8 +3747,8 @@ def train_sharded_reference(dev, io: str, case: str) -> int:
                     x.detach().float().cpu().numpy())
     data = SyntheticLM(DataConfig(cfg.vocab_size, p["seq_len"], p["batch"]))
     losses, norms, step_s, rates = [], [], [], 0.0
-    for _ in range(p["steps"]):
-        batch = _batch(data, dev)
+    for i in range(p["steps"]):
+        batch = _sharded_batch(data, dev, case, cfg, i)
         rates += float(adamw.cosine_schedule(state.opt.step,
                                              base_lr=run.lr))
         torch.cuda.synchronize()
@@ -3697,13 +3870,13 @@ def rank_train_sharded(dev, rank: int, world: int, io: str,
     emit({"phase": "train_sharded_rank", "case": case, "rank": rank,
           "state_gib": state_gib, "init_peak_gib": init_peak})
     data = SyntheticLM(DataConfig(cfg.vocab_size, p["seq_len"], p["batch"]))
-    n_attn = attention_layers(cfg)
+    k6_step, k6b_step = train_flash_launches(cfg)
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     losses, norms, step_s, step_bytes = [], [], [], []
     heads = HeadCounts()
     for i in range(p["steps"]):
-        batch = _batch(data, dev)
+        batch = _sharded_batch(data, dev, case, cfg, i)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         before = wire.bytes
@@ -3726,18 +3899,22 @@ def rank_train_sharded(dev, rank: int, world: int, io: str,
     launches = launch_counts()
     copies = wire.copies
     # local heads: the query and KV heads over model 2 (gemma2-2b's 8 and
-    # 4, granite's 16 and 8)
-    local = f"{cfg.num_heads // p['mesh'][1]}x" \
-        f"{cfg.num_kv_heads // p['mesh'][1]}"
-    check(dict(heads.k6) == {local: 2 * n_attn * p["steps"]}
-          and dict(heads.k6b) == {local: n_attn * p["steps"]},
+    # 4, granite's 16 and 8, whisper-tiny's 6 and 6), or every KV head
+    # where they do not divide (recurrentgemma-9b's one)
+    m = p["mesh"][1]
+    local = f"{cfg.num_heads // m}x" + str(
+        cfg.num_kv_heads // m if cfg.num_kv_heads % m == 0
+        else cfg.num_kv_heads)
+    want_k6 = {local: k6_step * p["steps"]} if k6_step else {}
+    want_k6b = {local: k6b_step * p["steps"]} if k6b_step else {}
+    check(dict(heads.k6) == want_k6 and dict(heads.k6b) == want_k6b,
           f"rank {rank} {case}: K6 / K6b heads {dict(heads.k6)} / "
-          f"{dict(heads.k6b)}, not {local}")
+          f"{dict(heads.k6b)}, not {want_k6} / {want_k6b}")
     k6 = dict(flash_ops.flash_attention.route_launches)
     k6_route = flash_ops.ROUTES[torch.float32]
-    check(k6 == {r: 2 * n_attn * p["steps"] if r == k6_route else 0
+    check(k6 == {r: k6_step * p["steps"] if r == k6_route else 0
                  for r in k6}, f"rank {rank} {case}: K6 launches {k6}")
-    check(launches["flash_backward"] == n_attn * p["steps"],
+    check(launches["flash_backward"] == k6b_step * p["steps"],
           f"rank {rank} {case}: K6b launches {launches['flash_backward']}")
     for kind, tree in (("param", state.params), ("mu", state.opt.mu),
                        ("nu", state.opt.nu)):
@@ -3756,8 +3933,10 @@ def rank_train_sharded(dev, rank: int, world: int, io: str,
            "k6_heads": dict(heads.k6), "k6b_heads": dict(heads.k6b),
            "largest_made": {"/".join(k): list(v) for k, v in made.items()
                             if k[0] in ("embed", "unembed")
-                            or k[-1] in ("wq", "wo", "wg", "wu", "wd",
-                                         "router")},
+                            or k[-1] in ("wq", "wk", "wo", "wg", "wu", "wd",
+                                         "router", "w_in", "w_out", "wa",
+                                         "w_up", "w_down", "w_if", "wx_s",
+                                         "wr")},
            "local_params": sum(x.numel() for x in tree_flatten(
                state.params))}
     del state, data
@@ -3897,6 +4076,21 @@ def rank_pipeline(dev, rank: int, world: int) -> dict:
     return out
 
 
+def _serve_run(name: str) -> dict:
+    """Phase 10h's run of ``name``: SERVE_PLACED_RUN with the model's own
+    prompt and cache length where SERVE_PLACED gives them."""
+    return {**SERVE_PLACED_RUN, **{k: v for k, v in SERVE_PLACED[name].items()
+                                   if k in SERVE_PLACED_RUN}}
+
+
+def serve_flash_heads(cfg) -> int:
+    """K6's launches in a prefill of ``cfg``: one in each attention layer,
+    and an encoder-decoder's in each encoder layer and each
+    cross-attention sublayer."""
+    extra = cfg.encoder_layers + cfg.num_layers if cfg.encoder_layers else 0
+    return attention_layers(cfg) + extra
+
+
 def _serve_cfg(name: str):
     """Phase 10h's config of ``name``: the published one, its depth cut
     where SERVE_PLACED says."""
@@ -3975,7 +4169,7 @@ def serve_drive(cfg, dev, params, dtype, place=None) -> tuple:
     (:class:`SeenRoutes`), seconds, and on a placed step its launches,
     K6's heads, the bytes across host memory a decode step, its peak
     memory and what the placement made larger than a shard."""
-    p = SERVE_PLACED_RUN
+    p = _serve_run(_serve_name(cfg))
     run = RunConfig(model=cfg, shape=SHAPES["decode_32k"])
     state = serve_engine.make_serve_state(cfg, run, params, p["batch"],
                                           p["max_len"], dtype, dev)
@@ -3994,6 +4188,12 @@ def serve_drive(cfg, dev, params, dtype, place=None) -> tuple:
     tokens = torch.randint(0, cfg.vocab_size, (p["batch"], p["prompt"]),
                            generator=torch.Generator().manual_seed(
                                p["seed"] + 1), dtype=torch.int32).to(dev)
+    frames = None
+    if cfg.encoder_layers:
+        frames = (torch.randn((p["batch"], cfg.encoder_tokens, cfg.d_model),
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(p["seed"] + 2), device=dev)
+                  * SERVE_PLACED_FRAMES_SCALE).to(dtype)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rec["state_gib"] = torch.cuda.memory_allocated() / 2**30
@@ -4003,16 +4203,34 @@ def serve_drive(cfg, dev, params, dtype, place=None) -> tuple:
         t0 = time.perf_counter()
         with heads:
             state = serve_engine.prefill_step(state, cfg, run, tokens,
-                                              placement=pl)
+                                              frames, placement=pl)
         torch.cuda.synchronize()
         rec["prefill_s"] = time.perf_counter() - t0
         rec["prefill_wire_bytes"] = wire.bytes
+        # a recurrent state after the prefill: every row's (the prompt is
+        # every run's, where after the last step a row may have taken
+        # other tokens)
+        for layer, field in SERVE_PLACED_LEAVES[_serve_name(cfg)]:
+            if isinstance(state.cache[layer], RECURRENT_STATES):
+                rec[f"leaf_{layer}_{field}_prefill"] = getattr(
+                    state.cache[layer], field).float().cpu().numpy()
+        enc = None
+        if frames is not None:
+            # enc_out as JAX's callers compute it (its K6 launches counted
+            # with the run's, not with the prefill's heads): the encoder
+            # over this rank's rows, the whole batch's passed to decode
+            t0 = time.perf_counter()
+            enc = tf._run_encoder(state.params, cfg,
+                                  pl.rows(frames) if pl else frames, pl)
+            enc = pl.whole(enc) if pl is not None else enc
+            torch.cuda.synchronize()
+            rec["encoder_s"] = time.perf_counter() - t0
         toks = [pl.whole(state.last_tokens) if pl is not None
                 else state.last_tokens]
         stats, step_s, step_bytes = [], [], []
         for _ in range(p["steps"]):
             b0, t0 = wire.bytes, time.perf_counter()
-            state, tk, _, st = serve_engine.decode_one(state, cfg, run,
+            state, tk, _, st = serve_engine.decode_one(state, cfg, run, enc,
                                                        placement=pl)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
@@ -4059,6 +4277,19 @@ def _leaf_max(a: np.ndarray, b: np.ndarray, key: str) -> np.ndarray:
     return d.reshape(*d.shape[:keep], -1).max(-1)
 
 
+def _placed_leaf_err(rec: dict, r32, pl, layer: int, field: str, key: str,
+                     model: int) -> dict:
+    """A placed rank's cache leaf ``key`` (its rows, and its piece where
+    the leaf is split over model) against the float32 one-rank step's
+    piece: the largest error per row (and position) and the piece's first
+    position (or slot) along dim 1."""
+    spec = getattr(pl.cache_specs[layer], field)
+    want = pl._cut_leaf(torch.from_numpy(r32[key]), spec, 0).numpy()
+    lo = (model * rec[key].shape[1]
+          if len(spec) > 1 and spec[1] == "model" else 0)
+    return {"err": _leaf_max(rec[key], want, key).tolist(), "lo": lo}
+
+
 def serve_placed_case(dev, rank: int, mesh, io: str, name: str) -> dict:
     """Phase 10h's model ``name`` on one rank.  Ranks 0 and 1 first run
     the one-rank step, in float32 and in bf16, side by side (rank 0 writes
@@ -4068,7 +4299,7 @@ def serve_placed_case(dev, rank: int, mesh, io: str, name: str) -> dict:
     its rows' distance from float32 over its vocabulary columns, and of
     its cache shards' rows from float32's pieces.  Returns the rank's
     JSON-able record; the checks are :func:`check_serve_placed`'s."""
-    p = SERVE_PLACED_RUN
+    p = _serve_run(name)
     cfg = _serve_cfg(name)
     base = os.path.join(io, f"serve_{name}")
 
@@ -4144,8 +4375,11 @@ def serve_placed_case(dev, rank: int, mesh, io: str, name: str) -> dict:
     r32 = np.load(base + "_ref32.npz")
     data, model = rec["coord"]
     b, v = rec["logits"].shape[1:]
-    rows, cols = slice(data * b, (data + 1) * b), slice(model * v,
-                                                        (model + 1) * v)
+    # this rank's block of the vocabulary, or all of it where the
+    # vocabulary does not divide over model (whisper-tiny's 51865 rows)
+    rows = slice(data * b, (data + 1) * b)
+    cols = (slice(model * v, (model + 1) * v) if pl.vocab is not None
+            else slice(None))
     err = np.abs(rec["logits"] - l32[:, rows, cols]).max(-1)
     flips = None
     if "routes" in rec:
@@ -4153,14 +4387,10 @@ def serve_placed_case(dev, rank: int, mesh, io: str, name: str) -> dict:
             :, :, rows]).any(axis=(1, 3)).tolist()
     leaf_err = {}
     for layer, field in SERVE_PLACED_LEAVES[name]:
-        key = f"leaf_{layer}_{field}"
-        spec = getattr(pl.cache_specs[layer], field)
-        want = pl._cut_leaf(torch.from_numpy(r32[key]), spec, 0).numpy()
-        # the first position (slot) of this rank's piece along dim 1
-        lo = (model * rec[key].shape[1]
-              if len(spec) > 1 and spec[1] == "model" else 0)
-        leaf_err[key] = {"err": _leaf_max(rec[key], want, key).tolist(),
-                         "lo": lo}
+        for key in (f"leaf_{layer}_{field}", f"leaf_{layer}_{field}_prefill"):
+            if key in rec:
+                leaf_err[key] = _placed_leaf_err(rec, r32, pl, layer, field,
+                                                 key, model)
     del l32, r32
     out["placed"] = {
         "coord": rec["coord"], "err": err.tolist(), "leaf_err": leaf_err,
@@ -4172,6 +4402,7 @@ def serve_placed_case(dev, rank: int, mesh, io: str, name: str) -> dict:
         "decode_ms": rec["decode_ms"],
         "decode_wire_bytes": rec["decode_wire_bytes"],
         "peak_gib": rec["peak_gib"], "state_gib": rec["state_gib"],
+        "encoder_s": rec.get("encoder_s"),
         "wall_s": wall, **({} if flips is None else {"route_flips": flips})}
     if rank == 0:
         out["ref32"] = {k: rec_v.tolist() for k, rec_v in np.load(
@@ -4262,11 +4493,12 @@ def check_serve_placed(outs: list) -> dict:
                     f"serve_placed {name} step {s} row {b}: tokens differ "
                     f"at margin {margin[s, b]}")
         # the cache after the last step: a recurrent state on the rows
-        # still compared; K/V and ring positions on every row, up to the
+        # still compared (and after the prefill on every row); K/V and
+        # ring positions on every row, up to the
         # position its first token that may differ was written at (the
         # prompt's and the picks' before it came from equal tokens)
         leaves = {}
-        P = SERVE_PLACED_RUN["prompt"]
+        P = _serve_run(name)["prompt"]
         for key, d16_leaf in r16["leaf_d16"].items():
             d16_leaf = np.asarray(d16_leaf)
             e = np.zeros_like(d16_leaf)
@@ -4277,7 +4509,9 @@ def check_serve_placed(outs: list) -> dict:
                 part = e[i:i + len(pe)] if e.ndim == 1 else \
                     e[i:i + len(pe), lo:lo + pe.shape[1]]
                 np.maximum(part, pe, out=part)
-            if e.ndim == 1:
+            if key.endswith("_prefill"):
+                mask = np.ones(B, dtype=bool)
+            elif e.ndim == 1:
                 mask = live
             else:
                 cut = np.array([P + closed[b] if b in closed else e.shape[1]
@@ -4289,17 +4523,18 @@ def check_serve_placed(outs: list) -> dict:
                   f"float32's, limit {K} x {d}")
             leaves[key] = {"err": got, "d16": d,
                            "compared": int(mask.sum())}
-        n_attn = attention_layers(cfg)
+        n_attn = serve_flash_heads(cfg)
         hq = cfg.num_heads // SERVE_PLACED_RUN["mesh"][1]
         hkv = (cfg.num_kv_heads // SERVE_PLACED_RUN["mesh"][1]
                if cfg.num_kv_heads % SERVE_PLACED_RUN["mesh"][1] == 0
                else cfg.num_kv_heads)
         rings = {str(i) for i, k in enumerate(tf._kinds(cfg))
                  if k == "local"}
+        want_heads = {f"{hq}x{hkv}": n_attn} if n_attn else {}
         for r, x in enumerate(placed):
-            check(x["k6_heads"] == {f"{hq}x{hkv}": n_attn},
+            check(x["k6_heads"] == want_heads,
                   f"serve_placed {name}: rank {r} K6 heads {x['k6_heads']},"
-                  f" not {n_attn} x {hq}x{hkv}")
+                  f" not {want_heads}")
             bad = [k for k in x["made"] if not (
                 cfg.num_kv_heads % SERVE_PLACED_RUN["mesh"][1] == 0
                 and k.startswith("cache/") and k.endswith("/pos")
@@ -4309,7 +4544,7 @@ def check_serve_placed(outs: list) -> dict:
         ref = {o[name]["ref"]["dtype"]: o[name]["ref"] for o in outs[:2]}
         res[name] = {
             "arch": cfg.name, "layers": cfg.num_layers,
-            "mesh": SERVE_PLACED_RUN["mesh"], **{k: SERVE_PLACED_RUN[k]
+            "mesh": SERVE_PLACED_RUN["mesh"], **{k: _serve_run(name)[k]
                                                  for k in ("batch", "prompt",
                                                            "max_len",
                                                            "steps")},
@@ -4323,6 +4558,8 @@ def check_serve_placed(outs: list) -> dict:
                                                    for x in placed],
             "made_rank0": placed[0]["made"],
             "prefill_s_by_rank": [x["prefill_s"] for x in placed],
+            **({"encoder_s_by_rank": [x["encoder_s"] for x in placed]}
+               if cfg.encoder_layers else {}),
             "decode_ms_per_step_by_rank": [
                 statistics.mean(x["decode_ms"]) for x in placed],
             "decode_wire_bytes_per_step_by_rank": [
@@ -4483,11 +4720,16 @@ def check_train_sharded(io: str, ref: dict, trains: list, case: str
             scale = np.sqrt(np.load(_leaf_file(io, who, "nu", name)).max())
             big = ((np.abs(dw) >= 0.5 * ref["rates"])
                    & (np.sqrt(nu) >= SHARDED_GRAD_SHARE * scale))
-            check(np.all(err[big] <= SHARDED_UPDATE_RTOL
-                         * np.abs(dw[big]) + spacing[big])
-                  and np.all(err <= 2 * ref["rates"] + spacing),
+            over = big & (err > SHARDED_UPDATE_RTOL * np.abs(dw) + spacing)
+            check(not over.any() and np.all(err <= 2 * ref["rates"]
+                                             + spacing),
                   f"train_sharded {case}: rank {r} {name}'s update differs "
-                  "from the one-rank step's")
+                  f"from the one-rank step's: {int(over.sum())} of "
+                  f"{int(big.sum())} entries held relative over "
+                  f"{SHARDED_UPDATE_RTOL} (largest "
+                  f"{float((err[big] / np.abs(dw[big])).max()) if big.any() else 0.0}"
+                  f"), largest |error| {float(err.max())} against twice "
+                  f"the rates {2 * ref['rates']}")
             if big.any():
                 update["rel"] = max(update["rel"], float(
                     (err[big] / np.abs(dw[big])).max()))
@@ -4566,6 +4808,12 @@ def phase_ranks(dev, dist_ref: dict, io: str, ref_wall: float) -> dict:
                     and made["layers/0/ffn/router"] == [
                         cfg.d_model, cfg.num_experts],
                     f"train_sharded {case}: rank {r} made {made}")
+        for r, x in enumerate(trains):
+            bad = {k: (x["largest_made"].get(k), v)
+                   for k, v in SHARDED_MADE.get(case, {}).items()
+                   if x["largest_made"].get(k) != v}
+            check(not bad, f"train_sharded {case}: rank {r} made (got, "
+                  f"want) {bad}")
         emit({"phase": "train_sharded", "case": case, "arch": p["arch"],
               "layers": p["layers"], "mesh": p["mesh"], "fsdp": True,
               "batch": p["batch"], "seq_len": p["seq_len"],

@@ -33,9 +33,10 @@ this rank's rows of a batch (:meth:`Placement.split`) and the gradients'
 global norm over the ranks (:meth:`Placement.global_norm`).  A part that
 computes on its shards over ``model`` (:meth:`Placement.gather_local`)
 takes each leaf split over ``model`` as this rank's piece, gathered over
-the other axes only: attention heads, the hidden slice of an MLP or of a
-shared expert, a mixture's block of ``E / n`` experts (expert
-parallelism), the vocabulary's rows.  Every
+the other axes only: attention heads (an encoder's and cross-attention's
+too), the hidden slice of an MLP or of a shared expert, a mixture's block
+of ``E / n`` experts (expert parallelism), an RG-LRU's channels, an
+xLSTM mixer's heads, the vocabulary's rows.  Every
 collective goes through :mod:`repro_torch.dist.overlap` (gloo, CUDA
 tensors staged through host memory).
 
@@ -259,25 +260,55 @@ def _axes_of(entry) -> Tuple[str, ...]:
 def _local_dim(parts: Sequence[str], ndim: int) -> Optional[int]:
     """The dim of a leaf that a layer computing over ``model`` keeps
     split (the same names and ranks as :func:`_tp_axes`' rules): the
-    heads of ``wq``/``wk``/``wv``/``wo`` and their biases, the hidden dim
-    of a dense MLP's (or a shared expert's) ``wg``/``wu``/``wd``, the
-    experts of a mixture's ``[E, ., .]`` ``wg``/``wu``/``wd`` (expert
-    parallelism), the width of an RG-LRU's ``w_in``/``w_gate``/``w_out``
-    (split so at serve time), the vocab rows of ``embed`` and
-    ``unembed``; None for any other leaf (a router among them)."""
+    heads of ``wq``/``wk``/``wv``/``wo`` and their biases (an mLSTM's
+    ``wq``/``wk``/``wv`` and ``w_if``, an sLSTM's ``wx_s`` and ``wr``
+    too), the hidden dim of a dense MLP's (or a shared expert's)
+    ``wg``/``wu``/``wd``, the experts of a mixture's ``[E, ., .]``
+    ``wg``/``wu``/``wd`` (expert parallelism), the width of an RG-LRU's
+    ``w_in``/``w_gate``/``w_out`` and the inner width of an mLSTM's
+    ``w_up``/``w_gate``/``w_down`` (an sLSTM's ``w_down`` on its input
+    dim), the vocab rows of ``embed`` and ``unembed``; None for any other
+    leaf (a router among them)."""
     name = parts[-1]
     if name in ("embed", "unembed") and ndim == 2:
         return 0
-    if name in ("wq", "wk", "wv") and ndim == 3:
+    if name in ("wq", "wk", "wv", "w_if", "wx_s") and ndim == 3:
         return 1
-    if (name in ("wo", "wg", "wu", "wd") and ndim == 3) or (
+    if (name in ("wo", "wg", "wu", "wd", "wr") and ndim == 3) or (
             name in ("bq", "bk", "bv") and ndim == 2):
         return 0
-    if name in ("wg", "wu", "w_in", "w_gate") and ndim == 2:
+    if name in ("wg", "wu", "w_in", "w_gate", "w_up") and ndim == 2:
         return 1
-    if name in ("wd", "w_out") and ndim == 2:
+    if name in ("wd", "w_out", "w_down") and ndim == 2:
         return 0
     return None
+
+
+#: the leaves of a recurrent mixer that compute on their shards together,
+#: by the leaf that names the kind (RG-LRU, mLSTM, sLSTM): where the specs
+#: split only some of them over ``model`` (a dim that does not divide), the
+#: mixer computes whole, as JAX's GSPMD step then computes it
+_UNITS = {"w_in": frozenset(("w_in", "w_gate", "w_out")),
+          "w_up": frozenset(("w_up", "w_gate", "wq", "wk", "wv", "w_if",
+                             "w_down")),
+          "wx_s": frozenset(("wx_s", "wr", "w_down"))}
+
+#: the leaves that a part computing on its shards takes whole and slices
+#: to this rank's channels or heads (replicated over ``model`` by the
+#: specs): an RG-LRU's per-channel leaves and its gate matrices' columns,
+#: an xLSTM mixer's ``ln_out`` and the sLSTM's bias.  Each ``model`` rank
+#: computes the gradient of its slice only: the placement sums their
+#: gradients over ``model`` (:meth:`Placement._reduce_grad`)
+_SLICED = frozenset(("conv_w", "conv_b", "wa", "ba", "wx", "bx", "lambda",
+                     "ln_out", "b"))
+
+
+def _computes_whole(names, local: frozenset) -> bool:
+    """Whether a part whose leaves are ``names`` computes whole although
+    the leaves ``local`` came split: a recurrent mixer with only some of
+    its :data:`_UNITS` split."""
+    return any(mark in names and not unit <= local
+               for mark, unit in _UNITS.items())
 
 
 def _piece_names(prefix: Tuple[str, ...], paths) -> frozenset:
@@ -291,17 +322,20 @@ def _piece_names(prefix: Tuple[str, ...], paths) -> frozenset:
 class _Gather(torch.autograd.Function):
     """Forward: the leaf from this rank's shard (whole, or this rank's
     piece over ``model`` when ``local``).  Backward: that tensor's
-    gradient on this rank back to the shard's placement."""
+    gradient on this rank back to the shard's placement (summed over
+    ``model`` first when ``partial``: a :data:`_SLICED` leaf)."""
 
     @staticmethod
-    def forward(ctx, shard, placement, path, local):
-        ctx.placement, ctx.path, ctx.local = placement, path, local
+    def forward(ctx, shard, placement, path, local, partial):
+        ctx.placement, ctx.path = placement, path
+        ctx.local, ctx.partial = local, partial
         return placement._gather(shard, path, local)
 
     @staticmethod
     def backward(ctx, grad):
-        return (ctx.placement._reduce_grad(grad, ctx.path, ctx.local), None,
-                None, None)
+        return (ctx.placement._reduce_grad(grad, ctx.path, ctx.local,
+                                           ctx.partial),
+                None, None, None, None)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -331,6 +365,39 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _JoinOverModel(torch.autograd.Function):
+    """Every ``model`` rank's piece of an activation joined along ``dim``;
+    backward, the whole's gradient summed over the ranks (each rank's
+    product read all of it) and cut to this rank's piece (a
+    reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return all_gather_cat(x, axis.group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a = ctx.axis
+        return (all_reduce(grad, a.group).chunk(a.n, dim=ctx.dim)[a.index]
+                .contiguous(), None, None)
+
+
+class _SumOverModel(torch.autograd.Function):
+    """A statistic's partial sums summed over the ``model`` ranks; each
+    rank's outputs read the sum, so the backward sums the gradient over
+    the ranks too (Megatron's ``g`` keeps it: wrong here)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad, ctx.group), None
 
 
 class ModelAxis:
@@ -383,24 +450,47 @@ class ModelAxis:
         gradient), joined along ``dim`` in rank order."""
         return all_gather_cat(x.detach(), self.group, dim=dim)
 
+    def join(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """:meth:`gather`, differentiable: where every rank's product reads
+        the whole of an activation split over the ranks (its gradient
+        summed over them and cut back to this rank's piece)."""
+        return _JoinOverModel.apply(x, self, dim)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """A statistic's partial sums (a norm's sum of squares over a
+        width split over the ranks) summed over the ranks; its gradient
+        summed over them too."""
+        return _SumOverModel.apply(x, self.group)
+
 
 class ServeAxis(ModelAxis):
     """:class:`ModelAxis` at serve time, where nothing is differentiated:
-    ``f`` is the identity and ``g`` a plain all-reduce.  A layer's mixer
+    ``f`` is the identity, ``g`` and ``psum`` a plain all-reduce and
+    ``join`` the plain all-gather ``gather``.  A layer's mixer
     that computes on its shards also learns how its cache is split
     (:meth:`ServePlacement.gather_local` decides): ``kv`` is ``"heads"``
     when the K/V cache holds this rank's KV heads, ``"seq"`` when it holds
     this rank's block of positions (or ring slots) of every KV head, and
     ``kept`` names the cache fields that the layer reads and writes on
-    their shards (the others come whole, :meth:`ServePlacement.cache_in`)."""
+    their shards (the others come whole, :meth:`ServePlacement.cache_in`),
+    ``joined`` the fields that it reads whole and returns as this rank's
+    heads (dim 1), which :meth:`ServePlacement.cache_out` makes whole
+    again (an xLSTM state, whole over ``model`` as JAX keeps it)."""
 
     kv: Optional[str] = None
     kept: frozenset = frozenset()
+    joined: frozenset = frozenset()
 
     def f(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
     def g(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce(x, self.group)
+
+    def join(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return self.gather(x, dim)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
         return all_reduce(x, self.group)
 
 
@@ -415,7 +505,7 @@ class Placement:
 
     #: the mixer kinds whose layers compute on their shards over ``model``
     #: (``models.transformer._block_params``)
-    local_mixers = ("attn", "local")
+    local_mixers = ("attn", "local", "rglru", "mlstm", "slstm")
 
     def __init__(self, mesh, specs):
         coord = mesh.get_coordinate()
@@ -491,24 +581,28 @@ class Placement:
             x = unwire(x, shard.device)
         return x
 
-    def _reduce_grad(self, grad: torch.Tensor, path, local: bool = False
-                     ) -> torch.Tensor:
+    def _reduce_grad(self, grad: torch.Tensor, path, local: bool = False,
+                     partial: bool = False) -> torch.Tensor:
         """The gathered leaf's gradient on this rank -> the gradient of
         this rank's shard: averaged over the batch axes (each row of them
         took its own rows of the batch), taken once over the other axes
         (whose ranks computed the same thing; a ``local`` leaf's gradient
-        is already this rank's piece over ``model``).  This rank's slice
-        crosses to host memory once, is reduced and cut there, and only
-        the shard's gradient comes back."""
+        is already this rank's piece over ``model``), except that a
+        ``partial`` leaf's (a :data:`_SLICED` leaf of a part computing on
+        its shards: each ``model`` rank's gradient is its slice's) is
+        summed over ``model`` too.  This rank's slice crosses to host
+        memory once, is reduced and cut there, and only the shard's
+        gradient comes back."""
         batch = [a for a in self.batch_axes if self.sizes.get(a, 1) > 1]
-        if not batch and not self._split(path):
+        sums = batch + (["model"] if partial else [])
+        if not sums and not self._split(path):
             return grad
         others = [a for a in self.sizes if a not in self.batch_axes
                   and not (local and a == "model")]
         g = self._cut(grad, path, others)
         g = wire(g) if g.is_cuda else g.clone(
             memory_format=torch.contiguous_format)
-        for a in batch:
+        for a in sums:
             all_reduce_(g, self._group(a))
         n_batch = math.prod(self.sizes[a] for a in batch)
         if n_batch > 1:
@@ -531,13 +625,18 @@ class Placement:
         (this rank's piece of it), and its gradient stays that piece's.
         Returns ``(leaves, tp)``: ``tp`` is :attr:`tp` holding the names
         of the leaves that came as pieces (:func:`_piece_names`), or None
-        when none did (no ``model`` axis, or no leaf split over it)."""
+        when none did (no ``model`` axis, or no leaf split over it), or
+        when the part computes whole all the same (:func:`_computes_whole`:
+        then every leaf comes whole)."""
         prefix = tuple(str(p) for p in path)
-        out = self._gather_tree(tree, prefix, True)
-        local = _piece_names(prefix, [p for p, _ in _paths(tree)
+        paths = [p for p, _ in _paths(tree)]
+        local = _piece_names(prefix, [p for p in paths
                                       if self.is_local(prefix + p)])
+        if local and _computes_whole({p[-1] for p in paths if p}, local):
+            local = frozenset()
         if not local:
-            return out, None
+            return self._gather_tree(tree, prefix, False), None
+        out = self._gather_tree(tree, prefix, True, sliced=True)
         # experts split over the batch axes too (FSDP): their bucket rows
         # are split over the batch's ranks, as JAX's GSPMD step divides
         # them
@@ -546,7 +645,10 @@ class Placement:
         rows = len(spec) == 3 and bool(batch) and batch <= set(spec)
         return out, self.tp.holding(local, rows=rows)
 
-    def _gather_tree(self, tree, prefix, local: bool):
+    def _gather_tree(self, tree, prefix, local: bool, sliced: bool = False):
+        """:meth:`gather` (``local``: :meth:`gather_local`'s pieces;
+        ``sliced``: the part computes on its shards, so its
+        :data:`_SLICED` leaves' gradients are partial)."""
         paths = _paths(tree)
         flags = [local and self.is_local(prefix + p) for p, _ in paths]
         if not torch.is_grad_enabled():
@@ -555,7 +657,8 @@ class Placement:
                 if self._split(prefix + p) else x
                 for (p, x), loc in zip(paths, flags)])
         return tree_unflatten(tree, [
-            _Gather.apply(x, self, prefix + p, loc)
+            _Gather.apply(x, self, prefix + p, loc,
+                          sliced and bool(p) and p[-1] in _SLICED)
             for (p, x), loc in zip(paths, flags)])
 
     def leaf_max(self, x: torch.Tensor, path) -> torch.Tensor:
@@ -678,14 +781,15 @@ class ServePlacement:
 
     * The parameters by ``param_specs`` (:func:`param_shardings` with
       ``fsdp=False``: no leaf is split over the batch axes).  A part that
-      computes on its shards (:meth:`gather_local`: the attention and
-      RG-LRU mixers, a dense MLP, a mixture of experts on this rank's
-      block of experts and its shared expert's slice of the hidden dim,
-      the (un)embedding) takes its leaves split over ``model`` as they
-      are; every other leaf is gathered whole at use (:meth:`param`): a
-      router, the xLSTM mixers, the encoder and cross-attention, and a
-      mixer whose leaves are split on a dim it does not compute on
-      (``attn_hd_shard``).
+      computes on its shards (:meth:`gather_local`: the attention,
+      RG-LRU, mLSTM and sLSTM mixers, a dense MLP, a mixture of experts
+      on this rank's block of experts and its shared expert's slice of the
+      hidden dim, an encoder's layers and cross-attention, the
+      (un)embedding) takes its leaves split over ``model`` as they are;
+      every other leaf is gathered whole at use (:meth:`param`): a
+      router, and a mixer whose leaves are split on a dim it does not
+      compute on (``attn_hd_shard``) or only some of whose leaves divide
+      over ``model`` (:func:`_computes_whole`).
     * The cache by ``cache_specs`` (``specs.cache_shardings``: per layer,
       the layer's cache type holding a spec per leaf).  Dim 0 of every
       leaf is the batch: when it is split, this rank computes its rows of
@@ -693,7 +797,9 @@ class ServePlacement:
       rows.  A mixer that computes on its shards reads and writes the
       leaves it keeps (``ServeAxis.kept``: K/V split on KV heads, or on
       positions or ring slots, with a ring's ``pos``; an RG-LRU's ``h``
-      and ``conv`` split on width) in place (trap T1).  Any other leaf is
+      and ``conv`` split on width) in place (trap T1); an xLSTM mixer
+      reads its heads of its state (whole over ``model``) and its new
+      state is gathered over ``model`` (``ServeAxis.joined``).  Any other leaf is
       gathered before the layer over the axes of its dims but the batch's
       (:meth:`cache_in`: a ring's ``pos`` where its K/V go on heads, and
       every leaf of a layer computed whole), and after the layer cut back
@@ -704,7 +810,7 @@ class ServePlacement:
 
     #: the mixer kinds whose layers compute on their shards over ``model``
     #: (``models.transformer._block_params``)
-    local_mixers = ("attn", "local", "rglru")
+    local_mixers = ("attn", "local", "rglru", "mlstm", "slstm")
 
     def __init__(self, mesh, param_specs, cache_specs):
         self.params = Placement(mesh, param_specs)
@@ -752,7 +858,8 @@ class ServePlacement:
         attrs = {}
         if prefix[0] == "layers" and prefix[-1] == "mixer":
             attrs = self._mixer_cache(int(prefix[1]), local, paths)
-        if not local or attrs is None:
+        if not local or attrs is None or _computes_whole(
+                {p[-1] for p, _ in paths}, local):
             return self.param(tree, *path), None
         return (tree_unflatten(tree, [
             self._leaf(x, p, self.params.is_local(p)) for p, x in paths]),
@@ -768,6 +875,11 @@ class ServePlacement:
 
         * RG-LRU: ``w_in``/``w_gate``/``w_out`` split on the width, and
           ``h`` and ``conv`` split on it over ``model`` alone.
+        * mLSTM and sLSTM: their :data:`_UNITS` split on heads or the
+          inner width, and the state whole over ``model`` (split on the
+          batch alone, as ``cache_shardings`` keeps it): the mixer reads
+          its heads' slice of it and returns its heads' new state, made
+          whole again over ``model`` (``joined``).
         * Attention, ``kv = "heads"``: ``wq``/``wk``/``wv``/``wo`` split on
           heads and the K/V cache on its KV heads (``cache_shardings``'
           first branch); a ring's ``pos`` comes whole.
@@ -781,6 +893,10 @@ class ServePlacement:
             return None
         spec = self.cache_specs[i]._asdict()
         names = {p[-1] for p, _ in paths}
+        if "w_up" in names or "wx_s" in names:
+            if any(a is not None for f in spec for a in spec[f][1:]):
+                return None
+            return {"joined": frozenset(spec)}
         if "w_in" in names:
             if ({"w_in", "w_gate", "w_out"} <= local
                     and tuple(spec["h"][1:]) == ("model",)
@@ -855,12 +971,17 @@ class ServePlacement:
 
     def cache_out(self, new, old, i: int, tp=None):
         """Layer ``i``'s new cache on this rank's shard: a kept leaf is the
-        layer's own (written in place, or a new recurrent state); any
-        other split leaf's piece is cut and written into the old shard,
-        in place; a leaf no axis splits is the layer's own."""
+        layer's own (written in place, or a new recurrent state); a joined
+        leaf (``tp.joined``: this rank's heads of it) is gathered over
+        ``model`` on its heads; any other split leaf's piece is cut and
+        written into the old shard, in place; a leaf no axis splits is
+        the layer's own."""
         kept = tp.kept if tp is not None else frozenset()
+        joined = tp.joined if tp is not None else frozenset()
         out = []
         for f, n, o, spec in zip(new._fields, new, old, self.cache_specs[i]):
+            if f in joined:
+                n = tp.join(n, 1)
             if f not in kept and self._dims(spec, 1):
                 with torch.no_grad():
                     o.copy_(self._cut_leaf(n, spec, 1))

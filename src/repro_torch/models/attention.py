@@ -31,7 +31,11 @@ head ``h`` reads KV head ``h // (Hq / Hkv)``; where ``wk``/``wv`` come
 whole (``Hkv`` does not divide over ``model``), this rank takes the KV
 heads its query heads read, and their gradient is summed over the ranks
 (``tp.f`` on the weights).  With ``attn_hd_shard`` (the head dim split)
-the placement gathers the layer whole and it runs as on one rank.
+the placement gathers the layer whole and it runs as on one rank.  An
+encoder's layers (K6 bidirectional) and cross-attention compute so too,
+in training and at serve time: cross-attention's source (the encoder's
+output, the same on every ``model`` rank) enters its K/V products through
+``tp.f`` (:func:`_kv_source`).
 
 **Local heads at serve time** (prefill and decode on a placed serve state,
 ``tp`` a :class:`repro_torch.dist.sharding.ServeAxis`, as JAX's decode and
@@ -166,17 +170,28 @@ def _local_kv(params: dict, cfg: ModelConfig, h0: int, hq: int, tp):
     return out
 
 
+def _kv_source(x_kv: torch.Tensor, tp) -> torch.Tensor:
+    """Cross-attention's source (the encoder's output, the same on every
+    ``model`` rank) where it enters the column-split K/V products: through
+    ``tp.f``, so that its gradient is summed over the ranks."""
+    return tp.f(x_kv)
+
+
 def _attention_local(params: dict, cfg: ModelConfig, x: torch.Tensor,
                      positions: torch.Tensor, window: int, causal: bool,
-                     use_rope: Optional[bool], tp) -> torch.Tensor:
-    """Train-mode self-attention over this rank's query heads (see the
-    module docstring): the whole ``[B, T, d]`` output, summed over the
-    ``model`` ranks by ``tp.g``."""
+                     use_rope: Optional[bool], tp,
+                     x_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Train-mode attention over this rank's query heads (see the module
+    docstring), self-attention or, with ``x_kv``, cross-attention: the
+    whole ``[B, T, d]`` output, summed over the ``model`` ranks by
+    ``tp.g``."""
     hq = params["wq"].shape[1]
     params = _local_kv(params, cfg, tp.index * hq, hq, tp)
     q, k, v = _project_qkv(params, cfg, tp.f(x), positions,
+                           None if x_kv is None else _kv_source(x_kv, tp),
                            use_rope=use_rope)
-    out = _flash(cfg, q, k, v, window=window, causal=causal)
+    out = _flash(cfg, q, k, v, window=window,
+                 causal=causal and x_kv is None)
     return tp.g(_out_proj(params, out))
 
 
@@ -350,9 +365,9 @@ def attention(
       split on its heads (``"wq" in tp.local``), over this rank's
       heads (the module docstring)."""
     if fill_cache is None and cache is None:
-        if tp is not None and x_kv is None and "wq" in tp.local:
+        if tp is not None and "wq" in tp.local:
             return _attention_local(params, cfg, x, positions, window,
-                                    causal, use_rope, tp), None
+                                    causal, use_rope, tp, x_kv), None
         q, k, v = _project_qkv(params, cfg, x, positions, x_kv, use_rope)
         out = _flash(cfg, q, k, v, window=window,
                      causal=causal and x_kv is None)

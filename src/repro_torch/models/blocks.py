@@ -110,9 +110,9 @@ def _mixer(params: dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
         return fn(params, cfg, h, cache, tp)
     if kind == "mlstm":
         fn = mlstm_decode if mode == "decode" else mlstm_chunkwise
-        return fn(params, cfg, h, cache)
+        return fn(params, cfg, h, cache, tp)
     if kind == "slstm":
-        return slstm(params, cfg, h, cache)
+        return slstm(params, cfg, h, cache, tp)
     if mode == "train":
         window = cfg.local_window if kind == "local" else 0
         return attention(params, cfg, h, positions, causal=causal,
@@ -149,13 +149,15 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     statistics of the whole batch (:func:`repro_torch.models.moe.moe`).
     ``tp``: on a placed state, the
     :class:`repro_torch.dist.sharding.ModelAxis` of each part (``mixer``,
-    ``ffn``) whose leaves came split over ``model``, which then computes
-    on its shards: in train mode the attention mixer, a dense MLP and a
-    mixture of experts (this rank's block of experts, its shared expert's
-    slice of the hidden dim; the router whole); at serve time (a
-    :class:`repro_torch.dist.sharding.ServeAxis`) those and the RG-LRU
-    mixer, each on its cache shard.  The xLSTM mixers and
-    cross-attention come whole."""
+    ``cross``, ``ffn``) whose leaves came split over ``model``, which
+    then computes on its shards: every mixer kind (attention on its heads,
+    the RG-LRU on its channels, the mLSTM and sLSTM on their heads),
+    cross-attention on its heads (``enc_out`` entering its column-split
+    K/V products through ``tp.f``), a dense MLP and a mixture of experts
+    (this rank's block of experts, its shared expert's slice of the
+    hidden dim; the router whole); at serve time (a
+    :class:`repro_torch.dist.sharding.ServeAxis`) the same, each mixer on
+    its cache shard or its heads of a state whole over ``model``."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
@@ -169,7 +171,7 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     if "cross" in params:
         h = rms_norm(x, params["cross_ln"], cfg.norm_eps)
         h, _ = attention(params["cross"], cfg, h, positions, causal=False,
-                         x_kv=enc_out, use_rope=False)
+                         x_kv=enc_out, use_rope=False, tp=tp.get("cross"))
         x = x + h
     aux = 0.0
     if "ffn" in params:

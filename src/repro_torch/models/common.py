@@ -17,11 +17,20 @@ import torch.distributed as dist
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+             eps: float = 1e-6, tp=None) -> torch.Tensor:
     """RMS norm in float32 that scales by ``1 + scale``, cast back to
-    ``x``'s dtype."""
+    ``x``'s dtype.  With ``tp`` (a
+    :class:`repro_torch.dist.sharding.ModelAxis`) ``x``'s last dim is this
+    rank's slice of a width split over the ``model`` ranks, and ``scale``
+    its slice of the scale: the float32 sum of squares is summed over the
+    ranks (``tp.psum``, whose backward sums too: every rank's outputs
+    read it)."""
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    if tp is None:
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+    else:
+        var = tp.psum((xf * xf).sum(dim=-1, keepdim=True)) / (
+            xf.shape[-1] * tp.n)
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
     return out.to(x.dtype)
 

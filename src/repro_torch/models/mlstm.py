@@ -10,6 +10,27 @@ products, and the ``(C, n)`` state crosses chunk boundaries.
 :func:`mlstm_decode` is the step recurrence and :func:`slstm` is
 sequential over T, as in JAX.  The gate weights ``w_if``, the sLSTM bias
 ``b`` and every state are float32 whatever the block's dtype.
+
+**On their shards over ``model``** (``tp`` the
+:class:`repro_torch.dist.sharding.ModelAxis` of a placed training step or
+the :class:`repro_torch.dist.sharding.ServeAxis` of a placed serve state,
+as JAX's GSPMD cells split the leaves): the mLSTM's ``w_up``/``w_gate``
+come split on the inner width ``di``, ``wq``/``wk``/``wv``/``w_if`` on
+heads and ``w_down`` on its rows; the sLSTM's ``wx_s`` and ``wr`` on heads
+and ``w_down`` on its rows.  The input enters the column-split products
+through ``tp.f``.  This rank computes its ``H / n`` heads: an mLSTM head
+reads every column of ``xm = x @ w_up``, so ``xm`` is joined over
+``model`` (``tp.join``); the heads' outputs ``h`` are this rank's block of
+``di`` (or ``d``: ``H hd`` is the width), the block of columns that its
+``z`` and its rows of ``w_down`` hold.  ``ln_out``'s RMS norm runs over the
+whole width: the float32 sum of squares is summed over the ranks
+(``rms_norm(tp=)``), and this rank scales by its slice of ``ln_out``.
+``w_down``'s rows give a partial output that ``tp.g`` sums.  A state
+passed in is whole over ``model`` (as JAX's ``cache_shardings`` keeps
+it): this rank reads its heads' slice, and returns its heads' new state,
+which the serve placement makes whole again.  The sliced ``ln_out`` and
+``b`` get each rank's share of their gradient; the placement sums them
+over ``model`` (``sharding._SLICED``).
 """
 from __future__ import annotations
 
@@ -54,15 +75,41 @@ class MLSTMState(NamedTuple):
 def mlstm_init_state(cfg: ModelConfig, batch: int,
                      device: Optional[torch.device] = None) -> MLSTMState:
     _, H, hd = _heads(cfg)
+    return _zero_state(batch, H, hd, device)
+
+
+def _zero_state(B: int, H: int, hd: int, device) -> MLSTMState:
     return MLSTMState(
-        C=torch.zeros((batch, H, hd, hd), dtype=torch.float32, device=device),
-        n=torch.zeros((batch, H, hd), dtype=torch.float32, device=device))
+        C=torch.zeros((B, H, hd, hd), dtype=torch.float32, device=device),
+        n=torch.zeros((B, H, hd), dtype=torch.float32, device=device))
 
 
 def _head_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x`` [B, T, e] times ``w`` [e, H, k] -> [B, T, H, k]."""
     e, H, k = w.shape
     return (x @ w.reshape(e, H * k)).view(*x.shape[:-1], H, k)
+
+
+def _block(x: torch.Tensor, dim: int, tp) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` (``x`` itself without
+    ``tp``)."""
+    return x if tp is None else x.chunk(tp.n, dim=dim)[tp.index]
+
+
+def _heads_of(state, tp):
+    """This rank's heads (dim 1) of a state whole over ``model``."""
+    if state is None or tp is None:
+        return state
+    return type(state)(*(_block(x, 1, tp) for x in state))
+
+
+def _inputs(params: dict, x: torch.Tensor, tp):
+    """The mLSTM's ``xm`` (every column of ``di``: joined over the ranks on
+    a shard) and ``z`` (this rank's columns)."""
+    if tp is None:
+        return x @ params["w_up"], x @ params["w_gate"]
+    x = tp.f(x)
+    return tp.join(x @ params["w_up"], -1), x @ params["w_gate"]
 
 
 def _qkv_gates(params: dict, cfg: ModelConfig, xm: torch.Tensor):
@@ -81,21 +128,24 @@ def _scale(hd: int) -> float:
 
 
 def _out(params: dict, cfg: ModelConfig, h: torch.Tensor, z: torch.Tensor,
-         x: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(h, params["ln_out"], cfg.norm_eps)
-    return (h.to(x.dtype) * F.silu(z)) @ params["w_down"]
+         x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The norm over the whole width, the gate, ``w_down``: the output, or
+    on a shard this rank's partial sum, summed over the ranks."""
+    h = rms_norm(h, _block(params["ln_out"], 0, tp), cfg.norm_eps, tp)
+    out = (h.to(x.dtype) * F.silu(z)) @ params["w_down"]
+    return out if tp is None else tp.g(out)
 
 
 def mlstm_chunkwise(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                    state: Optional[MLSTMState] = None
+                    state: Optional[MLSTMState] = None, tp=None
                     ) -> Tuple[torch.Tensor, MLSTMState]:
     """Prefill path, chunk-parallel over [B, T, d].  A ragged tail is padded
     with steps of input gate ``exp(NEG) = 0`` and forget gate 1, so the
-    state passes through them unchanged and their outputs are dropped."""
+    state passes through them unchanged and their outputs are dropped.
+    ``tp``: on this rank's heads (the module docstring)."""
     B, T, _ = x.shape
     L = min(cfg.mlstm_chunk, T)
-    xm = x @ params["w_up"]
-    z = x @ params["w_gate"]
+    xm, z = _inputs(params, x, tp)
     q, k, v, li, lf = _qkv_gates(params, cfg, xm)
     T_orig, pad = T, (-T) % L
     if pad:
@@ -105,9 +155,8 @@ def mlstm_chunkwise(params: dict, cfg: ModelConfig, x: torch.Tensor,
         T += pad
     H, hd = q.shape[2], q.shape[3]
     scale = _scale(hd)
-    if state is None:
-        state = mlstm_init_state(cfg, B, x.device)
-    C, n = state.C, state.n
+    C, n = (_zero_state(B, H, hd, x.device) if state is None
+            else _heads_of(state, tp))
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
     hs = []
     for c0 in range(0, T, L):
@@ -136,20 +185,21 @@ def mlstm_chunkwise(params: dict, cfg: ModelConfig, x: torch.Tensor,
             "blhk,blhv->bhkv", kf * w_j[..., None], vf)
         n = decay_end[..., None] * n + torch.einsum("blh,blhk->bhk", w_j, kf)
     h = torch.cat(hs, dim=1).reshape(B, T, H * hd)[:, :T_orig]
-    return _out(params, cfg, h, z, x), MLSTMState(C, n)
+    return _out(params, cfg, h, z, x, tp), MLSTMState(C, n)
 
 
 def mlstm_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                 state: MLSTMState) -> Tuple[torch.Tensor, MLSTMState]:
+                 state: MLSTMState, tp=None
+                 ) -> Tuple[torch.Tensor, MLSTMState]:
     """The step recurrence over [B, T, d] (T = 1 in decode); the state is
-    replaced, not written."""
+    replaced, not written.  ``tp``: on this rank's heads (the module
+    docstring)."""
     B, T, _ = x.shape
-    xm = x @ params["w_up"]
-    z = x @ params["w_gate"]
+    xm, z = _inputs(params, x, tp)
     q, k, v, li, lf = _qkv_gates(params, cfg, xm)
     H, hd = q.shape[2], q.shape[3]
     scale = _scale(hd)
-    C, n = state.C, state.n
+    C, n = _heads_of(state, tp)
     hs = []
     for t in range(T):
         qt = q[:, t].float() * scale          # [B, H, dk]
@@ -163,7 +213,7 @@ def mlstm_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
         hs.append(torch.einsum("bhk,bhkv->bhv", qt, C)
                   / torch.clamp(denom, min=1.0)[..., None])
     h = torch.stack(hs, dim=1).reshape(B, T, H * hd)
-    return _out(params, cfg, h, z, x), MLSTMState(C, n)
+    return _out(params, cfg, h, z, x, tp), MLSTMState(C, n)
 
 
 # ---------------------------------------------------------------------------
@@ -191,25 +241,33 @@ class SLSTMState(NamedTuple):
 
 def slstm_init_state(cfg: ModelConfig, batch: int,
                      device: Optional[torch.device] = None) -> SLSTMState:
-    H, hd = cfg.num_heads, cfg.d_model // cfg.num_heads
-    z = torch.zeros((batch, H, hd), dtype=torch.float32, device=device)
+    return _slstm_zero(batch, cfg.num_heads, cfg.d_model // cfg.num_heads,
+                       device)
+
+
+def _slstm_zero(B: int, H: int, hd: int, device) -> SLSTMState:
+    z = torch.zeros((B, H, hd), dtype=torch.float32, device=device)
     return SLSTMState(z, z, torch.full_like(z, NEG), z)
 
 
 def slstm(params: dict, cfg: ModelConfig, x: torch.Tensor,
-          state: Optional[SLSTMState] = None
+          state: Optional[SLSTMState] = None, tp=None
           ) -> Tuple[torch.Tensor, SLSTMState]:
     """Sequential sLSTM over [B, T, d] (exponential gates with the ``m``
-    stabiliser); the state is replaced, not written."""
+    stabiliser); the state is replaced, not written.  ``tp``: on this
+    rank's heads (the module docstring): each head's recurrence reads its
+    own ``h`` alone, through its block of ``wr``."""
     B, T, d = x.shape
-    if state is None:
-        state = slstm_init_state(cfg, B, x.device)
-    xproj = _head_proj(x, params["wx_s"]).float()            # [B, T, H, 4hd]
+    xproj = _head_proj(x if tp is None else tp.f(x),
+                       params["wx_s"]).float()               # [B, T, H, 4hd]
+    H, hd = xproj.shape[2], xproj.shape[3] // 4
+    c, n, m, h = (_slstm_zero(B, H, hd, x.device) if state is None
+                  else _heads_of(state, tp))
     wr = params["wr"].float()
-    c, n, m, h = state
+    bias = _block(params["b"], 0, tp)
     hs = []
     for t in range(T):
-        g = xproj[:, t] + torch.einsum("bhk,hkg->bhg", h, wr) + params["b"]
+        g = xproj[:, t] + torch.einsum("bhk,hkg->bhg", h, wr) + bias
         zt, it, ft, ot = torch.chunk(g, 4, dim=-1)           # [B, H, hd]
         zt = torch.tanh(zt)
         ot = torch.sigmoid(ot)
@@ -222,7 +280,8 @@ def slstm(params: dict, cfg: ModelConfig, x: torch.Tensor,
         m = m_new
         h = ot * c / torch.clamp(n.abs(), min=1.0)
         hs.append(h)
-    out = torch.stack(hs, dim=1).reshape(B, T, d)
-    out = rms_norm(out, params["ln_out"], cfg.norm_eps).to(x.dtype)
-    return out @ params["w_down"], SLSTMState(c, n, m, h)
+    out = torch.stack(hs, dim=1).reshape(B, T, H * hd)
+    out = rms_norm(out, _block(params["ln_out"], 0, tp), cfg.norm_eps,
+                   tp).to(x.dtype) @ params["w_down"]
+    return (out if tp is None else tp.g(out)), SLSTMState(c, n, m, h)
 

@@ -17,16 +17,22 @@ Python loop over T.  Its float32 products run in another order than
 JAX's, so it agrees with JAX to rounding, not to the bit.  Decode
 (:func:`rglru_decode`) is one step carrying ``(h, conv window)``.
 
-**On the width shard** (a placed serve state, ``tp`` a
-:class:`repro_torch.dist.sharding.ServeAxis`, as JAX's decode and prefill
-cells split ``w_in``/``w_gate`` on columns, ``w_out`` on rows and ``h``
-and ``conv`` on the width): this rank computes ``u``, the gate, the
+**On the width shard** (``tp`` the
+:class:`repro_torch.dist.sharding.ModelAxis` of a placed training step,
+or the :class:`repro_torch.dist.sharding.ServeAxis` of a placed serve
+state, as JAX's GSPMD step and its decode and prefill cells split
+``w_in``/``w_gate`` on columns, ``w_out`` on rows and, at serve time,
+``h`` and ``conv`` on the width): this rank computes ``u``, the gate, the
 depthwise conv and the recurrence on its ``w / n`` channels, with its
-slice of the replicated per-channel leaves.  The gates multiply by the
+slice of the replicated per-channel leaves.  The input enters the
+column-split products through ``tp.f``.  The gates multiply by the
 replicated ``wa``/``wx`` [w, w], which read every channel of ``u``: ``u``
-is gathered over ``model``, and this rank keeps its columns of
-``wa``/``wx``.  ``w_out``'s rows give a partial output that ``tp.g``
-sums.
+is joined over ``model`` (``tp.join``, whose backward sums the gradient
+over the ranks and keeps this rank's channels), and this rank keeps its
+columns of ``wa``/``wx``.  In training each rank's gradient of those
+sliced leaves is its channels' only; the placement sums them over
+``model`` (``sharding._SLICED``).  ``w_out``'s rows give a partial output
+that ``tp.g`` sums.
 """
 from __future__ import annotations
 
@@ -103,9 +109,9 @@ def _gates(params: dict, u: torch.Tensor, tp=None
     """(a, b) of the recurrence ``h_t = a_t h_{t-1} + b_t``, float32.
     With ``tp``, ``u`` is this rank's channels and ``params`` its
     channels' slices (:func:`_channels`): the gate products read ``u``
-    gathered over the ranks."""
+    joined over the ranks."""
     uf = u.float()
-    whole = tp.gather(u, -1).float() if tp is not None else uf
+    whole = tp.join(u, -1).float() if tp is not None else uf
     r = torch.sigmoid(whole @ params["wa"] + params["ba"])
     i = torch.sigmoid(whole @ params["wx"] + params["bx"])
     log_a = -LRU_C * F.softplus(params["lambda"]) * r
@@ -164,8 +170,9 @@ def rglru(params: dict, cfg: ModelConfig, x: torch.Tensor,
     log-depth scan, a carried state folded into step 0.  ``tp``: on the
     width shard (the module docstring)."""
     params = _channels(params, tp)
-    u = x @ params["w_in"]
-    gate = _gelu(x @ params["w_gate"])
+    xin = tp.f(x) if tp is not None else x
+    u = xin @ params["w_in"]
+    gate = _gelu(xin @ params["w_gate"])
     u, conv_new = _conv1d(params, cfg, u, None if state is None
                           else state.conv)
     a, b = _gates(params, u, tp)                             # [B, T, w]
@@ -185,8 +192,9 @@ def rglru_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
     """One decode step ([B, 1, d]); the state is replaced, not written.
     ``tp``: on the width shard (the module docstring)."""
     params = _channels(params, tp)
-    u = x @ params["w_in"]
-    gate = _gelu(x @ params["w_gate"])
+    xin = tp.f(x) if tp is not None else x
+    u = xin @ params["w_in"]
+    gate = _gelu(xin @ params["w_gate"])
     u, conv_new = _conv1d(params, cfg, u, state.conv)
     a, b = _gates(params, u, tp)                             # [B, 1, w]
     h = a[:, 0] * state.h + b[:, 0]

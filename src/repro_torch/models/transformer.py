@@ -103,23 +103,27 @@ def _take_local(tree, *path):
     return tree, None
 
 
-def _block_params(placement, bp: dict, i: int, kind: str,
-                  cfg: ModelConfig) -> Tuple[dict, dict]:
-    """Layer ``i``'s parameters from this rank's shards, and the model
+def _block_params(placement, bp: dict, prefix: tuple, kind: str
+                  ) -> Tuple[dict, dict]:
+    """The parameters of the layer at ``prefix`` (``("layers", i)``, or
+    ``("encoder", "layers", i)``) from this rank's shards, and the model
     axes of its parts that compute on their shards: the mixer of a kind
-    in ``placement.local_mixers`` (attention; at serve time RG-LRU too)
-    and the feed-forward part (a dense MLP, or a mixture of experts on
-    its block of experts and its shared expert's hidden slice, the router
-    whole), gathered by the placement's ``gather_local`` (split over
-    ``model`` where the specs split them), every other part whole (the
-    other mixers, cross-attention and the norms)."""
-    local = {"mixer", "ffn"} if kind in placement.local_mixers else {"ffn"}
+    in ``placement.local_mixers`` (every kind: attention on its heads,
+    the RG-LRU on its channels, the mLSTM and sLSTM on their heads),
+    cross-attention on its heads, and the feed-forward part (a dense MLP,
+    or a mixture of experts on its block of experts and its shared
+    expert's hidden slice, the router whole), gathered by the placement's
+    ``gather_local`` (split over ``model`` where the specs split them),
+    the norms whole."""
+    local = {"cross", "ffn"}
+    if kind in placement.local_mixers:
+        local.add("mixer")
     params, tp = {}, {}
     for k in sorted(bp):
         if k in local:
-            params[k], tp[k] = placement.gather_local(bp[k], "layers", i, k)
+            params[k], tp[k] = placement.gather_local(bp[k], *prefix, k)
         else:
-            params[k] = placement.gather(bp[k], "layers", i, k)
+            params[k] = placement.gather(bp[k], *prefix, k)
     return params, tp
 
 
@@ -146,11 +150,16 @@ def _embed(emb: torch.Tensor, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _run_encoder(params, cfg: ModelConfig, enc_x: torch.Tensor,
-                 gather=_take) -> torch.Tensor:
+                 placement=None) -> torch.Tensor:
     """The encoder over frame embeddings ``enc_x`` [B, S, d]: fixed
     sinusoidal positions, then the bidirectional stack (K6 with
     ``causal=False`` in every layer; RoPE when the config has it, as in
-    JAX), then the final norm."""
+    JAX), then the final norm.  ``placement`` (a
+    :class:`repro_torch.dist.sharding.Placement` or ``ServePlacement``)
+    says that ``params`` are this rank's shards and ``enc_x`` its rows:
+    each layer's attention and MLP compute on their shards over ``model``
+    (:func:`_block_params`), and the output is the same on every ``model``
+    rank."""
     B, S, d = enc_x.shape
     pos = torch.arange(S, dtype=I32, device=enc_x.device)
     half = d // 2
@@ -163,8 +172,12 @@ def _run_encoder(params, cfg: ModelConfig, enc_x: torch.Tensor,
     positions = pos[None].expand(B, S)
     enc_cfg = _encoder_cfg(cfg)
     for i, bp in enumerate(params["encoder"]["layers"]):
-        x, _ = block_apply(gather(bp, "encoder", "layers", i), enc_cfg,
-                           "attn", x, positions, mode="train", causal=False)
+        p, tp = (_block_params(placement, bp, ("encoder", "layers", i),
+                               "attn")
+                 if placement is not None else (bp, None))
+        x, _ = block_apply(p, enc_cfg, "attn", x, positions, mode="train",
+                           causal=False, tp=tp)
+    gather = placement.gather if placement is not None else _take
     return rms_norm(x, gather(params["encoder"]["final_norm"], "encoder",
                               "final_norm"), cfg.norm_eps)
 
@@ -190,10 +203,11 @@ def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
     :class:`repro_torch.dist.sharding.Placement`) says that ``params``
     are this rank's shards: each part of a layer is gathered just before
     its use (inside the layer's checkpoint, so the recompute gathers
-    again), the attention mixers and the feed-forward parts (a dense MLP,
-    a mixture of experts on this rank's block of experts), like the
-    embedding, over every axis but ``model``, computing on their shards
-    over it (:func:`_block_params`, :func:`_embed`), the rest whole.
+    again), the mixers, cross-attention and the feed-forward parts (a
+    dense MLP, a mixture of experts on this rank's block of experts), and
+    an encoder's layers, like the embedding, over every axis but
+    ``model``, computing on their shards over it (:func:`_block_params`,
+    :func:`_embed`), the norms whole.
     ``group`` (a :class:`repro_torch.dist.sharding.BatchGroup`) says that
     ``tokens`` are this rank's rows of a batch split over ranks: a
     mixture of experts reads the whole batch's statistics over
@@ -207,7 +221,7 @@ def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
             raise ValueError(f"{cfg.name} is an encoder-decoder: forward "
                              "needs its frame embeddings (frontend_embeds), "
                              "as in the JAX package")
-        enc_out = _run_encoder(params, cfg, frontend_embeds, gather)
+        enc_out = _run_encoder(params, cfg, frontend_embeds, placement)
     elif cfg.frontend != "none" and frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     T = x.shape[1]
@@ -215,7 +229,7 @@ def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
     aux = 0.0
     for i, (bp, kind) in enumerate(zip(params["layers"], _kinds(cfg))):
         def layer(h, bp=bp, kind=kind, i=i):
-            p, tp = (_block_params(placement, bp, i, kind, cfg)
+            p, tp = (_block_params(placement, bp, ("layers", i), kind)
                      if placement is not None else (bp, None))
             return block_apply(p, cfg, kind, h, positions, enc_out=enc_out,
                                mode="train", group=group, tp=tp)
@@ -320,10 +334,12 @@ def _serve_pass(params, cfg: ModelConfig, tokens: torch.Tensor,
     says that ``params`` and ``cache`` are this rank's shards and
     ``tokens`` its rows.  Each layer's parts that compute on their shards
     over ``model`` (:func:`_block_params`: the attention and RG-LRU
-    mixers on their cache shards, a dense MLP, a mixture's block of
-    experts) take their pieces, the rest is gathered at use; a cache leaf the mixer does not keep is
-    gathered before the layer and cut back to the shard after it
-    (``cache_in``, ``cache_out``); a mixture of experts reads the whole
+    mixers on their cache shards, the xLSTM mixers on their heads of
+    their state, cross-attention, a dense MLP, a mixture's block of
+    experts) take their pieces, the rest is gathered at use; a cache
+    leaf the mixer does not keep is gathered before the layer and cut
+    back to the shard after it, and an xLSTM state's heads are gathered
+    after it (``cache_in``, ``cache_out``); a mixture of experts reads the whole
     batch's statistics.  Where the (un)embedding is split on its
     vocabulary, the lookup is vocab-parallel (:func:`_embed`) and the
     logits are this rank's ``V / n`` columns ``[B, 1, V / n]`` (the
@@ -346,7 +362,7 @@ def _serve_pass(params, cfg: ModelConfig, tokens: torch.Tensor,
     for i, (bp, kind, c) in enumerate(zip(params["layers"], _kinds(cfg),
                                           cache)):
         if placement is not None:
-            p, tp = _block_params(placement, bp, i, kind, cfg)
+            p, tp = _block_params(placement, bp, ("layers", i), kind)
             full = placement.cache_in(c, i, tp.get("mixer"))
         else:
             p, tp, full = bp, None, c
@@ -401,7 +417,6 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     fails there too, on ``None``: trap C13).  ``placement``:
     :func:`_serve_pass`'s, with this rank's rows of ``tokens`` and
     ``frontend_embeds``."""
-    gather = placement.param if placement is not None else _take
     B, T = tokens.shape
     enc_out, fe = None, frontend_embeds
     if _is_encdec(cfg):
@@ -411,7 +426,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
                 "embeddings (frontend_embeds); the JAX package fails here "
                 "too (trap C13)")
         enc_out, fe = _run_encoder(params, cfg, frontend_embeds,
-                                   gather), None
+                                   placement), None
     total = T + prefix_len(cfg, frontend_embeds)
     zeros = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
     logits, cache = _serve_pass(params, cfg, tokens, cache, zeros, "prefill",

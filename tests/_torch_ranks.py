@@ -42,11 +42,22 @@ TRAIN_LR, TRAIN_BATCH, TRAIN_STEPS = 1e-3, (8, 16), 3
 # in their counts, at capacity factor 1.0 and B 8 x T 128, so that the
 # capacity from the global batch's 2048 assignments (512 slots an expert)
 # is not a rank's own (256), and the buckets of the experts routed to most
-# overflow: the global capacity and order decide which tokens are dropped
+# overflow: the global capacity and order decide which tokens are dropped.
+# "rglru" is reduced recurrentgemma-9b (one period: RG-LRU, RG-LRU,
+# local attention over 1 KV head) at T 32, past its 16-position window;
+# "xlstm" reduced xlstm-125m (3 mLSTM layers, 2 chunks of 8, and an
+# sLSTM); "encdec" reduced whisper-tiny (2 encoder and 2 decoder layers, 4
+# heads) with TRAIN_FRAMES frames a row
 TRAIN_CASES = {
     "dense": ("minitron-4b", TRAIN_CFG, TRAIN_BATCH),
     "moe": ("deepseek-moe-16b", dict(moe_capacity_factor=1.0), (8, 128)),
+    "rglru": ("recurrentgemma-9b", {}, (8, 32)),
+    "xlstm": ("xlstm-125m", {}, TRAIN_BATCH),
+    "encdec": ("whisper-tiny", {}, TRAIN_BATCH),
 }
+#: the encoder-decoder case's frame embeddings: reduced whisper-tiny's 16
+#: encoder positions a row, standard normal times this scale
+TRAIN_FRAMES_SCALE = 0.5
 # the pipeline of tests/launch/test_distributed.py:42 (S 4, M 6, mb 2, d
 # 16), and its gradient at that M, at M 2 < S (the bubble dominates) and at
 # M 1; a pytree stage {"w": [w1, w2], "b": b} with b frozen; reduced
@@ -615,9 +626,12 @@ def pipe_model_reference(x: np.ndarray, c: np.ndarray) -> dict:
 def train_batches(case: str, steps: int = TRAIN_STEPS) -> list:
     """``steps`` global batches of ``case`` as numpy: SyntheticLM's tokens
     (distinct rows); the MoE case's loss mask keeps a share of each row's
-    positions that grows from 0.2 to 1 over the rows."""
+    positions that grows from 0.2 to 1 over the rows; an encoder-decoder's
+    frames (``frontend``) are drawn from a seed."""
+    from repro_torch.configs import reduced_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     arch, over, (B, T) = TRAIN_CASES[case]
+    cfg = reduced_config(arch, **over)
     data = SyntheticLM(DataConfig(over.get("vocab_size", 256), T, B))
     rng = np.random.default_rng(1)
     out = []
@@ -626,6 +640,10 @@ def train_batches(case: str, steps: int = TRAIN_STEPS) -> list:
         if case == "moe":
             keep = np.linspace(0.2, 1.0, B)[:, None]
             b["loss_mask"] = (rng.random((B, T)) < keep).astype(np.float32)
+        if cfg.encoder_layers:
+            b["frontend"] = (rng.standard_normal(
+                (B, cfg.encoder_tokens, cfg.d_model))
+                * TRAIN_FRAMES_SCALE).astype(np.float32)
         out.append(b)
     return out
 
@@ -683,7 +701,8 @@ class _SkipG:
         from repro_torch.models import attention as att
         self.real = att._attention_local
 
-        def local(params, cfg, x, positions, window, causal, use_rope, tp):
+        def local(params, cfg, x, positions, window, causal, use_rope, tp,
+                  x_kv=None):
             hq = params["wq"].shape[1]
             params = att._local_kv(params, cfg, tp.index * hq, hq, tp)
             q, k, v = att._project_qkv(params, cfg, tp.f(x), positions,
@@ -743,6 +762,62 @@ class _SkipFBackward:
 #: case's placed run; each must fail check_run
 TP_FAULTS = {"fault_skip_g": _SkipG, "fault_local_lse": _LocalLse,
              "fault_skip_f_backward": _SkipFBackward}
+
+
+class _LocalRms:
+    """A planted fault: an xLSTM mixer's ``ln_out`` norm takes its
+    statistic over this rank's slice of the width only."""
+
+    def __enter__(self):
+        from repro_torch.models import common, mlstm
+        self.real = mlstm.rms_norm
+        mlstm.rms_norm = lambda x, scale, eps=1e-6, tp=None: \
+            common.rms_norm(x, scale, eps)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import mlstm
+        mlstm.rms_norm = self.real
+
+
+class _SlicedNotSummed:
+    """A planted fault: the gradient of a leaf that a layer computing on
+    its shards slices (an RG-LRU's gate matrices and per-channel leaves)
+    is not summed over ``model``: each rank keeps its slice's share."""
+
+    def __enter__(self):
+        from repro_torch.dist.sharding import Placement
+        self.real = real = Placement._reduce_grad
+        Placement._reduce_grad = (lambda pl, grad, path, local=False,
+                                  partial=False: real(pl, grad, path, local))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.dist.sharding import Placement
+        Placement._reduce_grad = self.real
+
+
+class _CrossNoF:
+    """A planted fault: the encoder's output enters cross-attention's
+    column-split K/V products without ``f``, so the encoder's gradient on
+    each rank is its heads' share."""
+
+    def __enter__(self):
+        from repro_torch.models import attention as att
+        self.real = att._kv_source
+        att._kv_source = lambda x_kv, tp: x_kv
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as att
+        att._kv_source = self.real
+
+
+#: planted faults of the recurrent mixers' and the encoder-decoder's compute
+#: over ``model``: (fault, the case it runs as); each must fail check_run
+LAYER_FAULTS = {"fault_local_rms": (_LocalRms, "xlstm"),
+                "fault_sliced_not_summed": (_SlicedNotSummed, "rglru"),
+                "fault_cross_no_f": (_CrossNoF, "encdec")}
 
 
 class _ExpertAxis:
@@ -970,7 +1045,8 @@ def program_train(rank, world, io, device) -> None:
     faults (the update skipped, both data rows on the first half); then
     data parallelism through ``make_grad_reduce`` over the data groups,
     as it is and with both ranks on the first half; the dense case with
-    each of TP_FAULTS, the MoE case with each of MOE_FAULTS; the dense
+    each of TP_FAULTS, the MoE case with each of MOE_FAULTS, each of
+    LAYER_FAULTS on its case; the dense
     case with int8 compression, every quantized leaf recorded."""
     from repro_torch.ckpt.manager import tree_flatten
     from repro_torch.dist.sharding import _paths, place_train_state
@@ -989,14 +1065,20 @@ def program_train(rank, world, io, device) -> None:
     out["ones_loss"] = float(m["loss"])
     for case in TRAIN_CASES:
         made = {}
-        _record(out, case, *placed_run(io, case, mesh, device, made=made))
+        state, *rest = placed_run(io, case, mesh, device, made=made)
+        _record(out, case, state, *rest)
         out[f"made_{case}"] = record(made)
+        out[f"shapes_{case}"] = record([list(x.shape) for x in
+                                        tree_flatten(state.params)])
     for name, fault in TP_FAULTS.items():
         with fault():
             _record(out, name, *placed_run(io, "dense", mesh, device))
     for name, fault in MOE_FAULTS.items():
         with fault():
             _record(out, name, *placed_run(io, "moe", mesh, device))
+    for name, (fault, case) in LAYER_FAULTS.items():
+        with fault():
+            _record(out, name, *placed_run(io, case, mesh, device))
     with _QuantRecord() as rec:
         _record(out, "compressed", *placed_run(io, "dense", mesh, device,
                                                compression=True))
@@ -1280,10 +1362,19 @@ def check_compressed(got: list, want: list, n_leaves: int) -> tuple:
 #: ``model``), reduced recurrentgemma-9b (1 KV head: the sequence on
 #: ``model``; the RG-LRU ``h`` and ``conv`` split by width) and reduced
 #: deepseek-moe-16b (4 KV heads on ``model``; 2 of its 4 experts a rank,
-#: its shared expert on half its hidden dim)
+#: its shared expert on half its hidden dim), reduced xlstm-125m (the mLSTM
+#: and sLSTM on their heads, the state whole over ``model``) and reduced
+#: whisper-tiny (its encoder over SERVE_FRAMES frames and cross-attention
+#: on their heads; ``enc_out`` from the encoder on each rank's rows, as
+#: JAX's callers compute it)
 SERVE_CASES = {"gemma2": ("gemma2-2b", 4, 32, 8, 4),
                "recurrentgemma": ("recurrentgemma-9b", 4, 32, 8, 4),
-               "moe": ("deepseek-moe-16b", 4, 32, 8, 4)}
+               "moe": ("deepseek-moe-16b", 4, 32, 8, 4),
+               "xlstm": ("xlstm-125m", 4, 32, 8, 4),
+               "whisper": ("whisper-tiny", 4, 32, 8, 4)}
+#: an encoder-decoder serve case's frames: its encoder's positions a row,
+#: standard normal times this scale
+SERVE_FRAMES_SCALE = 0.5
 
 #: the placed float32 step lies within SERVE_K times the float32 one-rank
 #: step's distance from the float64 one-rank step (``d32``), for each
@@ -1370,8 +1461,9 @@ def serve_made(pl, made: dict) -> None:
 
 
 def serve_inputs(case, device) -> tuple:
-    """``case``'s config, its float32 parameters and its prompt [B, T]
-    (int32), each from its seed."""
+    """``case``'s config, its float32 parameters, its prompt [B, T]
+    (int32) and an encoder-decoder's frames [B, S, d] (else None), each
+    from its seed."""
     from repro_torch.configs import reduced_config
     from repro_torch.models import transformer as tf
     arch, B, _, T, _ = SERVE_CASES[case]
@@ -1384,7 +1476,12 @@ def serve_inputs(case, device) -> tuple:
     tokens = torch.randint(0, cfg.vocab_size, (B, T),
                            generator=torch.Generator().manual_seed(6),
                            dtype=torch.int32).to(device)
-    return cfg, params, tokens
+    frames = None
+    if cfg.encoder_layers:
+        frames = torch.from_numpy((np.random.default_rng(7).standard_normal(
+            (B, cfg.encoder_tokens, cfg.d_model)) * SERVE_FRAMES_SCALE
+        ).astype(np.float32)).to(device)
+    return cfg, params, tokens, frames
 
 
 def serve_run(case, device, placement=None, dtype=torch.float32,
@@ -1402,11 +1499,13 @@ def serve_run(case, device, placement=None, dtype=torch.float32,
     from repro_torch.configs.base import RunConfig
     from repro_torch.launch.specs import map_leaves
     from repro_torch.serve import engine as eng
+    from repro_torch.models import transformer as tf
     _, B, L, _, steps = SERVE_CASES[case]
-    cfg, params, tokens = serve_inputs(case, device)
+    cfg, params, tokens, frames = serve_inputs(case, device)
     run = RunConfig(model=cfg, shape=SHAPES["decode_32k"])
     if dtype == torch.float64:
         params = map_leaves(params, lambda x: x.double())
+        frames = frames.double() if frames is not None else None
     state = eng.make_serve_state(cfg, run, params, B, L, dtype, device)
     if dtype == torch.float64:   # a recurrent state is float32 by default
         state = state._replace(cache=map_leaves(
@@ -1424,13 +1523,19 @@ def serve_run(case, device, placement=None, dtype=torch.float32,
             last_tokens=pl.rows(state.last_tokens).clone())
         out["coord"] = np.asarray(pl.params.mesh.get_coordinate())
     whole = pl.whole if pl is not None else (lambda x: x)
+    rows = pl.rows if pl is not None else (lambda x: x)
     with (_Float64() if dtype == torch.float64
           else contextlib.nullcontext()), _Logits() as seen:
-        state = eng.prefill_step(state, cfg, run, tokens, placement=pl)
+        state = eng.prefill_step(state, cfg, run, tokens, frames,
+                                 placement=pl)
+        # an encoder-decoder's enc_out, as JAX's callers compute it: the
+        # encoder over this rank's rows, the whole batch's passed
+        enc = None if frames is None else whole(tf._run_encoder(
+            state.params, cfg, rows(frames), pl))
         out["toks_0"] = whole(state.last_tokens).cpu().numpy()
         out["lens_0"] = whole(state.cache_len).cpu().numpy()
         for i in range(1, steps + 1):
-            state, toks, _, stats = eng.decode_one(state, cfg, run,
+            state, toks, _, stats = eng.decode_one(state, cfg, run, enc,
                                                    placement=pl)
             out[f"toks_{i}"] = toks.cpu().numpy()
             out[f"lens_{i}"] = whole(state.cache_len).cpu().numpy()
@@ -1544,13 +1649,42 @@ class _LocalRowSum:
         att._decode_attend = self.real
 
 
+class _StaleHeads:
+    """Planted fault: an xLSTM layer's new state is not gathered over
+    ``model``: each rank writes its heads into the state it was given,
+    the other heads left as they were."""
+
+    def __enter__(self):
+        from repro_torch.dist import sharding
+        self.real = real = sharding.ServePlacement.cache_out
+
+        def cache_out(pl, new, old, i, tp=None):
+            if tp is None or not tp.joined:
+                return real(pl, new, old, i, tp)
+            out = []
+            for f, n, o in zip(new._fields, new, old):
+                if f in tp.joined:
+                    w = o.clone()
+                    w.chunk(tp.n, dim=1)[tp.index].copy_(n)
+                    n = w
+                out.append(n)
+            return type(new)(*out)
+        sharding.ServePlacement.cache_out = cache_out
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.dist import sharding
+        sharding.ServePlacement.cache_out = self.real
+
+
 #: planted faults of the placed serve step: (fault, case, ranks that run
 #: under it); each must fail check_serve
 SERVE_FAULTS = {"wrong_shard": (_WrongShard, "gemma2", (1,)),
                 "skip_g": (_ServeSkipG, "gemma2", (0, 1, 2, 3)),
                 "vocab_offset": (_NoVocabOffset, "gemma2", (0, 1, 2, 3)),
                 "local_row_sum": (_LocalRowSum, "recurrentgemma",
-                                  (0, 1, 2, 3))}
+                                  (0, 1, 2, 3)),
+                "stale_heads": (_StaleHeads, "xlstm", (0, 1, 2, 3))}
 
 
 def program_serve(rank, world, io, device) -> None:

@@ -22,6 +22,10 @@
   a fake 4-rank group.
 * The same for the placed serve step: reduced gemma2-2b's decode step and
   prefill on 2 x 2 against JAX's GSPMD decode and prefill cells.
+* The same for the layers that compute on their shards since the parent
+  gathered them whole (its ratios in LAYER_PARENT_RATIOS): the RG-LRU,
+  xLSTM and encoder-decoder training steps, and xlstm-125m's and
+  whisper-tiny's serve cells.
 """
 import json
 import os
@@ -153,6 +157,9 @@ cfg = reduced_config(arch, **over)
 run = RunConfig(model=cfg, shape=SHAPES["train_4k"], lr=1e-3)
 state = init_state(cfg, jax.random.PRNGKey(0))
 batch = {"tokens": jnp.ones(shape, jnp.int32)}
+if cfg.encoder_layers:    # an encoder-decoder's frames
+    batch["frontend"] = jnp.zeros((shape[0], cfg.encoder_tokens,
+                                   cfg.d_model), jnp.float32)
 mesh = jax.make_mesh((2, 2), ("data", "model"),
                      axis_types=(jax.sharding.AxisType.Auto,) * 2)
 with jax.set_mesh(mesh):
@@ -185,10 +192,13 @@ state = specs.shapes_of(lambda dev: init_state(cfg, torch.Generator(
     device=dev)))
 spec = specs.train_state_specs(state, mesh, run)
 pl = Placement(mesh, spec.params)
+batch = {"tokens": specs.Shaped(tuple(shape), torch.int32)}
+if cfg.encoder_layers:    # an encoder-decoder's frames
+    batch["frontend"] = specs.Shaped((shape[0], cfg.encoder_tokens,
+                                      cfg.d_model), torch.float32)
 counter, _ = dryrun.trace(
     lambda s, b: train_step(s, b, cfg, run, placement=pl),
-    (specs._placed(state, spec, mesh),
-     {"tokens": specs.Shaped(tuple(shape), torch.int32)}), cpu)
+    (specs._placed(state, spec, mesh), batch), cpu)
 print(json.dumps(counter.result()["flops"]))
 """
 
@@ -290,11 +300,17 @@ with jax.set_mesh(mesh):
         cfg, jax.random.PRNGKey(0), dtype=jnp.bfloat16))
     psh = param_shardings(params, mesh, fsdp=False)
     cache = jax.eval_shape(lambda: tf.init_cache(cfg, B, L, jnp.bfloat16))
-    prefill = jax.jit(lambda p, c, t: tf.prefill(p, cfg, t, c),
-                      in_shardings=(psh, cache_shardings(cache, mesh, cfg, B),
-                                    rows))
+    # an encoder-decoder's prefill takes its frames (input_specs' frontend)
+    frames = (jax.ShapeDtypeStruct((B, cfg.encoder_tokens, cfg.d_model),
+                                   jnp.bfloat16)
+              if cfg.encoder_layers else None)
+    prefill = jax.jit(
+        lambda p, c, t, fr: tf.prefill(p, cfg, t, c, frontend_embeds=fr),
+        in_shardings=(psh, cache_shardings(cache, mesh, cfg, B), rows,
+                      None if frames is None else jax.NamedSharding(
+                          mesh, jax.P("data", None, None))))
     out["prefill"] = analyze_hlo(prefill.lower(
-        params, cache, jax.ShapeDtypeStruct((B, L), jnp.int32)
+        params, cache, jax.ShapeDtypeStruct((B, L), jnp.int32), frames
     ).compile().as_text())["flops"]
     st = jax.eval_shape(lambda: eng.make_serve_state(cfg, run, params, B, L,
                                                      jnp.bfloat16))
@@ -389,6 +405,54 @@ def test_placed_moe_serve_flops_per_device_match_jax_gspmd():
     ratios, got, want = _serve_ratios("deepseek-moe-16b")
     print(f"MoE serve cells: port / JAX FLOPs per device {ratios} (port "
           f"{got}, JAX {want}; the parent's {MOE_PARENT_RATIOS})")
+    for kind in ("decode", "prefill"):
+        assert abs(got[kind] - want[kind]) <= SERVE_FLOPS_RTOL * want[kind], \
+            (kind, got[kind], want[kind])
+
+
+#: port / JAX FLOPs per device of the recurrent and encoder-decoder cells
+#: before those layers computed over ``model`` (the parent's: the RG-LRU in
+#: training, the xLSTM mixers, whisper's encoder and cross-attention
+#: gathered whole on every ``model`` rank): train rglru 95385878 against
+#: JAX's 80613943, xlstm 147327643 against 79859854, encdec 67762617
+#: against 46513484; serve (JAX's prefill less the T3 unembedding)
+#: xlstm-125m decode 1174069 against 632276, prefill 37089196 against
+#: 18781296, whisper-tiny decode 324883 against 279480, prefill 12881638
+#: against 9290262
+LAYER_PARENT_RATIOS = {"rglru": {"train": 1.183},
+                       "xlstm": {"train": 1.845},
+                       "encdec": {"train": 1.457},
+                       "xlstm-125m": {"decode": 1.857, "prefill": 1.975},
+                       "whisper-tiny": {"decode": 1.162, "prefill": 1.387}}
+
+
+@pytest.mark.parametrize("case", ["rglru", "xlstm", "encdec"])
+def test_placed_layer_step_flops_per_device_match_jax_gspmd(case):
+    """The training cases of ``tests/_torch_ranks.py`` whose recurrent
+    mixers and encoder-decoder compute on their shards over ``model``
+    (reduced recurrentgemma-9b, xlstm-125m and whisper-tiny with its
+    frames), one step on 2 x 2 with ``fsdp=True``: the port's dry-run
+    FLOPs per device within FLOPS_RTOL of JAX's compiled GSPMD step."""
+    want, got = _both(_FLOPS_JAX, _FLOPS_PORT, _train_case(case))
+    print(f"{case} train step: port / JAX FLOPs per device {got / want} "
+          f"(port {got}, JAX {want}; the parent's "
+          f"{LAYER_PARENT_RATIOS[case]['train']})")
+    assert abs(got - want) <= FLOPS_RTOL * want, (got, want)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "whisper-tiny"])
+def test_placed_layer_serve_flops_per_device_match_jax_gspmd(arch):
+    """The decode and prefill cells of reduced xlstm-125m (the mLSTM and
+    sLSTM on their heads, the state whole over ``model``) and of reduced
+    whisper-tiny (the prefill over its frames: the encoder and
+    cross-attention on their heads; the decode step's cross-attention
+    over the token itself, trap C13, as JAX's cell runs it) on 2 x 2:
+    within SERVE_FLOPS_RTOL of JAX's GSPMD cells, JAX's prefill less
+    :func:`_t3_unembed_flops`."""
+    ratios, got, want = _serve_ratios(arch)
+    print(f"{arch} serve cells: port / JAX FLOPs per device {ratios} "
+          f"(port {got}, JAX {want}; the parent's "
+          f"{LAYER_PARENT_RATIOS[arch]})")
     for kind in ("decode", "prefill"):
         assert abs(got[kind] - want[kind]) <= SERVE_FLOPS_RTOL * want[kind], \
             (kind, got[kind], want[kind])

@@ -892,6 +892,37 @@ def test_flash_prefill_kernel(cuda, dtype, B, Hq, Hkv, T, S, D, causal,
         "two calls gave different bits"
 
 
+# K6 on whisper-tiny's heads as a rank of a 2 x 2 mesh runs them: 3 of its
+# 6 heads of 64, bidirectional, its encoder layer over the 1500 frames and
+# its cross-attention over them (the training step's 448 rows, the
+# prefill's 64 and a decode step's one); one sequence a data rank in
+# training, 8 at serve time
+WHISPER_LOCAL_FLASH = [
+    # B, Hq, Hkv, T, S
+    (1, 3, 3, 1500, 1500),
+    (8, 3, 3, 1500, 1500),
+    (1, 3, 3, 448, 1500),
+    (8, 3, 3, 64, 1500),
+    (8, 3, 3, 1, 1500),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,T,S", WHISPER_LOCAL_FLASH)
+def test_flash_prefill_whisper_local_heads(cuda, dtype, B, Hq, Hkv, T, S):
+    """K6 non-causal on 3 of whisper-tiny's 6 heads (D 64), as an encoder
+    layer (T = S = 1500) and as cross-attention, against its plain
+    version within DECODE_TOL, in both routes."""
+    q, k, v = flash_inputs(cuda, dtype, B, Hq, Hkv, T, S, 64)
+    kw = dict(causal=False, window=0, softcap=0.0)
+    before = flash_ops.flash_attention.launches
+    got = flash_ops.flash_attention(q, k, v, **kw)
+    assert flash_ops.flash_attention.launches == before + 1
+    want = attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.allclose(got.float(), want.float(), **DECODE_TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 200])
 def test_flash_prefill_softcap_bends_the_logits(cuda, dtype, window):

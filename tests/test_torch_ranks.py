@@ -29,18 +29,22 @@ one-process port and the JAX package.
   the loss within rtol 1e-4 of JAX's single-device step and each rank's
   shard shapes JAX's per-device shapes.  Then on distinct rows
   (SyntheticLM), 3 steps, so that the last loss reads parameters that a
-  nonzero rate updated: that model ("dense") and reduced
-  deepseek-moe-16b ("moe": a loss mask whose rows differ in their
-  counts, buckets that overflow), each against the port's one-rank step
-  and against JAX's sharded step on 4 fake devices (the limits at
-  ``check_run``).
+  nonzero rate updated: that model ("dense"), reduced deepseek-moe-16b
+  ("moe": a loss mask whose rows differ in their counts, buckets that
+  overflow), reduced recurrentgemma-9b ("rglru"), xlstm-125m ("xlstm")
+  and whisper-tiny with frames ("encdec"), each against the port's
+  one-rank step and against JAX's sharded step on 4 fake devices (the
+  limits at ``check_run``), each rank's shards JAX's per-device shapes.
 * The step computes on its shards over ``model``, as JAX's GSPMD step
-  does: no rank ever holds an attention, MLP or embedding leaf that the
-  specs split over ``model`` whole (the largest tensor the placement
-  made of each is the leaf's shape over ``model``), and three planted
-  faults of that compute (``g`` skipped after ``wo``, the loss's
-  log-sum-exp over the local vocabulary only, ``f``'s backward
-  all-reduce skipped) each fail the check against the one-rank step.
+  does: no rank ever holds a leaf that the specs split over ``model``
+  whole (attention, MLP, expert, RG-LRU, xLSTM, encoder, cross-attention
+  and embedding leaves: the largest tensor the placement made of each is
+  the leaf's shape over ``model``), and planted faults of that compute
+  (``g`` skipped after ``wo``, the loss's log-sum-exp over the local
+  vocabulary only, ``f``'s backward all-reduce skipped; an xLSTM norm's
+  statistic over the local width, a sliced leaf's gradient not summed
+  over ``model``, the encoder's output into cross-attention without
+  ``f``) each fail the check against the one-rank step.
 * Int8 gradient compression on the placed state (the error carry placed
   by the parameters' specs, each scale the whole leaf's): losses and
   gradient norms within PORT_RTOL of the one-rank compressed step, every
@@ -55,9 +59,13 @@ one-process port and the JAX package.
 * The placed serve step (``ServePlacement``: JAX's decode and prefill
   cells on a 2 x 2 mesh), computing on its shards over ``model`` as
   GSPMD computes those cells: reduced gemma2-2b (KV heads on ``model``, a
-  local ring's ``pos`` split over it and gathered at use) and reduced
+  local ring's ``pos`` split over it and gathered at use), reduced
   recurrentgemma-9b (the sequence on ``model``: sequence-split decode;
-  the RG-LRU on its width), prefill and 4 decode steps in float32 against
+  the RG-LRU on its width), reduced deepseek-moe-16b (its block of
+  experts), reduced xlstm-125m (the mLSTM and sLSTM on their heads, the
+  state whole over ``model``) and reduced whisper-tiny (its encoder over
+  frames and cross-attention on their heads), prefill and 4 decode steps
+  in float32 against
   the one-rank step in float32 and in float64 (``_torch_ranks.
   check_serve``): lengths, stats and ``MVState`` bit-equal; each logit
   row and cache leaf within ``SERVE_K`` times the float32 one-rank
@@ -65,10 +73,11 @@ one-process port and the JAX package.
   requires.  Against JAX's GSPMD prefill and decode cells on 4 fake
   devices, on the same weights and prompt: lengths, stats and store
   equal, logits within the one-rank port's limit against JAX, tokens
-  equal where the margin requires.  Four planted faults (a cache piece in
+  equal where the margin requires.  Five planted faults (a cache piece in
   the wrong shard, ``g`` skipped after ``wo``, the vocab argmax without
   the rank's row offset, the sequence-split softmax normalised by the
-  local row sum) must fail that check, and no rank may make a tensor of
+  local row sum, an xLSTM state's other heads left stale) must fail that
+  check, and no rank may make a tensor of
   a ``model``-split leaf larger than its shard but a heads-split ring's
   ``pos``.
 """
@@ -182,15 +191,18 @@ for case, (arch, B, L, steps) in serves.items():
         lambda: tf.init_params(cfg, jax.random.PRNGKey(0))))
     params = jax.tree.unflatten(tree, [jnp.asarray(inp[f"p{i}"])
                                        for i in range(tree.num_leaves)])
+    # an encoder-decoder's frames, and enc_out as JAX's callers compute it
+    frames = jnp.asarray(inp["frames"]) if "frames" in inp else None
 
-    def prefill(s, t):
-        logits = tf.prefill(s.params, cfg, t, s.cache)[0][:, -1]
-        return logits, eng.prefill_step(s, cfg, run, t)
+    def prefill(s, t, fr):
+        logits = tf.prefill(s.params, cfg, t, s.cache,
+                            frontend_embeds=fr)[0][:, -1]
+        return logits, eng.prefill_step(s, cfg, run, t, fr)
 
-    def decode(s):
+    def decode(s, enc):
         logits = tf.decode_step(s.params, cfg, s.last_tokens, s.cache,
-                                s.cache_len)[0][:, -1]
-        s, _, _, stats = eng.decode_one(s, cfg, run)
+                                s.cache_len, enc_out=enc)[0][:, -1]
+        s, _, _, stats = eng.decode_one(s, cfg, run, enc)
         return logits, s, jnp.stack(list(stats.values()))
     with jax.set_mesh(mesh):
         st = eng.make_serve_state(cfg, run, params, B, L, jnp.float32)
@@ -200,13 +212,18 @@ for case, (arch, B, L, steps) in serves.items():
             cache_len=jax.NamedSharding(mesh, jax.P("data")),
             mv=mv_shardings(st.mv, mesh, B), last_tokens=rows)
         st = jax.device_put(st, ssh)
+        if frames is not None:
+            frames = jax.device_put(frames, jax.NamedSharding(
+                mesh, jax.P("data", None, None)))
         logits, st = jax.jit(prefill, out_shardings=(rep, ssh))(
-            st, jax.device_put(jnp.asarray(inp["tokens"]), rows))
+            st, jax.device_put(jnp.asarray(inp["tokens"]), rows), frames)
+        enc = None if frames is None else jax.jit(
+            lambda p, fr: tf._run_encoder(p, cfg, fr))(st.params, frames)
         out = {"logits_0": logits, "toks_0": st.last_tokens,
                "lens_0": st.cache_len}
         step = jax.jit(decode, out_shardings=(rep, ssh, rep))
         for i in range(1, steps + 1):
-            logits, st, stats = step(st)
+            logits, st, stats = step(st, enc)
             out.update({f"logits_{i}": logits, f"toks_{i}": st.last_tokens,
                         f"lens_{i}": st.cache_len,
                         f"stats_{i}": stats})
@@ -248,10 +265,11 @@ def ranks(tmp_path_factory):
                     for k in batches[0]})
     from repro_torch.convert import params_to_numpy
     for case in R.SERVE_CASES:
-        cfg, params, tokens = R.serve_inputs(case, CPU)
+        cfg, params, tokens, frames = R.serve_inputs(case, CPU)
+        extra = {} if frames is None else {"frames": frames.numpy()}
         np.savez(io / f"serve_jax_in_{case}.npz", tokens=tokens.numpy(),
-                 **{f"p{i}": x for i, x in enumerate(jax.tree.leaves(
-                     params_to_numpy(cfg, params)))})
+                 **extra, **{f"p{i}": x for i, x in enumerate(
+                     jax.tree.leaves(params_to_numpy(cfg, params)))})
     serves = {c: [a, b, n, steps]
               for c, (a, b, n, _, steps) in R.SERVE_CASES.items()}
     jeng = _jax_engine()
@@ -530,20 +548,28 @@ def test_sharded_step_loss_matches_jax_single_device(ranks):
         np.testing.assert_allclose(got, float(m["loss"]), rtol=1e-4)
 
 
-def test_sharded_step_shards_have_jax_per_device_shapes(ranks):
+@pytest.mark.parametrize("case", list(R.TRAIN_CASES))
+def test_sharded_step_shards_have_jax_per_device_shapes(ranks, case):
     """Each rank's local shard of every leaf has the shape a device of
-    JAX's 2 x 2 mesh holds of the same leaf (``fsdp=True``)."""
-    jcfg, cfg = _cfgs()
+    JAX's 2 x 2 mesh holds of the same leaf (``fsdp=True``), in each
+    case (the dense case's as placed for JAX's all-ones step, the others'
+    after their placed runs)."""
+    from repro_torch.dist.sharding import _paths
+    jcfg, cfg = _cfgs(case)
     mesh = {"data": 2, "model": 2}
     stand_in = type("StandIn", (), {"shape": mesh})()
     by_path = {}
     jax.tree_util.tree_map_with_path(
         lambda kp, x: by_path.setdefault(js._keypath_parts(kp), x),
-        ranks["jstates"]["dense"].params)
+        ranks["jstates"][case].params)
     for rank in range(WORLD):
         out = R.load(ranks["io"], "train", rank)
-        paths = json.loads(str(out["paths"]))
-        shapes = json.loads(str(out["shapes"]))
+        if case == "dense":
+            paths = json.loads(str(out["paths"]))
+            shapes = json.loads(str(out["shapes"]))
+        else:
+            paths = ["/".join(p) for p, _ in _paths(R.like_params(case))]
+            shapes = json.loads(str(out[f"shapes_{case}"]))
         assert len(paths) == len(shapes) > 0
         for path, shape in zip(paths, shapes):
             jparts, stacked = R.jax_path(cfg, path.split("/"))
@@ -589,41 +615,54 @@ def test_sharded_step_matches_jax_sharded(ranks, one_rank, case):
                 nu=jax_layout(one_rank[case]["nu"]))
 
 
-def test_no_rank_holds_a_model_split_leaf_whole(ranks):
-    """Both cases' placed runs: for every attention, MLP, expert and
-    embedding leaf that the specs split over ``model`` (on the 2 x 2 mesh
-    with ``fsdp=True``), the largest tensor the placement made of it on
-    every rank is the leaf's shape with its ``model`` dim halved (its
-    ``data`` dim gathered): the layer computed on its shard.  Every other
-    leaf (the MoE case's routers among them) was gathered whole."""
-    from repro_torch.dist.sharding import _local_dim, _paths, param_shardings
+#: the matrices of a case that the specs do not split over ``model`` (a
+#: dim that does not divide): reduced recurrentgemma-9b's single KV head
+WHOLE_MATRICES = {"rglru": ("wk", "wv")}
+
+
+@pytest.mark.parametrize("case", list(R.TRAIN_CASES))
+def test_no_rank_holds_a_model_split_leaf_whole(ranks, case):
+    """Each case's placed run: for every leaf that the specs split over
+    ``model`` on the dim its layer computes on (on the 2 x 2 mesh with
+    ``fsdp=True``: attention, MLP, expert, RG-LRU, mLSTM and sLSTM leaves,
+    an encoder's layers and cross-attention, the (un)embedding), the
+    largest tensor the placement made of it on every rank is the leaf's
+    shape with its ``model`` dim halved (its ``data`` dim gathered): the
+    layer computed on its shard.  Every other leaf (the routers, the
+    leaves a recurrent layer slices) was gathered whole."""
+    from repro_torch.dist.sharding import (_SLICED, _local_dim, _paths,
+                                           param_shardings)
     stand_in = type("StandIn", (), {"shape": {"data": 2, "model": 2}})()
-    for case in R.TRAIN_CASES:
-        like = R.like_params(case)
-        specs = dict(_paths(param_shardings(like, stand_in, fsdp=True)))
-        n_local = 0
-        for rank in range(WORLD):
-            made = json.loads(str(R.load(ranks["io"], "train",
-                                         rank)[f"made_{case}"]))
-            for path, leaf in _paths(like):
-                name, spec = "/".join(path), specs[path]
-                d = _local_dim(path, leaf.ndim)
-                want = list(leaf.shape)
-                if d is not None and spec[d] == "model" and (
-                        path[0] in ("embed", "unembed")
-                        or path[2] in ("mixer", "ffn")):
-                    want[d] //= 2
-                    n_local += 1
-                assert made[name] == want, (case, rank, name)
-            if case == "moe":
-                # reduced deepseek-moe-16b's experts: [E / 2, d, f] a rank
-                assert made["layers/0/ffn/wg"] == [2, 64, 128], made
-                assert made["layers/0/ffn/router"] == [64, 4], made
-        # every attention, MLP and expert matrix and the (un)embedding of
-        # both cases (each divides over model); the routers whole
-        matrices = [p for p, x in _paths(like)
-                    if x.ndim >= 2 and p[-1] != "router"]
-        assert n_local == WORLD * len(matrices) > 0, case
+    like = R.like_params(case)
+    specs = dict(_paths(param_shardings(like, stand_in, fsdp=True)))
+    n_local = 0
+    for rank in range(WORLD):
+        made = json.loads(str(R.load(ranks["io"], "train",
+                                     rank)[f"made_{case}"]))
+        for path, leaf in _paths(like):
+            name, spec = "/".join(path), specs[path]
+            d = _local_dim(path, leaf.ndim)
+            want = list(leaf.shape)
+            if d is not None and spec[d] == "model":
+                want[d] //= 2
+                n_local += 1
+            assert made[name] == want, (case, rank, name)
+        if case == "moe":
+            # reduced deepseek-moe-16b's experts: [E / 2, d, f] a rank
+            assert made["layers/0/ffn/wg"] == [2, 64, 128], made
+            assert made["layers/0/ffn/router"] == [64, 4], made
+        if case == "encdec":
+            # an encoder layer's and a decoder layer's cross-attention
+            # heads: 2 of reduced whisper-tiny's 4 a rank
+            for part in ("encoder/layers/0/mixer", "layers/1/cross"):
+                assert made[f"{part}/wq"] == [64, 2, 16], made
+                assert made[f"{part}/wo"] == [2, 16, 64], made
+    # every matrix of the case but the routers, the leaves a recurrent
+    # layer slices and WHOLE_MATRICES divides over model
+    matrices = [p for p, x in _paths(like)
+                if x.ndim >= 2 and p[-1] != "router" and p[-1] not in _SLICED
+                and p[-1] not in WHOLE_MATRICES.get(case, ())]
+    assert n_local == WORLD * len(matrices) > 0, case
 
 
 @pytest.mark.parametrize("fault", list(R.TP_FAULTS))
@@ -636,6 +675,20 @@ def test_model_axis_planted_fault_fails_its_check(ranks, one_rank, fault):
     ref = one_rank["dense"]
     with pytest.raises(AssertionError):
         R.check_run(R.placed(ranks["io"], fault), ref, ref["p0"])
+
+
+@pytest.mark.parametrize("fault", list(R.LAYER_FAULTS))
+def test_layer_planted_fault_fails_its_check(ranks, one_rank, fault):
+    """The check against the one-rank step sees each planted fault of the
+    recurrent mixers' and the encoder-decoder's compute over ``model``:
+    an xLSTM norm's statistic over this rank's slice of the width only,
+    a sliced replicated leaf's gradient (the RG-LRU's gate matrices and
+    per-channel leaves) not summed over ``model``, the encoder's output
+    entering cross-attention without ``f``."""
+    case = R.LAYER_FAULTS[fault][1]
+    ref = one_rank[case]
+    with pytest.raises(AssertionError):
+        R.check_run(R.placed(ranks["io"], fault, case), ref, ref["p0"])
 
 
 @pytest.mark.parametrize("fault", list(R.MOE_FAULTS))
@@ -773,8 +826,10 @@ def test_placed_serve_planted_fault_fails(ranks, fault):
     on the records of all four ranks: a cache piece in the wrong shard
     (rank 1, the gemma2 case: its ring's ``pos``, gathered whole at use),
     ``g`` skipped after ``wo``, the vocab-parallel argmax without the
-    rank's row offset, and the sequence-split decode normalised by the
-    local row sum."""
+    rank's row offset, the sequence-split decode normalised by the local
+    row sum, and an xLSTM layer's new state not gathered over ``model``
+    (each rank's heads written into the state it read, the others'
+    stale)."""
     case = R.SERVE_FAULTS[fault][1]
     with pytest.raises(AssertionError):
         R.check_serve(_serve(ranks, f"serve_fault_{fault}"),
@@ -786,7 +841,7 @@ def test_placed_serve_planted_fault_fails(ranks, fault):
 #: (gemma2's layer 0: [B / 2, W] gathered at use, as the layer needs the
 #: whole ring's positions); nothing else, parameter or cache
 SERVE_MADE = {"gemma2": {"cache/0/pos": [2, 16]}, "recurrentgemma": {},
-              "moe": {}}
+              "moe": {}, "xlstm": {}, "whisper": {}}
 
 
 @pytest.mark.parametrize("case", list(R.SERVE_CASES))

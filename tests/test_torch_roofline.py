@@ -162,7 +162,12 @@ FLASH_ROWS = [("serve", "0.417106", "operations"),
               ("whisper_cross_decode_f32", "0.022023", None),
               ("recurrentgemma_local_f32", "7.704373", None),
               ("moe_placed", "0.010016", "bytes"),
-              ("granite_placed_train_f32", "0.064135", "operations")]
+              ("granite_placed_train_f32", "0.064135", "operations"),
+              ("whisper_encoder_placed_train_f32", "0.025791", "operations"),
+              ("whisper_cross_placed_train_f32", "0.007703", "operations"),
+              ("recurrentgemma_placed_train_f32", "0.064167", "operations"),
+              ("whisper_encoder_placed", "0.013978", "operations"),
+              ("whisper_cross_placed", "0.002868", "bytes")]
 # K6's float32 rows in their route's unit (split-TF32: three tf32
 # products for each of the forward's two): (case, printed bound, by)
 FLASH_TF32_ROWS = [("f32", "0.625028", "operations"),
@@ -173,13 +178,25 @@ FLASH_TF32_ROWS = [("f32", "0.625028", "operations"),
                    ("whisper_cross_decode_f32", "0.022023", "bytes"),
                    ("recurrentgemma_local_f32", "3.128442", "operations"),
                    ("gemma2_capped_f32", "0.416685", "operations"),
-                   ("granite_placed_train_f32", "0.026043", "operations")]
+                   ("granite_placed_train_f32", "0.026043", "operations"),
+                   ("whisper_encoder_placed_train_f32", "0.010473",
+                    "operations"),
+                   ("whisper_cross_placed_train_f32", "0.003128",
+                    "operations"),
+                   ("recurrentgemma_placed_train_f32", "0.026056",
+                    "operations")]
 # K6b's rows: (case, tf32 x 3 bound, CUDA-core bound, bf16 bound)
 BWD_ROWS = [("gemma2_train", "1.041458", "2.564786", "0.173752"),
             ("gemma2_window512", "0.244064", "0.601053", "0.040718"),
             ("minitron", "1.562569", "3.848117", "0.260691"),
             ("whisper_cross", "0.045902", "0.088033", "0.022955"),
-            ("granite_placed_train", "0.065107", "0.160338", "0.010862")]
+            ("granite_placed_train", "0.065107", "0.160338", "0.010862"),
+            ("whisper_encoder_placed_train", "0.026182", "0.064478",
+             "0.004368"),
+            ("whisper_cross_placed_train", "0.007820", "0.019257",
+             "0.001305"),
+            ("recurrentgemma_placed_train", "0.065139", "0.160416",
+             "0.010867")]
 
 
 def test_board_bound_charges_the_probes_its_searches_reach():

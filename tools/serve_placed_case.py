@@ -142,8 +142,10 @@ def main(case: str) -> int:
         for r, rc in enumerate(rcs):
             if rc:
                 with open(os.path.join(io, f"rank{r}.log")) as f:
-                    print(f.read()[-6000:], flush=True)
-                raise SystemExit(f"serve_placed_case: rank {r} exited {rc}")
+                    print(f"rank {r} exited {rc}:", f.read()[-4000:],
+                          flush=True)
+        if any(rcs):
+            raise SystemExit(f"serve_placed_case: ranks exited {rcs}")
         outs = []
         for r in range(RANKS):
             with open(os.path.join(io, f"rank{r}.json")) as f:

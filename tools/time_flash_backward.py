@@ -53,6 +53,14 @@ CASES = {
                           softcap=0.0, causal=False),
     "granite_placed_train": dict(B=1, Hq=8, Hkv=4, T=2048, D=64, window=0,
                                  softcap=0.0),
+    "whisper_encoder_placed_train": dict(B=1, Hq=3, Hkv=3, T=1500, S=1500,
+                                         D=64, window=0, softcap=0.0,
+                                         causal=False),
+    "whisper_cross_placed_train": dict(B=1, Hq=3, Hkv=3, T=448, S=1500,
+                                       D=64, window=0, softcap=0.0,
+                                       causal=False),
+    "recurrentgemma_placed_train": dict(B=1, Hq=8, Hkv=1, T=1024, D=256,
+                                        window=2048, softcap=0.0),
 }
 TOL_F32 = dict(atol=1e-4, rtol=1e-4)   # chip_smoke.py's FLASH_BWD_TOL
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
